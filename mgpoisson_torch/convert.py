@@ -1,0 +1,43 @@
+"""Carries configuration and state across from the JAX package.
+
+Works on plain data (a dict of Spec fields, numpy arrays), so the port
+never imports ``mgpoisson`` or JAX:
+
+    from dataclasses import asdict
+    spec_t = spec_from_jax(asdict(jax_spec))
+    psi_t, f_t = state_from_numpy(np.asarray(psi), np.asarray(f), "cuda")
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mgpoisson_torch.core.spec import Spec
+
+BACKEND_FROM_JAX = {"auto": "auto", "xla": "torch", "pallas": "cuda"}
+
+
+def spec_from_jax(fields: dict) -> Spec:
+    """Map ``dataclasses.asdict`` of an ``mgpoisson.Spec`` to the port's
+    Spec: backend xla -> torch, pallas -> cuda, auto -> auto, and
+    pallas_min_size -> kernel_min_size.  An unknown backend is passed on,
+    so the port's Spec rejects it as the JAX one would."""
+    fields = dict(fields)
+    if "pallas_min_size" in fields:
+        fields["kernel_min_size"] = fields.pop("pallas_min_size")
+    if "backend" in fields:
+        fields["backend"] = BACKEND_FROM_JAX.get(fields["backend"],
+                                                 fields["backend"])
+    if fields.get("mesh_shape") is not None:
+        fields["mesh_shape"] = tuple(fields["mesh_shape"])
+    return Spec(**fields)
+
+
+def state_from_numpy(psi, f, device="cpu", dtype=torch.float32):
+    """The JAX package's psi and f, as numpy arrays, as the port's
+    tensors: (psi, f) in `dtype` on `device`, each a fresh copy."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
+                 for a in (psi, f))

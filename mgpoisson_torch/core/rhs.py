@@ -1,0 +1,27 @@
+"""Right-hand side and initial guess (port of ``mgpoisson/core/rhs.py``).
+
+    f[i,j] = -charge/epsilon0 = -1e6 at the centre cell (size // 2), 0
+             elsewhere
+    psi0   = -f
+"""
+
+from __future__ import annotations
+
+import torch
+
+CHARGE = 1.0e6
+EPSILON0 = 1.0
+
+
+def point_charge_rhs(size: int, ndim: int = 2, dtype=torch.float32,
+                     device="cpu", charge: float = CHARGE,
+                     epsilon0: float = EPSILON0) -> torch.Tensor:
+    """Delta-function RHS: -charge/epsilon0 at the centre cell, 0 elsewhere."""
+    f = torch.zeros((size,) * ndim, dtype=dtype, device=device)
+    f[(size // 2,) * ndim] = -charge / epsilon0
+    return f
+
+
+def initial_guess(f: torch.Tensor) -> torch.Tensor:
+    """psi0 = -f."""
+    return -f

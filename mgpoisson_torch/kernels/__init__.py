@@ -1,0 +1,47 @@
+"""Kernel layer: the grid-point ops, two ways behind one interface
+(port of ``mgpoisson/kernels/__init__.py``):
+
+- ``mgpoisson_torch.kernels.ops``  — plain torch, rank-polymorphic (2D/3D),
+  any device;
+- ``mgpoisson_torch.kernels.cuda`` — hand-written CUDA kernels for the hot
+  2D ops on Hopper.
+
+``get_ops(spec, level_size, device)`` picks one per level by
+``use_kernels``, the one dispatch rule.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mgpoisson_torch.kernels import cuda, ops
+
+
+def use_kernels(spec, level_size: int, device) -> bool:
+    """The dispatch rule: a level runs the CUDA kernels iff its tensors are
+    on a CUDA device, the backend is not 'torch', the level is 2D float32
+    with side >= spec.kernel_min_size, and both of its sweep counts are
+    within the kernels' cap (nu <= 8, <= 4 for rbgs).  Every other level
+    runs the plain ops; this is the only way a CUDA tensor reaches the
+    plain version of an op that has a kernel.  (The ops without one —
+    the metrics, coarse_solve, and the transfer ops of the traced cycle —
+    are plain on every device.)  backend='cuda' with CPU tensors is an
+    error."""
+    device = torch.device(device)
+    if spec.backend == "torch":
+        return False
+    if device.type != "cuda":
+        if spec.backend == "cuda":
+            raise ValueError("backend='cuda' needs CUDA tensors, got device "
+                             f"{device}; use backend='auto' or 'torch'")
+        return False
+    smoother = spec.smoother_resolved
+    return (spec.ndim == 2 and level_size >= spec.kernel_min_size
+            and all(cuda.supports(level_size, getattr(torch, spec.dtype), nu,
+                                  smoother)
+                    for nu in (spec.nu_pre, spec.nu_post)))
+
+
+def get_ops(spec, level_size: int, device):
+    """Return the op module to use for a level of side `level_size`."""
+    return cuda if use_kernels(spec, level_size, device) else ops

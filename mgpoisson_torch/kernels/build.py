@@ -1,0 +1,95 @@
+"""Builds the CUDA sources of ``mgpoisson_torch/csrc`` at first use.
+
+nvcc compiles them for Hopper (``sm_90a``) into one shared library with a
+plain C interface, which ctypes loads.  The library goes to
+``build/mgpoisson_torch/`` at the root of the checkout, under a name that
+carries a hash of the sources and flags, so an edited source is rebuilt
+and an unchanged one is not.  A failed build raises with nvcc's output:
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgpoisson_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signature of each entry point: (argtypes, restype)
+SIGNATURES = {
+    "mg_smooth": ((_P, _P, _P, _I, _I, _I, _I, _F, _F, _P), _I),
+    "mg_smooth_rr": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
+    "mg_prolong_correct_smooth": (
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
+    "mg_error_string": ((_I,), ctypes.c_char_p),
+}
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+
+
+def nvcc() -> str:
+    """The nvcc to build with: $CUDA_HOME/bin/nvcc, else nvcc on PATH,
+    else /usr/local/cuda/bin/nvcc."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = [os.path.join(home, "bin", "nvcc")] if home else []
+    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the mgpoisson_torch "
+                       "CUDA kernels are built from source at first use")
+
+
+def library_path() -> Path:
+    cu, cuh = sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in cu + cuh:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libmgpoisson_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compiles the library unless this exact build is already there;
+    returns its path.  nvcc's report (ptxas registers, shared memory,
+    spills) is kept beside it as ``<name>.log``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu, _ = sources()
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Builds (if needed) and loads the library once per process, with the
+    argument and result types of every entry point declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib

@@ -1,0 +1,157 @@
+"""Solver API (port of the single-device path of
+``mgpoisson/solver/multigrid.py``).
+
+- construct with a Spec and an explicit device;
+- ``step()`` = one cycle + the stopping metric;
+- ``solve()`` = iterate to maxiter, stopping on err < tol, a non-finite
+  err, or a truthy error_callback.
+
+The JAX package runs the solve loop on the device in a
+``lax.while_loop``; this port runs it on the host with one scalar readback
+per cycle, under the same stop rule (continue while it == 0, or err >= tol
+and err is finite) and with the same error history.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import math
+from typing import Callable, Optional
+
+import torch
+
+from mgpoisson_torch.core.rhs import initial_guess, point_charge_rhs
+from mgpoisson_torch.core.spec import Spec
+from mgpoisson_torch.cycle.vcycle import make_cycle
+from mgpoisson_torch.kernels import ops, use_kernels
+
+
+@dataclasses.dataclass
+class SolveResult:
+    psi: torch.Tensor
+    iterations: int
+    errs: torch.Tensor       # stopping-metric history, length `iterations`, on the CPU
+    converged: bool
+    final_err: float
+    n_metric_evals: Optional[int] = None   # == iterations: every cycle measures
+
+    def __iter__(self):
+        yield self.psi
+        yield self.errs
+
+
+def _callback_arity(cb) -> int:
+    """Positional parameters without defaults: a 3-parameter callback
+    also receives the live iterate, cb(it, err, psi).  A 2-parameter
+    callback with an extra keyword default is handed (it, err) only, so
+    to receive psi, declare it required."""
+    try:
+        params = inspect.signature(cb).parameters.values()
+    except (TypeError, ValueError):
+        return 2
+    return sum(1 for p in params
+               if p.default is inspect.Parameter.empty
+               and p.kind in (inspect.Parameter.POSITIONAL_ONLY,
+                              inspect.Parameter.POSITIONAL_OR_KEYWORD))
+
+
+class MultigridPoisson:
+    """Geometric multigrid Poisson solver on one torch device."""
+
+    def __init__(self, spec: Spec, device="cpu"):
+        """device: where the solver's tensors live, 'cpu' by default.
+        The device of the tensors decides between the CUDA kernels and
+        the plain ops (see ``mgpoisson_torch.kernels.use_kernels``); the
+        solver never moves work to another device by itself."""
+        self.spec = spec
+        self.device = torch.device(device)
+        self._dtype = getattr(torch, spec.dtype)
+        use_kernels(spec, spec.size, self.device)   # rejects backend='cuda' on CPU
+        self._want_rnorm = spec.stop == "residual"
+        self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
+
+    # ------------------------------------------------------------ state
+
+    def rhs(self) -> torch.Tensor:
+        """Default point-charge RHS."""
+        return point_charge_rhs(self.spec.size, self.spec.ndim, self._dtype,
+                                self.device)
+
+    def init_state(self, f: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """psi0 = -f."""
+        return initial_guess(self.rhs() if f is None else f)
+
+    # ------------------------------------------------------------- step
+
+    def step(self, psi, f):
+        """One cycle + error. Returns (psi_new, err)."""
+        return self._step(psi, f, self._r0(psi, f))
+
+    def _step(self, psi, f, r0):
+        """err per spec.stop: 'update' — RMS of the iterate update;
+        'residual' — ||r||/||r0||, with ||r||^2 fused into the cycle's
+        fine up-leg."""
+        h = self.spec.fine_h
+        if self._want_rnorm:
+            psi_new, r2 = self._cycle(psi, f, h)
+            return psi_new, torch.sqrt(r2).to(r0.dtype) / r0
+        psi_new = self._cycle(psi, f, h)
+        return psi_new, ops.rms_update(psi_new, psi)
+
+    def _r0(self, psi, f):
+        if self.spec.stop == "residual":
+            return ops.residual_norm(psi, f, self.spec.fine_h)
+        return torch.ones((), dtype=self._dtype, device=self.device)
+
+    def residual_norm(self, psi, f):
+        return ops.residual_norm(psi, f, self.spec.fine_h)
+
+    def rel_err(self, psi, psi_old):
+        """The reference's secondary masked relative-change metric."""
+        return ops.rel_err(psi, psi_old)
+
+    # ------------------------------------------------------------ solve
+
+    def solve(self, f=None, *, psi0=None,
+              error_callback: Optional[Callable[..., Optional[bool]]] = None
+              ) -> SolveResult:
+        """Iterate cycles until the stopping metric drops below tol, goes
+        non-finite, or maxiter cycles run.
+
+        error_callback(iter, err) is called after every cycle (1-based
+        iter); a truthy return stops the solve.  A callback with three
+        required positional parameters gets the live iterate too:
+        error_callback(iter, err, psi)."""
+        spec = self.spec
+        f = (self.rhs() if f is None
+             else torch.as_tensor(f, dtype=self._dtype, device=self.device))
+        if psi0 is None:
+            psi = self.init_state(f)
+        else:
+            # a copy, never the caller's tensor
+            psi = torch.as_tensor(psi0, dtype=self._dtype,
+                                  device=self.device).clone()
+        r0 = self._r0(psi, f)
+
+        wants_psi = (error_callback is not None
+                     and _callback_arity(error_callback) >= 3)
+        errs = []
+        converged = False
+        it = 0
+        for it in range(1, spec.maxiter + 1):
+            psi, err = self._step(psi, f, r0)
+            err_f = float(err)   # the one device->host readback per cycle
+            errs.append(err_f)
+            if error_callback is not None and (
+                    error_callback(it, err_f, psi) if wants_psi
+                    else error_callback(it, err_f)):
+                break
+            if not (err_f >= spec.tol and math.isfinite(err_f)):
+                converged = err_f < spec.tol
+                break
+        return SolveResult(psi=psi, iterations=it,
+                           errs=torch.tensor(errs, dtype=self._dtype),
+                           converged=converged,
+                           final_err=errs[-1] if errs else float("inf"),
+                           n_metric_evals=it)
