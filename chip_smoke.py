@@ -1,28 +1,43 @@
-"""Drives mgpoisson_torch's main path once on one NVIDIA GPU and checks it.
+"""Drives mgpoisson_torch's main paths once on one NVIDIA GPU and checks them.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
-1. device  — a CUDA device must be present; prints its name and power
-             limit (nvidia-smi) and turns TF32 off.
-2. build   — builds the three CUDA kernels from mgpoisson_torch/csrc.
-3. parity  — each kernel against its plain torch version on the card, f32,
-             at every level side the main path gives the kernels
-             (4096 ... 256) x bc x smoother x nu; then the time of each at
-             4096^2 beside the plain version's (CUDA events, median of 25).
-4. slice   — the tuned-scheme 4096^2 f32 solve through
-             MultigridPoisson(spec, device="cuda").solve(): the cycle count
-             and per-cycle relres against the JAX package's, the returned
-             psi re-checked in f64, the launch counters of that solve; then
-             a traced V-cycle (the per-stage debugging path, the one caller
-             of K1) with the counters zeroed again; then the same solve on
-             plain ops (backend="torch") for comparison.
+1. device   — a CUDA device must be present; prints its name and power
+              limit (nvidia-smi) and turns TF32 off.
+2. build    — builds the six CUDA kernels from mgpoisson_torch/csrc (one
+              nvcc per source, in parallel) and prints ptxas's registers,
+              spills and shared memory.
+3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
+              card, f32, at every level side the 2D path gives the kernels
+              (4096 ... 256) x bc x smoother x nu; then the time of each at
+              4096^2 beside the plain version's (CUDA events, median of 25,
+              alternating) and beside its bound.
+4. slice    — the tuned-scheme 4096^2 f32 solve through
+              MultigridPoisson(spec, device="cuda").solve(): the cycle count
+              and per-cycle relres against the JAX package's, the returned
+              psi re-checked in f64, the launch counters of that solve; then
+              a traced V-cycle (the per-stage debugging path, the one caller
+              of K1) with the counters zeroed again; then the same solve on
+              plain ops (backend="torch") for comparison.
+5. parity3d — each 3D kernel (K4-K6) against its plain version at every side
+              the 3D paths give the kernels (512, 256) x bc x smoother x nu,
+              both prolongation kinds, rnorm and from zero; then the time of
+              each at 256^3 with the main path's settings.
+6. slice3d  — the tuned 256^3 f32 solve (BASELINE config 4) as in phase 4:
+              cycles and relres against the JAX package's, f64 re-check,
+              launches of the solve and of a traced V-cycle (K4), the same
+              solve on plain ops.
+7. solve512 — the same spec at 512^3, where two levels run the kernels and
+              K5's from-zero flag is on the solve's path: cycles, relres,
+              launches of the solve and of a traced V-cycle.
 
-The last lines are a JSON object of the off-path kernel (K1, with its
-launches in the traced cycle), the card's name and power limit, a JSON
-object of the main path's kernels (K2, K3, with their launches in the
-solve) and {"ok": true, "device": {...}}.  Imports nothing of JAX.
+The last lines are a JSON object of the off-path kernels (K1, K4, with
+their launches in the traced cycles), a JSON object of the main paths'
+kernels (K2, K3 with their launches in the 4096^2 solve; K5, K6 with theirs
+in the 256^3 solve), the card's name and power limit, and
+{"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -47,6 +62,20 @@ JAX_ITERATIONS = 9
 JAX_ERRS = [0.013347355648875237, 0.0006291550816968083, 4.472383079701103e-05,
             4.021771474072011e-06, 4.0204946571975597e-07, 4.2531766553111083e-08,
             4.677897180727086e-09, 5.301771799359756e-10, 6.155618376135763e-11]
+# the same package and backend on a CPU for Spec(size=n, ndim=3,
+# dtype='float32', scheme='tuned', stop='residual', tol=1e-10) at n = 256
+# and 512: 11 V-cycles each, converged, with this relres per cycle.
+JAX_ITERATIONS_3D = 11
+JAX_ERRS_3D = {
+    256: [0.019346917048096657, 0.0016700325068086386, 0.0001768919755704701,
+          2.0735191355925053e-05, 2.616955043777125e-06, 3.521028588693298e-07,
+          5.017472304302828e-08, 7.513534683312173e-09, 1.171715169334675e-09,
+          1.8861685824322905e-10, 3.11942555120126e-11],
+    512: [0.019346920773386955, 0.0016700336709618568, 0.0001768922811606899,
+          2.0735233192681335e-05, 2.616956635392853e-06, 3.520983682392398e-07,
+          5.0171301779755595e-08, 7.511745891974897e-09, 1.170777585990379e-09,
+          1.882346084558506e-10, 3.100347756301858e-11],
+}
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 RNORM_TOL = 1e-5           # relative, on sum(r^2): partials summed in another order
@@ -54,13 +83,25 @@ RELRES_TOL = 0.01          # per-cycle relres against the JAX package, relative
 MAIN_N = 4096
 MAIN_SPEC = Spec(size=MAIN_N, dtype="float32", scheme="tuned", stop="residual",
                  tol=1e-10)
-# the level sides at which the main path runs the kernels
-KERNEL_LEVELS = [s for s in level_sizes(MAIN_N) if s >= MAIN_SPEC.kernel_min_size]
-TIMING_REPS = 25
+SPEC_3D = Spec(size=256, ndim=3, dtype="float32", scheme="tuned", stop="residual",
+               tol=1e-10)
+SIDES_3D = (512, 256)      # the 3D levels the 256^3 and 512^3 solves run on the kernels
 
-# kernel -> (source, the Pallas kernel it replaces); K1 runs only on the
-# traced cycle, K2 and K3 carry the solve
-OFF_PATH = ("mg_smooth",)
+
+def kernel_levels(spec):
+    """The level sides at which a solve of `spec` runs the kernels."""
+    return [s for s in level_sizes(spec.size) if s >= spec.kernel_min_size]
+
+
+TIMING_REPS = 25
+# the card's datasheet peaks (H100 SXM, at a 700 W power limit): HBM bytes
+# per second and f32 operations per second outside the tensor cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
+# kernel -> (source, the Pallas kernel it replaces); K1 and K4 run only on
+# the traced cycles, K2, K3, K5 and K6 carry the solves
+OFF_PATH = ("mg_smooth", "mg_smooth3d")
 KERNELS = {
     "mg_smooth": ("mgpoisson_torch/csrc/mg_smooth.cu",
                   "mgpoisson/kernels/pallas.py:587"),
@@ -68,7 +109,17 @@ KERNELS = {
                      "mgpoisson/kernels/pallas.py:2223"),
     "mg_prolong_correct_smooth": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
                                   "mgpoisson/kernels/pallas.py:2482"),
+    "mg_smooth3d": ("mgpoisson_torch/csrc/mg_smooth3d.cu",
+                    "mgpoisson/kernels/pallas.py:1558"),
+    "mg_smooth_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
+                       "mgpoisson/kernels/pallas.py:1693"),
+    "mg_prolong_correct_smooth3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
+                                    "mgpoisson/kernels/pallas.py:1821"),
 }
+# per rank: the (smooth, rr, pc) kernels and the tags of the parity lines
+RANK = {2: (("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"), ("K1", "K2", "K3")),
+        3: (("mg_smooth3d", "mg_smooth_rr3d", "mg_prolong_correct_smooth3d"),
+            ("K4", "K5", "K6"))}
 
 
 def fail(msg):
@@ -112,63 +163,73 @@ def phase_build():
     print(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".log")
     for line in (log.read_text().splitlines() if log.exists() else []):
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
             print(f"[build] {line.strip()}")
+    # ptxas reports static shared memory only; the 3D kernels' is dynamic
+    for name, halo, pc in (("mg_smooth3d", 3, False), ("mg_smooth_rr3d", 4, False),
+                           ("mg_prolong_correct_smooth3d", 3, True),
+                           ("mg_prolong_correct_smooth3d.rnorm", 4, True)):
+        print(f"[build] {name} at the tuned scheme's halo {halo}: tile "
+              f"{cuda.tile3d(halo)}^3, {cuda.shared_bytes_3d(halo, pc)} bytes of "
+              "dynamic shared memory per block")
 
 
-def _data(n, seed, dev):
+def _data(n, ndim, seed, dev):
+    """u, f of side n and V of side n/2, standard normal, on `dev`."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    return [torch.randn(s, generator=g, device=dev)
-            for s in ((n, n), (n, n), (n // 2, n // 2))]
+    return [torch.randn((s,) * ndim, generator=g, device=dev)
+            for s in (n, n, n // 2)]
 
 
-def phase_parity(dev):
-    """Every kernel variant against its plain version; returns, per kernel,
-    the largest normalized and absolute differences seen."""
-    worst = {k: [0.0, 0.0] for k in KERNELS}
+def phase_parity(dev, ndim, sides, worst):
+    """Every kernel variant of rank `ndim` against its plain version at each
+    side; records per kernel the largest normalized and absolute
+    differences seen in `worst`."""
+    (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
+    label = "parity" if ndim == 2 else "parity3d"
 
-    def note(kernel, label, got, want, row):
+    def note(kernel, tag, got, want, row):
         rel, ab = nmax(got, want)
         worst[kernel][0] = max(worst[kernel][0], rel)
         worst[kernel][1] = max(worst[kernel][1], ab)
-        row.append(f"{label}={rel:.1e}")
-        check(rel <= PARITY_TOL, f"{label} {row[0]}: normalized max |diff| "
+        row.append(f"{tag}={rel:.1e}")
+        check(rel <= PARITY_TOL, f"{tag} {row[0]}: normalized max |diff| "
               f"{rel:.3e} > {PARITY_TOL}")
 
-    for n in KERNEL_LEVELS:
-        u, f, V = _data(n, seed=n, dev=dev)
+    for n in sides:
+        u, f, V = _data(n, ndim, seed=n, dev=dev)
         h = 1.0 / n
         for bc in ("ghost0", "face"):
             for smoother in ("jacobi", "wjacobi", "rbgs"):
-                for nu in ((1, 3, 7) if smoother == "jacobi" else (1, 3)):
+                for nu in ((1, 3, 7) if smoother == "jacobi" and ndim == 2 else (1, 3)):
                     row = [f"n={n} {bc} {smoother} nu={nu}"]
                     a = (h, nu, smoother, bc)
-                    note("mg_smooth", "K1", cuda.smooth(u, f, *a),
+                    note(k_smooth, t_smooth, cuda.smooth(u, f, *a),
                          ops.smooth(u, f, *a), row)
                     for tag, fk, fp, args in (
-                            ("K2", cuda.smooth_residual_restrict,
+                            (t_rr, cuda.smooth_residual_restrict,
                              ops.smooth_residual_restrict, (u, f)),
-                            ("K2z", cuda.smooth_residual_restrict_zero,
+                            (t_rr + "z", cuda.smooth_residual_restrict_zero,
                              ops.smooth_residual_restrict_zero, (f,))):
                         (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
-                        note("mg_smooth_rr", f"{tag}.u", gu, wu, row)
-                        note("mg_smooth_rr", f"{tag}.R", gR, wR, row)
+                        note(k_rr, f"{tag}.u", gu, wu, row)
+                        note(k_rr, f"{tag}.R", gR, wR, row)
                     for kind in ("inject", "bilinear"):
                         pa = (u, f, V, h, nu, smoother, bc, kind)
-                        tag = "K3" + kind[0]
-                        note("mg_prolong_correct_smooth", tag,
-                             cuda.prolong_correct_smooth(*pa),
+                        tag = t_pc + kind[0]
+                        note(k_pc, tag, cuda.prolong_correct_smooth(*pa),
                              ops.prolong_correct_smooth(*pa), row)
                         (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
                                               ops.prolong_correct_smooth_rnorm(*pa))
-                        note("mg_prolong_correct_smooth", tag + "r.u", gu, wu, row)
+                        note(k_pc, tag + "r.u", gu, wu, row)
                         rel2 = abs(float(g2) / float(w2) - 1.0)
                         row.append(f"{tag}r.r2={rel2:.1e}")
                         check(rel2 <= RNORM_TOL, f"{row[0]}: sum(r^2) relative "
                               f"difference {rel2:.3e} > {RNORM_TOL}")
                     torch.cuda.synchronize()
-                    print("[parity] " + " ".join(row))
-    return worst
+                    print(f"[{label}] " + " ".join(row))
+        del u, f, V
+        torch.cuda.empty_cache()
 
 
 def _time_ms(fn, reps=TIMING_REPS):
@@ -186,33 +247,73 @@ def _time_ms(fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
-def phase_timing(dev):
-    """Each kernel and its plain version at 4096^2 with the main path's
-    settings (wjacobi, nu=3; ghost0 on the fine level, face where the
-    kernel runs on coarse levels), alternating plain and kernel."""
-    n = MAIN_N
-    u, f, V = _data(n, seed=7, dev=dev)
-    h = 1.0 / n
+def _flat(x):
+    return [t for y in x for t in _flat(y)] if isinstance(x, (tuple, list)) else [x]
+
+
+def _work(ndim, nu, smoother, leg, kind=None, rnorm=False):
+    """f32 operations per fine cell of one op, as the plain version does
+    them (each +, -, x one operation): nu sweeps (the 2*ndim-neighbour sum,
+    the Jacobi form, the damping), then the residual and restriction of
+    the down-leg, or the correction (trilinear: 2^ndim taps) and the
+    fused sum(r^2) of the up-leg."""
+    sweep = (2 * ndim - 1) + 3 + (3 if smoother == "wjacobi" else 0)
+    residual = 2 * ndim + 3
+    work = nu * sweep
+    if leg == "rr":
+        work += residual + 1
+    elif leg == "pc":
+        work += 1 + (2 ** (ndim + 1) if kind == "bilinear" else 0)
+        work += residual + 2 if rnorm else 0
+    return work
+
+
+def bound_ms(inputs, outputs, operations):
+    """The least time the card could take: the larger of the unique bytes
+    (each input read once, each output written once) over the HBM rate
+    and the f32 operations over the f32 rate; and which of the two it is."""
+    nbytes = sum(t.numel() * t.element_size() for t in _flat(inputs) + _flat(outputs))
+    t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * operations / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_timing(dev, n, ndim):
+    """Each kernel of this rank and its plain version at side n with the
+    main path's settings (wjacobi, nu=3; ghost0 on the fine level, face
+    where the kernel runs on coarse levels), alternating plain and kernel;
+    with each its bound."""
+    u, f, V = _data(n, ndim, seed=7, dev=dev)
+    h, cells = 1.0 / n, n ** ndim
+    k_smooth, k_rr, k_pc = RANK[ndim][0]
     cases = {
-        "mg_smooth": (lambda m: m.smooth(u, f, h, 3, "wjacobi", "ghost0")),
-        "mg_smooth_rr": (lambda m: m.smooth_residual_restrict(
-            u, f, h, 3, "wjacobi", "ghost0")),
-        "mg_smooth_rr.zero": (lambda m: m.smooth_residual_restrict_zero(
-            f, h, 3, "wjacobi", "face")),
-        "mg_prolong_correct_smooth": (lambda m: m.prolong_correct_smooth(
-            u, f, V, h, 3, "wjacobi", "face", "bilinear")),
-        "mg_prolong_correct_smooth.rnorm": (lambda m: m.prolong_correct_smooth_rnorm(
-            u, f, V, h, 3, "wjacobi", "ghost0", "bilinear")),
+        k_smooth: (lambda m: m.smooth(u, f, h, 3, "wjacobi", "ghost0"),
+                   (u, f), _work(ndim, 3, "wjacobi", "smooth")),
+        k_rr: (lambda m: m.smooth_residual_restrict(u, f, h, 3, "wjacobi", "ghost0"),
+               (u, f), _work(ndim, 3, "wjacobi", "rr")),
+        k_rr + ".zero": (lambda m: m.smooth_residual_restrict_zero(
+            f, h, 3, "wjacobi", "face"), (f,), _work(ndim, 3, "wjacobi", "rr")),
+        k_pc: (lambda m: m.prolong_correct_smooth(u, f, V, h, 3, "wjacobi", "face",
+                                                  "bilinear"),
+               (u, f, V), _work(ndim, 3, "wjacobi", "pc", "bilinear")),
+        k_pc + ".rnorm": (lambda m: m.prolong_correct_smooth_rnorm(
+            u, f, V, h, 3, "wjacobi", "ghost0", "bilinear"),
+            (u, f, V), _work(ndim, 3, "wjacobi", "pc", "bilinear", rnorm=True)),
     }
     out = {}
-    for name, call in cases.items():
+    shape = f"{n}^{ndim}"
+    for name, (call, inputs, work) in cases.items():
         p1 = _time_ms(lambda: call(ops))
         k1 = _time_ms(lambda: call(cuda))
         k2 = _time_ms(lambda: call(cuda))
         p2 = _time_ms(lambda: call(ops))
-        out[name] = (statistics.median([k1, k2]), statistics.median([p1, p2]))
-        print(f"[timing] {name} at {n}^2 f32: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms")
+        b_ms, b_by = bound_ms(inputs, call(cuda), work * cells)
+        out[name] = {"ms": statistics.median([k1, k2]),
+                     "plain_ms": statistics.median([p1, p2]),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[timing] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms, "
+              f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del u, f, V
+    torch.cuda.empty_cache()
     return out
 
 
@@ -227,92 +328,133 @@ def _solve(spec, dev):
     return mg, res, cycle_ms
 
 
-def phase_slice(dev):
-    """Returns the launch counts of the solve and of the traced cycle, each
-    read from its own run with the counters zeroed just before it."""
-    spec = MAIN_SPEC
-    _solve(spec, dev)                                  # warm-up
+def _expected(counts):
+    """The launch counters with these counts and every other one 0."""
+    return {**dict.fromkeys(cuda.launches, 0), **counts}
+
+
+def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=True,
+                warm_up=True):
+    """The solve of `spec` on the card against the JAX package's per-cycle
+    relres; returns the launch counts of the solve and of a traced V-cycle,
+    each read from its own run with the counters zeroed just before it."""
+    if warm_up:
+        _solve(spec, dev)
     cuda.reset_launches()
     mg, res, cycle_ms = _solve(spec, dev)
     after_solve = dict(cuda.launches)
     # the traced V-cycle (the per-stage debugging entry point) is the one
-    # caller of K1
+    # caller of K1 / K4
     f = mg.rhs()
     cuda.reset_launches()
     v_cycle(res.psi, f, spec.fine_h, spec, trace=[])
     torch.cuda.synchronize()
     after_trace = dict(cuda.launches)
 
-    it = res.iterations
-    errs = res.errs.tolist()
-    print(f"[slice] tuned {MAIN_N}^2 f32 on {dev}: {it} cycles, converged="
+    it, errs, shape = res.iterations, res.errs.tolist(), f"{spec.size}^{spec.ndim}"
+    print(f"[{label}] tuned {shape} f32 on {dev}: {it} cycles, converged="
           f"{res.converged}, final relres {res.final_err:.6e}")
-    for k, (e, ej) in enumerate(zip(errs, JAX_ERRS), 1):
-        print(f"[slice]   cycle {k}: relres {e:.6e}  jax {ej:.6e}  "
+    for k, (e, ej) in enumerate(zip(errs, jax_errs), 1):
+        print(f"[{label}]   cycle {k}: relres {e:.6e}  jax {ej:.6e}  "
               f"rel diff {abs(e - ej) / ej:.2e}")
-    check(res.converged, "the 4096^2 tuned solve did not converge")
-    check(it == JAX_ITERATIONS, f"{it} cycles, the JAX package takes {JAX_ITERATIONS}")
-    for k, (e, ej) in enumerate(zip(errs, JAX_ERRS), 1):
+    check(res.converged, f"the {shape} tuned solve did not converge")
+    check(it == jax_iterations, f"{shape}: {it} cycles, the JAX package takes "
+          f"{jax_iterations}")
+    for k, (e, ej) in enumerate(zip(errs, jax_errs), 1):
         check(abs(e - ej) <= RELRES_TOL * ej,
-              f"cycle {k}: relres {e:.6e} vs the JAX package's {ej:.6e}")
-    check(res.psi.shape == (MAIN_N, MAIN_N) and bool(torch.isfinite(res.psi).all()),
-          "psi is not a finite 4096^2 array")
+              f"{shape} cycle {k}: relres {e:.6e} vs the JAX package's {ej:.6e}")
+    check(res.psi.shape == spec.shape and bool(torch.isfinite(res.psi).all()),
+          f"psi is not a finite {shape} array")
 
     # the returned psi, re-checked independently in f64 with the plain ops
     f64, psi64 = f.double(), res.psi.double()
     rel64 = float(ops.residual_norm(psi64, f64, spec.fine_h)
                   / ops.residual_norm(-f64, f64, spec.fine_h))
-    print(f"[slice] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
-    check(rel64 < spec.tol, f"f64 relres of the returned psi {rel64:.3e} >= tol")
-
-    L = len(KERNEL_LEVELS)
-    want = {"mg_smooth": 0, "mg_smooth_rr": it * L, "mg_smooth_rr.zero": it * (L - 1),
-            "mg_prolong_correct_smooth": it * L,
-            "mg_prolong_correct_smooth.rnorm": it}
-    print(f"[slice] kernel levels {KERNEL_LEVELS}; launches in the solve "
+    del f64, psi64
+    print(f"[{label}] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
+    check(rel64 < spec.tol, f"{shape}: f64 relres of the returned psi {rel64:.3e} >= tol")
+    print(f"[{label}] kernel levels {kernel_levels(spec)}; launches in the solve "
           f"{after_solve}; in the traced cycle {after_trace}")
-    check(after_solve == want, f"launches in the solve {after_solve}, expected "
-          f"{want}: one K2 and one K3 per cycle at every level >= "
-          f"{spec.kernel_min_size}, K3 with rnorm once per cycle")
-    check(after_trace["mg_smooth"] == 2 * L,
-          f"the traced V-cycle ran K1 {after_trace['mg_smooth']} times, not "
-          f"twice at each of the {L} kernel levels")
-
-    _solve(spec.with_(backend="torch"), dev)           # warm-up
-    cuda.reset_launches()
-    _, res_t, cycle_ms_t = _solve(spec.with_(backend="torch"), dev)
-    check(all(v == 0 for v in cuda.launches.values()),
-          f"backend='torch' launched kernels: {cuda.launches}")
-    check(res_t.iterations == it, f"backend='torch' took {res_t.iterations} "
-          f"cycles, the kernels {it}")
-    ms_k, ms_t = statistics.median(cycle_ms), statistics.median(cycle_ms_t)
-    print(f"[slice] per-cycle wall ms, median (all): kernels {ms_k:.3f} "
+    ms_k = statistics.median(cycle_ms)
+    print(f"[{label}] per-cycle wall ms, median (all): kernels {ms_k:.3f} "
           f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
-    print(f"[slice] per-cycle wall ms, median (all): plain   {ms_t:.3f} "
-          f"({' '.join(f'{c:.3f}' for c in cycle_ms_t)})")
-    return after_solve, after_trace
+
+    if compare_plain:
+        plain = spec.with_(backend="torch")
+        if warm_up:
+            _solve(plain, dev)
+        cuda.reset_launches()
+        _, res_t, cycle_ms_t = _solve(plain, dev)
+        check(all(v == 0 for v in cuda.launches.values()),
+              f"backend='torch' launched kernels: {cuda.launches}")
+        check(res_t.iterations == it, f"backend='torch' took {res_t.iterations} "
+              f"cycles, the kernels {it}")
+        ms_t = statistics.median(cycle_ms_t)
+        print(f"[{label}] per-cycle wall ms, median (all): plain   {ms_t:.3f} "
+              f"({' '.join(f'{c:.3f}' for c in cycle_ms_t)})")
+    return it, after_solve, after_trace
+
+
+def check_launches(label, got, want, what):
+    check(got == want, f"{label}: launches {got}, expected {want}: {what}")
 
 
 def main():
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
-    worst = phase_parity(dev)
-    times = phase_timing(dev)
-    after_solve, after_trace = phase_slice(dev)
+    worst = {k: [0.0, 0.0] for k in KERNELS}
+
+    # the 2D path: the tuned 4096^2 solve
+    phase_parity(dev, 2, kernel_levels(MAIN_SPEC), worst)
+    times = phase_timing(dev, MAIN_N, 2)
+    it, solve2, trace2 = phase_slice("slice", MAIN_SPEC, dev, JAX_ITERATIONS, JAX_ERRS)
+    L = len(kernel_levels(MAIN_SPEC))
+    check_launches("4096^2 solve", solve2, _expected({
+        "mg_smooth_rr": it * L, "mg_smooth_rr.zero": it * (L - 1),
+        "mg_prolong_correct_smooth": it * L, "mg_prolong_correct_smooth.rnorm": it}),
+        f"one K2 and one K3 per cycle at every level >= {MAIN_SPEC.kernel_min_size}, "
+        "K3 with rnorm once per cycle, no 3D kernel")
+    check_launches("4096^2 traced V-cycle", trace2, _expected({"mg_smooth": 2 * L}),
+                   f"K1 twice at each of the {L} kernel levels")
+
+    # the 3D path: the tuned 256^3 solve, then 512^3
+    phase_parity(dev, 3, SIDES_3D, worst)
+    times.update(phase_timing(dev, SPEC_3D.size, 3))
+    it3, solve3, trace3 = phase_slice("slice3d", SPEC_3D, dev, JAX_ITERATIONS_3D,
+                                   JAX_ERRS_3D[256])
+    check_launches("256^3 solve", solve3, _expected({
+        "mg_smooth_rr3d": it3, "mg_prolong_correct_smooth3d": it3,
+        "mg_prolong_correct_smooth3d.rnorm": it3}),
+        "one K5 and one K6 (with rnorm) per cycle at the one kernel level, "
+        "K5 never from zero, no 2D kernel")
+    check_launches("256^3 traced V-cycle", trace3, _expected({"mg_smooth3d": 2}),
+                   "K4 twice at the one kernel level")
+    spec512 = SPEC_3D.with_(size=512)
+    it5, solve5, trace5 = phase_slice("solve512", spec512, dev, JAX_ITERATIONS_3D,
+                                      JAX_ERRS_3D[512], compare_plain=False,
+                                      warm_up=False)
+    check_launches("512^3 solve", solve5, _expected({
+        "mg_smooth_rr3d": 2 * it5, "mg_smooth_rr3d.zero": it5,
+        "mg_prolong_correct_smooth3d": 2 * it5, "mg_prolong_correct_smooth3d.rnorm": it5}),
+        "one K5 and one K6 per cycle at 512 and 256, K5 from zero at 256, "
+        "K6 with rnorm at 512")
+    check_launches("512^3 traced V-cycle", trace5, _expected({"mg_smooth3d": 4}),
+                   "K4 twice at each of the two kernel levels")
+
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():
-        ms, plain_ms = times[name]
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "max_abs_err": worst[name][1],
-               "max_norm_err": worst[name][0], "ms": ms, "plain_ms": plain_ms}
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "max_abs_err": worst[name][1], "max_norm_err": worst[name][0],
+               **times[name], "library_ms": None}
+        solve, trace = (solve3, trace3) if name.endswith("3d") else (solve2, trace2)
         if name in OFF_PATH:
-            off_path.append({**row, "trace_launches": after_trace[name]})
+            off_path.append({**row, "trace_launches": trace[name]})
         else:
-            kernels.append({**row, "launches": after_solve[name]})
+            kernels.append({**row, "launches": solve[name]})
     print(json.dumps({"off_path_kernels": off_path}))
-    print(card)
     print(json.dumps({"kernels": kernels}))
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

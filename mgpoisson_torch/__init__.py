@@ -3,12 +3,13 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``mgpoisson`` (which stays the reference): the
 same Spec, the same V-cycle and the same solver surface, with the hot 2D
-half-levels as CUDA kernels (``mgpoisson_torch.kernels.cuda``) and plain
-torch ops everywhere else.  It imports torch and numpy, never JAX.
+and 3D half-levels as CUDA kernels (``mgpoisson_torch.kernels.cuda``) and
+plain torch ops everywhere else.  It imports torch and numpy, never JAX.
+The solver runs on the card unless given device="cpu".
 
     from mgpoisson_torch import MultigridPoisson, Spec
-    res = MultigridPoisson(Spec(size=4096, stop="residual"),
-                           device="cuda").solve()
+    res = MultigridPoisson(Spec(size=4096, stop="residual")).solve()
+    res3 = MultigridPoisson(Spec(size=256, ndim=3, stop="residual")).solve()
 """
 
 from mgpoisson_torch.core.spec import Spec

@@ -14,9 +14,10 @@ EPSILON0 = 1.0
 
 
 def point_charge_rhs(size: int, ndim: int = 2, dtype=torch.float32,
-                     device="cpu", charge: float = CHARGE,
+                     device="cuda", charge: float = CHARGE,
                      epsilon0: float = EPSILON0) -> torch.Tensor:
-    """Delta-function RHS: -charge/epsilon0 at the centre cell, 0 elsewhere."""
+    """Delta-function RHS: -charge/epsilon0 at the centre cell, 0 elsewhere;
+    on the card unless `device` says otherwise."""
     f = torch.zeros((size,) * ndim, dtype=dtype, device=device)
     f[(size // 2,) * ndim] = -charge / epsilon0
     return f

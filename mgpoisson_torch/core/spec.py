@@ -120,10 +120,10 @@ class Spec:
             later("sharded execution (mesh_shape/partition)",
                   "7 (multi-GPU)")
         if self.sweep_dtype is not None and self.sweep_dtype != self.dtype:
-            later("mixed precision (sweep_dtype)", "4 (bf16 and mixed "
+            later("mixed precision (sweep_dtype)", "5 (bf16 and mixed "
                   "precision)")
         if self.dtype == "bfloat16":
-            later("dtype='bfloat16'", "4 (bf16 and mixed precision)")
+            later("dtype='bfloat16'", "5 (bf16 and mixed precision)")
         if self.stop_check == "adaptive":
             later("stop_check='adaptive'", "6 (the rest of the solver "
                   "surface)")
@@ -131,9 +131,6 @@ class Spec:
             later("cycle='fmg'", "6 (the rest of the solver surface)")
         if self.smoother == "gs_lex":
             later("smoother='gs_lex'", "6 (the rest of the solver surface)")
-        if self.ndim == 3 and self.backend != "torch":
-            later("the 3D kernels (ndim=3 with backend 'auto' or 'cuda'; "
-                  "backend='torch' runs 3D on plain ops)", "5 (3D)")
 
     # ------------------------------------------------- resolved parameters
 

@@ -1,0 +1,184 @@
+// Shared tile machinery of the three 3D stencil kernels (K4 mg_smooth3d,
+// K5 mg_smooth_rr3d, K6 mg_prolong_correct_smooth3d): the 7-point operator
+// on an (n, n, n) array, z-major (index (z * n + y) * n + x).
+//
+// The Pallas 3D kernels block (z, y) with the whole x row in lanes, round
+// the y halo up to 8 sublanes and pick the blocks with a VMEM planner
+// (_plan3d).  None of that carries over.  As in the 2D kernels
+// (stencil.cuh), each block owns a T x T x T interior and loads it with a
+// halo of H cells on every side into shared memory; all nu sweeps run
+// there over a region that shrinks by the dependency radius each step, so
+// the interior is exact after the last sweep and any power-of-two n runs
+// the same code.  H = steps for a smooth, steps + 1 where a residual
+// follows; steps = nu (Jacobi variants) or 2 nu (red-black GS).
+//
+// Shared memory: two ping-pong u buffers and f, (T + 2H)^3 floats each.
+// T = 16 while H <= 4 (the tuned scheme's wjacobi nu = 3 with a residual:
+// 24^3 x 4 B x 3 = 166 KB), T = 8 for deeper halos up to H = 8 (also 24^3);
+// the wrapper picks T and the entry points opt in to more than 48 KB of
+// dynamic shared memory.  The price of the deep halo is redundant work:
+// at T = 16, H = 4 a block loads (24/16)^3 = 3.4 cells per interior cell
+// and its three sweeps update 22^3 + 20^3 + 18^3 = 24480 cells for 4096
+// interior ones (2.0 per interior cell per sweep).  A z-marching (2.5D)
+// tile would cut both and is later work.
+//
+// What bounds these kernels on an H100 is HBM bytes: each op passes over
+// device memory once (K4 3 arrays, K5 3.125, 2.125 from zero, K6 3.125);
+// the halo re-reads mostly hit L2.  This first version keeps one thread
+// per cell with __syncthreads() between steps.
+//
+// Arithmetic follows mgpoisson_torch/kernels/ops.py operation for
+// operation (neighbour sums in axis order z, y, x; the same Jacobi form),
+// with the divisions by h^2 and by the diagonal taken as multiplications
+// by their reciprocals (exact for 1/h^2 with h = 1/size; 1/adiag =
+// -h^2/6 is the rounded reciprocal that torch's CUDA division by a scalar
+// also multiplies by).
+#pragma once
+
+#include "stencil.cuh"
+
+#define MG3_THREADS 1024
+#define MG3_SMEM_MAX 232448   // the most dynamic shared memory a block may opt in to
+#define MG3_OMEGA (6.0f / 7.0f)   // wjacobi omega = 2d/(2d+1), d = 3, as ops.wjacobi_sweep
+
+struct Mg3Tile {
+  int n;    // level side
+  int T;    // interior cells per block side (even)
+  int H;    // halo depth
+  int S;    // T + 2H
+  int gz0;  // global z of local z 0 (tile origin - H; may be negative)
+  int gy0;
+  int gx0;
+};
+
+static __device__ __forceinline__ Mg3Tile mg3_tile(int n, int T, int H) {
+  Mg3Tile t;
+  t.n = n;
+  t.T = T;
+  t.H = H;
+  t.S = T + 2 * H;
+  t.gz0 = (int)blockIdx.z * T - H;
+  t.gy0 = (int)blockIdx.y * T - H;
+  t.gx0 = (int)blockIdx.x * T - H;
+  return t;
+}
+
+static __device__ __forceinline__ bool mg3_in(const Mg3Tile& t, int i, int j, int l) {
+  return mg_in(t.gz0 + i, t.n) && mg_in(t.gy0 + j, t.n) && mg_in(t.gx0 + l, t.n);
+}
+
+// Neighbour sum of local cell (i, j, l) = (z, y, x), in ops.neighbor_sum's
+// order.  A neighbour across the global edge is 0 (ghost0) or -u of the
+// cell itself as it is in this sweep (face), decided from the global
+// index, never from the tile's.
+static __device__ __forceinline__ float mg3_nbr(const float* s, const Mg3Tile& t, int i,
+                                                int j, int l, int bc) {
+  const int S = t.S, SS = S * S, k = (i * S + j) * S + l, last = t.n - 1;
+  const int gz = t.gz0 + i, gy = t.gy0 + j, gx = t.gx0 + l;
+  const float c = s[k];
+  float acc = (gz > 0 ? s[k - SS] : 0.f) + (gz < last ? s[k + SS] : 0.f);
+  if (bc == MG_FACE) {
+    if (gz == 0) acc -= c;
+    if (gz == last) acc -= c;
+  }
+  acc = acc + ((gy > 0 ? s[k - S] : 0.f) + (gy < last ? s[k + S] : 0.f));
+  if (bc == MG_FACE) {
+    if (gy == 0) acc -= c;
+    if (gy == last) acc -= c;
+  }
+  acc = acc + ((gx > 0 ? s[k - 1] : 0.f) + (gx < last ? s[k + 1] : 0.f));
+  if (bc == MG_FACE) {
+    if (gx == 0) acc -= c;
+    if (gx == last) acc -= c;
+  }
+  return acc;
+}
+
+// r = f - (nbr/h^2 + adiag*u) at local (i, j, l), as ops.residual.
+static __device__ __forceinline__ float mg3_residual(const float* su, const float* sf,
+                                                     const Mg3Tile& t, int i, int j, int l,
+                                                     int bc, float inv_hsq, float adiag) {
+  const int k = (i * t.S + j) * t.S + l;
+  return sf[k] - (mg3_nbr(su, t, i, j, l, bc) * inv_hsq + adiag * su[k]);
+}
+
+// Loads the S^3 tile of u and f; cells outside the domain read 0.
+// U == nullptr means u is identically zero and is not read.
+static __device__ void mg3_load(float* su, float* sf, const float* U, const float* F,
+                                const Mg3Tile& t) {
+  const int S = t.S;
+  for (int k = threadIdx.x; k < S * S * S; k += blockDim.x) {
+    const int l = k % S, r = k / S, j = r % S, i = r / S;
+    float u = 0.f, f = 0.f;
+    if (mg3_in(t, i, j, l)) {
+      const size_t g = ((size_t)(t.gz0 + i) * t.n + (t.gy0 + j)) * t.n + (t.gx0 + l);
+      f = F[g];
+      if (U) u = U[g];
+    }
+    su[k] = u;
+    sf[k] = f;
+  }
+}
+
+// nu sweeps on the tile in shared memory; returns the buffer holding the
+// result.  Step s updates local cells [s+1, S-2-s] on all three axes, so
+// after all steps the cells at distance >= steps from the tile edge are
+// exact.  Jacobi variants ping-pong between a and b; red-black GS updates
+// one colour in place per step, the colour being the GLOBAL (z + y + x) % 2,
+// colour 0 first.
+static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const Mg3Tile& t,
+                                    int nu, int smoother, int bc, float inv_hsq,
+                                    float inv_adiag) {
+  const int S = t.S, steps = mg_steps(nu, smoother);
+  for (int s = 0; s < steps; ++s) {
+    const int lo = s + 1, w = S - 2 - 2 * s, colour = s & 1;
+    for (int k = threadIdx.x; k < w * w * w; k += blockDim.x) {
+      const int l = lo + k % w, r = k / w, j = lo + r % w, i = lo + r / w;
+      if (!mg3_in(t, i, j, l)) continue;
+      const int c = (i * S + j) * S + l;
+      if (smoother == MG_RBGS) {
+        if (((t.gz0 + i + t.gy0 + j + t.gx0 + l) & 1) != colour) continue;
+        a[c] = (sf[c] - mg3_nbr(a, t, i, j, l, bc) * inv_hsq) * inv_adiag;
+      } else {
+        const float jac = (sf[c] - mg3_nbr(a, t, i, j, l, bc) * inv_hsq) * inv_adiag;
+        b[c] = smoother == MG_WJACOBI ? a[c] + MG3_OMEGA * (jac - a[c]) : jac;
+      }
+    }
+    __syncthreads();
+    if (smoother != MG_RBGS) {
+      float* tmp = a;
+      a = b;
+      b = tmp;
+    }
+  }
+  return a;
+}
+
+// Writes the tile's interior back to the (n, n, n) array.
+static __device__ void mg3_store(float* U, const float* su, const Mg3Tile& t) {
+  const int T = t.T;
+  for (int k = threadIdx.x; k < T * T * T; k += blockDim.x) {
+    const int l = t.H + k % T, r = k / T, j = t.H + r % T, i = t.H + r / T;
+    if (!mg3_in(t, i, j, l)) continue;
+    U[((size_t)(t.gz0 + i) * t.n + (t.gy0 + j)) * t.n + (t.gx0 + l)] =
+        su[(i * t.S + j) * t.S + l];
+  }
+}
+
+static __host__ inline size_t mg3_tile_floats(int T, int H) {
+  const size_t S = T + 2 * H;
+  return 3 * S * S * S;
+}
+
+static __host__ inline dim3 mg3_grid(int n, int T) {
+  const unsigned tiles = (unsigned)((n + T - 1) / T);
+  return dim3(tiles, tiles, tiles);
+}
+
+// Checks the geometry and opts the kernel in to `bytes` of dynamic shared
+// memory; returns a cudaError_t.
+static __host__ inline int mg3_prepare(const void* kernel, int n, int T, size_t bytes) {
+  if (n < 2 || T < 2 || (T & 1) || bytes > MG3_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}

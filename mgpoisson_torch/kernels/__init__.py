@@ -4,7 +4,7 @@
 - ``mgpoisson_torch.kernels.ops``  — plain torch, rank-polymorphic (2D/3D),
   any device;
 - ``mgpoisson_torch.kernels.cuda`` — hand-written CUDA kernels for the hot
-  2D ops on Hopper.
+  2D and 3D ops on Hopper.
 
 ``get_ops(spec, level_size, device)`` picks one per level by
 ``use_kernels``, the one dispatch rule.
@@ -19,14 +19,20 @@ from mgpoisson_torch.kernels import cuda, ops
 
 def use_kernels(spec, level_size: int, device) -> bool:
     """The dispatch rule: a level runs the CUDA kernels iff its tensors are
-    on a CUDA device, the backend is not 'torch', the level is 2D float32
+    on a CUDA device, the backend is not 'torch', the level is float32
     with side >= spec.kernel_min_size, and both of its sweep counts are
-    within the kernels' cap (nu <= 8, <= 4 for rbgs).  Every other level
+    within the kernels' cap for its rank (``cuda.supports``: 2D nu <= 8,
+    <= 4 for rbgs; 3D a halo of radius*nu + 1 <= 8).  Every other level
     runs the plain ops; this is the only way a CUDA tensor reaches the
     plain version of an op that has a kernel.  (The ops without one —
     the metrics, coarse_solve, and the transfer ops of the traced cycle —
     are plain on every device.)  backend='cuda' with CPU tensors is an
-    error."""
+    error.
+
+    For f32 cubes at the default kernel_min_size of 256 this picks the
+    levels the JAX package's byte gate picks for its 3D kernels
+    (pallas.py ``_supported3``: arrays of >= 32 MiB, so 256^3 runs the
+    kernels and 128^3 does not)."""
     device = torch.device(device)
     if spec.backend == "torch":
         return False
@@ -36,9 +42,9 @@ def use_kernels(spec, level_size: int, device) -> bool:
                              f"{device}; use backend='auto' or 'torch'")
         return False
     smoother = spec.smoother_resolved
-    return (spec.ndim == 2 and level_size >= spec.kernel_min_size
+    return (level_size >= spec.kernel_min_size
             and all(cuda.supports(level_size, getattr(torch, spec.dtype), nu,
-                                  smoother)
+                                  smoother, spec.ndim)
                     for nu in (spec.nu_pre, spec.nu_post)))
 
 

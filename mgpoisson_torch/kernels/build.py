@@ -1,6 +1,7 @@
 """Builds the CUDA sources of ``mgpoisson_torch/csrc`` at first use.
 
-nvcc compiles them for Hopper (``sm_90a``) into one shared library with a
+nvcc compiles them for Hopper (``sm_90a``), one process per source, all
+started together, and links the objects into one shared library with a
 plain C interface, which ctypes loads.  The library goes to
 ``build/mgpoisson_torch/`` at the root of the checkout, under a name that
 carries a hash of the sources and flags, so an edited source is rebuilt
@@ -22,15 +23,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mgpoisson_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signature of each entry point: (argtypes, restype)
+# C signature of each entry point: (argtypes, restype).  The 3D entries
+# take the tile side after n.
 SIGNATURES = {
     "mg_smooth": ((_P, _P, _P, _I, _I, _I, _I, _F, _F, _P), _I),
     "mg_smooth_rr": ((_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
     "mg_prolong_correct_smooth": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
+    "mg_smooth3d": ((_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _P), _I),
+    "mg_smooth_rr3d": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
+    "mg_prolong_correct_smooth3d": (
+        (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
 
@@ -61,6 +67,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libmgpoisson_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds):
+    """Runs the commands in parallel; returns their (returncode, output)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    return [(p.returncode, out) for p, out in zip(procs, outs)]
+
+
 def build() -> Path:
     """Compiles the library unless this exact build is already there;
     returns its path.  nvcc's report (ptxas registers, shared memory,
@@ -70,16 +84,21 @@ def build() -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = sources()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
+        cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(p), "-o", o] for p, o in zip(cu, objs)]
+        link = [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", os.path.join(tmp, lib.name),
+                *objs]
+        log = []
+        for cmd, (rc, out) in zip(cmds, _run(cmds)):
+            log.append(f"== {' '.join(cmd)}\n{out}")
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {log[-1]}")
+        rc, out = _run([link])[0]
+        if rc != 0:
+            raise RuntimeError(f"nvcc link failed ({rc}): {' '.join(link)}\n{out}")
+        lib.with_suffix(".log").write_text("".join(log))
+        os.replace(os.path.join(tmp, lib.name), lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 
 

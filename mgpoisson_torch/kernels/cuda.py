@@ -1,23 +1,27 @@
-"""Hand-written CUDA kernels for the hot 2D ops on Hopper (port of the
-public entry points of ``mgpoisson/kernels/pallas.py``).
+"""Hand-written CUDA kernels for the hot 2D and 3D ops on Hopper (port of
+the public entry points of ``mgpoisson/kernels/pallas.py``).
 
-Three kernels, built from ``mgpoisson_torch/csrc`` by
-``kernels.build`` at first use, carry the V-cycle:
+Six kernels, built from ``mgpoisson_torch/csrc`` by ``kernels.build`` at
+first use, carry the V-cycle; each wrapper routes by rank, a square 2D
+array to K1-K3, a cubic 3D array to K4-K6:
 
-  K1 ``mg_smooth``                  — ``smooth``
-  K2 ``mg_smooth_rr``               — ``smooth_residual_restrict``,
-                                      ``smooth_residual_restrict_zero``
-  K3 ``mg_prolong_correct_smooth``  — ``prolong_correct_smooth``,
-                                      ``prolong_correct_smooth_rnorm``
+  2D                                3D
+  K1 ``mg_smooth``                  K4 ``mg_smooth3d``            — ``smooth``
+  K2 ``mg_smooth_rr``               K5 ``mg_smooth_rr3d``         — ``smooth_residual_restrict``,
+                                                                    ``smooth_residual_restrict_zero``
+  K3 ``mg_prolong_correct_smooth``  K6 ``mg_prolong_correct_smooth3d``
+                                                                  — ``prolong_correct_smooth``,
+                                                                    ``prolong_correct_smooth_rnorm``
 
-Each wrapper has the signature of its counterpart in
-``kernels.ops`` (the plain version beside it).  A tensor on the CPU goes to
-that plain version.  A CUDA tensor launches the kernel, or raises if the
-kernel does not take it: f32, 2D, square, contiguous, 0 <= nu <= 8
-(<= 4 for rbgs).  Which levels reach these wrappers at all is decided by
-one rule, ``mgpoisson_torch.kernels.use_kernels``.  Outputs are fresh
-``torch.empty`` buffers (no in-place writes: a tile reads its neighbours'
-rows as halo), and launches go on the current stream.
+Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
+plain version beside it).  A tensor on the CPU goes to that plain
+version.  A CUDA tensor launches the kernel, or raises if the kernel does
+not take it (``supports``): f32, square 2D or cubic 3D, contiguous, and
+the sweep count within the kernel's cap.  Which levels reach these
+wrappers at all is decided by one rule,
+``mgpoisson_torch.kernels.use_kernels``.  Outputs are fresh
+``torch.empty`` buffers (no in-place writes: a tile reads its
+neighbours' cells as halo), and launches go on the current stream.
 
 The ops that have no kernel (residual, prolong, coarse_solve, ...) are
 the plain ones on every device, as the Pallas module delegates them to
@@ -36,17 +40,24 @@ from mgpoisson_torch.kernels.build import load
 SMOOTHERS = {"jacobi": 0, "wjacobi": 1, "rbgs": 2}
 BCS = {"ghost0": 0, "face": 1}
 PROLONG_KINDS = {"inject": 0, "bilinear": 1}
-# per-call sweep cap: the shared-memory halo grows by the dependency
+# 2D per-call sweep cap: the shared-memory halo grows by the dependency
 # radius per sweep (1 for the Jacobi variants, 2 for red-black GS)
 MAX_NU = {"jacobi": 8, "wjacobi": 8, "rbgs": 4}
-TILE = 32   # interior cells per block side; MG_TILE in csrc/stencil.cuh
+TILE = 32   # 2D interior cells per block side; MG_TILE in csrc/stencil.cuh
+# 3D cap on the halo depth, radius * nu plus the ring a residual reads
+# (K5, K6 with rnorm): the z halo the JAX package's planner admits
+# (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
+# nu <= 3, K4 alone jacobi/wjacobi nu <= 8 and rbgs nu <= 4
+MAX_HALO_3D = 8
 
 # Launches per kernel, counted where the wrapper launches it; ".zero" and
 # ".rnorm" count the flagged launches among them.  Read and reset by
 # chip_smoke.py to show that a run went through the kernels.
-launches = dict.fromkeys(("mg_smooth", "mg_smooth_rr", "mg_smooth_rr.zero",
-                          "mg_prolong_correct_smooth",
-                          "mg_prolong_correct_smooth.rnorm"), 0)
+launches = dict.fromkeys((
+    "mg_smooth", "mg_smooth_rr", "mg_smooth_rr.zero",
+    "mg_prolong_correct_smooth", "mg_prolong_correct_smooth.rnorm",
+    "mg_smooth3d", "mg_smooth_rr3d", "mg_smooth_rr3d.zero",
+    "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm"), 0)
 
 
 def reset_launches() -> None:
@@ -54,21 +65,58 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def supports(n: int, dtype: torch.dtype, nu: int, smoother: str) -> bool:
-    """Whether the kernels take an (n, n) level of this dtype with nu
-    sweeps of this smoother."""
-    return (dtype == torch.float32 and n >= 2 and smoother in MAX_NU
-            and 0 <= nu <= MAX_NU[smoother])
+def _steps(nu, smoother):
+    """Shrinking-region steps of nu sweeps: red-black GS takes one per
+    colour."""
+    return 2 * nu if smoother == "rbgs" else nu
 
 
-def _check(name, u, nu, smoother, bc, *others):
+def tile3d(halo: int) -> int:
+    """Interior side of a 3D block with this halo depth: 16 while three
+    (16 + 2 halo)^3 f32 buffers fit in shared memory, else 8 (see
+    csrc/stencil3d.cuh)."""
+    return 16 if halo <= 4 else 8
+
+
+def shared_bytes_3d(halo: int, pc: bool = False) -> int:
+    """Dynamic shared memory of one 3D block at this halo depth, as the C
+    entries size it: u ping-pong and f, (T + 2 halo)^3 f32 each, and for
+    K6 (`pc`) the coarse tile (T/2 + 2 (ceil(halo/2) + 1))^3 and one
+    reduction slot per thread (1024)."""
+    t = tile3d(halo)
+    floats = 3 * (t + 2 * halo) ** 3
+    if pc:
+        floats += (t // 2 + 2 * ((halo + 1) // 2 + 1)) ** 3 + 1024
+    return 4 * floats
+
+
+def supports(n: int, dtype: torch.dtype, nu: int, smoother: str, ndim: int = 2,
+             residual: bool = True) -> bool:
+    """Whether the kernels take an n^ndim level of this dtype with nu
+    sweeps of this smoother.  2D: nu <= MAX_NU[smoother] for K1-K3.  3D:
+    the halo, radius * nu plus one ring where a residual follows the
+    sweeps (`residual`: K5, K6 with rnorm), is at most MAX_HALO_3D."""
+    if dtype != torch.float32 or n < 2 or smoother not in SMOOTHERS or nu < 0:
+        return False
+    if ndim == 2:
+        return nu <= MAX_NU[smoother]
+    return ndim == 3 and _steps(nu, smoother) + residual <= MAX_HALO_3D
+
+
+def _name(base, u):
+    return base + "3d" if u.ndim == 3 else base
+
+
+def _check(name, u, nu, smoother, bc, residual, *others):
     if u.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {u.device}")
-    if u.ndim != 2 or u.shape[0] != u.shape[1]:
-        raise ValueError(f"{name}: needs a square 2D array, got {tuple(u.shape)}")
-    if not supports(u.shape[0], u.dtype, nu, smoother) or bc not in BCS:
-        raise ValueError(f"{name}: no kernel for n={u.shape[0]} {u.dtype} "
-                         f"nu={nu} smoother={smoother!r} bc={bc!r}")
+    if u.ndim not in (2, 3) or len(set(u.shape)) != 1:
+        raise ValueError(f"{name}: needs a square 2D or cubic 3D array, got "
+                         f"{tuple(u.shape)}")
+    if (not supports(u.shape[0], u.dtype, nu, smoother, u.ndim, residual)
+            or bc not in BCS):
+        raise ValueError(f"{name}: no kernel for n={u.shape[0]} ndim={u.ndim} "
+                         f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}")
     for t, shape in ((u, u.shape), *others):
         if t.device != u.device or t.dtype != u.dtype or t.shape != shape:
             raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} on "
@@ -78,11 +126,27 @@ def _check(name, u, nu, smoother, bc, *others):
             raise ValueError(f"{name}: operands must be contiguous")
 
 
-def _scalars(h):
-    """1/h^2, 1/adiag and adiag of the 2D 5-point operator, as the plain
-    ops use them (adiag = -4/h^2)."""
+def _half(shape):
+    return torch.Size(s // 2 for s in shape)
+
+
+def _geometry(u, halo):
+    """The launch's size arguments: n, and in 3D the tile side too."""
+    n = u.shape[0]
+    return (n,) if u.ndim == 2 else (n, tile3d(halo))
+
+
+def _blocks(u, halo):
+    """Number of blocks of a launch on u (one rnorm partial each)."""
+    tile = TILE if u.ndim == 2 else tile3d(halo)
+    return (-(-u.shape[0] // tile)) ** u.ndim
+
+
+def _scalars(h, ndim):
+    """1/h^2, 1/adiag and adiag of the 2*ndim+1-point operator, as the
+    plain ops use them (adiag = -2*ndim/h^2)."""
     hsq = h * h
-    adiag = -4.0 / hsq
+    adiag = -2.0 * ndim / hsq
     return ctypes.c_float(1.0 / hsq), ctypes.c_float(1.0 / adiag), ctypes.c_float(adiag)
 
 
@@ -98,72 +162,73 @@ def _launch(name, u, *args):
 
 
 def smooth(u, f, h, nu, smoother="jacobi", bc="ghost0"):
-    """nu smoother sweeps in one pass (K1)."""
+    """nu smoother sweeps in one pass (K1, K4)."""
     if u.device.type == "cpu":
         return ops.smooth(u, f, h, nu, smoother, bc)
-    _check("mg_smooth", u, nu, smoother, bc, (f, u.shape))
+    name = _name("mg_smooth", u)
+    _check(name, u, nu, smoother, bc, False, (f, u.shape))
     if nu == 0:
         return u
     out = torch.empty_like(u)
-    inv_hsq, inv_adiag, _ = _scalars(h)
-    _launch("mg_smooth", u, u.data_ptr(), f.data_ptr(), out.data_ptr(),
-            u.shape[0], nu, SMOOTHERS[smoother], BCS[bc], inv_hsq, inv_adiag)
+    inv_hsq, inv_adiag, _ = _scalars(h, u.ndim)
+    _launch(name, u, u.data_ptr(), f.data_ptr(), out.data_ptr(),
+            *_geometry(u, _steps(nu, smoother)), nu, SMOOTHERS[smoother],
+            BCS[bc], inv_hsq, inv_adiag)
     return out
 
 
 def _rr(u, f, h, nu, smoother, bc, zero):
-    n = f.shape[0]
+    name = _name("mg_smooth_rr", f)
     out = torch.empty_like(f)
-    R = torch.empty((n // 2, n // 2), dtype=f.dtype, device=f.device)
-    inv_hsq, inv_adiag, adiag = _scalars(h)
-    _launch("mg_smooth_rr", f, None if zero else u.data_ptr(), f.data_ptr(),
-            out.data_ptr(), R.data_ptr(), n, nu, SMOOTHERS[smoother], BCS[bc],
-            inv_hsq, inv_adiag, adiag, int(zero))
+    R = torch.empty(_half(f.shape), dtype=f.dtype, device=f.device)
+    inv_hsq, inv_adiag, adiag = _scalars(h, f.ndim)
+    _launch(name, f, None if zero else u.data_ptr(), f.data_ptr(),
+            out.data_ptr(), R.data_ptr(), *_geometry(f, _steps(nu, smoother) + 1),
+            nu, SMOOTHERS[smoother], BCS[bc], inv_hsq, inv_adiag, adiag, int(zero))
     if zero:
-        launches["mg_smooth_rr.zero"] += 1
+        launches[name + ".zero"] += 1
     return out, R
 
 
 def smooth_residual_restrict(u, f, h, nu, smoother="jacobi", bc="ghost0"):
-    """nu sweeps, then R = restrict(residual). Returns (u, R) (K2)."""
+    """nu sweeps, then R = restrict(residual). Returns (u, R) (K2, K5)."""
     if u.device.type == "cpu":
         return ops.smooth_residual_restrict(u, f, h, nu, smoother, bc)
-    _check("mg_smooth_rr", u, nu, smoother, bc, (f, u.shape))
+    _check(_name("mg_smooth_rr", u), u, nu, smoother, bc, True, (f, u.shape))
     return _rr(u, f, h, nu, smoother, bc, zero=False)
 
 
 def smooth_residual_restrict_zero(f, h, nu, smoother="jacobi", bc="ghost0"):
-    """The down-leg from u identically zero; reads f only (K2, from zero)."""
+    """The down-leg from u identically zero; reads f only (K2, K5, from
+    zero)."""
     if f.device.type == "cpu":
         return ops.smooth_residual_restrict_zero(f, h, nu, smoother, bc)
-    _check("mg_smooth_rr", f, nu, smoother, bc)
+    _check(_name("mg_smooth_rr", f), f, nu, smoother, bc, True)
     return _rr(None, f, h, nu, smoother, bc, zero=True)
 
 
 def _pc(u, f, V, h, nu, smoother, bc, kind, rnorm):
+    name = _name("mg_prolong_correct_smooth", u)
     if kind not in PROLONG_KINDS:
-        raise ValueError(f"mg_prolong_correct_smooth: unknown prolongation {kind!r}")
-    n = u.shape[0]
-    _check("mg_prolong_correct_smooth", u, nu, smoother, bc, (f, u.shape),
-           (V, (n // 2, n // 2)))
+        raise ValueError(f"{name}: unknown prolongation {kind!r}")
+    _check(name, u, nu, smoother, bc, rnorm, (f, u.shape), (V, _half(u.shape)))
     out = torch.empty_like(u)
-    tiles = -(-n // TILE)
-    partials = (torch.empty(tiles * tiles, dtype=torch.float32, device=u.device)
+    halo = _steps(nu, smoother) + rnorm
+    partials = (torch.empty(_blocks(u, halo), dtype=torch.float32, device=u.device)
                 if rnorm else None)
-    inv_hsq, inv_adiag, adiag = _scalars(h)
-    _launch("mg_prolong_correct_smooth", u, u.data_ptr(), f.data_ptr(),
-            V.data_ptr(), out.data_ptr(),
-            partials.data_ptr() if rnorm else None, n, nu,
+    inv_hsq, inv_adiag, adiag = _scalars(h, u.ndim)
+    _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
+            partials.data_ptr() if rnorm else None, *_geometry(u, halo), nu,
             SMOOTHERS[smoother], BCS[bc], PROLONG_KINDS[kind], inv_hsq,
             inv_adiag, adiag, int(rnorm))
     if rnorm:
-        launches["mg_prolong_correct_smooth.rnorm"] += 1
+        launches[name + ".rnorm"] += 1
     return out, partials
 
 
 def prolong_correct_smooth(u, f, V, h, nu, smoother="jacobi", bc="ghost0",
                            kind="inject"):
-    """u += P(V), then nu sweeps (K3)."""
+    """u += P(V), then nu sweeps (K3, K6)."""
     if u.device.type == "cpu":
         return ops.prolong_correct_smooth(u, f, V, h, nu, smoother, bc, kind)
     return _pc(u, f, V, h, nu, smoother, bc, kind, rnorm=False)[0]
@@ -173,7 +238,7 @@ def prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother="jacobi",
                                  bc="ghost0", kind="inject"):
     """The up-leg and sum(r^2) of the result's zero-ghost residual:
     (u, sum(r^2)).  The kernel writes one f32 partial per block; they are
-    summed here in a fixed order (K3 with rnorm)."""
+    summed here in a fixed order (K3, K6 with rnorm)."""
     if u.device.type == "cpu":
         return ops.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother, bc,
                                                 kind)

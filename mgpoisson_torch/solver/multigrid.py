@@ -1,7 +1,7 @@
 """Solver API (port of the single-device path of
 ``mgpoisson/solver/multigrid.py``).
 
-- construct with a Spec and an explicit device;
+- construct with a Spec and a device (the card unless told otherwise);
 - ``step()`` = one cycle + the stopping metric;
 - ``solve()`` = iterate to maxiter, stopping on err < tol, a non-finite
   err, or a truthy error_callback.
@@ -59,13 +59,19 @@ def _callback_arity(cb) -> int:
 class MultigridPoisson:
     """Geometric multigrid Poisson solver on one torch device."""
 
-    def __init__(self, spec: Spec, device="cpu"):
-        """device: where the solver's tensors live, 'cpu' by default.
+    def __init__(self, spec: Spec, device="cuda"):
+        """device: where the solver's tensors live, the card by default;
+        without one this raises, and device='cpu' solves on the CPU.
         The device of the tensors decides between the CUDA kernels and
         the plain ops (see ``mgpoisson_torch.kernels.use_kernels``); the
         solver never moves work to another device by itself."""
         self.spec = spec
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"MultigridPoisson: device {str(self.device)!r} but "
+                "torch.cuda.is_available() is False; pass device=\"cpu\" to "
+                "solve on the CPU")
         self._dtype = getattr(torch, spec.dtype)
         use_kernels(spec, spec.size, self.device)   # rejects backend='cuda' on CPU
         self._want_rnorm = spec.stop == "residual"

@@ -7,8 +7,8 @@ where JAX is not installed; tests/conftest.py imports JAX, hence:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Sizes include levels smaller than one 32x32 tile and levels of several
-tiles.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
+Sizes include levels smaller than one tile (32x32 in 2D, 16^3 or 8^3 in
+3D) and levels of several tiles.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
 bar), 1e-5 relative on sum(r^2), whose partials are summed in another
 order."""
 
@@ -25,10 +25,10 @@ def card():
     return torch.device("cuda")
 
 
-def _data(n, seed, device):
+def _data(n, seed, device, ndim=2):
     g = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn(s, generator=g, device=device)
-            for s in ((n, n), (n, n), (n // 2, n // 2))]
+    return [torch.randn((s,) * ndim, generator=g, device=device)
+            for s in (n, n, n // 2)]
 
 
 def _nmax(got, want):
@@ -36,13 +36,22 @@ def _nmax(got, want):
                  / want.double().abs().max())
 
 
+# 2D: each smoother at its sweep cap (nu <= 8, <= 4 for rbgs) or the tuned
+# scheme's wjacobi nu = 3.  3D: levels smaller than one tile (16^3 at
+# T = 16), one tile and several; the sweep counts at the composites' halo
+# cap (radius*nu + 1 <= 8), where the tile narrows to 8, and wjacobi nu = 3
+# (T = 16).
+CASES = ([(2, n, s, nu) for n in (16, 64, 256)
+          for s, nu in (("jacobi", 7), ("wjacobi", 3), ("rbgs", 4))]
+         + [(3, n, s, nu) for n in (16, 32, 64)
+            for s, nu in (("jacobi", 7), ("wjacobi", 3), ("rbgs", 3))])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [16, 64, 256])
-@pytest.mark.parametrize("smoother,nu", [("jacobi", 7), ("wjacobi", 3),
-                                         ("rbgs", 4)])
+@pytest.mark.parametrize("ndim,n,smoother,nu", CASES)
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
-def test_kernels_vs_plain(card, n, smoother, nu, bc):
-    u, f, V = _data(n, n + nu, card)
+def test_kernels_vs_plain(card, ndim, n, smoother, nu, bc):
+    u, f, V = _data(n, n + nu, card, ndim)
     h = 1.0 / n
     a = (h, nu, smoother, bc)
     assert _nmax(cuda.smooth(u, f, *a), ops.smooth(u, f, *a)) <= 1e-5
@@ -60,6 +69,27 @@ def test_kernels_vs_plain(card, n, smoother, nu, bc):
         want_u, want_r2 = ops.prolong_correct_smooth_rnorm(*pa)
         assert _nmax(got_u, want_u) <= 1e-5
         assert abs(float(got_r2) / float(want_r2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_kernels3d_halo_caps(card):
+    """K4 alone takes a halo of 8 (rbgs nu = 4, jacobi nu = 8); the
+    composites, which read one more ring, do not."""
+    u, f, V = _data(32, 5, card, ndim=3)
+    h = 1.0 / 32
+    for smoother, nu in (("rbgs", 4), ("jacobi", 8)):
+        a = (h, nu, smoother, "face")
+        assert _nmax(cuda.smooth(u, f, *a), ops.smooth(u, f, *a)) <= 1e-5
+        with pytest.raises(ValueError, match="no kernel"):
+            cuda.smooth_residual_restrict(u, f, *a)
+        with pytest.raises(ValueError, match="no kernel"):
+            cuda.prolong_correct_smooth_rnorm(u, f, V, *a)
+    # K6 without rnorm reads no residual ring
+    a = (u, f, V, h, 4, "rbgs", "ghost0", "bilinear")
+    assert _nmax(cuda.prolong_correct_smooth(*a), ops.prolong_correct_smooth(*a)) <= 1e-5
+    with pytest.raises(ValueError, match="square 2D or cubic 3D"):
+        cuda.smooth(u[:16].contiguous(), f[:16].contiguous(), h, 1)
     torch.cuda.synchronize()
 
 
@@ -83,7 +113,21 @@ def test_launch_counters(card):
     cuda.smooth_residual_restrict_zero(f, 1 / 256, 3, "wjacobi", "face")
     cuda.prolong_correct_smooth_rnorm(u, f, V, 1 / 256, 3, "wjacobi", "ghost0",
                                       "bilinear")
-    assert cuda.launches == {"mg_smooth": 0, "mg_smooth_rr": 1,
-                             "mg_smooth_rr.zero": 1,
-                             "mg_prolong_correct_smooth": 1,
-                             "mg_prolong_correct_smooth.rnorm": 1}
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_smooth_rr": 1, "mg_smooth_rr.zero": 1,
+                 "mg_prolong_correct_smooth": 1,
+                 "mg_prolong_correct_smooth.rnorm": 1})
+    assert cuda.launches == want
+    u, f, V = _data(32, 1, card, ndim=3)
+    cuda.reset_launches()
+    cuda.smooth(u, f, 1 / 32, 3, "wjacobi", "ghost0")
+    cuda.smooth_residual_restrict(u, f, 1 / 32, 3, "wjacobi", "ghost0")
+    cuda.smooth_residual_restrict_zero(f, 1 / 32, 3, "wjacobi", "face")
+    cuda.prolong_correct_smooth(u, f, V, 1 / 32, 3, "wjacobi", "face", "bilinear")
+    cuda.prolong_correct_smooth_rnorm(u, f, V, 1 / 32, 3, "wjacobi", "ghost0",
+                                      "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_smooth3d": 1, "mg_smooth_rr3d": 2, "mg_smooth_rr3d.zero": 1,
+                 "mg_prolong_correct_smooth3d": 2,
+                 "mg_prolong_correct_smooth3d.rnorm": 1})
+    assert cuda.launches == want

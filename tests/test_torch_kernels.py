@@ -152,6 +152,12 @@ def test_tile_matches_cuda_source():
     (dict(), 4096, "cpu", False),
     (dict(backend="cuda"), 4096, "cuda", True),
     (dict(ndim=3, backend="torch"), 256, "cuda", False),
+    # 3D: the same rule; 256^3 f32 is the JAX package's 32 MiB byte gate
+    (dict(ndim=3), 256, "cuda", True),
+    (dict(ndim=3), 128, "cuda", False),
+    (dict(ndim=3, kernel_min_size=64), 128, "cuda", True),
+    (dict(ndim=3, scheme="fast", pre_smooth=3), 256, "cuda", True),
+    (dict(ndim=3, scheme="fast", pre_smooth=4), 256, "cuda", False),  # halo 9 > 8
 ])
 def test_dispatch_rule(spec_kw, n, device, want):
     spec = Spec(size=4096, **spec_kw)

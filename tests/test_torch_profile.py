@@ -14,7 +14,7 @@ def test_profile_rows_match_a_plain_solve(kms, tmp_path, capsys):
     row = rows[0]
     spec = Spec(size=32, dtype="float32", scheme="tuned", stop="residual",
                 tol=1e-6, kernel_min_size=kms)
-    res = MultigridPoisson(spec).solve()
+    res = MultigridPoisson(spec, device="cpu").solve()
     assert row["cycles"] == row["profiled_cycles"] == res.iterations
     assert row["converged"] is True and row["final_err"] == res.final_err
     assert len(row["cycle_ms"]) == res.iterations
@@ -22,3 +22,17 @@ def test_profile_rows_match_a_plain_solve(kms, tmp_path, capsys):
     assert row["device_busy_share"] == "not measured"
     assert (tmp_path / f"solve_32_kms{kms}.json").stat().st_size > 0
     assert '"size": 32' in capsys.readouterr().out
+
+
+def test_profile_reads_a_3d_solve(tmp_path):
+    rows = profile.main(["--size", "16", "--ndim", "3", "--device", "cpu",
+                         "--tol", "1e-6", "--out", str(tmp_path)])
+    row = rows[0]
+    spec = Spec(size=16, ndim=3, dtype="float32", scheme="tuned",
+                stop="residual", tol=1e-6)
+    res = MultigridPoisson(spec, device="cpu").solve()
+    assert row["ndim"] == 3 and row["cycles"] == res.iterations
+    assert row["converged"] is True and row["final_err"] == res.final_err
+    assert all(v == 0 for v in row["kernel_calls"].values())
+    assert row["device_busy_share"] == "not measured"
+    assert (tmp_path / "solve_16_3d_kms256.json").stat().st_size > 0

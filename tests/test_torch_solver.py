@@ -31,7 +31,7 @@ def _pair(**kw):
     spec = mgpoisson.Spec(backend="xla", **kw)
     return (mgpoisson.MultigridPoisson(spec),
             mgpoisson_torch.MultigridPoisson(
-                spec_from_jax(dataclasses.asdict(spec))))
+                spec_from_jax(dataclasses.asdict(spec)), device="cpu"))
 
 
 def _nmax(got, want):
@@ -65,6 +65,36 @@ def test_tuned_residual_solve_matches(n, dtype, tol, err_rtol, psi_tol):
                                rtol=err_rtol)
     assert rt.psi.dtype == getattr(torch, dtype)
     assert _nmax(rt.psi, rj.psi) <= psi_tol
+
+
+@pytest.mark.parametrize("n,dtype,tol,err_rtol,psi_tol", [
+    (32, "float32", 1e-7, 1e-4, 1e-5), (64, "float32", 1e-7, 1e-4, 1e-5),
+    (32, "float64", 1e-10, 1e-10, 1e-10)])
+def test_tuned_residual_solve_matches_3d(n, dtype, tol, err_rtol, psi_tol):
+    """The 3D slice: the 7-point tuned solve, cycle for cycle."""
+    mj, mt = _pair(size=n, ndim=3, dtype=dtype, scheme="tuned",
+                   stop="residual", tol=tol)
+    rj, rt = mj.solve(), mt.solve()
+    assert rj.converged and rt.converged
+    assert rt.iterations == rj.iterations
+    np.testing.assert_allclose(rt.errs.numpy(), np.asarray(rj.errs),
+                               rtol=err_rtol)
+    assert rt.psi.shape == (n, n, n)
+    assert _nmax(rt.psi, rj.psi) <= psi_tol
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without a CUDA device the solver's default device raises and names
+    the way to the CPU; it never carries on there by itself."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(size=16))
+
+
+def test_cpu_device_solves():
+    res = mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(size=16),
+                                           device="cpu").solve()
+    assert res.converged and res.psi.device.type == "cpu"
 
 
 def test_step_trace_and_metrics_match():
@@ -152,7 +182,8 @@ VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(smoother="rbgs"), dict(cycle="w"), dict(stop="residual"),
          dict(coarse_size=4), dict(h=0.01), dict(dtype="float64"),
          dict(backend="xla", ndim=3), dict(backend="pallas"),
-         dict(pallas_min_size=64), dict(sweep_dtype="float32")]
+         dict(pallas_min_size=64), dict(sweep_dtype="float32"), dict(ndim=3),
+         dict(ndim=3, backend="pallas")]
 INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="sor"), dict(cycle="z"), dict(stop="x"),
            dict(stop_check="x"), dict(stop_check="adaptive"),
@@ -165,8 +196,7 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
 LATER = [dict(mesh_shape=(2, 2)), dict(partition="spmd"),
          dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
          dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
-         dict(smoother="gs_lex", scheme="reference"), dict(ndim=3),
-         dict(ndim=3, backend="pallas")]
+         dict(smoother="gs_lex", scheme="reference")]
 
 
 @pytest.mark.parametrize("kw", VALID, ids=repr)
@@ -201,7 +231,8 @@ def test_spec_names_the_slice_of_what_is_not_ported(kw):
 
 def test_backend_cuda_on_cpu_is_an_error():
     with pytest.raises(ValueError, match="CUDA tensors"):
-        mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(size=64, backend="cuda"))
+        mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(size=64, backend="cuda"),
+                                         device="cpu")
 
 
 def test_cpu_solve_launches_no_kernel():
@@ -209,7 +240,8 @@ def test_cpu_solve_launches_no_kernel():
     backend: all launch counters stay 0."""
     cuda.reset_launches()
     res = mgpoisson_torch.MultigridPoisson(
-        mgpoisson_torch.Spec(size=512, stop="residual", tol=1e-6)).solve()
+        mgpoisson_torch.Spec(size=512, stop="residual", tol=1e-6),
+        device="cpu").solve()
     assert res.converged
     assert all(v == 0 for v in cuda.launches.values()), cuda.launches
 
