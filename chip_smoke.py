@@ -6,7 +6,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device   — a CUDA device must be present; prints its name and power
               limit (nvidia-smi) and turns TF32 off.
-2. build    — builds the six CUDA kernels from mgpoisson_torch/csrc (one
+2. build    — builds the eight CUDA kernels from mgpoisson_torch/csrc (one
               nvcc per source, in parallel) and prints ptxas's registers,
               spills and shared memory.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
@@ -32,17 +32,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. solve512 — the same spec at 512^3, where two levels run the kernels and
               K5's from-zero flag is on the solve's path: cycles, relres,
               launches of the solve and of a traced V-cycle.
+8. parity_packed — the packed fine level of the fast scheme: pack/unpack
+              exact on the card; K7 and K8 (both prolongation kinds, rnorm)
+              against their plain packed versions at 16384 ... 256 x nu in
+              {1, 2, 3}; the unpacked result of each against K2 / K3 (rbgs,
+              ghost0) on the unpacked grid, two formulas that differ by add
+              order only; then the time of K7, K8 and K8 with rnorm at
+              4096^2 (rbgs nu = 1, bilinear, the fast scheme's fine
+              settings) beside K2 and K3 at the same settings unpacked,
+              and the time of the solver's pack and unpack.
+9. slice_fast — the fast-scheme 4096^2 f32 solve, packed, as in phase 4
+              (cycles, relres, f64 re-check, launches), then the same spec
+              with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
+              plain ops, each with its per-cycle wall; then 1024^2 and
+              16384^2 with the same checks.
 
 The last lines are a JSON object of the off-path kernels (K1, K4, with
 their launches in the traced cycles), a JSON object of the main paths'
-kernels (K2, K3 with their launches in the 4096^2 solve; K5, K6 with theirs
-in the 256^3 solve), the card's name and power limit, and
-{"ok": true, "device": {...}}.  Imports nothing of JAX.
+kernels (K2, K3 with their launches in the 4096^2 tuned solve; K5, K6 with
+theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve),
+the card's name and power limit, and {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -76,6 +92,15 @@ JAX_ERRS_3D = {
           5.0171301779755595e-08, 7.511745891974897e-09, 1.170777585990379e-09,
           1.882346084558506e-10, 3.100347756301858e-11],
 }
+# the same package and backend on a CPU for Spec(size=n, dtype='float32',
+# scheme='fast', stop='residual', tol=1e-10): converged, with this relres
+# per cycle (one per cycle run)
+JAX_ERRS_FAST = {
+    1024: [9.896094610439832e-09, 1.0446016274201497e-09, 1.500611718219247e-10,
+           2.8420021544461882e-11],
+    4096: [6.152843790019347e-10, 6.275716751824589e-11],
+    16384: [3.840496323737064e-11],
+}
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 RNORM_TOL = 1e-5           # relative, on sum(r^2): partials summed in another order
@@ -86,6 +111,9 @@ MAIN_SPEC = Spec(size=MAIN_N, dtype="float32", scheme="tuned", stop="residual",
 SPEC_3D = Spec(size=256, ndim=3, dtype="float32", scheme="tuned", stop="residual",
                tol=1e-10)
 SIDES_3D = (512, 256)      # the 3D levels the 256^3 and 512^3 solves run on the kernels
+FAST_SPEC = MAIN_SPEC.with_(scheme="fast")
+PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves, and 256
+CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
 
 
 def kernel_levels(spec):
@@ -100,7 +128,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
 # kernel -> (source, the Pallas kernel it replaces); K1 and K4 run only on
-# the traced cycles, K2, K3, K5 and K6 carry the solves
+# the traced cycles, K2, K3, K5, K6, K7 and K8 carry the solves
 OFF_PATH = ("mg_smooth", "mg_smooth3d")
 KERNELS = {
     "mg_smooth": ("mgpoisson_torch/csrc/mg_smooth.cu",
@@ -115,6 +143,10 @@ KERNELS = {
                        "mgpoisson/kernels/pallas.py:1693"),
     "mg_prolong_correct_smooth3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
                                     "mgpoisson/kernels/pallas.py:1821"),
+    "mg_packed_rr": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
+                     "mgpoisson/kernels/pallas.py:3079"),
+    "mg_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
+                     "mgpoisson/kernels/pallas.py:3243"),
 }
 # per rank: the (smooth, rr, pc) kernels and the tags of the parity lines
 RANK = {2: (("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"), ("K1", "K2", "K3")),
@@ -181,20 +213,30 @@ def _data(n, ndim, seed, dev):
             for s in (n, n, n // 2)]
 
 
+def note(worst, kernel, tag, got, want, row, tol=PARITY_TOL):
+    """Appends tag=normalized max |diff| to `row` and checks it against
+    `tol`; with a kernel, records its largest normalized and absolute
+    differences in `worst`."""
+    rel, ab = nmax(got, want)
+    if kernel is not None:
+        worst[kernel][0] = max(worst[kernel][0], rel)
+        worst[kernel][1] = max(worst[kernel][1], ab)
+    row.append(f"{tag}={rel:.1e}")
+    check(rel <= tol, f"{tag} {row[0]}: normalized max |diff| {rel:.3e} > {tol}")
+
+
+def note_r2(tag, got, want, row, tol=RNORM_TOL):
+    rel2 = abs(float(got) / float(want) - 1.0)
+    row.append(f"{tag}={rel2:.1e}")
+    check(rel2 <= tol, f"{row[0]}: {tag} sum(r^2) relative difference {rel2:.3e} > {tol}")
+
+
 def phase_parity(dev, ndim, sides, worst):
     """Every kernel variant of rank `ndim` against its plain version at each
     side; records per kernel the largest normalized and absolute
     differences seen in `worst`."""
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     label = "parity" if ndim == 2 else "parity3d"
-
-    def note(kernel, tag, got, want, row):
-        rel, ab = nmax(got, want)
-        worst[kernel][0] = max(worst[kernel][0], rel)
-        worst[kernel][1] = max(worst[kernel][1], ab)
-        row.append(f"{tag}={rel:.1e}")
-        check(rel <= PARITY_TOL, f"{tag} {row[0]}: normalized max |diff| "
-              f"{rel:.3e} > {PARITY_TOL}")
 
     for n in sides:
         u, f, V = _data(n, ndim, seed=n, dev=dev)
@@ -204,7 +246,7 @@ def phase_parity(dev, ndim, sides, worst):
                 for nu in ((1, 3, 7) if smoother == "jacobi" and ndim == 2 else (1, 3)):
                     row = [f"n={n} {bc} {smoother} nu={nu}"]
                     a = (h, nu, smoother, bc)
-                    note(k_smooth, t_smooth, cuda.smooth(u, f, *a),
+                    note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a),
                          ops.smooth(u, f, *a), row)
                     for tag, fk, fp, args in (
                             (t_rr, cuda.smooth_residual_restrict,
@@ -212,20 +254,17 @@ def phase_parity(dev, ndim, sides, worst):
                             (t_rr + "z", cuda.smooth_residual_restrict_zero,
                              ops.smooth_residual_restrict_zero, (f,))):
                         (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
-                        note(k_rr, f"{tag}.u", gu, wu, row)
-                        note(k_rr, f"{tag}.R", gR, wR, row)
+                        note(worst, k_rr, f"{tag}.u", gu, wu, row)
+                        note(worst, k_rr, f"{tag}.R", gR, wR, row)
                     for kind in ("inject", "bilinear"):
                         pa = (u, f, V, h, nu, smoother, bc, kind)
                         tag = t_pc + kind[0]
-                        note(k_pc, tag, cuda.prolong_correct_smooth(*pa),
+                        note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
                              ops.prolong_correct_smooth(*pa), row)
                         (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
                                               ops.prolong_correct_smooth_rnorm(*pa))
-                        note(k_pc, tag + "r.u", gu, wu, row)
-                        rel2 = abs(float(g2) / float(w2) - 1.0)
-                        row.append(f"{tag}r.r2={rel2:.1e}")
-                        check(rel2 <= RNORM_TOL, f"{row[0]}: sum(r^2) relative "
-                              f"difference {rel2:.3e} > {RNORM_TOL}")
+                        note(worst, k_pc, tag + "r.u", gu, wu, row)
+                        note_r2(tag + "r.r2", g2, w2, row)
                     torch.cuda.synchronize()
                     print(f"[{label}] " + " ".join(row))
         del u, f, V
@@ -299,8 +338,17 @@ def phase_timing(dev, n, ndim):
             u, f, V, h, 3, "wjacobi", "ghost0", "bilinear"),
             (u, f, V), _work(ndim, 3, "wjacobi", "pc", "bilinear", rnorm=True)),
     }
+    out = _time_cases("timing", cases, f"{n}^{ndim}", cells)
+    del u, f, V
+    torch.cuda.empty_cache()
+    return out
+
+
+def _time_cases(label, cases, shape, cells):
+    """Times each case's kernel (through kernels.cuda) and plain version
+    (kernels.ops), in turns plain, kernel, kernel, plain; with each its
+    bound."""
     out = {}
-    shape = f"{n}^{ndim}"
     for name, (call, inputs, work) in cases.items():
         p1 = _time_ms(lambda: call(ops))
         k1 = _time_ms(lambda: call(cuda))
@@ -310,9 +358,90 @@ def phase_timing(dev, n, ndim):
         out[name] = {"ms": statistics.median([k1, k2]),
                      "plain_ms": statistics.median([p1, p2]),
                      "bound_ms": b_ms, "bound_by": b_by}
-        print(f"[timing] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms, "
+        print(f"[{label}] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms, "
               f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    del u, f, V
+    return out
+
+
+def phase_parity_packed(dev, worst):
+    """K7 and K8 against their plain packed versions at every fine side of
+    the packed solves and nu in {1, 2, 3}; each unpacked result against the
+    unpacked kernels K2 / K3 (rbgs, ghost0) on the unpacked grid."""
+    for n in PACKED_SIDES:
+        u, f, V = _data(n, 2, seed=n + 1, dev=dev)
+        up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+        check(torch.equal(cuda.unpack_grid(up), u) and torch.equal(cuda.unpack_grid(fp), f),
+              f"unpack(pack(u)) != u at {n}^2")
+        h = 1.0 / n
+        for nu in (1, 2, 3):
+            row = [f"n={n} nu={nu}"]
+            a = (h, nu)
+            (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, *a),
+                                  ops.packed_smooth_residual_restrict(up, fp, *a))
+            note(worst, "mg_packed_rr", "K7.u", gu, wu, row)
+            note(worst, "mg_packed_rr", "K7.R", gR, wR, row)
+            xu, xR = cuda.smooth_residual_restrict(u, f, h, nu, "rbgs", "ghost0")
+            note(worst, None, "K7~K2.u", cuda.unpack_grid(gu), xu, row, CROSS_TOL)
+            note(worst, None, "K7~K2.R", gR, xR, row, CROSS_TOL)
+            for kind in ("inject", "bilinear"):
+                pa = (up, fp, V, *a, kind)
+                tag = "K8" + kind[0]
+                gu = cuda.packed_prolong_correct_smooth(*pa)
+                note(worst, "mg_packed_pc", tag, gu, ops.packed_prolong_correct_smooth(*pa), row)
+                (gru, g2), (wru, w2) = (cuda.packed_prolong_correct_smooth_rnorm(*pa),
+                                        ops.packed_prolong_correct_smooth_rnorm(*pa))
+                note(worst, "mg_packed_pc", tag + "r.u", gru, wru, row)
+                note_r2(tag + "r.r2", g2, w2, row)
+                xa = (u, f, V, h, nu, "rbgs", "ghost0", kind)
+                note(worst, None, tag + "~K3", cuda.unpack_grid(gu),
+                     cuda.prolong_correct_smooth(*xa), row, CROSS_TOL)
+                note_r2(tag + "r~K3.r2", g2, cuda.prolong_correct_smooth_rnorm(*xa)[1], row,
+                        CROSS_TOL)
+            torch.cuda.synchronize()
+            print("[parity_packed] " + " ".join(row))
+        del u, f, V, up, fp
+        torch.cuda.empty_cache()
+
+
+def phase_timing_packed(dev, n):
+    """At the fast scheme's fine settings (rbgs nu = 1, bilinear, ghost0):
+    K7, K8 and K8 with rnorm on packed state, and beside them K2 and K3 on
+    the unpacked grid, each with its plain version and its bound."""
+    u, f, V = _data(n, 2, seed=11, dev=dev)
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    h, nu = 1.0 / n, 1
+    unpacked = (h, nu, "rbgs", "ghost0")
+    w_rr, w_pc = _work(2, nu, "rbgs", "rr"), _work(2, nu, "rbgs", "pc", "bilinear")
+    w_pcr = _work(2, nu, "rbgs", "pc", "bilinear", rnorm=True)
+    cases = {
+        "mg_packed_rr": (lambda m: m.packed_smooth_residual_restrict(up, fp, h, nu),
+                         (up, fp), w_rr),
+        "mg_smooth_rr@rbgs": (lambda m: m.smooth_residual_restrict(u, f, *unpacked),
+                              (u, f), w_rr),
+        "mg_packed_pc": (lambda m: m.packed_prolong_correct_smooth(up, fp, V, h, nu,
+                                                                   "bilinear"),
+                         (up, fp, V), w_pc),
+        "mg_prolong_correct_smooth@rbgs": (
+            lambda m: m.prolong_correct_smooth(u, f, V, *unpacked, "bilinear"),
+            (u, f, V), w_pc),
+        "mg_packed_pc.rnorm": (
+            lambda m: m.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, "bilinear"),
+            (up, fp, V), w_pcr),
+        "mg_prolong_correct_smooth.rnorm@rbgs": (
+            lambda m: m.prolong_correct_smooth_rnorm(u, f, V, *unpacked, "bilinear"),
+            (u, f, V), w_pcr),
+    }
+    out = _time_cases("timing_packed", cases, f"{n}^2", n * n)
+    for packed_name, name in (("mg_packed_rr", "mg_smooth_rr@rbgs"),
+                              ("mg_packed_pc", "mg_prolong_correct_smooth@rbgs"),
+                              ("mg_packed_pc.rnorm", "mg_prolong_correct_smooth.rnorm@rbgs")):
+        print(f"[timing_packed] packed {packed_name} against unpacked {name}: "
+              f"{out[name]['ms'] / out[packed_name]['ms']:.3f}x")
+    # the solver's pack of psi and f and unpack of psi, once per solve
+    # (plain torch: exact data movement)
+    print(f"[timing_packed] pack_grid {_time_ms(lambda: cuda.pack_grid(u)):.4f} ms, "
+          f"unpack_grid {_time_ms(lambda: cuda.unpack_grid(up)):.4f} ms at {n}^2 f32")
+    del u, f, V, up, fp
     torch.cuda.empty_cache()
     return out
 
@@ -334,30 +463,34 @@ def _expected(counts):
 
 
 def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=True,
-                warm_up=True):
+                warm_up=True, traced=True):
     """The solve of `spec` on the card against the JAX package's per-cycle
-    relres; returns the launch counts of the solve and of a traced V-cycle,
-    each read from its own run with the counters zeroed just before it."""
+    relres; returns the launch counts of the solve and (with `traced`) of
+    a traced V-cycle, each read from its own run with the counters zeroed
+    just before it."""
     if warm_up:
         _solve(spec, dev)
     cuda.reset_launches()
     mg, res, cycle_ms = _solve(spec, dev)
     after_solve = dict(cuda.launches)
-    # the traced V-cycle (the per-stage debugging entry point) is the one
-    # caller of K1 / K4
     f = mg.rhs()
-    cuda.reset_launches()
-    v_cycle(res.psi, f, spec.fine_h, spec, trace=[])
-    torch.cuda.synchronize()
-    after_trace = dict(cuda.launches)
+    after_trace = None
+    if traced:
+        # the traced V-cycle (the per-stage debugging entry point) is the
+        # one caller of K1 / K4
+        cuda.reset_launches()
+        v_cycle(res.psi, f, spec.fine_h, spec, trace=[])
+        torch.cuda.synchronize()
+        after_trace = dict(cuda.launches)
 
     it, errs, shape = res.iterations, res.errs.tolist(), f"{spec.size}^{spec.ndim}"
-    print(f"[{label}] tuned {shape} f32 on {dev}: {it} cycles, converged="
+    what = f"{spec.scheme}{' packed' if mg._packed else ''}"
+    print(f"[{label}] {what} {shape} f32 on {dev}: {it} cycles, converged="
           f"{res.converged}, final relres {res.final_err:.6e}")
     for k, (e, ej) in enumerate(zip(errs, jax_errs), 1):
         print(f"[{label}]   cycle {k}: relres {e:.6e}  jax {ej:.6e}  "
               f"rel diff {abs(e - ej) / ej:.2e}")
-    check(res.converged, f"the {shape} tuned solve did not converge")
+    check(res.converged, f"the {shape} {what} solve did not converge")
     check(it == jax_iterations, f"{shape}: {it} cycles, the JAX package takes "
           f"{jax_iterations}")
     for k, (e, ej) in enumerate(zip(errs, jax_errs), 1):
@@ -380,23 +513,69 @@ def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=Tru
           f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
 
     if compare_plain:
-        plain = spec.with_(backend="torch")
-        if warm_up:
-            _solve(plain, dev)
-        cuda.reset_launches()
-        _, res_t, cycle_ms_t = _solve(plain, dev)
-        check(all(v == 0 for v in cuda.launches.values()),
-              f"backend='torch' launched kernels: {cuda.launches}")
-        check(res_t.iterations == it, f"backend='torch' took {res_t.iterations} "
-              f"cycles, the kernels {it}")
-        ms_t = statistics.median(cycle_ms_t)
-        print(f"[{label}] per-cycle wall ms, median (all): plain   {ms_t:.3f} "
-              f"({' '.join(f'{c:.3f}' for c in cycle_ms_t)})")
+        compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {}, warm_up)
     return it, after_solve, after_trace
+
+
+def compare_solve(label, what, spec, dev, it, launches, warm_up=True):
+    """Another solve of the same problem, for its per-cycle wall: it must
+    take `it` cycles and launch exactly `launches`."""
+    if warm_up:
+        _solve(spec, dev)
+    cuda.reset_launches()
+    _, res, cycle_ms = _solve(spec, dev)
+    check_launches(f"{label} {what}", dict(cuda.launches), _expected(launches),
+                   f"the {what} solve")
+    check(res.iterations == it, f"{label} {what}: {res.iterations} cycles, not {it}")
+    ms = statistics.median(cycle_ms)
+    print(f"[{label}] per-cycle wall ms, median (all): {what:<8} {ms:.3f} "
+          f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
 
 
 def check_launches(label, got, want, what):
     check(got == want, f"{label}: launches {got}, expected {want}: {what}")
+
+
+def fast_launches(spec, it, packed=True):
+    """The launch counts of an `it`-cycle fast V-cycle solve: packed, K7 and
+    K8 (with rnorm) once per cycle at the fine level and K2 (from zero) and
+    K3 once per cycle at each coarse kernel level; unpacked, K2 and K3 at
+    every kernel level, K3 with rnorm at the fine one."""
+    L = len(kernel_levels(spec))
+    if packed:
+        return {"mg_packed_rr": it, "mg_packed_pc": it, "mg_packed_pc.rnorm": it,
+                "mg_smooth_rr": it * (L - 1), "mg_smooth_rr.zero": it * (L - 1),
+                "mg_prolong_correct_smooth": it * (L - 1)}
+    return {"mg_smooth_rr": it * L, "mg_smooth_rr.zero": it * (L - 1),
+            "mg_prolong_correct_smooth": it * L, "mg_prolong_correct_smooth.rnorm": it}
+
+
+def phase_slice_fast(dev, n, compare):
+    """The fast-scheme f32 solve at n^2, packed, against the JAX package;
+    with `compare`, the same spec with MGPOISSON_PACKED=0 and on plain ops
+    beside it.  Returns the packed solve's launches."""
+    spec = FAST_SPEC.with_(size=n)
+    label = f"slice_fast{n}"
+    jax_errs = JAX_ERRS_FAST[n]
+    it, launches, _ = phase_slice(label, spec, dev, len(jax_errs), jax_errs,
+                                  compare_plain=False, traced=False,
+                                  warm_up=n <= MAIN_N)
+    check_launches(f"{n}^2 fast solve", launches, _expected(fast_launches(spec, it)),
+                   "K7 and K8 (rnorm) once per cycle, K2 (zero) and K3 once per cycle "
+                   "at each coarse level >= kernel_min_size")
+    if compare:
+        old = os.environ.get("MGPOISSON_PACKED")
+        os.environ["MGPOISSON_PACKED"] = "0"
+        try:
+            compare_solve(label, "unpacked", spec, dev, it,
+                          fast_launches(spec, it, packed=False))
+        finally:
+            if old is None:
+                del os.environ["MGPOISSON_PACKED"]
+            else:
+                os.environ["MGPOISSON_PACKED"] = old
+        compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
+    return launches
 
 
 def main():
@@ -442,12 +621,22 @@ def main():
     check_launches("512^3 traced V-cycle", trace5, _expected({"mg_smooth3d": 4}),
                    "K4 twice at each of the two kernel levels")
 
+    # the fast scheme's packed fine level: the 4096^2 solve, then 1024^2
+    # and 16384^2
+    phase_parity_packed(dev, worst)
+    times.update(phase_timing_packed(dev, MAIN_N))
+    solve_fast = phase_slice_fast(dev, MAIN_N, compare=True)
+    phase_slice_fast(dev, 1024, compare=False)
+    phase_slice_fast(dev, 16384, compare=False)
+
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "max_abs_err": worst[name][1], "max_norm_err": worst[name][0],
                **times[name], "library_ms": None}
         solve, trace = (solve3, trace3) if name.endswith("3d") else (solve2, trace2)
+        if name.startswith("mg_packed"):
+            solve = solve_fast
         if name in OFF_PATH:
             off_path.append({**row, "trace_launches": trace[name]})
         else:

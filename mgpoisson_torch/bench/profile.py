@@ -2,11 +2,13 @@
 ``mgpoisson/bench/profile.py``).
 
     python -m mgpoisson_torch.bench.profile [--size 4096] [--ndim {2,3}]
-        [--device cuda] [--kernel-min-size 256 2] [--tol 1e-10] [--out DIR]
+        [--scheme {tuned,fast}] [--device cuda] [--kernel-min-size 256 2]
+        [--tol 1e-10] [--out DIR]
 
-For each kernel_min_size it runs the tuned f32 residual-stop solve (2D,
-or 3D with --ndim 3, e.g. --size 256 --ndim 3) three
-times on the device: a warm-up, one timed solve (wall ms per cycle from
+For each kernel_min_size it runs the f32 residual-stop solve of the scheme
+(tuned by default; fast runs the packed fine level on the card, see
+``mgpoisson_torch.kernels.use_packed``) in 2D, or 3D with --ndim 3 (e.g.
+--size 256 --ndim 3), three times on the device: a warm-up, one timed solve (wall ms per cycle from
 the error callback, each cycle ending in a scalar readback) and one solve
 under torch.profiler.  From the profiled solve it prints, per cycle, the
 device launches, the device time (union of the device events' intervals)
@@ -84,8 +86,8 @@ def profile_solve(spec, device, out: str | None = None):
     kernel_calls = dict(cuda_kernels.launches)
     it = res.iterations
     wall_ms = statistics.median(cycle_ms)
-    row = {"size": spec.size, "ndim": spec.ndim,
-           "kernel_min_size": spec.kernel_min_size,
+    row = {"size": spec.size, "ndim": spec.ndim, "scheme": spec.scheme,
+           "packed": mg._packed, "kernel_min_size": spec.kernel_min_size,
            "device": str(device), "cycles": it, "converged": res.converged,
            "final_err": res.final_err, "profiled_cycles": res_p.iterations,
            "wall_ms_per_cycle": wall_ms, "cycle_ms": cycle_ms,
@@ -109,6 +111,7 @@ def main(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--size", type=int, default=4096)
     p.add_argument("--ndim", type=int, choices=(2, 3), default=2)
+    p.add_argument("--scheme", choices=("tuned", "fast"), default="tuned")
     p.add_argument("--device", default="cuda")
     p.add_argument("--kernel-min-size", type=int, nargs="+", default=[256])
     p.add_argument("--tol", type=float, default=1e-10)
@@ -121,10 +124,10 @@ def main(argv=None):
     rows = []
     for kms in args.kernel_min_size:
         spec = Spec(size=args.size, ndim=args.ndim, dtype="float32",
-                    scheme="tuned", stop="residual", tol=args.tol,
+                    scheme=args.scheme, stop="residual", tol=args.tol,
                     kernel_min_size=kms)
-        rank = "" if args.ndim == 2 else "_3d"
-        out = (str(Path(args.out) / f"solve_{args.size}{rank}_kms{kms}.json")
+        tag = ("" if args.ndim == 2 else "_3d") + ("" if args.scheme == "tuned" else "_fast")
+        out = (str(Path(args.out) / f"solve_{args.size}{tag}_kms{kms}.json")
                if args.out else None)
         row = profile_solve(spec, device, out)
         print(json.dumps(row), flush=True)

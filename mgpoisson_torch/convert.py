@@ -34,9 +34,12 @@ def spec_from_jax(fields: dict) -> Spec:
     return Spec(**fields)
 
 
-def state_from_numpy(psi, f, device="cpu", dtype=torch.float32):
+def state_from_numpy(psi, f, device="cuda", dtype=torch.float32):
     """The JAX package's psi and f, as numpy arrays, as the port's
-    tensors: (psi, f) in `dtype` on `device`, each a fresh copy."""
+    tensors: (psi, f) in `dtype` on `device` (the card unless told
+    otherwise), each a fresh copy.  A packed array of the JAX package's
+    fast solve comes across the same way; ``kernels.ops.unpack_grid``
+    gives its grid."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)

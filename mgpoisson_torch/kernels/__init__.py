@@ -7,10 +7,13 @@
   2D and 3D ops on Hopper.
 
 ``get_ops(spec, level_size, device)`` picks one per level by
-``use_kernels``, the one dispatch rule.
+``use_kernels``, the one dispatch rule of the unpacked levels;
+``use_packed`` is the one rule of the fast scheme's packed fine level.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -51,3 +54,31 @@ def use_kernels(spec, level_size: int, device) -> bool:
 def get_ops(spec, level_size: int, device):
     """Return the op module to use for a level of side `level_size`."""
     return cuda if use_kernels(spec, level_size, device) else ops
+
+
+def use_packed(spec, device) -> bool:
+    """Whether a solve keeps its fine level checkerboard-packed and runs it
+    on K7/K8 (``mgpoisson_torch.cycle.packed``); the rule of the JAX
+    package's ``mgpoisson.cycle.packed.supported``:
+
+    - MGPOISSON_PACKED is not "0";
+    - 2D, no mesh, the rbgs smoother, a V or W cycle;
+    - backend not 'torch';
+    - the fine side above coarse_size and >= kernel_min_size;
+    - the JAX plan's own conditions: n >= 256, n % 256 == 0 and
+      1 <= nu_pre, nu_post <= 3;
+    - float32;
+    - a CUDA device, or MGPOISSON_PACKED=1 on the CPU, which runs the
+      plain packed ops as the JAX flag does."""
+    flag = os.environ.get("MGPOISSON_PACKED", "auto")
+    n = spec.size
+    if (flag == "0" or spec.ndim != 2 or spec.mesh_shape is not None
+            or spec.smoother_resolved != "rbgs" or spec.cycle not in ("v", "w")
+            or spec.backend == "torch"
+            or n <= spec.coarse_size or n < spec.kernel_min_size
+            or n < 256 or n % 256
+            or not all(1 <= nu <= cuda.PACKED_MAX_NU
+                       for nu in (spec.nu_pre, spec.nu_post))
+            or spec.dtype != "float32"):
+        return False
+    return torch.device(device).type == "cuda" or flag == "1"

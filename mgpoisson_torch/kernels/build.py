@@ -37,6 +37,8 @@ SIGNATURES = {
     "mg_smooth_rr3d": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
     "mg_prolong_correct_smooth3d": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
+    "mg_packed_rr": ((_P, _P, _P, _P, _I, _I, _F, _F, _P), _I),
+    "mg_packed_pc": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
 

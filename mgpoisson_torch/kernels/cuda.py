@@ -13,13 +13,20 @@ array to K1-K3, a cubic 3D array to K4-K6:
                                                                   — ``prolong_correct_smooth``,
                                                                     ``prolong_correct_smooth_rnorm``
 
+Two more carry the fast scheme's fine level on checkerboard-packed state
+(``ops.pack_grid``):
+
+  K7 ``mg_packed_rr``  — ``packed_smooth_residual_restrict``
+  K8 ``mg_packed_pc``  — ``packed_prolong_correct_smooth``,
+                         ``packed_prolong_correct_smooth_rnorm``
+
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
-not take it (``supports``): f32, square 2D or cubic 3D, contiguous, and
-the sweep count within the kernel's cap.  Which levels reach these
-wrappers at all is decided by one rule,
-``mgpoisson_torch.kernels.use_kernels``.  Outputs are fresh
+not take it (``supports``, ``packed_supports``): f32, square 2D or cubic
+3D, contiguous, and the sweep count within the kernel's cap.  Which levels
+reach these wrappers at all is decided by two rules,
+``mgpoisson_torch.kernels.use_kernels`` and ``use_packed``.  Outputs are fresh
 ``torch.empty`` buffers (no in-place writes: a tile reads its
 neighbours' cells as halo), and launches go on the current stream.
 
@@ -49,6 +56,10 @@ TILE = 32   # 2D interior cells per block side; MG_TILE in csrc/stencil.cuh
 # (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
 # nu <= 3, K4 alone jacobi/wjacobi nu <= 8 and rbgs nu <= 4
 MAX_HALO_3D = 8
+# packed kernels: the JAX package's sweep cap (pallas.py packed_plan) and
+# the tile side in rows and packed lanes, MGP_TILE in csrc/packed.cuh
+PACKED_MAX_NU = 3
+PACKED_TILE = 32
 
 # Launches per kernel, counted where the wrapper launches it; ".zero" and
 # ".rnorm" count the flagged launches among them.  Read and reset by
@@ -57,7 +68,8 @@ launches = dict.fromkeys((
     "mg_smooth", "mg_smooth_rr", "mg_smooth_rr.zero",
     "mg_prolong_correct_smooth", "mg_prolong_correct_smooth.rnorm",
     "mg_smooth3d", "mg_smooth_rr3d", "mg_smooth_rr3d.zero",
-    "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm"), 0)
+    "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm",
+    "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm"), 0)
 
 
 def reset_launches() -> None:
@@ -117,6 +129,12 @@ def _check(name, u, nu, smoother, bc, residual, *others):
             or bc not in BCS):
         raise ValueError(f"{name}: no kernel for n={u.shape[0]} ndim={u.ndim} "
                          f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}")
+    _check_operands(name, u, *others)
+
+
+def _check_operands(name, u, *others):
+    """Every operand, u included, on u's device, of u's dtype, of its
+    expected shape and contiguous."""
     for t, shape in ((u, u.shape), *others):
         if t.device != u.device or t.dtype != u.dtype or t.shape != shape:
             raise ValueError(f"{name}: operand {tuple(t.shape)} {t.dtype} on "
@@ -246,8 +264,84 @@ def prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother="jacobi",
     return out, torch.sum(partials)
 
 
+# ------------------------------------------------ packed-persistent fine level
+
+def packed_supports(n: int, dtype: torch.dtype, nu: int) -> bool:
+    """Whether K7/K8 take a packed n x n level of this dtype with nu rbgs
+    sweeps: f32, even n, 1 <= nu <= PACKED_MAX_NU."""
+    return dtype == torch.float32 and n >= 2 and n % 2 == 0 and 1 <= nu <= PACKED_MAX_NU
+
+
+def _check_packed(name, up, nu, *others):
+    if up.device.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors, got {up.device}")
+    if up.ndim != 2 or up.shape[0] != up.shape[1]:
+        raise ValueError(f"{name}: needs a square packed 2D array, got {tuple(up.shape)}")
+    if not packed_supports(up.shape[0], up.dtype, nu):
+        raise ValueError(f"{name}: no kernel for n={up.shape[0]} {up.dtype} nu={nu}")
+    _check_operands(name, up, *others)
+
+
+def _packed_scalars(h):
+    """-h^2/4 and 1/h^2, as the plain packed ops use them."""
+    hsq = h * h
+    return ctypes.c_float(-hsq * 0.25), ctypes.c_float(1.0 / hsq)
+
+
+def packed_smooth_residual_restrict(up, fp, h, nu):
+    """Packed down-leg: nu rbgs sweeps, residual, restriction.  Returns
+    (up', Rc), Rc the unpacked (n/2, n/2) coarse rhs (K7)."""
+    if up.device.type == "cpu":
+        return ops.packed_smooth_residual_restrict(up, fp, h, nu)
+    _check_packed("mg_packed_rr", up, nu, (fp, up.shape))
+    out = torch.empty_like(up)
+    Rc = torch.empty(_half(up.shape), dtype=up.dtype, device=up.device)
+    _launch("mg_packed_rr", up, up.data_ptr(), fp.data_ptr(), out.data_ptr(),
+            Rc.data_ptr(), up.shape[0], nu, *_packed_scalars(h))
+    return out, Rc
+
+
+def _packed_pc(up, fp, V, h, nu, kind, rnorm):
+    name = "mg_packed_pc"
+    if kind not in PROLONG_KINDS:
+        raise ValueError(f"{name}: unknown prolongation {kind!r}")
+    _check_packed(name, up, nu, (fp, up.shape), (V, _half(up.shape)))
+    n = up.shape[0]
+    out = torch.empty_like(up)
+    blocks = -(-(n // 2) // PACKED_TILE) * -(-n // PACKED_TILE)
+    partials = (torch.empty(blocks, dtype=torch.float32, device=up.device)
+                if rnorm else None)
+    _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
+            partials.data_ptr() if rnorm else None, n, nu, PROLONG_KINDS[kind],
+            *_packed_scalars(h), int(rnorm))
+    if rnorm:
+        launches[name + ".rnorm"] += 1
+    return out, partials
+
+
+def packed_prolong_correct_smooth(up, fp, V, h, nu, kind="inject"):
+    """Packed up-leg: up += P(V), V the unpacked coarse correction, then
+    nu rbgs sweeps (K8)."""
+    if up.device.type == "cpu":
+        return ops.packed_prolong_correct_smooth(up, fp, V, h, nu, kind)
+    return _packed_pc(up, fp, V, h, nu, kind, rnorm=False)[0]
+
+
+def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
+    """The packed up-leg and sum(r^2) of the result's zero-ghost residual:
+    (up', sum(r^2)), from one f32 partial per block summed here in a fixed
+    order (K8 with rnorm)."""
+    if up.device.type == "cpu":
+        return ops.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind)
+    out, partials = _packed_pc(up, fp, V, h, nu, kind, rnorm=True)
+    return out, torch.sum(partials)
+
+
 # the ops the cycle also reaches through this module that have no kernel:
-# the plain versions on every device
+# the plain versions on every device (the packing is exact data movement,
+# a view and a row-parity select)
+pack_grid = ops.pack_grid
+unpack_grid = ops.unpack_grid
 residual = ops.residual
 prolong = ops.prolong
 prolong_correct = ops.prolong_correct

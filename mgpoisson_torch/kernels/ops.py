@@ -238,6 +238,173 @@ def prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother="jacobi",
     return u, residual_sq_sum(u, f, h)
 
 
+# ------------------------------------------------ packed-persistent fine level
+# Port of the packed section of mgpoisson/kernels/pallas.py (:2940-3072 and
+# the whole-grid form of :362-452).  The fast scheme keeps psi and f
+# checkerboard-packed for the whole solve:
+#
+#   up[:, :n/2] = xr (red, parity 0),  up[:, n/2:] = xb (black),
+#   xr[i, j] = u[i, 2j + i%2],  xb[i, j] = u[i, 2j + 1 - i%2],
+#
+# so a colour half-sweep evaluates the stencil once per cell of that colour
+# instead of on every cell with half discarded.  Neighbours of xr[i, j]:
+# xb[i-1, j] and xb[i+1, j] vertically, xb[i, j] and xb[i, j-1] (even rows)
+# or xb[i, j+1] (odd rows) horizontally; black the mirror.  Coarse column J
+# is packed lane J, so the restriction gives the UNPACKED coarse rhs and the
+# prolongation takes the unpacked coarse correction.  ghost0 only, the fine
+# level's bc: out-of-range neighbours read 0.
+
+def _even_rows(n, device):
+    return (torch.arange(n, device=device) % 2 == 0).view(n, 1)
+
+
+def _pack_views(u, up):
+    """u as [row pair, row parity, lane, column parity] and up as [row
+    pair, row parity, colour, lane]: red is the even column on even rows
+    and the odd column on odd rows."""
+    n = u.shape[0]
+    return u.view(n // 2, 2, n // 2, 2), up.view(n // 2, 2, 2, n // 2)
+
+
+def pack_grid(u):
+    """(n, n) -> (n, n) packed [xr | xb].  Exact data movement: four
+    strided copies, one pass over the array."""
+    u = u.contiguous()
+    up = torch.empty_like(u)
+    v, p = _pack_views(u, up)
+    for row, colour, col in ((0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)):
+        p[:, row, colour] = v[:, row, :, col]
+    return up
+
+
+def unpack_grid(up):
+    """Inverse of pack_grid (exact roundtrip)."""
+    up = up.contiguous()
+    u = torch.empty_like(up)
+    v, p = _pack_views(u, up)
+    for row, colour, col in ((0, 0, 0), (0, 1, 1), (1, 0, 1), (1, 1, 0)):
+        v[:, row, :, col] = p[:, row, colour]
+    return u
+
+
+def _rows_dn(x):   # out[i] = x[i-1], zero row in at the top
+    return F.pad(x, (0, 0, 1, 0))[:-1]
+
+
+def _rows_up(x):   # out[i] = x[i+1]
+    return F.pad(x, (0, 0, 0, 1))[1:]
+
+
+def _lane_r(x):    # out[:, j] = x[:, j-1]
+    return F.pad(x, (1, 0))[:, :-1]
+
+
+def _lane_l(x):    # out[:, j] = x[:, j+1]
+    return F.pad(x, (0, 1))[:, 1:]
+
+
+def _packed_core(xr, xb, cr, cb, nu):
+    """nu red-black sweeps on the packed planes (cr, cb = -h^2/4 * f
+    packed alike): per colour X = (V + H) / 4 + c, V the vertical and H
+    the horizontal neighbour pair, in the Pallas kernel's order."""
+    er = _even_rows(xr.shape[0], xr.device)
+
+    def colour_update(Y, cX, red):
+        V = _rows_dn(Y) + _rows_up(Y)
+        a, b = _lane_r(Y), _lane_l(Y)
+        H = Y + (torch.where(er, a, b) if red else torch.where(er, b, a))
+        return (V + H) * 0.25 + cX
+
+    for _ in range(nu):
+        xr = colour_update(xb, cr, red=True)
+        xb = colour_update(xr, cb, red=False)
+    return xr, xb
+
+
+def _packed_residual(xr, xb, fr, fb, inv_hsq):
+    """Packed 5-point residual r = f - (nbr - 4u)/h^2 per colour."""
+    er = _even_rows(xr.shape[0], xr.device)
+    nr = (_rows_dn(xb) + _rows_up(xb) + xb
+          + torch.where(er, _lane_r(xb), _lane_l(xb)))
+    nb = (_rows_dn(xr) + _rows_up(xr) + xr
+          + torch.where(er, _lane_l(xr), _lane_r(xr)))
+    return fr - (nr - 4.0 * xr) * inv_hsq, fb - (nb - 4.0 * xb) * inv_hsq
+
+
+def _planes(up):
+    w = up.shape[1] // 2
+    return up[:, :w], up[:, w:]
+
+
+def _edge_weights(edge, dtype):
+    """(a, b) = (0.5, 0) on the global edge, (0.75, 0.25) inside."""
+    return (torch.where(edge, 0.5, 0.75).to(dtype),
+            torch.where(edge, 0.0, 0.25).to(dtype))
+
+
+def _packed_prolong(V, kind):
+    """The unpacked (n/2, n/2) coarse correction as the packed red and
+    black planes (pallas.py _packed_prolong_stripe, whole grid): 'inject'
+    is a row double; 'bilinear' the face-adapted row blend, then a +-1
+    packed-lane blend whose direction flips with row parity and colour."""
+    v2 = torch.repeat_interleave(V, 2, dim=0)      # fine rows, packed lanes
+    if kind == "inject":
+        return v2, v2
+    assert kind == "bilinear"
+    n, w = v2.shape
+    er = _even_rows(n, V.device)
+    vm = F.pad(v2, (0, 0, 2, 0))[:-2]
+    vp = F.pad(v2, (0, 0, 0, 2))[2:]
+    rows = torch.arange(n, device=V.device).view(n, 1)
+    a0, b0 = _edge_weights((rows == 0) | (rows == n - 1), V.dtype)
+    B = a0 * v2 + b0 * torch.where(er, vm, vp)
+    bl, br = _lane_r(B), _lane_l(B)
+    cols = torch.arange(w, device=V.device).view(1, w)
+    first, last = cols == 0, cols == w - 1
+
+    def blend(red):
+        s1 = torch.where(er, bl, br) if red else torch.where(er, br, bl)
+        edge = (er & first) | (~er & last) if red else (er & last) | (~er & first)
+        a1, b1 = _edge_weights(edge, V.dtype)
+        return a1 * B + b1 * s1
+
+    return blend(True), blend(False)
+
+
+def packed_smooth_residual_restrict(up, fp, h, nu):
+    """Packed down-leg: nu rbgs sweeps, the residual and the 2x2
+    restriction (red plus black, summed over row pairs).  Returns (up',
+    Rc), Rc the UNPACKED (n/2, n/2) coarse rhs."""
+    xr, xb = _planes(up)
+    fr, fb = _planes(fp)
+    hsq = h * h
+    xr, xb = _packed_core(xr, xb, fr * (-hsq * 0.25), fb * (-hsq * 0.25), nu)
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / hsq)
+    n, w = xr.shape
+    Rc = (r_r + r_b).reshape(n // 2, 2, w).sum(dim=1) * 0.25
+    return torch.cat([xr, xb], dim=1), Rc
+
+
+def packed_prolong_correct_smooth(up, fp, V, h, nu, kind="inject"):
+    """Packed up-leg: up += P(V) with V the unpacked coarse correction,
+    then nu rbgs sweeps."""
+    pr, pb = _packed_prolong(V, kind)
+    xr, xb = _planes(up)
+    fr, fb = _planes(fp)
+    mhq = -(h * h) * 0.25
+    xr, xb = _packed_core(xr + pr, xb + pb, fr * mhq, fb * mhq, nu)
+    return torch.cat([xr, xb], dim=1)
+
+
+def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
+    """The packed up-leg and sum(r^2) of the result's zero-ghost residual,
+    accumulated in at least f32: (up', sum(r^2))."""
+    up = packed_prolong_correct_smooth(up, fp, V, h, nu, kind)
+    r_r, r_b = _packed_residual(*_planes(up), *_planes(fp), 1.0 / (h * h))
+    r = torch.cat([r_r, r_b], dim=1).to(_acc_dtype(up.dtype))
+    return up, torch.sum(r * r)
+
+
 # ------------------------------------------------------------------- metrics
 
 def rms_update(psi, psi_old):

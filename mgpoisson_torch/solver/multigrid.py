@@ -10,6 +10,11 @@ The JAX package runs the solve loop on the device in a
 ``lax.while_loop``; this port runs it on the host with one scalar readback
 per cycle, under the same stop rule (continue while it == 0, or err >= tol
 and err is finite) and with the same error history.
+
+Where ``kernels.use_packed`` holds (the fast scheme's rbgs fine level),
+``solve()`` packs psi and f once, carries the packed state through the
+loop (``cycle.packed``) and unpacks psi at the end, unless a callback asks
+for psi; ``step()`` stays unpacked, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,8 +28,9 @@ import torch
 
 from mgpoisson_torch.core.rhs import initial_guess, point_charge_rhs
 from mgpoisson_torch.core.spec import Spec
+from mgpoisson_torch.cycle import packed
 from mgpoisson_torch.cycle.vcycle import make_cycle
-from mgpoisson_torch.kernels import ops, use_kernels
+from mgpoisson_torch.kernels import ops, use_kernels, use_packed
 
 
 @dataclasses.dataclass
@@ -76,6 +82,9 @@ class MultigridPoisson:
         use_kernels(spec, spec.size, self.device)   # rejects backend='cuda' on CPU
         self._want_rnorm = spec.stop == "residual"
         self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
+        self._packed = use_packed(spec, self.device)
+        if self._packed:
+            self._packed_cycle = packed.make_packed_cycle(spec, rnorm=self._want_rnorm)
 
     # ------------------------------------------------------------ state
 
@@ -94,15 +103,16 @@ class MultigridPoisson:
         """One cycle + error. Returns (psi_new, err)."""
         return self._step(psi, f, self._r0(psi, f))
 
-    def _step(self, psi, f, r0):
-        """err per spec.stop: 'update' — RMS of the iterate update;
-        'residual' — ||r||/||r0||, with ||r||^2 fused into the cycle's
-        fine up-leg."""
+    def _step(self, psi, f, r0, cycle=None):
+        """err per spec.stop: 'update' — RMS of the iterate update (on
+        packed state too: it is permutation-invariant); 'residual' —
+        ||r||/||r0||, with ||r||^2 fused into the cycle's fine up-leg."""
+        cycle = cycle or self._cycle
         h = self.spec.fine_h
         if self._want_rnorm:
-            psi_new, r2 = self._cycle(psi, f, h)
+            psi_new, r2 = cycle(psi, f, h)
             return psi_new, torch.sqrt(r2).to(r0.dtype) / r0
-        psi_new = self._cycle(psi, f, h)
+        psi_new = cycle(psi, f, h)
         return psi_new, ops.rms_update(psi_new, psi)
 
     def _r0(self, psi, f):
@@ -142,11 +152,17 @@ class MultigridPoisson:
 
         wants_psi = (error_callback is not None
                      and _callback_arity(error_callback) >= 3)
+        # the packed fine level: pack once, carry packed state, unpack at
+        # the end; a callback that takes psi gets the unpacked step
+        cycle = None
+        if self._packed and not wants_psi:
+            cycle = self._packed_cycle
+            psi, f = packed.pack(psi), packed.pack(f)
         errs = []
         converged = False
         it = 0
         for it in range(1, spec.maxiter + 1):
-            psi, err = self._step(psi, f, r0)
+            psi, err = self._step(psi, f, r0, cycle)
             err_f = float(err)   # the one device->host readback per cycle
             errs.append(err_f)
             if error_callback is not None and (
@@ -156,6 +172,8 @@ class MultigridPoisson:
             if not (err_f >= spec.tol and math.isfinite(err_f)):
                 converged = err_f < spec.tol
                 break
+        if cycle is not None:
+            psi = packed.unpack(psi)
         return SolveResult(psi=psi, iterations=it,
                            errs=torch.tensor(errs, dtype=self._dtype),
                            converged=converged,

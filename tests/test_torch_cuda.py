@@ -8,7 +8,8 @@ where JAX is not installed; tests/conftest.py imports JAX, hence:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Sizes include levels smaller than one tile (32x32 in 2D, 16^3 or 8^3 in
-3D) and levels of several tiles.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
+3D, 32 rows x 32 packed lanes for the packed K7/K8) and levels of several
+tiles.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
 bar), 1e-5 relative on sum(r^2), whose partials are summed in another
 order."""
 
@@ -106,6 +107,47 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         cuda.prolong_correct_smooth(u, f, u, 1 / 64, 1, "jacobi", "ghost0")
 
 
+# the packed kernels: below one tile (32 rows x 32 packed lanes), one tile
+# and several, at the sweep counts 1 and the cap 3
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 64, 256, 1024])
+@pytest.mark.parametrize("nu", [1, 3])
+def test_packed_kernels_vs_plain(card, n, nu):
+    u, f, V = _data(n, n + nu, card)
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    h = 1.0 / n
+    for got, want in zip(cuda.packed_smooth_residual_restrict(up, fp, h, nu),
+                         ops.packed_smooth_residual_restrict(up, fp, h, nu)):
+        assert _nmax(got, want) <= 1e-5
+    for kind in ("inject", "bilinear"):
+        pa = (up, fp, V, h, nu, kind)
+        assert _nmax(cuda.packed_prolong_correct_smooth(*pa),
+                     ops.packed_prolong_correct_smooth(*pa)) <= 1e-5
+        got_u, got_r2 = cuda.packed_prolong_correct_smooth_rnorm(*pa)
+        want_u, want_r2 = ops.packed_prolong_correct_smooth_rnorm(*pa)
+        assert _nmax(got_u, want_u) <= 1e-5
+        assert abs(float(got_r2) / float(want_r2) - 1.0) <= 1e-5
+    assert torch.equal(cuda.unpack_grid(up), u)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_packed_wrappers_reject_what_the_kernels_do_not_take(card):
+    u, f, V = _data(64, 2, card)
+    h = 1 / 64
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda.packed_smooth_residual_restrict(u, f, h, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda.packed_prolong_correct_smooth(u.double(), f.double(), V.double(), h, 1)
+    odd = torch.zeros(15, 15, device=card)
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda.packed_smooth_residual_restrict(odd, odd, h, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.packed_prolong_correct_smooth_rnorm(u.t(), f, V, h, 1)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda.packed_prolong_correct_smooth(u, f, u, h, 1)
+
+
 @pytest.mark.cuda
 def test_launch_counters(card):
     u, f, V = _data(256, 1, card)
@@ -130,4 +172,13 @@ def test_launch_counters(card):
     want.update({"mg_smooth3d": 1, "mg_smooth_rr3d": 2, "mg_smooth_rr3d.zero": 1,
                  "mg_prolong_correct_smooth3d": 2,
                  "mg_prolong_correct_smooth3d.rnorm": 1})
+    assert cuda.launches == want
+    u, f, V = _data(256, 1, card)
+    cuda.reset_launches()
+    cuda.packed_smooth_residual_restrict(u, f, 1 / 256, 1)
+    cuda.packed_prolong_correct_smooth(u, f, V, 1 / 256, 1, "bilinear")
+    cuda.packed_prolong_correct_smooth_rnorm(u, f, V, 1 / 256, 1, "bilinear")
+    cuda.pack_grid(u)
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_packed_rr": 1, "mg_packed_pc": 2, "mg_packed_pc.rnorm": 1})
     assert cuda.launches == want
