@@ -46,17 +46,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
               with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
               plain ops, each with its per-cycle wall; then 1024^2 and
               16384^2 with the same checks.
+10. parity_sharded — the strip kernels K9-K12 of the sharded solve against
+              their plain versions at every block position of the (2, 2) and
+              (4, 1) meshes, blocks and strips cut from a whole grid as the
+              ranks' exchange delivers them: every global side at which a
+              solve of phase 11 runs them (2D 16384 ... 256, 3D 256^3) and
+              512^3 x bc x (wjacobi nu = 3, rbgs nu = 1, 2), from u
+              and from zero, both prolongation kinds, rnorm; each kernel's
+              outputs stitched over the blocks against the single-device
+              K2/K3 (K5/K6) on the whole grid.  Then (timing_sharded) K9/K10
+              on one (2, 2) block of 16384^2 beside K2/K3 on a whole 8192^2
+              array, and K11/K12 on one (2, 2) block of 256^3, each with its
+              plain version and bound.
+11. spmd    — the sharded tuned f32 solve through MultigridPoisson with a
+              mesh: 4 ranks spawned on the card over a gloo process group
+              (the strips staged through host memory: NCCL refuses two ranks
+              on one GPU) solve 4096^2 on (2, 2) and (4, 1) and 256^3 on
+              (2, 2) against the JAX package's per-cycle relres, and 16384^2
+              on (2, 2) against the single-device 16384^2 solve, which this
+              phase also runs; an f64 re-check of each gathered iterate, and
+              every rank's launches (K9/K10 at every sharded level >= 256,
+              K11/K12 at the 3D fine level, no K2/K3 at a sharded level).
+              With 4 or more cards, the 4096^2 (2, 2) solve again over NCCL.
 
 The last lines are a JSON object of the off-path kernels (K1, K4, with
 their launches in the traced cycles), a JSON object of the main paths'
 kernels (K2, K3 with their launches in the 4096^2 tuned solve; K5, K6 with
-theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve),
-the card's name and power limit, and {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
+K9, K10 with one rank's in the sharded 16384^2 solve and K11, K12 in the
+sharded 256^3 solve), the card's name and power limit, and {"ok": true,
+"device": {...}}.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import datetime
+import itertools
 import json
 import os
 import statistics
@@ -65,11 +90,15 @@ import sys
 import time
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 from mgpoisson_torch import MultigridPoisson, Spec
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
-from mgpoisson_torch.kernels import build, cuda, ops
+from mgpoisson_torch.kernels import build, cuda, exchange_depth, ops, use_sharded_kernels
+from mgpoisson_torch.shard import multihost, spmd
+from mgpoisson_torch.shard.mesh import ProcessMesh
 
 # mgpoisson (the JAX package, backend='xla'), run on a CPU for
 # Spec(size=4096, dtype='float32', scheme='tuned', stop='residual',
@@ -114,6 +143,19 @@ SIDES_3D = (512, 256)      # the 3D levels the 256^3 and 512^3 solves run on the
 FAST_SPEC = MAIN_SPEC.with_(scheme="fast")
 PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves, and 256
 CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
+# the sharded solve: its meshes and the sweep settings of its schemes; its
+# parity sides are those of the solves of phase_spmd (sharded_sides)
+SHARDED_MESHES = ((2, 2), (4, 1))
+SHARDED_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2))
+# timing_sharded: K9/K10 on a (2, 2) block of 16384^2 beside K2/K3 on a
+# whole array of the block's side; K11/K12 on a (2, 2) block of 256^3
+TIMING_SHARDED = {2: 16384, 3: 256}
+SPMD_WORLD = 4
+SPEC_16K = MAIN_SPEC.with_(size=16384)
+SPMD_DIR = build.BUILD_DIR.parent / "spmd"
+# the solves of phase_spmd: (label, spec, mesh, warm-up solve first)
+SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4, 1), True),
+              ("spmd256^3", SPEC_3D, (2, 2), True), ("spmd16384", SPEC_16K, (2, 2), False))
 
 
 def kernel_levels(spec):
@@ -147,6 +189,14 @@ KERNELS = {
                      "mgpoisson/kernels/pallas.py:3079"),
     "mg_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
                      "mgpoisson/kernels/pallas.py:3243"),
+    "mg_sharded_rr": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
+                      "mgpoisson/kernels/pallas.py:4080"),
+    "mg_sharded_pc": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
+                      "mgpoisson/kernels/pallas.py:4228"),
+    "mg_sharded_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
+                        "mgpoisson/kernels/pallas.py:4908"),
+    "mg_sharded_pc3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
+                        "mgpoisson/kernels/pallas.py:5060"),
 }
 # per rank: the (smooth, rr, pc) kernels and the tags of the parity lines
 RANK = {2: (("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"), ("K1", "K2", "K3")),
@@ -578,6 +628,320 @@ def phase_slice_fast(dev, n, compare):
     return launches
 
 
+# ------------------------------------------------------------ the sharded solve
+
+def _sharded_names(ndim):
+    """(rr kernel, pc kernel, their tags, the single-device kernels' tags)."""
+    if ndim == 2:
+        return "mg_sharded_rr", "mg_sharded_pc", ("K9", "K10"), ("K2", "K3")
+    return "mg_sharded_rr3d", "mg_sharded_pc3d", ("K11", "K12"), ("K5", "K6")
+
+
+def _mesh_blocks(n, ndim, mesh):
+    """(origin, shape) of every block of an n^ndim grid on `mesh`."""
+    shape = (n // mesh[0], n // mesh[1]) + (n,) * (ndim - 2)
+    for i, j in itertools.product(range(mesh[0]), range(mesh[1])):
+        yield (i * shape[0], j * shape[1]), shape
+
+
+def _block_slices(origin, shape, coarse=False):
+    k = 2 if coarse else 1
+    return tuple(slice(o // k, (o + s) // k) for o, s in zip(origin, shape[:2]))
+
+
+class _Worst:
+    """The largest normalized difference per tag of one configuration, and
+    per kernel over the run (in `worst`)."""
+
+    def __init__(self, worst):
+        self.worst, self.tags = worst, {}
+
+    def note(self, kernel, tag, got, want):
+        rel, ab = nmax(got, want)
+        self.tags[tag] = max(self.tags.get(tag, 0.0), rel)
+        if kernel is not None:
+            self.worst[kernel][0] = max(self.worst[kernel][0], rel)
+            self.worst[kernel][1] = max(self.worst[kernel][1], ab)
+
+    def check(self, row):
+        for tag, rel in self.tags.items():
+            row.append(f"{tag}={rel:.1e}")
+            check(rel <= PARITY_TOL, f"{tag} {row[0]}: normalized max |diff| {rel:.3e} > "
+                  f"{PARITY_TOL}")
+
+
+def sharded_sides():
+    """Per rank, the global sides at which the solves of phase_spmd run
+    the strip kernels on any of their meshes (2D 16384 ... 256, 3D 256),
+    and 512^3 beside them."""
+    sides = {2: set(), 3: {512}}
+    for _, spec, mesh_shape, _ in SPMD_CASES:
+        sides[spec.ndim].update(sharded_kernel_levels(spec, mesh_shape))
+    return {ndim: sorted(s, reverse=True) for ndim, s in sides.items()}
+
+
+def phase_parity_sharded(dev, worst):
+    """K9-K12 against their plain versions at every block position of the
+    (2, 2) and (4, 1) meshes and every side of sharded_sides, and their
+    outputs stitched over the blocks against the single-device kernels on
+    the whole grid."""
+    sides_of = sharded_sides()
+    print(f"[parity_sharded] global sides {sides_of} on the meshes {SHARDED_MESHES}")
+    for ndim, sides in sides_of.items():
+        k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim)
+        for n in sides:
+            u, f, V = _data(n, ndim, seed=n + 5, dev=dev)
+            h = 1.0 / n
+            for bc, (smoother, nu) in itertools.product(("ghost0", "face"), SHARDED_SETTINGS):
+                row = [f"n={n}^{ndim} {bc} {smoother} nu={nu}"]
+                w = _Worst(worst)
+                a = (h, nu, smoother, bc)
+                whole = {"rr": cuda.smooth_residual_restrict(u, f, *a),
+                         "rrz": cuda.smooth_residual_restrict_zero(f, *a)}
+                for kind in ("inject", "bilinear"):
+                    whole[kind] = cuda.prolong_correct_smooth_rnorm(u, f, V, *a, kind)
+                d = ops.sweep_radius(smoother) * nu + 1
+                for mesh in SHARDED_MESHES:
+                    cols = mesh[1] > 1
+                    st = {k: [torch.empty_like(x) for x in v] for k, v in whole.items()}
+                    r2 = {"inject": 0.0, "bilinear": 0.0}
+                    for origin, shape in _mesh_blocks(n, ndim, mesh):
+                        ub, us = spmd.block_from_grid(u, origin, shape, d, cols)
+                        fb, fs = spmd.block_from_grid(f, origin, shape, d, cols)
+                        vb, vs = spmd.block_from_grid(V, [o // 2 for o in origin],
+                                                      [s // 2 for s in shape],
+                                                      ops.coarse_depth(d), cols)
+                        fine, coarse = _block_slices(origin, shape), _block_slices(origin, shape, True)
+                        b = (origin, n, *a)
+                        for key, tag, args, zero in (("rr", t_rr, (ub, fb, us, fs), False),
+                                                     ("rrz", t_rr + "z", (None, fb, None, fs), True)):
+                            (gu, gR), (wu, wR) = (cuda.smooth_rr_sharded(*args, *b, zero=zero),
+                                                  ops.smooth_rr_sharded(*args, *b, zero=zero))
+                            w.note(k_rr, tag + ".u", gu, wu)
+                            w.note(k_rr, tag + ".R", gR, wR)
+                            st[key][0][fine], st[key][1][coarse] = gu, gR
+                        for kind in ("inject", "bilinear"):
+                            pa = (ub, fb, vb, us, fs, vs, origin, n, *a, kind)
+                            (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
+                                                  ops.pc_smooth_sharded(*pa, rnorm=True))
+                            tag = t_pc + kind[0]
+                            w.note(k_pc, tag, cuda.pc_smooth_sharded(*pa), wu)
+                            w.note(k_pc, tag + "r.u", gu, wu)
+                            w.tags[tag + "r.r2"] = max(w.tags.get(tag + "r.r2", 0.0),
+                                                       abs(float(g2) / float(w2) - 1.0))
+                            st[kind][0][fine] = gu
+                            r2[kind] += float(g2)
+                    m = "x".join(map(str, mesh))
+                    for key, tag in (("rr", f"{t_rr}~{s_rr}"), ("rrz", f"{t_rr}z~{s_rr}z")):
+                        w.note(None, f"{tag}.u@{m}", st[key][0], whole[key][0])
+                        w.note(None, f"{tag}.R@{m}", st[key][1], whole[key][1])
+                    for kind in ("inject", "bilinear"):
+                        tag = f"{t_pc}{kind[0]}~{s_pc}"
+                        w.note(None, f"{tag}.u@{m}", st[kind][0], whole[kind][0])
+                        w.tags[f"{tag}.r2@{m}"] = abs(r2[kind] / float(whole[kind][1]) - 1.0)
+                    del st
+                w.check(row)
+                torch.cuda.synchronize()
+                print("[parity_sharded] " + " ".join(row))
+            del u, f, V, whole
+            torch.cuda.empty_cache()
+
+
+def phase_timing_sharded(dev):
+    """K9/K10 on the (0, 0) block of a (2, 2) mesh at 16384^2 (8192^2) with
+    the main path's settings, beside K2/K3 on a whole 8192^2 array; K11/K12
+    on the (0, 0) block of 256^3; each with its plain version and bound."""
+    out = {}
+    d = exchange_depth(MAIN_SPEC)
+    dv = ops.coarse_depth(d)
+    for ndim, n in TIMING_SHARDED.items():
+        k_rr, k_pc, _, _ = _sharded_names(ndim)
+        u, f, V = _data(n, ndim, seed=17, dev=dev)
+        shape = (n // 2, n // 2) + (n,) * (ndim - 2)
+        ub, us = spmd.block_from_grid(u, (0, 0), shape, d)
+        fb, fs = spmd.block_from_grid(f, (0, 0), shape, d)
+        vb, vs = spmd.block_from_grid(V, (0, 0), [s // 2 for s in shape], dv)
+        del u, f, V
+        b, s = ((0, 0), n, 1.0 / n), (3, "wjacobi")
+        cases = {
+            k_rr: (lambda m: m.smooth_rr_sharded(ub, fb, us, fs, *b, *s, "ghost0"),
+                   [ub, fb, *us, *fs], _work(ndim, 3, "wjacobi", "rr")),
+            k_rr + ".zero": (lambda m: m.smooth_rr_sharded(None, fb, None, fs, *b, *s, "face",
+                                                           zero=True),
+                             [fb, *fs], _work(ndim, 3, "wjacobi", "rr")),
+            k_pc: (lambda m: m.pc_smooth_sharded(ub, fb, vb, us, fs, vs, *b, *s, "face",
+                                                 "bilinear"),
+                   [ub, fb, vb, *us, *fs, *vs], _work(ndim, 3, "wjacobi", "pc", "bilinear")),
+            k_pc + ".rnorm": (lambda m: m.pc_smooth_sharded(ub, fb, vb, us, fs, vs, *b, *s,
+                                                            "ghost0", "bilinear", rnorm=True),
+                              [ub, fb, vb, *us, *fs, *vs],
+                              _work(ndim, 3, "wjacobi", "pc", "bilinear", rnorm=True)),
+        }
+        cells = 1
+        for x in shape:
+            cells *= x
+        out.update(_time_cases("timing_sharded", cases,
+                               f"the (0, 0) block {shape} of {n}^{ndim}", cells))
+        del ub, fb, vb, us, fs, vs
+        torch.cuda.empty_cache()
+    # beside K9/K10: K2/K3 on a whole array of the block's side
+    n = TIMING_SHARDED[2] // 2
+    u, f, V = _data(n, 2, seed=19, dev=dev)
+    h = 1.0 / n
+    rr, pc = f"mg_smooth_rr@{n}", f"mg_prolong_correct_smooth@{n}"
+    whole = {
+        rr: (lambda m: m.smooth_residual_restrict(u, f, h, 3, "wjacobi", "ghost0"),
+             (u, f), _work(2, 3, "wjacobi", "rr")),
+        pc: (lambda m: m.prolong_correct_smooth(u, f, V, h, 3, "wjacobi", "face", "bilinear"),
+             (u, f, V), _work(2, 3, "wjacobi", "pc", "bilinear")),
+    }
+    t = _time_cases("timing_sharded", whole, f"{n}^2", n * n)
+    for sharded, single in (("mg_sharded_rr", rr), ("mg_sharded_pc", pc)):
+        print(f"[timing_sharded] {sharded} on a {n}^2 block against {single}: "
+              f"{out[sharded]['ms'] / t[single]['ms']:.3f}x")
+    del u, f, V
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_kernel_levels(spec, mesh_shape):
+    """The global sides at which a sharded solve of `spec` runs K9-K12: the
+    sharded levels (above replicate_below, the next level still splitting
+    evenly) where the dispatch rule picks the kernels on the card."""
+    mesh = ProcessMesh(shape=mesh_shape, rank=0, ranks=(0,) * SPMD_WORLD, backend="gloo")
+    return [g for g in level_sizes(spec.size)
+            if g > spec.replicate_below and spmd.shardable(g // 2, mesh)
+            and use_sharded_kernels(spec, g, spmd.block_shape(g, spec.ndim, mesh), "cuda")]
+
+
+def sharded_launches(spec, mesh_shape, it):
+    """One rank's launches in an `it`-cycle sharded solve: the down-leg
+    (from zero below the fine level) and the up-leg at every sharded kernel
+    level, the up-leg with rnorm once per cycle."""
+    L = len(sharded_kernel_levels(spec, mesh_shape))
+    k_rr, k_pc, _, _ = _sharded_names(spec.ndim)
+    return {k_rr: L * it, k_rr + ".zero": (L - 1) * it, k_pc: L * it, k_pc + ".rnorm": it}
+
+
+def _spmd_rank(rank, backend, store, cases, out_dir):
+    """One rank of phase_spmd: every case's solve on this rank's card, its
+    launches and per-cycle wall; rank 0 re-checks each gathered iterate in
+    f64.  Writes rank{rank}.json."""
+    multihost.initialize(backend, f"file://{store}", SPMD_WORLD, rank,
+                         timeout=datetime.timedelta(seconds=300))
+    try:
+        torch.cuda.set_device(multihost.device_for(rank))
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        results = []
+        for label, spec, mesh_shape, warm_up in cases:
+            spec = spec.with_(mesh_shape=mesh_shape)
+            if warm_up:
+                _solve(spec, "cuda")
+            cuda.reset_launches()
+            mg, res, cycle_ms = _solve(spec, "cuda")
+            launches = dict(cuda.launches)
+            psi = multihost.gather_global(res.psi, mg.mesh)
+            rel64 = None
+            if rank == 0:
+                f64 = torch.zeros_like(psi, dtype=torch.float64)
+                f64[(spec.size // 2,) * spec.ndim] = -1e6
+                rel64 = float(ops.residual_norm(psi.double(), f64, spec.fine_h)
+                              / ops.residual_norm(-f64, f64, spec.fine_h))
+                del f64
+            results.append({"label": label, "iterations": res.iterations,
+                            "errs": res.errs.tolist(), "converged": res.converged,
+                            "launches": launches, "cycle_ms": cycle_ms, "rel64": rel64,
+                            "block": list(res.psi.shape), "device": str(mg.device),
+                            "finite": bool(torch.isfinite(psi).all()),
+                            "shape": list(psi.shape)})
+            del mg, res, psi
+            torch.cuda.empty_cache()
+        (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(backend, cases):
+    """Runs _spmd_rank on SPMD_WORLD spawned processes (a rank's failure
+    ends the others and raises here); returns every rank's results."""
+    out_dir = SPMD_DIR / backend
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for p in out_dir.iterdir():
+        p.unlink()
+    mp.start_processes(_spmd_rank, args=(backend, str(out_dir / "store"), cases, out_dir),
+                       nprocs=SPMD_WORLD, join=True, start_method="spawn")
+    return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
+
+
+def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
+    """Every rank's result of one sharded solve: identical histories, the
+    reference's cycle count and per-cycle relres (within RELRES_TOL), the
+    f64 re-check of the gathered iterate, exact launches."""
+    r0 = ranks[0]
+    it, errs = r0["iterations"], r0["errs"]
+    shape = f"{spec.size}^{spec.ndim} on {mesh_shape}"
+    print(f"[{label}] {shape}, {SPMD_WORLD} ranks ({how}): {it} cycles, converged="
+          f"{r0['converged']}, blocks {r0['block']} on {r0['device']}")
+    for k, (e, ej) in enumerate(zip(errs, ref_errs), 1):
+        print(f"[{label}]   cycle {k}: relres {e:.6e}  reference {ej:.6e}  "
+              f"rel diff {abs(e - ej) / ej:.2e}")
+    check(all(r["errs"] == errs and r["iterations"] == it for r in ranks),
+          f"{shape}: the ranks' error histories differ")
+    check(r0["converged"] and it == len(ref_errs),
+          f"{shape}: {it} cycles (converged={r0['converged']}), the reference takes "
+          f"{len(ref_errs)}")
+    for k, (e, ej) in enumerate(zip(errs, ref_errs), 1):
+        check(abs(e - ej) <= RELRES_TOL * ej, f"{shape} cycle {k}: relres {e:.6e} vs {ej:.6e}")
+    check(r0["finite"] and r0["shape"] == list(spec.shape),
+          f"{shape}: the gathered psi is not a finite {spec.shape} array")
+    print(f"[{label}] f64 re-check of the gathered psi: ||r||/||r0|| = {r0['rel64']:.6e} "
+          f"(tol {spec.tol})")
+    check(r0["rel64"] < spec.tol, f"{shape}: f64 relres {r0['rel64']:.3e} >= tol")
+    want = _expected(sharded_launches(spec, mesh_shape, it))
+    for rank, r in enumerate(ranks):
+        check_launches(f"{shape} rank {rank}", r["launches"], want,
+                       "K9/K10 (K11/K12) at every sharded level >= kernel_min_size, "
+                       "no single-device kernel")
+    print(f"[{label}] sharded kernel levels {sharded_kernel_levels(spec, mesh_shape)}; "
+          f"launches per rank {r0['launches']}")
+    ms = [statistics.median(r["cycle_ms"]) for r in ranks]
+    print(f"[{label}] per-cycle wall ms, median ({how}), rank 0..3: "
+          + " ".join(f"{m:.3f}" for m in ms)
+          + f" (rank 0: {' '.join(f'{c:.3f}' for c in r0['cycle_ms'])})")
+    return r0["launches"]
+
+
+def phase_spmd(dev):
+    """The sharded tuned solves on 4 ranks sharing the card over gloo; the
+    single-device 16384^2 solve as the reference of the sharded one."""
+    mg, res, cycle_ms = _solve(SPEC_16K, dev)
+    check(res.converged, "the single-device 16384^2 tuned solve did not converge")
+    ref16k = res.errs.tolist()
+    print(f"[spmd] single-device 16384^2 tuned f32: {res.iterations} cycles, per-cycle wall "
+          f"ms median {statistics.median(cycle_ms):.3f}")
+    del mg, res
+    torch.cuda.empty_cache()
+
+    refs = [JAX_ERRS, JAX_ERRS, JAX_ERRS_3D[256], ref16k]
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks("gloo", SPMD_CASES)
+    print(f"[spmd] {SPMD_WORLD} ranks over gloo on {torch.cuda.device_count()} card(s): "
+          f"{time.perf_counter() - t0:.1f} s for the spawn and every solve")
+    launches = {}
+    for i, ((label, spec, mesh_shape, _), ref) in enumerate(zip(SPMD_CASES, refs)):
+        how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
+        launches[label] = _check_spmd(label, spec, mesh_shape, [r[i] for r in ranks], ref, how)
+    if torch.cuda.device_count() >= SPMD_WORLD:
+        nccl = _spawn_ranks("nccl", SPMD_CASES[:1])
+        _check_spmd("spmd4096", MAIN_SPEC, (2, 2), [r[0] for r in nccl], JAX_ERRS,
+                    "4 ranks, 4 cards, nccl")
+    else:
+        print(f"[spmd] NCCL: not run: {torch.cuda.device_count()} card(s), and NCCL refuses "
+              f"two ranks on one GPU; the {SPMD_WORLD} ranks above ran over gloo")
+    return {"2d": launches["spmd16384"], "3d": launches["spmd256^3"]}
+
+
 def main():
     card = phase_device()
     dev = torch.device("cuda")
@@ -629,6 +993,12 @@ def main():
     phase_slice_fast(dev, 1024, compare=False)
     phase_slice_fast(dev, 16384, compare=False)
 
+    # the sharded tuned solve (explicit partition): the strip kernels, then
+    # 4 ranks solving 4096^2, 256^3 and 16384^2
+    phase_parity_sharded(dev, worst)
+    times.update(phase_timing_sharded(dev))
+    solve_spmd = phase_spmd(dev)
+
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -637,6 +1007,8 @@ def main():
         solve, trace = (solve3, trace3) if name.endswith("3d") else (solve2, trace2)
         if name.startswith("mg_packed"):
             solve = solve_fast
+        if name.startswith("mg_sharded"):
+            solve = solve_spmd["3d" if name.endswith("3d") else "2d"]
         if name in OFF_PATH:
             off_path.append({**row, "trace_launches": trace[name]})
         else:

@@ -3,7 +3,7 @@
 
     python -m mgpoisson_torch.bench.profile [--size 4096] [--ndim {2,3}]
         [--scheme {tuned,fast}] [--device cuda] [--kernel-min-size 256 2]
-        [--tol 1e-10] [--out DIR]
+        [--tol 1e-10] [--out DIR] [--mesh MX MY [--dist-backend gloo]]
 
 For each kernel_min_size it runs the f32 residual-stop solve of the scheme
 (tuned by default; fast runs the packed fine level on the card, see
@@ -16,6 +16,15 @@ and the time in the mg_* CUDA kernels, and the device busy share of the
 timed solve's wall.  With --out, each profiled solve is also written as a
 Chrome trace.  On a CPU device there are no device events: those fields
 read "not measured".
+
+With --mesh, MX * MY ranks are spawned (torch.multiprocessing; a
+--dist-backend process group through a file store under build/) and each
+profiles its block of the sharded solve the same way, on
+``shard.multihost.device_for(rank)``: one line per rank, with the host
+time per cycle of the timed solve spent in the collectives
+(``shard.spmd.comm_seconds``): the halo strips, staged through host memory
+under gloo, and the all-gathers (the handoff to the replicated levels, the
+all-reduced sums).
 """
 
 from __future__ import annotations
@@ -28,10 +37,14 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 from torch.autograd import DeviceType
 
 from mgpoisson_torch.core.spec import Spec
+from mgpoisson_torch.kernels import build
 from mgpoisson_torch.kernels import cuda as cuda_kernels
+from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.solver.multigrid import MultigridPoisson
 
 
@@ -65,7 +78,7 @@ def device_summary(prof):
         s, t = e.time_range.start, e.time_range.end
         busy_us += max(0.0, t - max(s, end))
         end = max(end, t)
-        if e.name.startswith("mg_"):
+        if e.name.removeprefix("void ").startswith("mg_"):   # templates: "void mg_..<..>(..)"
             mg_us += t - s
     return len(evs), busy_us / 1e3, mg_us / 1e3
 
@@ -77,9 +90,11 @@ def profile_solve(spec, device, out: str | None = None):
     mg.solve()                                          # warm-up
     stamps = []
     _sync(device)
+    spmd.reset_comm_seconds()
     t0 = time.perf_counter()
     res = mg.solve(error_callback=lambda it, err: stamps.append(time.perf_counter()))
     cycle_ms = [1e3 * (b - a) for a, b in zip([t0] + stamps[:-1], stamps)]
+    comm_ms = {k: 1e3 * v / res.iterations for k, v in spmd.comm_seconds.items()}
     cuda_kernels.reset_launches()
     with trace(device, out) as prof:
         res_p = mg.solve()
@@ -88,13 +103,16 @@ def profile_solve(spec, device, out: str | None = None):
     wall_ms = statistics.median(cycle_ms)
     row = {"size": spec.size, "ndim": spec.ndim, "scheme": spec.scheme,
            "packed": mg._packed, "kernel_min_size": spec.kernel_min_size,
-           "device": str(device), "cycles": it, "converged": res.converged,
+           "device": str(mg.device), "cycles": it, "converged": res.converged,
            "final_err": res.final_err, "profiled_cycles": res_p.iterations,
            "wall_ms_per_cycle": wall_ms, "cycle_ms": cycle_ms,
            "kernel_calls": kernel_calls}
+    k = res_p.iterations
+    if mg.mesh is not None:
+        row.update(rank=mg.mesh.rank, mesh=list(mg.mesh.shape),
+                   **{f"{name}_ms_per_cycle": ms for name, ms in comm_ms.items()})
     if device.type == "cuda":
         n_ev, dev_ms, mg_ms = device_summary(prof)
-        k = res_p.iterations
         row.update(launches_per_cycle=n_ev / k, device_ms_per_cycle=dev_ms / k,
                    mg_kernel_ms_per_cycle=mg_ms / k,
                    device_busy_share=dev_ms / k / wall_ms)
@@ -104,6 +122,20 @@ def profile_solve(spec, device, out: str | None = None):
                    mg_kernel_ms_per_cycle="not measured",
                    device_busy_share="not measured")
     return row
+
+
+def _rank(rank, backend, store, specs, device, outs):
+    """One rank of a --mesh run: profiles its block of each spec's solve."""
+    mx, my = specs[0].mesh_shape
+    multihost.initialize(backend, f"file://{store}", mx * my, rank)
+    try:
+        if device == "cuda":
+            torch.cuda.set_device(multihost.device_for(rank))
+        for spec, out in zip(specs, outs):
+            row = profile_solve(spec, torch.device(device), out and out.format(rank=rank))
+            print(json.dumps(row), flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 def main(argv=None):
@@ -117,22 +149,39 @@ def main(argv=None):
     p.add_argument("--tol", type=float, default=1e-10)
     p.add_argument("--out", default=None,
                    help="directory for one Chrome trace per solve")
+    p.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("MX", "MY"),
+                   help="profile the sharded solve on MX * MY spawned ranks")
+    p.add_argument("--dist-backend", choices=("gloo", "nccl"), default="gloo")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-    rows = []
+    specs, outs = [], []
     for kms in args.kernel_min_size:
-        spec = Spec(size=args.size, ndim=args.ndim, dtype="float32",
-                    scheme=args.scheme, stop="residual", tol=args.tol,
-                    kernel_min_size=kms)
+        specs.append(Spec(size=args.size, ndim=args.ndim, dtype="float32",
+                          scheme=args.scheme, stop="residual", tol=args.tol,
+                          kernel_min_size=kms,
+                          mesh_shape=None if args.mesh is None else tuple(args.mesh)))
         tag = ("" if args.ndim == 2 else "_3d") + ("" if args.scheme == "tuned" else "_fast")
-        out = (str(Path(args.out) / f"solve_{args.size}{tag}_kms{kms}.json")
-               if args.out else None)
-        row = profile_solve(spec, device, out)
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    return rows
+        if args.mesh is not None:
+            tag += "_mesh{}x{}".format(*args.mesh) + "_rank{rank}"
+        outs.append(str(Path(args.out) / f"solve_{args.size}{tag}_kms{kms}.json")
+                    if args.out else None)
+    if args.mesh is None:
+        rows = []
+        for spec, out in zip(specs, outs):
+            row = profile_solve(spec, device, out)
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+        return rows
+    if device.type == "cuda":
+        build.load()            # once here, not in every rank
+    store = build.BUILD_DIR.parent / "profile_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    mp.start_processes(_rank, args=(args.dist_backend, str(store), specs, args.device, outs),
+                       nprocs=args.mesh[0] * args.mesh[1], join=True, start_method="spawn")
+    return None
 
 
 if __name__ == "__main__":

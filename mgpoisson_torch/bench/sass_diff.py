@@ -1,0 +1,85 @@
+"""Compares the machine code (SASS) of the kernels two builds share.
+
+    python3 -m mgpoisson_torch.bench.sass_diff OLD.so NEW.so
+
+Disassembles both libraries (``cuobjdump -sass``, from the CUDA toolkit),
+cuts each listing into its functions and prints one JSON line per function
+that both hold: its name, its instruction count in each, and whether the
+instructions are the same once addresses and encodings are dropped.  This
+shows whether a change to shared tile code left a kernel's code as it was,
+e.g. the single-device kernels of a commit against its parent's build.
+Exits non-zero if cuobjdump fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+# "        /*0a30*/   FFMA R1, R2, R3, R4 ;   /* 0x... */"
+_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s*(.*?)\s*;")
+
+
+def functions(listing: str) -> dict:
+    """Function name -> its instructions, addresses and encodings dropped."""
+    out, current = {}, None
+    for line in listing.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            current = out.setdefault(m.group(1), [])
+            continue
+        m = _INSTRUCTION.search(line)
+        if m and current is not None:
+            current.append(" ".join(m.group(1).split()))
+    return out
+
+
+def compare(old: dict, new: dict):
+    """One row per function in both listings, in the new one's order; where
+    the code differs, the number of positions that differ and the first
+    three of them as [position, old instruction, new instruction]."""
+    rows = []
+    for name, code in new.items():
+        if name not in old:
+            continue
+        row = {"function": name, "instructions_old": len(old[name]),
+               "instructions_new": len(code), "identical": old[name] == code}
+        if not row["identical"]:
+            diff = [[k, a, b] for k, (a, b) in enumerate(zip(old[name], code)) if a != b]
+            row["differing"] = len(diff) + abs(len(code) - len(old[name]))
+            row["first_differences"] = diff[:3]
+        rows.append(row)
+    return rows
+
+
+def cuobjdump() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    for c in (shutil.which("cuobjdump"), os.path.join(home, "bin", "cuobjdump")):
+        if c and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError("cuobjdump not found (set CUDA_HOME)")
+
+
+def sass(lib: str) -> str:
+    return subprocess.run([cuobjdump(), "-sass", lib], check=True, capture_output=True,
+                          text=True).stdout
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("old")
+    p.add_argument("new")
+    args = p.parse_args(argv)
+    for row in compare(functions(sass(args.old)), functions(sass(args.new))):
+        print(json.dumps(row))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,6 +6,8 @@ never imports ``mgpoisson`` or JAX:
     from dataclasses import asdict
     spec_t = spec_from_jax(asdict(jax_spec))
     psi_t, f_t = state_from_numpy(np.asarray(psi), np.asarray(f), "cuda")
+
+Under a mesh, state_from_numpy(..., mesh=mesh) gives this rank's block.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from mgpoisson_torch.core.spec import Spec
+from mgpoisson_torch.shard.multihost import local_block
 
 BACKEND_FROM_JAX = {"auto": "auto", "xla": "torch", "pallas": "cuda"}
 
@@ -34,13 +37,16 @@ def spec_from_jax(fields: dict) -> Spec:
     return Spec(**fields)
 
 
-def state_from_numpy(psi, f, device="cuda", dtype=torch.float32):
+def state_from_numpy(psi, f, device="cuda", dtype=torch.float32, mesh=None):
     """The JAX package's psi and f, as numpy arrays, as the port's
     tensors: (psi, f) in `dtype` on `device` (the card unless told
-    otherwise), each a fresh copy.  A packed array of the JAX package's
-    fast solve comes across the same way; ``kernels.ops.unpack_grid``
-    gives its grid."""
+    otherwise), each a fresh copy; with a ``shard.mesh.ProcessMesh``,
+    this rank's blocks of them (``shard.multihost.local_block``).  A
+    packed array of the JAX package's fast solve comes across the same
+    way; ``kernels.ops.unpack_grid`` gives its grid."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
-    return tuple(torch.tensor(np.asarray(a), dtype=dtype, device=device)
-                 for a in (psi, f))
+    arrays = [np.asarray(a) for a in (psi, f)]
+    if mesh is not None:
+        arrays = [local_block(a, mesh) for a in arrays]
+    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)

@@ -23,6 +23,19 @@ def point_charge_rhs(size: int, ndim: int = 2, dtype=torch.float32,
     return f
 
 
+def point_charge_block(size: int, origin, shape, dtype=torch.float32,
+                       device="cuda") -> torch.Tensor:
+    """The block of point_charge_rhs(size, len(shape)) whose first cell is
+    at global index `origin` (the sharded axes; the others start at 0),
+    made without the whole grid."""
+    f = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    origin = tuple(origin) + (0,) * (len(shape) - len(origin))
+    local = tuple(size // 2 - o for o in origin)
+    if all(0 <= c < s for c, s in zip(local, shape)):
+        f[local] = -CHARGE / EPSILON0
+    return f
+
+
 def initial_guess(f: torch.Tensor) -> torch.Tensor:
     """psi0 = -f."""
     return -f

@@ -46,6 +46,9 @@ class Spec:
                   CPU tensors are an error.
       kernel_min_size: level side below which the kernels give way to the
         plain ops (``pallas_min_size`` in the JAX package).
+      partition: under a mesh, 'auto' and 'spmd' are the explicit partition
+        on torch.distributed (``mgpoisson_torch.shard``); 'gspmd' has no
+        torch counterpart and raises.
     """
 
     size: int
@@ -116,9 +119,11 @@ class Spec:
                 f"{what} is not in mgpoisson_torch yet: ROADMAP slice "
                 f"{slice_}")
 
-        if self.mesh_shape is not None or self.partition != "auto":
-            later("sharded execution (mesh_shape/partition)",
-                  "7 (multi-GPU)")
+        if self.partition == "gspmd":
+            raise NotImplementedError(
+                "partition='gspmd' is a feature of XLA's SPMD partitioner, with "
+                "no torch counterpart; mgpoisson_torch runs the explicit "
+                "partition, 'spmd' (ROADMAP slice 7, Queue 1 item 12)")
         if self.sweep_dtype is not None and self.sweep_dtype != self.dtype:
             later("mixed precision (sweep_dtype)", "5 (bf16 and mixed "
                   "precision)")

@@ -1,18 +1,27 @@
-// K6 mg_prolong_correct_smooth3d: the 3D V-cycle up-leg.  u += P(V), with P
-// the piecewise-constant (inject) or face-adapted trilinear prolongation,
-// then nu 7-point smoother sweeps; writes u.  With a partials buffer (the
-// rnorm flag) it also writes one f32 partial of sum(r^2) per block, r being
-// the ZERO-GHOST residual of the result whatever the level's bc (the
-// solver's stopping metric); the caller sums the partials, so runs are
+// K6 mg_prolong_correct_smooth3d and K12 mg_sharded_pc3d: the 3D V-cycle
+// up-leg.  u += P(V), with P the piecewise-constant (inject) or
+// face-adapted trilinear prolongation, then nu 7-point smoother sweeps;
+// writes u.  With a partials buffer (the rnorm flag) it also writes one f32
+// partial of sum(r^2) per block, r being the ZERO-GHOST residual of the
+// result whatever the level's bc (the solver's stopping metric), over the
+// cells the launch stores; the caller sums the partials, so runs are
 // deterministic.
 //
-// Replaces _pc_fused_3d, mgpoisson/kernels/pallas.py, the Pallas kernel
+// K6 replaces _pc_fused_3d, mgpoisson/kernels/pallas.py, the Pallas kernel
 // behind prolong_correct_smooth and prolong_correct_smooth_rnorm for 3D
 // arrays.
-// Bound: HBM bytes, 3.125 arrays (read u, f, V; write u).  The design
-// (stencil3d.cuh) reads each array once per block tile; the halo costs
-// (T + 2H)^3 / T^3 = 3.4 cells loaded per interior cell at T = 16, H = 4
-// (wjacobi nu = 3 plus the residual ring of rnorm), 2.6 at H = 3.
+//
+// K12 replaces _pc_sharded_3d, mgpoisson/kernels/pallas.py, behind
+// pc_smooth_sharded3: the same leg on one rank's (nzl, nyl, n) block of a
+// sharded level, the fine halo read from the u and f strips and the coarse
+// halo from V's coarse strips (stencil3d.cuh Mg3Strips), with the boundary,
+// the colour and the trilinear edge weights from the global index.
+// Bound: HBM bytes, 3.125 arrays (read u, f, V; write u); the strips add
+// 4D/nzl + 4D/nyl of an array for u and f and 4 DV/nzl + 4 DV/nyl of V.
+// The design (stencil3d.cuh) reads each array once per block tile; the
+// halo costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior cell at
+// T = 16, H = 4 (wjacobi nu = 3 plus the residual ring of rnorm), 2.6 at
+// H = 3.
 #include "stencil3d.cuh"
 
 // The coarse tile covers the fine tile plus the trilinear +-1 coarse
@@ -28,7 +37,8 @@ static __host__ __device__ inline int mg3_coarse_side(int T, int H) {
 // per-axis weights taken in axis order.  Per axis the trilinear weights are
 // (0.75, 0.25) inside and (0.5, 0) at the GLOBAL fine edges; the shifted
 // tap is the coarse neighbour on the side of the cell's parity, zero
-// outside the domain (the tile loads those as 0).
+// outside the domain (the tile loads those as 0).  (cz0, cy0, cx0) is the
+// global coarse index of the coarse tile's first cell.
 static __device__ __forceinline__ float mg3_prolong(const float* sv, int SV, int cz0, int cy0,
                                                     int cx0, int gz, int gy, int gx, int n,
                                                     int kind) {
@@ -53,29 +63,41 @@ static __device__ __forceinline__ float mg3_prolong(const float* sv, int SV, int
   return out;
 }
 
-__global__ void __launch_bounds__(MG3_THREADS)
-mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
-               const float* __restrict__ V, float* __restrict__ Uout,
-               float* __restrict__ partials, int n, int T, int H, int nu, int smoother,
-               int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
+// The leg on the block `blk`; each entry point below instantiates it once.
+template <bool kStrips>
+static __device__ __forceinline__ void mg_pc3d_body(
+    const float* __restrict__ U, const float* __restrict__ F, const float* __restrict__ V,
+    float* __restrict__ Uout, float* __restrict__ partials, const Mg3Block& blk,
+    const Mg3Strips& us, const Mg3Strips& fs, const Mg3Strips& vs, int T, int H, int nu,
+    int smoother, int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
   extern __shared__ float smem[];
-  const Mg3Tile t = mg3_tile(n, T, H);
-  const int S = t.S, S3 = S * S * S;
+  const Mg3Tile t = mg3_tile(blk, T, H);
+  const int S = t.S, S3 = S * S * S, n = t.n;
   float* a = smem;
   float* b = a + S3;
   float* sf = b + S3;
   float* sv = sf + S3;
   const int nc = n / 2, CH = mg3_coarse_halo(H), SV = mg3_coarse_side(T, H);
-  // the fine tile origin is even, so its coarse origin is blockIdx * T/2
-  const int cz0 = (int)blockIdx.z * (T / 2) - CH, cy0 = (int)blockIdx.y * (T / 2) - CH,
+  // the fine tile origin is even, so its coarse origin is blockIdx * T/2 in
+  // the block's coarse index; the block origin is even too
+  const int lz0 = (int)blockIdx.z * (T / 2) - CH, ly0 = (int)blockIdx.y * (T / 2) - CH;
+  const int cz0 = blk.z0 / 2 + lz0, cy0 = blk.y0 / 2 + ly0,
             cx0 = (int)blockIdx.x * (T / 2) - CH;
   for (int k = threadIdx.x; k < SV * SV * SV; k += blockDim.x) {
     const int gK = cx0 + k % SV, q = k / SV, gJ = cy0 + q % SV, gI = cz0 + q / SV;
-    sv[k] = mg_in(gI, nc) && mg_in(gJ, nc) && mg_in(gK, nc)
-                ? V[((size_t)gI * nc + gJ) * nc + gK]
-                : 0.f;
+    if constexpr (kStrips)
+      sv[k] = mg_in(gI, nc) && mg_in(gJ, nc) && mg_in(gK, nc)
+                  ? mg3_fetch(V, vs, lz0 + q / SV, ly0 + q % SV, gK, t.nzl / 2, t.nyl / 2, nc)
+                  : 0.f;
+    else
+      sv[k] = mg_in(gI, nc) && mg_in(gJ, nc) && mg_in(gK, nc)
+                  ? V[((size_t)gI * nc + gJ) * nc + gK]
+                  : 0.f;
   }
-  mg3_load(a, sf, U, F, t);
+  if constexpr (kStrips)
+    mg3_load_strips(a, sf, U, F, us, fs, t);
+  else
+    mg3_load(a, sf, U, F, t);
   __syncthreads();
   for (int k = threadIdx.x; k < S3; k += blockDim.x) {
     const int l = k % S, q = k / S, j = q % S, i = q / S;
@@ -91,7 +113,7 @@ mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
   float acc = 0.f;
   for (int k = threadIdx.x; k < T * T * T; k += blockDim.x) {
     const int l = H + k % T, q = k / T, j = H + q % T, i = H + q / T;
-    if (!mg3_in(t, i, j, l)) continue;
+    if (kStrips ? !mg3_owned(t, i, j, l) : !mg3_in(t, i, j, l)) continue;
     const float r = mg3_residual(u, sf, t, i, j, l, MG_GHOST0, inv_hsq, adiag);
     acc += r * r;
   }
@@ -106,18 +128,73 @@ mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
     partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = red[0];
 }
 
+// K6: the whole n^3 grid.  The block is built here from n, so the compiler
+// folds it away and the code is that of the grid-only kernel.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
+               const float* __restrict__ V, float* __restrict__ Uout,
+               float* __restrict__ partials, int n, int T, int H, int nu, int smoother,
+               int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
+  mg_pc3d_body<false>(U, F, V, Uout, partials, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
+                      Mg3Strips{}, Mg3Strips{}, T, H, nu, smoother, bc, kind, inv_hsq,
+                      inv_adiag, adiag);
+}
+
+// K12: one rank's block, its fine halo from the u and f strips and its
+// coarse halo from V's.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_sharded_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
+                       const float* __restrict__ V, float* __restrict__ Uout,
+                       float* __restrict__ partials, Mg3Block blk, Mg3Strips us,
+                       Mg3Strips fs, Mg3Strips vs, int T, int H, int nu, int smoother, int bc,
+                       int kind, float inv_hsq, float inv_adiag, float adiag) {
+  mg_pc3d_body<true>(U, F, V, Uout, partials, blk, us, fs, vs, T, H, nu, smoother, bc, kind,
+                     inv_hsq, inv_adiag, adiag);
+}
+
+static size_t mg_pc3d_bytes(int tile, int H) {
+  const size_t SV = (size_t)mg3_coarse_side(tile, H);
+  return (mg3_tile_floats(tile, H) + SV * SV * SV + MG3_THREADS) * sizeof(float);
+}
+
 extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const float* V,
                                            float* out, float* partials, int n, int tile,
                                            int nu, int smoother, int bc, int kind,
                                            float inv_hsq, float inv_adiag, float adiag,
                                            int rnorm, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + (rnorm ? 1 : 0);
-  const size_t SV = (size_t)mg3_coarse_side(tile, H);
-  const size_t bytes = (mg3_tile_floats(tile, H) + SV * SV * SV + MG3_THREADS) * sizeof(float);
-  const int rc = mg3_prepare((const void*)mg_pc3d_kernel, n, tile, bytes);
+  const size_t bytes = mg_pc3d_bytes(tile, H);
+  const Mg3Block grid{n, n, n, 0, 0};
+  const int rc = mg3_prepare((const void*)mg_pc3d_kernel, grid, tile, bytes);
   if (rc != 0) return rc;
-  mg_pc3d_kernel<<<mg3_grid(n, tile), MG3_THREADS, bytes, stream>>>(
+  mg_pc3d_kernel<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
       u, f, V, out, rnorm ? partials : nullptr, n, tile, H, nu, smoother, bc, kind, inv_hsq,
       inv_adiag, adiag);
+  return (int)cudaGetLastError();
+}
+
+// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
+// f strips D >= H deep, V's coarse strips DV >= ceil(H/2) + 1 deep (the
+// left/right ones null on a mesh of one column).  With rnorm, one partial
+// per block of the (ceil(n/T), ceil(nyl/T), ceil(nzl/T)) grid.
+extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, float* out,
+                               float* partials, const float* ut, const float* ub,
+                               const float* ul, const float* ur, const float* ft,
+                               const float* fb, const float* fl, const float* fr,
+                               const float* vt, const float* vb, const float* vl,
+                               const float* vr, int n, int nzl, int nyl, int z0, int y0,
+                               int D, int DV, int tile, int nu, int smoother, int bc,
+                               int kind, float inv_hsq, float inv_adiag, float adiag,
+                               int rnorm, cudaStream_t stream) {
+  const int H = mg_steps(nu, smoother) + (rnorm ? 1 : 0);
+  const size_t bytes = mg_pc3d_bytes(tile, H);
+  const Mg3Block blk{n, nzl, nyl, z0, y0};
+  if (D < H || DV < mg3_coarse_halo(H)) return (int)cudaErrorInvalidValue;
+  const int rc = mg3_prepare((const void*)mg_sharded_pc3d_kernel, blk, tile, bytes);
+  if (rc != 0) return rc;
+  mg_sharded_pc3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
+      u, f, V, out, rnorm ? partials : nullptr, blk, Mg3Strips{ut, ub, ul, ur, D},
+      Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{vt, vb, vl, vr, DV}, tile, H, nu, smoother, bc,
+      kind, inv_hsq, inv_adiag, adiag);
   return (int)cudaGetLastError();
 }

@@ -31,9 +31,10 @@ extern "C" int mg_smooth3d(const float* u, const float* f, float* out, int n, in
                            cudaStream_t stream) {
   const int H = mg_steps(nu, smoother);
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
-  const int rc = mg3_prepare((const void*)mg_smooth3d_kernel, n, tile, bytes);
+  const Mg3Block grid{n, n, n, 0, 0};
+  const int rc = mg3_prepare((const void*)mg_smooth3d_kernel, grid, tile, bytes);
   if (rc != 0) return rc;
-  mg_smooth3d_kernel<<<mg3_grid(n, tile), MG3_THREADS, bytes, stream>>>(
+  mg_smooth3d_kernel<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
       u, f, out, n, tile, H, nu, smoother, bc, inv_hsq, inv_adiag);
   return (int)cudaGetLastError();
 }

@@ -1,31 +1,45 @@
-// K5 mg_smooth_rr3d: the 3D V-cycle down-leg.  nu 7-point smoother sweeps,
-// then the residual r = f - A u with the level's bc, then the 2x2x2-mean
-// restriction (x 0.125); writes u and R.  With U == nullptr (the from-zero
-// flag) u starts identically zero and is never read.
+// K5 mg_smooth_rr3d and K11 mg_sharded_rr3d: the 3D V-cycle down-leg.  nu
+// 7-point smoother sweeps, then the residual r = f - A u with the level's
+// bc, then the 2x2x2-mean restriction (x 0.125); writes u and R.  With
+// U == nullptr (the from-zero flag) u starts identically zero and is never
+// read.
 //
-// Replaces _rr_fused_3d, mgpoisson/kernels/pallas.py, the Pallas kernel
+// K5 replaces _rr_fused_3d, mgpoisson/kernels/pallas.py, the Pallas kernel
 // behind smooth_residual_restrict for 3D arrays and, through the explicit
 // zeros array of smooth_residual_restrict_zero, its from-zero form.  The
 // flag reads f only: the same values with one array pass fewer in and
 // none out for the zeros.
-// Bound: HBM bytes, 3.125 arrays (read u, f; write u, R), 2.125 from zero.
+//
+// K11 replaces _rr_sharded_3d, mgpoisson/kernels/pallas.py, behind
+// smooth_rr_sharded3: the same leg on one rank's (nzl, nyl, n) block of a
+// sharded level (z and y cut over the mesh, x whole), the halo read from
+// the neighbours' strips (stencil3d.cuh Mg3Strips), the boundary applied
+// only where the block's edge is the grid's.  The TPU kernel's 8-sublane y
+// window and block planner (sharded_plan3) exist for VMEM and are not
+// carried over: the tile and its halo are those of K5.
+// Bound: HBM bytes, 3.125 arrays (read u, f; write u, R), 2.125 from zero;
+// the strips add 4D/nzl + 4D/nyl of an array (both u and f).
 // The design (stencil3d.cuh) reads each array once per block tile; the
 // halo costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior cell at
 // T = 16, H = 4 (wjacobi nu = 3 plus the residual ring).
 #include "stencil3d.cuh"
 
-__global__ void __launch_bounds__(MG3_THREADS)
-mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
-                      float* __restrict__ Uout, float* __restrict__ Rout, int n, int T,
-                      int H, int nu, int smoother, int bc, float inv_hsq,
-                      float inv_adiag, float adiag) {
+// The leg on the block `blk`; each entry point below instantiates it once.
+template <bool kStrips>
+static __device__ __forceinline__ void mg_smooth_rr3d_body(
+    const float* __restrict__ U, const float* __restrict__ F, float* __restrict__ Uout,
+    float* __restrict__ Rout, const Mg3Block& blk, const Mg3Strips& us, const Mg3Strips& fs,
+    int T, int H, int nu, int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
   extern __shared__ float smem[];
-  const Mg3Tile t = mg3_tile(n, T, H);
+  const Mg3Tile t = mg3_tile(blk, T, H);
   const int S3 = t.S * t.S * t.S;
   float* a = smem;
   float* b = a + S3;
   float* sf = b + S3;
-  mg3_load(a, sf, U, F, t);
+  if constexpr (kStrips)
+    mg3_load_strips(a, sf, U, F, us, fs, t);
+  else
+    mg3_load(a, sf, U, F, t);
   __syncthreads();
   const float* u = mg3_sweeps(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
   mg3_store(Uout, u, t);
@@ -33,12 +47,12 @@ mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
   // the tile origin is even on all three axes, so each coarse cell's
   // 2x2x2 fine cells lie in this tile; the halo keeps the ring the
   // residual reads exact
-  const int nc = n / 2, T2 = T / 2;
+  const int ncz = t.nzl / 2, ncy = t.nyl / 2, ncx = t.n / 2, T2 = T / 2;
   for (int k = threadIdx.x; k < T2 * T2 * T2; k += blockDim.x) {
     const int cl = k % T2, q = k / T2, cj = q % T2, ci = q / T2;
     const int gI = (int)blockIdx.z * T2 + ci, gJ = (int)blockIdx.y * T2 + cj,
               gK = (int)blockIdx.x * T2 + cl;
-    if (!mg_in(gI, nc) || !mg_in(gJ, nc) || !mg_in(gK, nc)) continue;
+    if (!mg_in(gI, ncz) || !mg_in(gJ, ncy) || !mg_in(gK, ncx)) continue;
     const int i = H + 2 * ci, j = H + 2 * cj, l = H + 2 * cl;
     float r[8];
 #pragma unroll
@@ -46,8 +60,29 @@ mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
       r[d] = mg3_residual(u, sf, t, i + (d >> 2), j + ((d >> 1) & 1), l + (d & 1), bc,
                           inv_hsq, adiag);
     const float s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
-    Rout[((size_t)gI * nc + gJ) * nc + gK] = s * 0.125f;
+    Rout[((size_t)gI * ncy + gJ) * ncx + gK] = s * 0.125f;
   }
+}
+
+// K5: the whole n^3 grid.  The block is built here from n, so the compiler
+// folds it away and the code is that of the grid-only kernel.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
+                      float* __restrict__ Uout, float* __restrict__ Rout, int n, int T,
+                      int H, int nu, int smoother, int bc, float inv_hsq,
+                      float inv_adiag, float adiag) {
+  mg_smooth_rr3d_body<false>(U, F, Uout, Rout, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
+                             Mg3Strips{}, T, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
+}
+
+// K11: one rank's block, its halo from strips.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_sharded_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
+                       float* __restrict__ Uout, float* __restrict__ Rout, Mg3Block blk,
+                       Mg3Strips us, Mg3Strips fs, int T, int H, int nu, int smoother,
+                       int bc, float inv_hsq, float inv_adiag, float adiag) {
+  mg_smooth_rr3d_body<true>(U, F, Uout, Rout, blk, us, fs, T, H, nu, smoother, bc, inv_hsq,
+                            inv_adiag, adiag);
 }
 
 extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float* R, int n,
@@ -55,10 +90,35 @@ extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float*
                               float inv_adiag, float adiag, int zero, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + 1;
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
-  const int rc = mg3_prepare((const void*)mg_smooth_rr3d_kernel, n, tile, bytes);
+  const Mg3Block grid{n, n, n, 0, 0};
+  const int rc = mg3_prepare((const void*)mg_smooth_rr3d_kernel, grid, tile, bytes);
   if (rc != 0) return rc;
-  mg_smooth_rr3d_kernel<<<mg3_grid(n, tile), MG3_THREADS, bytes, stream>>>(
+  mg_smooth_rr3d_kernel<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
       zero ? nullptr : u, f, out, R, n, tile, H, nu, smoother, bc, inv_hsq, inv_adiag,
       adiag);
+  return (int)cudaGetLastError();
+}
+
+// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
+// f strips D >= H deep (ut..ur unused from zero; ul/ur and fl/fr null on a
+// mesh of one column).
+extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float* R,
+                               const float* ut, const float* ub, const float* ul,
+                               const float* ur, const float* ft, const float* fb,
+                               const float* fl, const float* fr, int n, int nzl, int nyl,
+                               int z0, int y0, int D, int tile, int nu, int smoother, int bc,
+                               float inv_hsq, float inv_adiag, float adiag, int zero,
+                               cudaStream_t stream) {
+  const int H = mg_steps(nu, smoother) + 1;
+  const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
+  const Mg3Block blk{n, nzl, nyl, z0, y0};
+  if (D < H) return (int)cudaErrorInvalidValue;
+  const int rc = mg3_prepare((const void*)mg_sharded_rr3d_kernel, blk, tile, bytes);
+  if (rc != 0) return rc;
+  const Mg3Strips us = zero ? Mg3Strips{nullptr, nullptr, nullptr, nullptr, D}
+                            : Mg3Strips{ut, ub, ul, ur, D};
+  mg_sharded_rr3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
+      zero ? nullptr : u, f, out, R, blk, us, Mg3Strips{ft, fb, fl, fr, D}, tile, H, nu,
+      smoother, bc, inv_hsq, inv_adiag, adiag);
   return (int)cudaGetLastError();
 }

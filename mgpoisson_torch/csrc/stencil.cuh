@@ -1,5 +1,6 @@
-// Shared tile machinery of the three 2D stencil kernels (K1 mg_smooth,
-// K2 mg_smooth_rr, K3 mg_prolong_correct_smooth).
+// Shared tile machinery of the 2D stencil kernels (K1 mg_smooth, K2
+// mg_smooth_rr, K3 mg_prolong_correct_smooth, and the strip-fed K9
+// mg_sharded_rr and K10 mg_sharded_pc of a sharded level).
 //
 // One 2D-tiled geometry replaces the Pallas kernels' three (row stripes,
 // whole-array VMEM, two-axis blocks), which exist only because of the TPU's
@@ -21,6 +22,15 @@
 // operation (same neighbour-sum order, same Jacobi form), with the two
 // divisions by h^2 and by the diagonal taken as multiplications by their
 // reciprocals, which are exact for the power-of-two spacings h = 1/size.
+//
+// A launch covers one block of the grid (MgBlock): the whole grid for
+// K1-K3, a rank's block for K9/K10.  Two index spaces follow from it: the
+// GLOBAL index decides everything the grid decides (inside or outside, the
+// face and zero-ghost edges, the red/black colour, the bilinear edge
+// weights); the BLOCK index addresses the block's arrays and the store.  A
+// strip-fed launch reads its halo from the neighbours' pre-exchanged strips
+// (MgStrips, the layout of kernels/ops.py) instead of from the array, so
+// no extended block is ever assembled in device memory.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,22 +57,52 @@ static __host__ inline size_t mg_tile_floats(int H) {
   return 3 * S * S;
 }
 
-struct MgTile {
-  int n;    // level side
-  int H;    // halo depth
-  int S;    // MG_TILE + 2H
-  int gi0;  // global row of local row 0 (tile origin - H; may be negative)
-  int gj0;  // global column of local column 0
+// The grid's side n, the block's extents (nl rows, ml columns) and the
+// global index (r0, c0) of its first cell; {n, n, n, 0, 0} is the grid.
+struct MgBlock {
+  int n, nl, ml, r0, c0;
 };
 
-static __device__ __forceinline__ MgTile mg_tile(int n, int H) {
+// A block's halo strips, D deep: top and bot (D, ml), the rows above and
+// below; left and right (nl + 2D, D), row-extended so they carry the
+// corners.  left/right are null on a mesh of one column (only the grid's
+// edge lies beside the block); all four are null for u identically zero.
+// The neighbours' exchange fills zeros outside the grid.
+struct MgStrips {
+  const float* top;
+  const float* bot;
+  const float* left;
+  const float* right;
+  int D;
+};
+
+struct MgTile {
+  int n;       // grid side
+  int nl, ml;  // block extents
+  int H;       // halo depth
+  int S;       // MG_TILE + 2H
+  int gi0;     // global row of local row 0 (tile origin - H; may be negative)
+  int gj0;     // global column of local column 0
+  int li0;     // block row of local row 0 (gi0 - r0)
+  int lj0;     // block column of local column 0
+};
+
+static __device__ __forceinline__ MgTile mg_tile(const MgBlock& b, int H) {
   MgTile t;
-  t.n = n;
+  t.n = b.n;
+  t.nl = b.nl;
+  t.ml = b.ml;
   t.H = H;
   t.S = MG_TILE + 2 * H;
-  t.gi0 = (int)blockIdx.y * MG_TILE - H;
-  t.gj0 = (int)blockIdx.x * MG_TILE - H;
+  t.li0 = (int)blockIdx.y * MG_TILE - H;
+  t.lj0 = (int)blockIdx.x * MG_TILE - H;
+  t.gi0 = b.r0 + t.li0;
+  t.gj0 = b.c0 + t.lj0;
   return t;
+}
+
+static __device__ __forceinline__ MgTile mg_tile(int n, int H) {
+  return mg_tile(MgBlock{n, n, n, 0, 0}, H);
 }
 
 static __device__ __forceinline__ bool mg_in(int g, int n) {
@@ -119,6 +159,51 @@ static __device__ void mg_load(float* su, float* sf, const float* U, const float
   }
 }
 
+// Block cell (li, lj) of an array fed by strips: the body, or the strip
+// that holds it.  The caller has checked that the cell lies in the grid.
+// A cell beyond the strips gives 0; only the halo of a tile that overhangs
+// a block smaller than the tile reads one, and with D >= H the sweeps'
+// shrinking exact region never lets it reach the block or the ring a
+// residual reads.
+static __device__ __forceinline__ float mg_fetch(const float* body, const MgStrips& s,
+                                                 int li, int lj, int nl, int ml) {
+  const int D = s.D;
+  if (lj >= 0 && lj < ml) {
+    if (li >= 0 && li < nl) return body[(size_t)li * ml + lj];
+    if (li < 0 && li >= -D) return s.top[(size_t)(li + D) * ml + lj];
+    if (li >= nl && li < nl + D) return s.bot[(size_t)(li - nl) * ml + lj];
+    return 0.f;
+  }
+  if (li < -D || li >= nl + D || s.left == nullptr) return 0.f;
+  if (lj < 0 && lj >= -D) return s.left[(size_t)(li + D) * D + (lj + D)];
+  if (lj >= ml && lj < ml + D) return s.right[(size_t)(li + D) * D + (lj - ml)];
+  return 0.f;
+}
+
+// mg_load for a block fed by strips: each tile cell from the body or a
+// strip, by its block index; cells outside the grid read 0.  U == nullptr
+// means u is identically zero and is not read.
+static __device__ void mg_load_strips(float* su, float* sf, const float* U, const float* F,
+                                      const MgStrips& us, const MgStrips& fs,
+                                      const MgTile& t) {
+  for (int k = threadIdx.x; k < t.S * t.S; k += blockDim.x) {
+    const int i = k / t.S, j = k % t.S;
+    float u = 0.f, f = 0.f;
+    if (mg_in(t.gi0 + i, t.n) && mg_in(t.gj0 + j, t.n)) {
+      f = mg_fetch(F, fs, t.li0 + i, t.lj0 + j, t.nl, t.ml);
+      if (U) u = mg_fetch(U, us, t.li0 + i, t.lj0 + j, t.nl, t.ml);
+    }
+    su[k] = u;
+    sf[k] = f;
+  }
+}
+
+// Whether local tile cell (i, j) is in the block (where it is stored and
+// counted).
+static __device__ __forceinline__ bool mg_owned(const MgTile& t, int i, int j) {
+  return mg_in(t.li0 + i, t.nl) && mg_in(t.lj0 + j, t.ml);
+}
+
 // nu sweeps on the tile in shared memory; returns the buffer holding the
 // result.  Step s updates local cells [s+1, S-2-s] on both axes, so after
 // all steps the cells at distance >= steps from the tile edge are exact.
@@ -160,5 +245,14 @@ static __device__ void mg_store(float* U, const float* su, const MgTile& t) {
     const int i = t.H + k / MG_TILE, j = t.H + k % MG_TILE;
     const int gi = t.gi0 + i, gj = t.gj0 + j;
     if (mg_in(gi, t.n) && mg_in(gj, t.n)) U[(size_t)gi * t.n + gj] = su[i * t.S + j];
+  }
+}
+
+// mg_store for a rank's block: the tile's interior back to the block's
+// (nl x ml) array, by the block index.
+static __device__ void mg_store_block(float* U, const float* su, const MgTile& t) {
+  for (int k = threadIdx.x; k < MG_TILE * MG_TILE; k += blockDim.x) {
+    const int i = t.H + k / MG_TILE, j = t.H + k % MG_TILE;
+    if (mg_owned(t, i, j)) U[(size_t)(t.li0 + i) * t.ml + (t.lj0 + j)] = su[i * t.S + j];
   }
 }

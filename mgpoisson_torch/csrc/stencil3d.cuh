@@ -1,6 +1,7 @@
-// Shared tile machinery of the three 3D stencil kernels (K4 mg_smooth3d,
-// K5 mg_smooth_rr3d, K6 mg_prolong_correct_smooth3d): the 7-point operator
-// on an (n, n, n) array, z-major (index (z * n + y) * n + x).
+// Shared tile machinery of the 3D stencil kernels (K4 mg_smooth3d, K5
+// mg_smooth_rr3d, K6 mg_prolong_correct_smooth3d, and the strip-fed K11
+// mg_sharded_rr3d and K12 mg_sharded_pc3d of a sharded level): the 7-point
+// operator on an (n, n, n) array, z-major (index (z * n + y) * n + x).
 //
 // The Pallas 3D kernels block (z, y) with the whole x row in lanes, round
 // the y halo up to 8 sublanes and pick the blocks with a VMEM planner
@@ -33,6 +34,13 @@
 // by their reciprocals (exact for 1/h^2 with h = 1/size; 1/adiag =
 // -h^2/6 is the rounded reciprocal that torch's CUDA division by a scalar
 // also multiplies by).
+//
+// As in 2D (stencil.cuh), a launch covers one block of the grid
+// (Mg3Block): the whole grid for K4-K6, a rank's (nzl, nyl, n) block for
+// K11/K12, whose mesh cuts axes z and y and keeps x whole.  The global index
+// decides inside/outside, the edges, the colour and the trilinear weights;
+// the block index addresses the arrays, and a strip-fed launch reads its
+// halo from the neighbours' strips (Mg3Strips).
 #pragma once
 
 #include "stencil.cuh"
@@ -41,30 +49,84 @@
 #define MG3_SMEM_MAX 232448   // the most dynamic shared memory a block may opt in to
 #define MG3_OMEGA (6.0f / 7.0f)   // wjacobi omega = 2d/(2d+1), d = 3, as ops.wjacobi_sweep
 
-struct Mg3Tile {
-  int n;    // level side
-  int T;    // interior cells per block side (even)
-  int H;    // halo depth
-  int S;    // T + 2H
-  int gz0;  // global z of local z 0 (tile origin - H; may be negative)
-  int gy0;
-  int gx0;
+// The grid's side n, the block's extents in z and y (x is whole: n) and
+// the global index (z0, y0) of its first cell; {n, n, n, 0, 0} is the grid.
+struct Mg3Block {
+  int n, nzl, nyl, z0, y0;
 };
 
-static __device__ __forceinline__ Mg3Tile mg3_tile(int n, int T, int H) {
+// A block's halo strips, D deep: top and bot (D, nyl, n), the z planes
+// before and after it; left and right (nzl + 2D, D, n), the y slabs of the
+// z-extended block, so they carry the edges.  left/right are null on a
+// mesh of one column; all four are null for u identically zero.  The
+// neighbours' exchange fills zeros outside the grid.
+struct Mg3Strips {
+  const float* top;
+  const float* bot;
+  const float* left;
+  const float* right;
+  int D;
+};
+
+struct Mg3Tile {
+  int n;         // grid side
+  int nzl, nyl;  // block extents in z and y
+  int T;         // interior cells per block side (even)
+  int H;         // halo depth
+  int S;         // T + 2H
+  int gz0;       // global z of local z 0 (tile origin - H; may be negative)
+  int gy0;
+  int gx0;
+  int lz0;       // block z of local z 0 (gz0 - z0)
+  int ly0;
+};
+
+static __device__ __forceinline__ Mg3Tile mg3_tile(const Mg3Block& b, int T, int H) {
   Mg3Tile t;
-  t.n = n;
+  t.n = b.n;
+  t.nzl = b.nzl;
+  t.nyl = b.nyl;
   t.T = T;
   t.H = H;
   t.S = T + 2 * H;
-  t.gz0 = (int)blockIdx.z * T - H;
-  t.gy0 = (int)blockIdx.y * T - H;
+  t.lz0 = (int)blockIdx.z * T - H;
+  t.ly0 = (int)blockIdx.y * T - H;
+  t.gz0 = b.z0 + t.lz0;
+  t.gy0 = b.y0 + t.ly0;
   t.gx0 = (int)blockIdx.x * T - H;
   return t;
 }
 
+static __device__ __forceinline__ Mg3Tile mg3_tile(int n, int T, int H) {
+  return mg3_tile(Mg3Block{n, n, n, 0, 0}, T, H);
+}
+
 static __device__ __forceinline__ bool mg3_in(const Mg3Tile& t, int i, int j, int l) {
   return mg_in(t.gz0 + i, t.n) && mg_in(t.gy0 + j, t.n) && mg_in(t.gx0 + l, t.n);
+}
+
+// Whether local tile cell (i, j, l) is in the block (stored and counted).
+static __device__ __forceinline__ bool mg3_owned(const Mg3Tile& t, int i, int j, int l) {
+  return mg_in(t.lz0 + i, t.nzl) && mg_in(t.ly0 + j, t.nyl) && mg_in(t.gx0 + l, t.n);
+}
+
+// Block cell (lz, ly, x) of an array fed by strips (as mg_fetch in 2D);
+// the caller has checked that the cell lies in the grid, and a cell beyond
+// the strips gives 0.
+static __device__ __forceinline__ float mg3_fetch(const float* body, const Mg3Strips& s,
+                                                  int lz, int ly, int x, int nzl, int nyl,
+                                                  int nx) {
+  const int D = s.D;
+  if (ly >= 0 && ly < nyl) {
+    if (lz >= 0 && lz < nzl) return body[((size_t)lz * nyl + ly) * nx + x];
+    if (lz < 0 && lz >= -D) return s.top[((size_t)(lz + D) * nyl + ly) * nx + x];
+    if (lz >= nzl && lz < nzl + D) return s.bot[((size_t)(lz - nzl) * nyl + ly) * nx + x];
+    return 0.f;
+  }
+  if (lz < -D || lz >= nzl + D || s.left == nullptr) return 0.f;
+  if (ly < 0 && ly >= -D) return s.left[((size_t)(lz + D) * D + (ly + D)) * nx + x];
+  if (ly >= nyl && ly < nyl + D) return s.right[((size_t)(lz + D) * D + (ly - nyl)) * nx + x];
+  return 0.f;
 }
 
 // Neighbour sum of local cell (i, j, l) = (z, y, x), in ops.neighbor_sum's
@@ -120,6 +182,26 @@ static __device__ void mg3_load(float* su, float* sf, const float* U, const floa
   }
 }
 
+// mg3_load for a block fed by strips: each tile cell from the body or a
+// strip, by its block index; cells outside the grid read 0.  U == nullptr
+// means u is identically zero and is not read.
+static __device__ void mg3_load_strips(float* su, float* sf, const float* U, const float* F,
+                                       const Mg3Strips& us, const Mg3Strips& fs,
+                                       const Mg3Tile& t) {
+  const int S = t.S;
+  for (int k = threadIdx.x; k < S * S * S; k += blockDim.x) {
+    const int l = k % S, r = k / S, j = r % S, i = r / S;
+    float u = 0.f, f = 0.f;
+    if (mg3_in(t, i, j, l)) {
+      const int lz = t.lz0 + i, ly = t.ly0 + j, x = t.gx0 + l;
+      f = mg3_fetch(F, fs, lz, ly, x, t.nzl, t.nyl, t.n);
+      if (U) u = mg3_fetch(U, us, lz, ly, x, t.nzl, t.nyl, t.n);
+    }
+    su[k] = u;
+    sf[k] = f;
+  }
+}
+
 // nu sweeps on the tile in shared memory; returns the buffer holding the
 // result.  Step s updates local cells [s+1, S-2-s] on all three axes, so
 // after all steps the cells at distance >= steps from the tile edge are
@@ -154,13 +236,13 @@ static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const M
   return a;
 }
 
-// Writes the tile's interior back to the (n, n, n) array.
+// Writes the tile's interior back to the block's (nzl, nyl, n) array.
 static __device__ void mg3_store(float* U, const float* su, const Mg3Tile& t) {
   const int T = t.T;
   for (int k = threadIdx.x; k < T * T * T; k += blockDim.x) {
     const int l = t.H + k % T, r = k / T, j = t.H + r % T, i = t.H + r / T;
-    if (!mg3_in(t, i, j, l)) continue;
-    U[((size_t)(t.gz0 + i) * t.n + (t.gy0 + j)) * t.n + (t.gx0 + l)] =
+    if (!mg3_owned(t, i, j, l)) continue;
+    U[((size_t)(t.lz0 + i) * t.nyl + (t.ly0 + j)) * t.n + (t.gx0 + l)] =
         su[(i * t.S + j) * t.S + l];
   }
 }
@@ -170,15 +252,19 @@ static __host__ inline size_t mg3_tile_floats(int T, int H) {
   return 3 * S * S * S;
 }
 
-static __host__ inline dim3 mg3_grid(int n, int T) {
-  const unsigned tiles = (unsigned)((n + T - 1) / T);
-  return dim3(tiles, tiles, tiles);
+static __host__ inline dim3 mg3_grid(const Mg3Block& b, int T) {
+  const auto tiles = [T](int m) { return (unsigned)((m + T - 1) / T); };
+  return dim3(tiles(b.n), tiles(b.nyl), tiles(b.nzl));
 }
 
-// Checks the geometry and opts the kernel in to `bytes` of dynamic shared
-// memory; returns a cudaError_t.
-static __host__ inline int mg3_prepare(const void* kernel, int n, int T, size_t bytes) {
-  if (n < 2 || T < 2 || (T & 1) || bytes > MG3_SMEM_MAX) return (int)cudaErrorInvalidValue;
+// Checks the geometry (even block extents and origin, at least 2 cells)
+// and opts the kernel in to `bytes` of dynamic shared memory; returns a
+// cudaError_t.
+static __host__ inline int mg3_prepare(const void* kernel, const Mg3Block& b, int T,
+                                       size_t bytes) {
+  if (b.n < 2 || b.nzl < 2 || b.nyl < 2 || (b.nzl | b.nyl | b.z0 | b.y0) & 1 || T < 2 ||
+      (T & 1) || bytes > MG3_SMEM_MAX)
+    return (int)cudaErrorInvalidValue;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)bytes);
 }

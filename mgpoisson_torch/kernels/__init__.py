@@ -8,7 +8,8 @@
 
 ``get_ops(spec, level_size, device)`` picks one per level by
 ``use_kernels``, the one dispatch rule of the unpacked levels;
-``use_packed`` is the one rule of the fast scheme's packed fine level.
+``use_packed`` is the one rule of the fast scheme's packed fine level, and
+``use_sharded_kernels`` that of a sharded level's strip kernels.
 """
 
 from __future__ import annotations
@@ -54,6 +55,27 @@ def use_kernels(spec, level_size: int, device) -> bool:
 def get_ops(spec, level_size: int, device):
     """Return the op module to use for a level of side `level_size`."""
     return cuda if use_kernels(spec, level_size, device) else ops
+
+
+def exchange_depth(spec) -> int:
+    """Depth D of a sharded level's u and f strips: the deeper leg's kernel
+    halo, radius * nu + 1 (the down-leg's residual, or the fine up-leg's
+    sum(r^2), reads one ring past the sweeps)."""
+    return ops.sweep_radius(spec.smoother_resolved) * max(spec.nu_pre, spec.nu_post) + 1
+
+
+def use_sharded_kernels(spec, global_side: int, local_shape, device) -> bool:
+    """The dispatch rule of a sharded level (``shard.spmd``): its two legs
+    run the strip kernels K9-K12 iff ``use_kernels`` holds for the level's
+    GLOBAL side (on the card, backend not 'torch', f32, side >=
+    kernel_min_size, sweep counts within the caps) and every sharded axis
+    of the rank's block is deep enough for the strips from its immediate
+    neighbours: >= D, and its coarse half >= the coarse strips' depth
+    ops.coarse_depth(D).  Every other sharded level runs the plain
+    versions (kernels.ops)."""
+    if not use_kernels(spec, global_side, device):
+        return False
+    return min(local_shape[:2]) >= 2 * ops.coarse_depth(exchange_depth(spec))
 
 
 def use_packed(spec, device) -> bool:

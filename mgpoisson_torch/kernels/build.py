@@ -39,6 +39,13 @@ SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _P), _I),
     "mg_packed_rr": ((_P, _P, _P, _P, _I, _I, _F, _F, _P), _I),
     "mg_packed_pc": ((_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _I, _P), _I),
+    # the strip kernels: the arrays, then the u and f strips (top, bot,
+    # left, right) and for the up-leg V's, then the block's geometry (grid
+    # side, block extents, origin, strip depths; in 3D the tile side)
+    "mg_sharded_rr": ((_P,) * 12 + (_I,) * 9 + (_F, _F, _F, _I, _P), _I),
+    "mg_sharded_pc": ((_P,) * 17 + (_I,) * 11 + (_F, _F, _F, _I, _P), _I),
+    "mg_sharded_rr3d": ((_P,) * 12 + (_I,) * 10 + (_F, _F, _F, _I, _P), _I),
+    "mg_sharded_pc3d": ((_P,) * 17 + (_I,) * 12 + (_F, _F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
 

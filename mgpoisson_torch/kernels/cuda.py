@@ -20,6 +20,13 @@ Two more carry the fast scheme's fine level on checkerboard-packed state
   K8 ``mg_packed_pc``  — ``packed_prolong_correct_smooth``,
                          ``packed_prolong_correct_smooth_rnorm``
 
+Four more carry a sharded level (``shard.spmd``) on one rank's block, the
+halo read from the neighbours' strips; each routes by rank like the first
+six:
+
+  K9  ``mg_sharded_rr``   K11 ``mg_sharded_rr3d``  — ``smooth_rr_sharded``
+  K10 ``mg_sharded_pc``   K12 ``mg_sharded_pc3d``  — ``pc_smooth_sharded``
+
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
@@ -69,7 +76,10 @@ launches = dict.fromkeys((
     "mg_prolong_correct_smooth", "mg_prolong_correct_smooth.rnorm",
     "mg_smooth3d", "mg_smooth_rr3d", "mg_smooth_rr3d.zero",
     "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm",
-    "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm"), 0)
+    "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
+    "mg_sharded_rr", "mg_sharded_rr.zero", "mg_sharded_pc", "mg_sharded_pc.rnorm",
+    "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
+    "mg_sharded_pc3d.rnorm"), 0)
 
 
 def reset_launches() -> None:
@@ -334,6 +344,126 @@ def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
     if up.device.type == "cpu":
         return ops.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind)
     out, partials = _packed_pc(up, fp, V, h, nu, kind, rnorm=True)
+    return out, torch.sum(partials)
+
+
+# ------------------------------------------------ one block of a sharded level
+
+def _check_sharded(name, f, origin, n_global, nu, smoother, bc, residual, *others):
+    """A rank's block f of a grid of side n_global at `origin`: on the
+    card, f32, 2D or 3D with whole x rows, even extents and origin inside
+    the grid, the sweep count within the cap, and the other operands
+    matching (``_check_operands``)."""
+    if f.device.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors, got {f.device}")
+    if f.ndim not in (2, 3) or (f.ndim == 3 and f.shape[2] != n_global):
+        raise ValueError(f"{name}: needs a 2D block or a 3D block of whole rows, got "
+                         f"{tuple(f.shape)} of a grid of side {n_global}")
+    if (not supports(n_global, f.dtype, nu, smoother, f.ndim, residual)
+            or bc not in BCS):
+        raise ValueError(f"{name}: no kernel for n={n_global} ndim={f.ndim} {f.dtype} "
+                         f"nu={nu} smoother={smoother!r} bc={bc!r}")
+    (nl, ml), (r0, c0) = f.shape[:2], origin
+    if (min(nl, ml) < 2 or (nl | ml | r0 | c0) & 1 or min(r0, c0) < 0
+            or r0 + nl > n_global or c0 + ml > n_global):
+        raise ValueError(f"{name}: block {tuple(f.shape)} at {tuple(origin)} is not an "
+                         f"even block of a grid of side {n_global}")
+    _check_operands(name, f, *others)
+
+
+def _strip_args(name, strips, x, need, n_global, col0):
+    """The pointers of block x's (top, bot, left, right) strips and their
+    depth D >= need, checked against the layout of kernels.ops: top/bot
+    (D, *x.shape[1:]), left/right (x.shape[0] + 2D, D, *x.shape[2:]), or
+    both None for a block that spans every column (starts at column
+    col0 = 0 and has n_global of them)."""
+    top, bot, left, right = strips
+    d = top.shape[0]
+    if d < need:
+        raise ValueError(f"{name}: strips {d} deep, the kernel's halo is {need}")
+    tb = torch.Size((d, *x.shape[1:]))
+    pairs = [(top, tb), (bot, tb)]
+    if left is None or right is None:
+        if left is not right or col0 != 0 or x.shape[1] != n_global:
+            raise ValueError(f"{name}: left/right strips may be None only for a block "
+                             "that spans every column")
+    else:
+        lr = torch.Size((x.shape[0] + 2 * d, d, *x.shape[2:]))
+        pairs += [(left, lr), (right, lr)]
+    _check_operands(name, x, *pairs)
+    return [None if t is None else t.data_ptr() for t in strips], d
+
+
+def _sharded_geometry(x, origin, n_global):
+    return (n_global, x.shape[0], x.shape[1], int(origin[0]), int(origin[1]))
+
+
+def smooth_rr_sharded(u, f, ustrips, fstrips, origin, n_global, h, nu,
+                      smoother="jacobi", bc="ghost0", zero=False):
+    """The down-leg of one rank's block, the halo from the neighbours'
+    strips: returns (u, R) (K9, K11; with `zero`, u is identically 0 and
+    neither u nor its strips are read)."""
+    if f.device.type == "cpu":
+        return ops.smooth_rr_sharded(u, f, ustrips, fstrips, origin, n_global, h, nu,
+                                     smoother, bc, zero)
+    name = _name("mg_sharded_rr", f)
+    halo = _steps(nu, smoother) + 1
+    _check_sharded(name, f, origin, n_global, nu, smoother, bc, True,
+                   *(() if zero else ((u, f.shape),)))
+    fptrs, d = _strip_args(name, fstrips, f, halo, n_global, origin[1])
+    uptrs = [None] * 4
+    if not zero:
+        uptrs, du = _strip_args(name, ustrips, f, halo, n_global, origin[1])
+        if du != d:
+            raise ValueError(f"{name}: u strips {du} deep, f strips {d}")
+    out = torch.empty_like(f)
+    R = torch.empty(_half(f.shape), dtype=f.dtype, device=f.device)
+    tile = (tile3d(halo),) if f.ndim == 3 else ()
+    _launch(name, f, None if zero else u.data_ptr(), f.data_ptr(), out.data_ptr(),
+            R.data_ptr(), *uptrs, *fptrs, *_sharded_geometry(f, origin, n_global), d, *tile,
+            nu, SMOOTHERS[smoother], BCS[bc], *_scalars(h, f.ndim), int(zero))
+    if zero:
+        launches[name + ".zero"] += 1
+    return out, R
+
+
+def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, nu,
+                      smoother="jacobi", bc="ghost0", kind="inject", rnorm=False):
+    """The up-leg of one rank's block: u += P(V), V the coarse block with
+    its coarse strips, then nu sweeps; with rnorm also the block's sum(r^2)
+    of the zero-ghost residual, from one f32 partial per thread block summed
+    here in a fixed order: u, or (u, sum(r^2)) (K10, K12)."""
+    if u.device.type == "cpu":
+        return ops.pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin,
+                                     n_global, h, nu, smoother, bc, kind, rnorm)
+    name = _name("mg_sharded_pc", u)
+    if kind not in PROLONG_KINDS:
+        raise ValueError(f"{name}: unknown prolongation {kind!r}")
+    halo = _steps(nu, smoother) + bool(rnorm)
+    _check_sharded(name, u, origin, n_global, nu, smoother, bc, rnorm,
+                   (f, u.shape), (V, _half(u.shape)))
+    uptrs, d = _strip_args(name, ustrips, u, halo, n_global, origin[1])
+    fptrs, df = _strip_args(name, fstrips, u, halo, n_global, origin[1])
+    vptrs, dv = _strip_args(name, vstrips, V, ops.coarse_depth(halo), n_global // 2,
+                            origin[1] // 2)
+    if df != d:
+        raise ValueError(f"{name}: u strips {d} deep, f strips {df}")
+    out = torch.empty_like(u)
+    partials = None
+    if rnorm:
+        t = TILE if u.ndim == 2 else tile3d(halo)
+        blocks = 1
+        for s in (n_global,) * (u.ndim - 2) + tuple(u.shape[:2]):
+            blocks *= -(-s // t)
+        partials = torch.empty(blocks, dtype=torch.float32, device=u.device)
+    tile = (tile3d(halo),) if u.ndim == 3 else ()
+    _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,
+            *_sharded_geometry(u, origin, n_global), d, dv, *tile, nu, SMOOTHERS[smoother],
+            BCS[bc], PROLONG_KINDS[kind], *_scalars(h, u.ndim), int(bool(rnorm)))
+    if not rnorm:
+        return out
+    launches[name + ".rnorm"] += 1
     return out, torch.sum(partials)
 
 

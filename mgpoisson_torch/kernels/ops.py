@@ -26,8 +26,12 @@ def _sl(nd, ax, s):
     return tuple(s if a == ax else slice(None) for a in range(nd))
 
 
-def neighbor_sum(u: torch.Tensor, bc: str = "ghost0") -> torch.Tensor:
-    """Zero-ghost / face-Dirichlet sum of the 2*ndim face neighbours."""
+def neighbor_sum(u: torch.Tensor, bc: str = "ghost0", edges=None) -> torch.Tensor:
+    """Zero-ghost / face-Dirichlet sum of the 2*ndim face neighbours.
+
+    edges: for a block of a larger grid (the sharded ops below), per axis
+    the (first, last) masks of the cells on the GRID's edges, where face
+    subtracts u; by default the array's own first and last lines."""
     nd = u.ndim
     pad = F.pad(u, (1, 1) * nd)
     s = None
@@ -38,10 +42,13 @@ def neighbor_sum(u: torch.Tensor, bc: str = "ghost0") -> torch.Tensor:
                        for a in range(nd))
         term = pad[idx_lo] + pad[idx_hi]
         s = term if s is None else s + term
-        if bc == "face":
+        if bc == "face" and edges is None:
             first, last = _sl(nd, ax, slice(0, 1)), _sl(nd, ax, slice(-1, None))
             s[first] -= u[first]
             s[last] -= u[last]
+        elif bc == "face":
+            for edge in edges[ax]:
+                s = s - torch.where(edge, u, 0.0)
     return s
 
 
@@ -122,7 +129,7 @@ def _inject(V):
     return V
 
 
-def prolong(V, kind: str = "inject"):
+def prolong(V, kind: str = "inject", edges=None):
     """Prolongation coarse -> fine.
 
     kind='inject': piecewise-constant 2x upsample (the reference's
@@ -130,7 +137,9 @@ def prolong(V, kind: str = "inject"):
     face-Dirichlet boundary weights: per axis out = a*R + b*S(R) on the
     injected array R, S the parity-dependent +-2 shift with zero fill,
     (a, b) = (0.75, 0.25) inside and (0.5, 0) at the global edges,
-    expanded into 3^ndim taps summed in the JAX package's order."""
+    expanded into 3^ndim taps summed in the JAX package's order.  `edges`
+    (per axis the fine (first, last) edge masks) places the global edges
+    for a block of a larger grid; by default they are the array's own."""
     nd = V.ndim
     R = _inject(V)
     if kind == "inject":
@@ -152,11 +161,14 @@ def prolong(V, kind: str = "inject"):
         return torch.where(even, xm, xp)
 
     def weights(ax):
-        n2 = R.shape[ax]
-        view = [1] * nd
-        view[ax] = n2
-        idx = torch.arange(n2, device=R.device).view(view)
-        bdry = (idx == 0) | (idx == n2 - 1)
+        if edges is None:
+            n2 = R.shape[ax]
+            view = [1] * nd
+            view[ax] = n2
+            idx = torch.arange(n2, device=R.device).view(view)
+            bdry = (idx == 0) | (idx == n2 - 1)
+        else:
+            bdry = edges[ax][0] | edges[ax][1]
         a = torch.where(bdry, 0.5, 0.75).to(R.dtype)
         b = torch.where(bdry, 0.0, 0.25).to(R.dtype)
         return a, b
@@ -236,6 +248,153 @@ def prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother="jacobi",
     is: it is the solver's stopping metric."""
     u = prolong_correct_smooth(u, f, V, h, nu, smoother, bc, kind)
     return u, residual_sq_sum(u, f, h)
+
+
+# --------------------------------------------- one block of a sharded level
+# The explicit partition (mgpoisson_torch.shard.spmd) gives each rank a
+# block of the global grid, its first cell at global index `origin` on the
+# two sharded axes 0 and 1 (a 3D grid keeps axis 2 whole).  The block's
+# halo arrives as strips, the neighbours' edge lines as shard.spmd.strips
+# exchanges them, zeros where the neighbour would lie outside the grid:
+#
+#   2D: top, bot (D, ml); left, right (nl + 2D, D);
+#   3D: top, bot (D, nyl, nx); left, right (nzl + 2D, D, nx);
+#
+# left/right are row-extended (the sequential per-axis exchange carries
+# the corners) and None on a mesh of one column, where only the grid's
+# edge lies beside the block.  These are the plain versions of the strip
+# kernels K9-K12 (kernels.cuda.smooth_rr_sharded, pc_smooth_sharded),
+# which compute what the JAX package's strip kernels compute
+# (mgpoisson/kernels/pallas.py smooth_rr_sharded, pc_smooth_sharded and
+# their 3D forms): the block and its strips concatenated into an extended
+# block, the sweeps run there with the boundary decided from the GLOBAL
+# index (the fix_ghost of mgpoisson/shard/spmd.py: cells outside the grid
+# hold 0, face subtracts u on the grid's edge lines), then the block cut
+# back out.  A sweep loses one ring of exact halo per radius (the deep-halo
+# trapezoid), so the strips must be at least as deep as the sweeps and the
+# residual reach: D >= radius * nu (+ 1 where a residual follows).
+
+def sweep_radius(smoother: str) -> int:
+    """Cells one sweep reaches: one per red-black colour half-sweep."""
+    return 2 if smoother == "rbgs" else 1
+
+
+def coarse_depth(depth: int) -> int:
+    """Depth of the coarse strips an up-leg with fine strips of `depth`
+    reads: the bilinear +-1 coarse neighbour of the halo's outer cell."""
+    return (depth + 1) // 2 + 1
+
+
+def extend(x, strips):
+    """The block x with its (top, bot, left, right) strips around it."""
+    top, bot, left, right = strips
+    x = torch.cat([top, x, bot], dim=0)
+    if left is None:
+        left = right = x.new_zeros((x.shape[0], top.shape[0], *x.shape[2:]))
+    return torch.cat([left, x, right], dim=1)
+
+
+def _trim(xe, d):
+    """The block of an extended block with d halo lines per sharded side
+    (contiguous, as every op returns its result)."""
+    return xe[d:xe.shape[0] - d, d:xe.shape[1] - d].contiguous()
+
+
+def _geometry(shape, origin, n, device):
+    """For an array covering global cells origin + [0, shape) per axis
+    (origin 0 on the unsharded axes) of a grid of side n: the mask of cells
+    inside the grid, per axis the (first, last) masks of the grid's edge
+    lines, and the red/black colour from the global index."""
+    nd = len(shape)
+    origin = tuple(origin) + (0,) * (nd - len(origin))
+    inside, edges, parity = None, [], 0
+    for ax in range(nd):
+        view = [1] * nd
+        view[ax] = shape[ax]
+        g = (torch.arange(shape[ax], device=device) + origin[ax]).view(view)
+        m = (g >= 0) & (g < n)
+        inside = m if inside is None else inside & m
+        edges.append((g == 0, g == n - 1))
+        parity = parity + g
+    return inside, edges, parity % 2
+
+
+def _block_sweeps(ue, fe, geo, h, nu, smoother, bc):
+    """nu sweeps of an extended block, in the plain sweeps' operation
+    order; cells outside the grid stay 0 (before each red-black colour
+    too: the second colour reads what the first wrote)."""
+    inside, edges, parity = geo
+    hsq = h * h
+    adiag = -2.0 * ue.ndim / hsq
+    if smoother == "rbgs":
+        for _ in range(nu):
+            for p in (0, 1):
+                upd = (fe - neighbor_sum(ue, bc, edges) / hsq) / adiag
+                ue = torch.where(inside & (parity == p), upd, ue)
+        return ue
+    omega = 2.0 * ue.ndim / (2.0 * ue.ndim + 1.0)
+    for _ in range(nu):
+        jac = (fe - neighbor_sum(ue, bc, edges) / hsq) / adiag
+        ue = torch.where(inside, jac if smoother == "jacobi" else ue + omega * (jac - ue),
+                         0.0)
+    return ue
+
+
+def _block_residual(ue, fe, geo, h, bc):
+    hsq = h * h
+    return fe - (neighbor_sum(ue, bc, geo[1]) / hsq + (-2.0 * ue.ndim / hsq) * ue)
+
+
+def _strip_depth(strips, need, what):
+    d = strips[0].shape[0]
+    if d < need:
+        raise ValueError(f"{what}: strips of depth {d}, the sweeps reach {need}")
+    return d
+
+
+def _ext_origin(origin, d):
+    return tuple(o - d for o in origin)
+
+
+def smooth_rr_sharded(u, f, ustrips, fstrips, origin, n_global, h, nu,
+                      smoother="jacobi", bc="ghost0", zero=False):
+    """The down-leg of one block (K9, K11): nu sweeps, the residual with the
+    level's bc and the 2^ndim-mean restriction of the block; returns (u,
+    R).  zero: u is identically 0 (u and ustrips unused)."""
+    d = _strip_depth(fstrips, sweep_radius(smoother) * nu + 1, "smooth_rr_sharded")
+    fe = extend(f, fstrips)
+    ue = torch.zeros_like(fe) if zero else extend(u, ustrips)
+    geo = _geometry(fe.shape, _ext_origin(origin, d), n_global, fe.device)
+    ue = _block_sweeps(ue, fe, geo, h, nu, smoother, bc)
+    return _trim(ue, d), restrict(_trim(_block_residual(ue, fe, geo, h, bc), d))
+
+
+def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h,
+                      nu, smoother="jacobi", bc="ghost0", kind="inject",
+                      rnorm=False):
+    """The up-leg of one block (K10, K12): u += P(V) with V the coarse
+    block and vstrips its coarse strips, then nu sweeps; with rnorm also
+    the block's sum(r^2) of the zero-ghost residual, accumulated in at
+    least f32: u, or (u, sum(r^2))."""
+    reach = sweep_radius(smoother) * nu + bool(rnorm)
+    d = _strip_depth(fstrips, reach, "pc_smooth_sharded")
+    dv = _strip_depth(vstrips, coarse_depth(reach), "pc_smooth_sharded (coarse)")
+    if 2 * dv < d:
+        raise ValueError(f"pc_smooth_sharded: coarse strips of depth {dv} do not "
+                         f"cover fine strips of depth {d}")
+    ue, fe = extend(u, ustrips), extend(f, fstrips)
+    geo = _geometry(ue.shape, _ext_origin(origin, d), n_global, ue.device)
+    # the prolonged extended coarse block covers 2*dv fine halo lines per side
+    Ve = extend(V, vstrips)
+    _, p_edges, _ = _geometry([2 * s for s in Ve.shape], _ext_origin(origin, 2 * dv),
+                              n_global, Ve.device)
+    ue = torch.where(geo[0], ue + _trim(prolong(Ve, kind, p_edges), 2 * dv - d), 0.0)
+    ue = _block_sweeps(ue, fe, geo, h, nu, smoother, bc)
+    out = _trim(ue, d)
+    if not rnorm:
+        return out
+    r = _trim(_block_residual(ue, fe, geo, h, "ghost0"), d).to(_acc_dtype(u.dtype))
+    return out, torch.sum(r * r)
 
 
 # ------------------------------------------------ packed-persistent fine level

@@ -1,0 +1,297 @@
+"""The explicit partition on torch.distributed (port of the `step_local`
+part of ``mgpoisson/shard/spmd.py``).
+
+One process per block of the grid, the V-cycle written out per rank with
+its communication explicit:
+
+- one deep-halo exchange per smoothing leg: the neighbours' edge lines,
+  D = radius * nu + 1 deep (the deeper of the two legs), arrive as strips
+  (``shift``, non-wrapping, so zeros arrive at the grid's edges: that zero
+  fill is the zero-ghost boundary); f is exchanged once per level and serves
+  both legs, u again before the up-leg, the coarse correction V at the
+  coarse depth.  Each leg is one strip kernel (K9-K12, kernels.cuda) where
+  ``kernels.use_sharded_kernels`` holds, else its plain version
+  (kernels.ops), which sweeps an extended block with the boundary taken
+  from the global index (the JAX package's fix_ghost).
+- below `replicate_below`, where the next level would not split evenly, or
+  where a block is thinner than twice the coarse strips' depth (the strips
+  would need more than the immediate neighbour's block), the level is
+  all-gathered and every rank runs the rest of the cycle on the whole
+  coarse grid (cycle.vcycle._cycle, the single-device cycle on this rank's
+  device), then keeps its block: small grids are latency-bound, so stop
+  communicating.  (The JAX package sweeps such thin blocks with one
+  exchange per sweep until replicate_below; the values are the same.)
+- sums are local sums, then ``all_reduce_sum``.
+
+Under the gloo backend, card tensors are staged through pinned host memory
+for every collective (gloo's point-to-point is host-only); under NCCL they
+go as they are.  The backend is the caller's choice
+(``multihost.initialize``): nothing here switches it.
+
+Not ported here (ROADMAP.md Queue 1 item 12): the mixed-precision step, the
+packed fine level under the partition, the adaptive cycles and FMG.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import List, Tuple
+
+import torch
+import torch.distributed as dist
+
+from mgpoisson_torch.cycle.vcycle import _cycle as _replicated_cycle
+from mgpoisson_torch.kernels import cuda, exchange_depth, ops, use_sharded_kernels
+from mgpoisson_torch.shard.mesh import ProcessMesh
+
+
+# ------------------------------------------------------------ block geometry
+
+def shardable(g: int, mesh: ProcessMesh) -> bool:
+    """Every rank keeps an even block of at least 2 cells per sharded axis."""
+    return all(g % m == 0 and g // m >= 2 and (g // m) % 2 == 0
+               for m in mesh.shape)
+
+
+def block_shape(g: int, ndim: int, mesh: ProcessMesh) -> Tuple[int, ...]:
+    """This rank's block of a grid of side g."""
+    return (g // mesh.shape[0], g // mesh.shape[1]) + (g,) * (ndim - 2)
+
+
+def block_origin(g: int, mesh: ProcessMesh) -> Tuple[int, int]:
+    """Global index of the block's first cell on the two sharded axes."""
+    cx, cy = mesh.coords
+    return cx * (g // mesh.shape[0]), cy * (g // mesh.shape[1])
+
+
+def block_slices(g: int, mesh: ProcessMesh) -> Tuple[slice, slice]:
+    """This rank's block of a grid of side g as slices of axes 0 and 1."""
+    (r0, c0), (nl, ml) = block_origin(g, mesh), block_shape(g, 2, mesh)
+    return slice(r0, r0 + nl), slice(c0, c0 + ml)
+
+
+# --------------------------------------------------------------- collectives
+
+# Host seconds spent in the collectives, by kind: the halo strips and the
+# all-gathers (the handoff to the replicated levels, the all-reduced sums).
+# Read and reset by bench/profile.py.  Under gloo the staging copies
+# synchronise, so these are the transfers' wall time; under NCCL they are
+# the time to enqueue them.
+comm_seconds = dict.fromkeys(("halo_exchange", "all_gather"), 0.0)
+
+
+def reset_comm_seconds() -> None:
+    for k in comm_seconds:
+        comm_seconds[k] = 0.0
+
+
+@contextlib.contextmanager
+def _timed(kind):
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        comm_seconds[kind] += time.perf_counter() - t0
+
+
+def _staged(mesh: ProcessMesh, t: torch.Tensor) -> bool:
+    return mesh.backend == "gloo" and t.device.type == "cuda"
+
+
+def _to_wire(mesh, t):
+    """t as the backend takes it: a pinned host copy under gloo for a card
+    tensor, else t itself (contiguous)."""
+    t = t.contiguous()
+    if not _staged(mesh, t):
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    return host
+
+
+def _wire_buffer(mesh, shape, like):
+    if _staged(mesh, like):
+        return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def shift(mesh: ProcessMesh, axis: int, to_hi: torch.Tensor, to_lo: torch.Tensor):
+    """The non-wrapping neighbour transfer along mesh axis `axis`: to_hi goes
+    to the neighbour at +1 and to_lo to the one at -1; returns (from_lo,
+    from_hi), what those two sent, on the same device, zeros where there is
+    no neighbour (the grid's edge: that zero fill is the zero-ghost
+    boundary).
+    All sends and receives are posted in one ``batch_isend_irecv`` before
+    any is waited on, so no order of the ranks can deadlock."""
+    lo, hi = mesh.neighbour(axis, -1), mesh.neighbour(axis, +1)
+    with _timed("halo_exchange"):
+        p2p, bufs = [], []
+        for peer, t in ((hi, to_hi), (lo, to_lo)):
+            if peer is not None:
+                p2p.append(dist.P2POp(dist.isend, _to_wire(mesh, t), peer, mesh.group))
+        for peer, shape in ((lo, to_hi.shape), (hi, to_lo.shape)):
+            buf = None
+            if peer is not None:
+                buf = _wire_buffer(mesh, shape, to_hi)
+                p2p.append(dist.P2POp(dist.irecv, buf, peer, mesh.group))
+            bufs.append((buf, shape))
+        if p2p:
+            for req in dist.batch_isend_irecv(p2p):
+                req.wait()
+        return tuple(to_hi.new_zeros(shape) if buf is None else buf.to(to_hi.device)
+                     for buf, shape in bufs)
+
+
+def strips(a: torch.Tensor, depth: int, mesh: ProcessMesh):
+    """(top, bot, left, right) halo strips of block a, `depth` deep, in the
+    layout of kernels.ops (top/bot the axis-0 neighbours' edge lines;
+    left/right the axis-1 neighbours' edge columns of their row-extended
+    blocks, so the sequential per-axis exchange carries the corners; None
+    on a mesh of one column).  Two batches: axis 0, then axis 1."""
+    n, m = a.shape[0], a.shape[1]
+    top, bot = shift(mesh, 0, a[n - depth:], a[:depth])
+    if mesh.shape[1] == 1:
+        return top, bot, None, None
+    lcol = torch.cat([top[:, m - depth:], a[:, m - depth:], bot[:, m - depth:]])
+    rcol = torch.cat([top[:, :depth], a[:, :depth], bot[:, :depth]])
+    left, right = shift(mesh, 1, lcol, rcol)
+    return top, bot, left, right
+
+
+def block_from_grid(G: torch.Tensor, origin, shape, depth: int, cols: bool = True):
+    """The block of whole grid G at `origin` of `shape` and the strips,
+    `depth` deep, that ``strips`` would deliver to its rank (zeros outside
+    the grid; no left/right without `cols`, a mesh of one column).  For
+    holding one block's ops against the whole grid's without ranks."""
+    pad = [0, 0] * (G.ndim - 2) + [depth] * 4
+    Gp = torch.nn.functional.pad(G, pad)
+    (r0, c0), (nl, ml) = (origin[0] + depth, origin[1] + depth), shape[:2]
+    cut = lambda r, c: Gp[r, c].contiguous()
+    strips = (cut(slice(r0 - depth, r0), slice(c0, c0 + ml)),
+              cut(slice(r0 + nl, r0 + nl + depth), slice(c0, c0 + ml)))
+    rows = slice(r0 - depth, r0 + nl + depth)
+    strips += ((cut(rows, slice(c0 - depth, c0)), cut(rows, slice(c0 + ml, c0 + ml + depth)))
+               if cols else (None, None))
+    return cut(slice(r0, r0 + nl), slice(c0, c0 + ml)), strips
+
+
+def all_gather(x: torch.Tensor, mesh: ProcessMesh) -> List[torch.Tensor]:
+    """Every rank's x, in rank order, on x's device."""
+    with _timed("all_gather"):
+        wire = _to_wire(mesh, x)
+        out = [torch.empty_like(wire) for _ in range(mesh.size)]
+        dist.all_gather(out, wire, group=mesh.group)
+        return [t.to(x.device) for t in out]
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+    """The sum of x over the ranks, taken in rank order from an all-gather:
+    every rank gets the same bits, so every rank takes the same stop
+    decision, and a run repeats exactly."""
+    return torch.stack(all_gather(x, mesh)).sum(dim=0)
+
+
+def gather_full(x: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+    """The whole grid from every rank's block (axes 0 and 1 tiled)."""
+    blocks = all_gather(x, mesh)
+    my = mesh.shape[1]
+    rows = [torch.cat(blocks[i * my:(i + 1) * my], dim=1) for i in range(mesh.shape[0])]
+    return torch.cat(rows, dim=0)
+
+
+def slice_local(full: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
+    """This rank's block of a whole grid."""
+    return full[block_slices(full.shape[0], mesh)].contiguous()
+
+
+# --------------------------------------------------------------- the cycle
+
+def residual_sq_sum(u, f, h, mesh: ProcessMesh):
+    """This rank's share of sum(r^2) of the zero-ghost residual, accumulated
+    in at least f32: one one-cell exchange, then the plain residual."""
+    ue = ops.extend(u, strips(u, 1, mesh))
+    nbr = ops.neighbor_sum(ue, "ghost0")[1:-1, 1:-1]
+    hsq = h * h
+    r = (f - (nbr / hsq + (-2.0 * u.ndim / hsq) * u)).to(ops._acc_dtype(u.dtype))
+    return torch.sum(r * r)
+
+
+class SpmdCycle:
+    """The per-rank V/W-cycle and step of a spec on a mesh."""
+
+    def __init__(self, spec, mesh: ProcessMesh):
+        if spec.cycle not in ("v", "w"):
+            raise ValueError(f"unknown cycle {spec.cycle!r}")
+        self.spec = spec
+        self.mesh = mesh
+        self.gamma = 2 if spec.cycle == "w" else 1
+        self.depth = exchange_depth(spec)
+        self.cdepth = ops.coarse_depth(self.depth)
+
+    def cycle(self, u, f, h, g, fine_level, want_r2=False):
+        """One cycle of the level of global side g on this rank's block f
+        (u None: u is identically zero, every coarse entry).  Returns (u,
+        local sum(r^2) or None): with want_r2 the fine up-leg adds the
+        block's Σr² of the result, where the strip path runs it."""
+        spec, mesh = self.spec, self.mesh
+        bc = "ghost0" if fine_level else spec.coarse_bc
+        if (g <= spec.replicate_below or not shardable(g // 2, mesh)
+                or min(f.shape[:2]) < 2 * self.cdepth):
+            # replicated handoff: gather once, run the rest of the cycle on
+            # the whole grid, keep this rank's block
+            full = _replicated_cycle(None if u is None else gather_full(u, mesh),
+                                     gather_full(f, mesh), h, spec, self.gamma,
+                                     fine_level, None)
+            return slice_local(full, mesh), None
+        origin = block_origin(g, mesh)
+        smoother = spec.smoother_resolved
+        m = cuda if use_sharded_kernels(spec, g, f.shape, f.device) else ops
+        fs = strips(f, self.depth, mesh)          # f is level-invariant: once
+        us = None if u is None else strips(u, self.depth, mesh)
+        u, R = m.smooth_rr_sharded(u, f, us, fs, origin, g, h, spec.nu_pre, smoother,
+                                   bc, zero=u is None)
+        V = self._coarse(R, h, g)
+        out = m.pc_smooth_sharded(u, f, V, strips(u, self.depth, mesh), fs,
+                                  strips(V, self.cdepth, mesh), origin, g, h,
+                                  spec.nu_post, smoother, bc, spec.prolong_kind,
+                                  rnorm=want_r2 and fine_level)
+        return out if want_r2 and fine_level else (out, None)
+
+    def _coarse(self, R, h, g):
+        V = self.cycle(None, R, 2 * h, g // 2, False)[0]
+        for _ in range(self.gamma - 1):
+            V = self.cycle(V, R, 2 * h, g // 2, False)[0]
+        return V
+
+    def step(self, psi, f):
+        """One cycle on this rank's block: (psi_new, rms_update, residual
+        norm), the two metrics all-reduced and the same on every rank; only
+        the one spec.stop selects is computed, the other is 0."""
+        spec, mesh = self.spec, self.mesh
+        zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
+        h, acc = spec.fine_h, ops._acc_dtype(psi.dtype)
+        if spec.stop == "update":
+            psi_new = self.cycle(psi, f, h, spec.size, True)[0]
+            d = (psi_new - psi).to(acc)
+            sq = all_reduce_sum(torch.sum(d * d), mesh)
+            return psi_new, torch.sqrt(sq / spec.size ** spec.ndim), zero
+        psi_new, r2 = self.cycle(psi, f, h, spec.size, True, want_r2=True)
+        if r2 is None:
+            r2 = residual_sq_sum(psi_new, f, h, mesh)
+        rn = torch.sqrt(all_reduce_sum(r2.to(acc), mesh)).to(psi.dtype)
+        return psi_new, zero, rn
+
+    def residual_norm(self, psi, f):
+        """||r|| of the zero-ghost residual over the whole grid."""
+        r2 = residual_sq_sum(psi, f, self.spec.fine_h, self.mesh)
+        return torch.sqrt(all_reduce_sum(r2, self.mesh)).to(psi.dtype)
+
+    def rel_err(self, psi, psi_old):
+        """ops.rel_err over the whole grid: the masked sum and its count
+        all-reduced."""
+        mask = (psi_old != 0) & (psi_old != psi)
+        vals = torch.where(mask, torch.abs(1.0 - psi / torch.where(mask, psi_old, 1.0)), 0.0)
+        tot = all_reduce_sum(torch.stack([torch.sum(vals).double(),
+                                          torch.sum(mask).double()]), self.mesh)
+        return torch.where(tot[1] > 0, tot[0] / torch.clamp(tot[1], min=1), 0.0).to(psi.dtype)

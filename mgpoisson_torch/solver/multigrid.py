@@ -15,6 +15,12 @@ Where ``kernels.use_packed`` holds (the fast scheme's rbgs fine level),
 ``solve()`` packs psi and f once, carries the packed state through the
 loop (``cycle.packed``) and unpacks psi at the end, unless a callback asks
 for psi; ``step()`` stays unpacked, as in the JAX package.
+
+With a mesh (``spec.mesh_shape``, or a ``shard.mesh.ProcessMesh``) the
+solver is one rank of the explicit partition (``shard.spmd``): ``rhs()``,
+``init_state()``, ``step()`` and ``solve()`` take and give this rank's
+block, and the error history is the all-reduced one, the same on every
+rank.
 """
 
 from __future__ import annotations
@@ -26,11 +32,13 @@ from typing import Callable, Optional
 
 import torch
 
-from mgpoisson_torch.core.rhs import initial_guess, point_charge_rhs
+from mgpoisson_torch.core.rhs import initial_guess, point_charge_block, point_charge_rhs
 from mgpoisson_torch.core.spec import Spec
 from mgpoisson_torch.cycle import packed
 from mgpoisson_torch.cycle.vcycle import make_cycle
 from mgpoisson_torch.kernels import ops, use_kernels, use_packed
+from mgpoisson_torch.shard import multihost, spmd
+from mgpoisson_torch.shard.mesh import build_mesh
 
 
 @dataclasses.dataclass
@@ -63,24 +71,40 @@ def _callback_arity(cb) -> int:
 
 
 class MultigridPoisson:
-    """Geometric multigrid Poisson solver on one torch device."""
+    """Geometric multigrid Poisson solver on one torch device, or one rank
+    of a sharded solve."""
 
-    def __init__(self, spec: Spec, device="cuda"):
+    def __init__(self, spec: Spec, device="cuda", mesh=None):
         """device: where the solver's tensors live, the card by default;
         without one this raises, and device='cpu' solves on the CPU.
         The device of the tensors decides between the CUDA kernels and
         the plain ops (see ``mgpoisson_torch.kernels.use_kernels``); the
-        solver never moves work to another device by itself."""
+        solver never moves work to another device by itself.
+
+        mesh: a ``shard.mesh.ProcessMesh``, or None to build one from
+        spec.mesh_shape over the default process group when the spec has
+        a mesh.  Under a mesh, "cuda" means this rank's card,
+        ``shard.multihost.device_for(rank)``, and partition 'auto' is the
+        explicit partition 'spmd'."""
+        if mesh is not None and spec.mesh_shape is None:
+            spec = spec.with_(mesh_shape=tuple(mesh.shape))
+        if mesh is None and spec.mesh_shape is not None:
+            mesh = build_mesh(spec.mesh_shape)
         self.spec = spec
+        self.mesh = mesh
+        self.partition = None if mesh is None else "spmd"
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"MultigridPoisson: device {str(self.device)!r} but "
                 "torch.cuda.is_available() is False; pass device=\"cpu\" to "
                 "solve on the CPU")
+        if mesh is not None and self.device == torch.device("cuda"):
+            self.device = multihost.device_for(mesh.rank)
         self._dtype = getattr(torch, spec.dtype)
         use_kernels(spec, spec.size, self.device)   # rejects backend='cuda' on CPU
         self._want_rnorm = spec.stop == "residual"
+        self._spmd = None if mesh is None else spmd.SpmdCycle(spec, mesh)
         self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
         self._packed = use_packed(spec, self.device)
         if self._packed:
@@ -89,9 +113,13 @@ class MultigridPoisson:
     # ------------------------------------------------------------ state
 
     def rhs(self) -> torch.Tensor:
-        """Default point-charge RHS."""
-        return point_charge_rhs(self.spec.size, self.spec.ndim, self._dtype,
-                                self.device)
+        """Default point-charge RHS (under a mesh, this rank's block of it)."""
+        spec = self.spec
+        if self.mesh is not None:
+            return point_charge_block(spec.size, spmd.block_origin(spec.size, self.mesh),
+                                      spmd.block_shape(spec.size, spec.ndim, self.mesh),
+                                      self._dtype, self.device)
+        return point_charge_rhs(spec.size, spec.ndim, self._dtype, self.device)
 
     def init_state(self, f: Optional[torch.Tensor] = None) -> torch.Tensor:
         """psi0 = -f."""
@@ -107,6 +135,9 @@ class MultigridPoisson:
         """err per spec.stop: 'update' — RMS of the iterate update (on
         packed state too: it is permutation-invariant); 'residual' —
         ||r||/||r0||, with ||r||^2 fused into the cycle's fine up-leg."""
+        if self._spmd is not None:
+            psi_new, err_upd, rn = self._spmd.step(psi, f)
+            return psi_new, (rn / r0 if self._want_rnorm else err_upd)
         cycle = cycle or self._cycle
         h = self.spec.fine_h
         if self._want_rnorm:
@@ -117,14 +148,18 @@ class MultigridPoisson:
 
     def _r0(self, psi, f):
         if self.spec.stop == "residual":
-            return ops.residual_norm(psi, f, self.spec.fine_h)
+            return self.residual_norm(psi, f)
         return torch.ones((), dtype=self._dtype, device=self.device)
 
     def residual_norm(self, psi, f):
+        if self._spmd is not None:
+            return self._spmd.residual_norm(psi, f)
         return ops.residual_norm(psi, f, self.spec.fine_h)
 
     def rel_err(self, psi, psi_old):
         """The reference's secondary masked relative-change metric."""
+        if self._spmd is not None:
+            return self._spmd.rel_err(psi, psi_old)
         return ops.rel_err(psi, psi_old)
 
     # ------------------------------------------------------------ solve

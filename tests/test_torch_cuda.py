@@ -9,14 +9,19 @@ where JAX is not installed; tests/conftest.py imports JAX, hence:
 
 Sizes include levels smaller than one tile (32x32 in 2D, 16^3 or 8^3 in
 3D, 32 rows x 32 packed lanes for the packed K7/K8) and levels of several
-tiles.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
+tiles; the strip kernels K9-K12 run every block position of (2, 2) and
+(4, 1) meshes, blocks and strips cut from a whole grid as the ranks'
+exchange delivers them.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
 bar), 1e-5 relative on sum(r^2), whose partials are summed in another
 order."""
+
+import itertools
 
 import pytest
 import torch
 
 from mgpoisson_torch.kernels import cuda, ops
+from mgpoisson_torch.shard.spmd import block_from_grid
 
 
 @pytest.fixture
@@ -181,4 +186,80 @@ def test_launch_counters(card):
     cuda.pack_grid(u)
     want = dict.fromkeys(cuda.launches, 0)
     want.update({"mg_packed_rr": 1, "mg_packed_pc": 2, "mg_packed_pc.rnorm": 1})
+    assert cuda.launches == want
+
+
+# the strip kernels: blocks below one tile, of one tile and of several, on
+# meshes with and without a column neighbour
+SHARDED = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (3, 32, (2, 2)),
+           (3, 64, (4, 1))]
+
+
+def _blocks(n, mesh, ndim):
+    shape = (n // mesh[0], n // mesh[1]) + (n,) * (ndim - 2)
+    for i, j in itertools.product(range(mesh[0]), range(mesh[1])):
+        yield (i * shape[0], j * shape[1]), shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ndim,n,mesh", SHARDED)
+@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 2), ("jacobi", 1)])
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_sharded_kernels_vs_plain(card, ndim, n, mesh, smoother, nu, bc):
+    u, f, V = _data(n, n + nu, card, ndim)
+    d = ops.sweep_radius(smoother) * nu + 1
+    cols = mesh[1] > 1
+    for origin, shape in _blocks(n, mesh, ndim):
+        ub, us = block_from_grid(u, origin, shape, d, cols)
+        fb, fs = block_from_grid(f, origin, shape, d, cols)
+        vb, vs = block_from_grid(V, [o // 2 for o in origin], [s // 2 for s in shape],
+                                 ops.coarse_depth(d), cols)
+        a = (origin, n, 1.0 / n, nu, smoother, bc)
+        for got, want in zip(cuda.smooth_rr_sharded(ub, fb, us, fs, *a)
+                             + cuda.smooth_rr_sharded(None, fb, None, fs, *a, zero=True),
+                             ops.smooth_rr_sharded(ub, fb, us, fs, *a)
+                             + ops.smooth_rr_sharded(None, fb, None, fs, *a, zero=True)):
+            assert _nmax(got, want) <= 1e-5
+        for kind in ("inject", "bilinear"):
+            pa = (ub, fb, vb, us, fs, vs, origin, n, 1.0 / n, nu, smoother, bc, kind)
+            assert _nmax(cuda.pc_smooth_sharded(*pa), ops.pc_smooth_sharded(*pa)) <= 1e-5
+            (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
+                                  ops.pc_smooth_sharded(*pa, rnorm=True))
+            assert _nmax(gu, wu) <= 1e-5
+            assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sharded_wrappers_reject_what_the_kernels_do_not_take(card):
+    u, f, V = _data(64, 3, card)
+    ub, us = block_from_grid(u, (0, 32), (32, 32), 4)
+    a = ((0, 32), 64, 1 / 64, 3, "wjacobi", "ghost0")
+    with pytest.raises(ValueError, match="strips 2 deep"):
+        cuda.smooth_rr_sharded(ub, ub, *[block_from_grid(u, (0, 32), (32, 32), 2)[1]] * 2, *a)
+    with pytest.raises(ValueError, match="spans every column"):
+        cuda.smooth_rr_sharded(ub, ub, us[:2] + (None, None), us, *a)
+    with pytest.raises(ValueError, match="even block"):
+        cuda.smooth_rr_sharded(ub, ub, us, us, (1, 32), *a[1:])
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda.smooth_rr_sharded(ub.double(), ub.double(), [s.double() for s in us],
+                               [s.double() for s in us], *a)
+
+
+@pytest.mark.cuda
+def test_sharded_launch_counters(card):
+    cuda.reset_launches()
+    for ndim, n in ((2, 64), (3, 32)):
+        u, f, V = _data(n, 4, card, ndim)
+        shape = (n // 2, n // 2) + (n,) * (ndim - 2)
+        ub, us = block_from_grid(u, (0, 0), shape, 4)
+        vb, vs = block_from_grid(V, (0, 0), [s // 2 for s in shape], 3)
+        a = ((0, 0), n, 1 / n, 3, "wjacobi", "face")
+        cuda.smooth_rr_sharded(None, ub, None, us, *a, zero=True)
+        cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear", rnorm=True)
+        cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_sharded_rr": 1, "mg_sharded_rr.zero": 1, "mg_sharded_pc": 2,
+                 "mg_sharded_pc.rnorm": 1, "mg_sharded_rr3d": 1, "mg_sharded_rr3d.zero": 1,
+                 "mg_sharded_pc3d": 2, "mg_sharded_pc3d.rnorm": 1})
     assert cuda.launches == want

@@ -53,3 +53,46 @@ def test_profile_reads_a_3d_solve(tmp_path):
     assert all(v == 0 for v in row["kernel_calls"].values())
     assert row["device_busy_share"] == "not measured"
     assert (tmp_path / "solve_16_3d_kms256.json").stat().st_size > 0
+
+
+def test_device_summary_counts_the_templated_kernels():
+    """Device events of a trace: the union of their intervals, and the time
+    in the mg_* kernels, whose template instances the trace names
+    "void mg_..<..>(..)"."""
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+
+    def ev(name, start, end):
+        return SimpleNamespace(name=name, device_type=DeviceType.CUDA,
+                               time_range=SimpleNamespace(start=start, end=end))
+
+    prof = SimpleNamespace(events=lambda: [
+        ev("void mg_smooth_rr_kernel<false>(float const*)", 0.0, 10.0),
+        ev("mg_packed_rr_kernel(float const*)", 5.0, 15.0),
+        ev("void at::native::elementwise_kernel<128, 2>()", 20.0, 30.0)])
+    assert profile.device_summary(prof) == (3, 0.025, 0.02)
+
+
+def test_sass_diff_compares_the_shared_functions():
+    """mgpoisson_torch.bench.sass_diff on two cuobjdump listings: the
+    functions both hold, same code whatever the addresses and encodings."""
+    from mgpoisson_torch.bench import sass_diff
+
+    def listing(*funcs):
+        lines = ["Fatbin elf code:", "================"]
+        for name, code in funcs:
+            lines.append(f"        Function : {name}")
+            lines += [f"        /*{16 * k:04x}*/   {op} ;   /* 0x{k:016x} */"
+                      for k, op in enumerate(code)]
+        return "\n".join(lines)
+
+    k2 = ("_Z19mg_smooth_rr_kernelPKfS0_PfS1_iiiiifff", ["LDC R1, c[0x0][0x28]", "EXIT"])
+    old = sass_diff.functions(listing(k2, ("_Z4gonev", ["EXIT"])))
+    new = sass_diff.functions(listing(k2, ("_Z4morev", ["NOP", "EXIT"]),
+                                      ("_Z4gonev", ["IADD3 R0, R1, 0x1, RZ", "EXIT"])))
+    assert old[k2[0]] == ["LDC R1, c[0x0][0x28]", "EXIT"]
+    assert sass_diff.compare(old, new) == [
+        {"function": k2[0], "instructions_old": 2, "instructions_new": 2, "identical": True},
+        {"function": "_Z4gonev", "instructions_old": 1, "instructions_new": 2,
+         "identical": False, "differing": 2,
+         "first_differences": [[0, "EXIT", "IADD3 R0, R1, 0x1, RZ"]]}]

@@ -183,7 +183,8 @@ VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(coarse_size=4), dict(h=0.01), dict(dtype="float64"),
          dict(backend="xla", ndim=3), dict(backend="pallas"),
          dict(pallas_min_size=64), dict(sweep_dtype="float32"), dict(ndim=3),
-         dict(ndim=3, backend="pallas")]
+         dict(ndim=3, backend="pallas"), dict(mesh_shape=(2, 2)),
+         dict(partition="spmd")]
 INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="sor"), dict(cycle="z"), dict(stop="x"),
            dict(stop_check="x"), dict(stop_check="adaptive"),
@@ -193,8 +194,7 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="gs_lex", scheme="reference", mesh_shape=(2, 2))]
 # valid in the JAX package but not ported yet: NotImplementedError, never
 # silently ignored
-LATER = [dict(mesh_shape=(2, 2)), dict(partition="spmd"),
-         dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
+LATER = [dict(partition="gspmd"), dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
          dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
          dict(smoother="gs_lex", scheme="reference")]
 
@@ -251,6 +251,9 @@ def test_port_imports_no_jax():
             "import mgpoisson_torch, mgpoisson_torch.convert\n"
             "import mgpoisson_torch.kernels.cuda, mgpoisson_torch.kernels.build\n"
             "import mgpoisson_torch.cycle, mgpoisson_torch.solver\n"
+            "import mgpoisson_torch.shard.mesh, mgpoisson_torch.shard.multihost\n"
+            "import mgpoisson_torch.shard.spmd\n"
+            "import mgpoisson_torch.bench.profile, mgpoisson_torch.bench.sass_diff\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgpoisson')]\n"
