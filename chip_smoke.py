@@ -6,9 +6,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device   — a CUDA device must be present; prints its name and power
               limit (nvidia-smi) and turns TF32 off.
-2. build    — builds the eight CUDA kernels from mgpoisson_torch/csrc (one
-              nvcc per source, in parallel) and prints ptxas's registers,
-              spills and shared memory.
+2. build    — builds every CUDA kernel from mgpoisson_torch/csrc (one nvcc
+              per source, in parallel) and prints ptxas's registers, spills
+              and shared memory.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
               (4096 ... 256) x bc x smoother x nu; then the time of each at
@@ -58,24 +58,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
               on one (2, 2) block of 16384^2 beside K2/K3 on a whole 8192^2
               array, and K11/K12 on one (2, 2) block of 256^3, each with its
               plain version and bound.
-11. spmd    — the sharded tuned f32 solve through MultigridPoisson with a
-              mesh: 4 ranks spawned on the card over a gloo process group
-              (the strips staged through host memory: NCCL refuses two ranks
-              on one GPU) solve 4096^2 on (2, 2) and (4, 1) and 256^3 on
-              (2, 2) against the JAX package's per-cycle relres, and 16384^2
-              on (2, 2) against the single-device 16384^2 solve, which this
-              phase also runs; an f64 re-check of each gathered iterate, and
-              every rank's launches (K9/K10 at every sharded level >= 256,
-              K11/K12 at the 3D fine level, no K2/K3 at a sharded level).
-              With 4 or more cards, the 4096^2 (2, 2) solve again over NCCL.
+11. parity_sharded_packed — the packed strip kernels K13/K14 of the fast
+              scheme's fine level on a mesh of one column against their plain
+              versions at every block of (4, 1), at every fine side of the
+              packed sharded solves of phase 12 (16384, 4096) x nu in {1, 2,
+              3}, both prolongation kinds, with and without rnorm; each
+              kernel's outputs stitched over the blocks against K7/K8 on the
+              whole packed grid (expected bit-equal: the same tiles, the same
+              arithmetic).  Then (timing_sharded_packed) K13/K14 on an
+              interior (4096, 16384) block beside K7/K8 on a whole 8192^2
+              array, each with its plain version and bound.
+12. spmd    — the sharded f32 solves through MultigridPoisson with a mesh: 4
+              ranks spawned on the card over a gloo process group (the strips
+              staged through host memory: NCCL refuses two ranks on one GPU)
+              solve tuned 4096^2 on (2, 2) and (4, 1) and 256^3 on (2, 2)
+              against the JAX package's per-cycle relres, tuned 16384^2 on
+              (2, 2) against the single-device 16384^2 solve, and the fast
+              scheme on (4, 1), its fine level packed on K13/K14: 4096^2
+              against the JAX package and 16384^2 against the single-device
+              packed 16384^2 solve; the single-device references run in this
+              phase too.  An f64 re-check of each gathered iterate, and every
+              rank's launches (K9/K10 at every sharded level >= 256, K11/K12
+              at the 3D fine level, K13/K14 at a packed fine level, no
+              single-device kernel).  With 4 or more cards, the tuned and the
+              packed 4096^2 solves again over NCCL.
 
 The last lines are a JSON object of the off-path kernels (K1, K4, with
 their launches in the traced cycles), a JSON object of the main paths'
 kernels (K2, K3 with their launches in the 4096^2 tuned solve; K5, K6 with
 theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
-K9, K10 with one rank's in the sharded 16384^2 solve and K11, K12 in the
-sharded 256^3 solve), the card's name and power limit, and {"ok": true,
-"device": {...}}.  Imports nothing of JAX.
+K9, K10 with one rank's in the sharded 16384^2 solve, K11, K12 in the
+sharded 256^3 solve and K13, K14 in the sharded fast 16384^2 solve), the
+card's name and power limit, and {"ok": true, "device": {...}}.  Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -96,7 +111,8 @@ import torch.multiprocessing as mp
 from mgpoisson_torch import MultigridPoisson, Spec
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
-from mgpoisson_torch.kernels import build, cuda, exchange_depth, ops, use_sharded_kernels
+from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packed_sharded,
+                                     use_sharded_kernels)
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import ProcessMesh
 
@@ -152,10 +168,17 @@ SHARDED_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2))
 TIMING_SHARDED = {2: 16384, 3: 256}
 SPMD_WORLD = 4
 SPEC_16K = MAIN_SPEC.with_(size=16384)
+FAST_16K = FAST_SPEC.with_(size=16384)
 SPMD_DIR = build.BUILD_DIR.parent / "spmd"
-# the solves of phase_spmd: (label, spec, mesh, warm-up solve first)
+# the solves of phase_spmd: (label, spec, mesh, warm-up solve first); the
+# fast scheme on (4, 1) runs its fine level packed on K13/K14
 SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4, 1), True),
-              ("spmd256^3", SPEC_3D, (2, 2), True), ("spmd16384", SPEC_16K, (2, 2), False))
+              ("spmd256^3", SPEC_3D, (2, 2), True), ("spmd16384", SPEC_16K, (2, 2), False),
+              ("spmd4096fast", FAST_SPEC, (4, 1), True),
+              ("spmd16384fast", FAST_16K, (4, 1), False))
+# timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
+# 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
+TIMING_SHARDED_PACKED = (16384, 4, 8192)
 
 
 def kernel_levels(spec):
@@ -197,6 +220,10 @@ KERNELS = {
                         "mgpoisson/kernels/pallas.py:4908"),
     "mg_sharded_pc3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
                         "mgpoisson/kernels/pallas.py:5060"),
+    "mg_sharded_packed_rr": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
+                             "mgpoisson/kernels/pallas.py:4499"),
+    "mg_sharded_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
+                             "mgpoisson/kernels/pallas.py:4621"),
 }
 # per rank: the (smooth, rr, pc) kernels and the tags of the parity lines
 RANK = {2: (("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"), ("K1", "K2", "K3")),
@@ -804,11 +831,158 @@ def phase_timing_sharded(dev):
     return out
 
 
+def packed_sharded_sides():
+    """The fine sides of the solves of phase_spmd that run the packed fine
+    level on K13/K14 (16384, 4096)."""
+    return sorted({spec.size for _, spec, mesh_shape, _ in SPMD_CASES
+                   if packed_sharded(spec, mesh_shape)}, reverse=True)
+
+
+def phase_parity_sharded_packed(dev, worst):
+    """K13/K14 against their plain versions at every block of (4, 1) and
+    every fine side of packed_sharded_sides, nu in {1, 2, 3}, both
+    prolongation kinds, with and without rnorm; each kernel's outputs
+    stitched over the blocks against K7/K8 on the whole packed grid, where
+    they are expected bit-equal (the same arithmetic on the same values)."""
+    mx = 4
+    for n in packed_sharded_sides():
+        u, f, V = _data(n, 2, seed=n + 9, dev=dev)
+        up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+        del u, f
+        h, nl = 1.0 / n, n // mx
+        for nu in (1, 2, 3):
+            row = [f"n={n} (4, 1) nu={nu}"]
+            w = _Worst(worst)
+            d = 2 * nu + 1
+            whole = {"rr": cuda.packed_smooth_residual_restrict(up, fp, h, nu)}
+            st = {"rr": [torch.empty_like(x) for x in whole["rr"]]}
+            for kind in ("inject", "bilinear"):
+                whole[kind] = cuda.packed_prolong_correct_smooth(up, fp, V, h, nu, kind)
+                whole[kind + "r"] = cuda.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu,
+                                                                             kind)
+                st[kind], st[kind + "r"] = torch.empty_like(up), torch.empty_like(up)
+            r2 = {"inject": 0.0, "bilinear": 0.0}
+            for r0 in range(0, n, nl):
+                fine, coarse = slice(r0, r0 + nl), slice(r0 // 2, (r0 + nl) // 2)
+                ub, us = spmd.block_from_grid(up, (r0, 0), (nl, n), d, cols=False)
+                fb, fs = spmd.block_from_grid(fp, (r0, 0), (nl, n), d, cols=False)
+                vb, vs = spmd.block_from_grid(V, (r0 // 2, 0), (nl // 2, n // 2),
+                                              ops.coarse_depth(d), cols=False)
+                b = ((r0, 0), n, h, nu)
+                (gu, gR), (wu, wR) = (cuda.packed_rr_sharded(ub, fb, us, fs, *b),
+                                      ops.packed_rr_sharded(ub, fb, us, fs, *b))
+                w.note("mg_sharded_packed_rr", "K13.u", gu, wu)
+                w.note("mg_sharded_packed_rr", "K13.R", gR, wR)
+                st["rr"][0][fine], st["rr"][1][coarse] = gu, gR
+                for kind in ("inject", "bilinear"):
+                    pa = (ub, fb, vb, us, fs, vs, *b, kind)
+                    tag = "K14" + kind[0]
+                    gp = cuda.packed_pc_sharded(*pa)
+                    w.note("mg_sharded_packed_pc", tag, gp, ops.packed_pc_sharded(*pa))
+                    (gr, g2), (wr, w2) = (cuda.packed_pc_sharded(*pa, rnorm=True),
+                                          ops.packed_pc_sharded(*pa, rnorm=True))
+                    w.note("mg_sharded_packed_pc", tag + "r.u", gr, wr)
+                    w.tags[tag + "r.r2"] = max(w.tags.get(tag + "r.r2", 0.0),
+                                               abs(float(g2) / float(w2) - 1.0))
+                    st[kind][fine], st[kind + "r"][fine] = gp, gr
+                    r2[kind] += float(g2)
+            pairs = [("K13~K7.u", st["rr"][0], whole["rr"][0]),
+                     ("K13~K7.R", st["rr"][1], whole["rr"][1])]
+            for kind in ("inject", "bilinear"):
+                k = kind[0]
+                pairs += [(f"K14{k}~K8", st[kind], whole[kind]),
+                          (f"K14{k}r~K8r.u", st[kind + "r"], whole[kind + "r"][0])]
+                w.tags[f"K14{k}r~K8r.r2"] = abs(r2[kind] / float(whole[kind + "r"][1]) - 1.0)
+            gaps = []
+            for tag, got, want in pairs:
+                w.note(None, tag, got, want)
+                if not torch.equal(got, want):
+                    gaps.append(f"{tag} max |diff| {nmax(got, want)[1]:.3e}")
+            w.check(row)
+            row.append("stitched: bit-equal to K7/K8" if not gaps
+                       else "stitched: NOT bit-equal to K7/K8: " + "; ".join(gaps))
+            torch.cuda.synchronize()
+            print("[parity_sharded_packed] " + " ".join(row))
+            del whole, st
+            torch.cuda.empty_cache()
+        del up, fp, V
+        torch.cuda.empty_cache()
+
+
+def phase_timing_sharded_packed(dev):
+    """At the fast scheme's fine settings (rbgs nu = 1, bilinear): K13, K14
+    and K14 with rnorm on an interior block (both strips from neighbours) of
+    16384^2 on (4, 1), beside K7, K8 and K8 with rnorm on a whole 8192^2
+    array of the same cell count; each with its plain version and bound."""
+    n, mx, m = TIMING_SHARDED_PACKED
+    nu, nl, h = 1, n // mx, 1.0 / n
+    d = exchange_depth(FAST_SPEC)
+    dv = ops.coarse_depth(d)
+    g = torch.Generator(device=dev).manual_seed(23)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    ub, fb, vb = rand(nl, n), rand(nl, n), rand(nl // 2, n // 2)
+    us, fs = (rand(d, n), rand(d, n), None, None), (rand(d, n), rand(d, n), None, None)
+    vs = (rand(dv, n // 2), rand(dv, n // 2), None, None)
+    b = ((nl, 0), n, h, nu)
+    w_rr, w_pc = _work(2, nu, "rbgs", "rr"), _work(2, nu, "rbgs", "pc", "bilinear")
+    w_pcr = _work(2, nu, "rbgs", "pc", "bilinear", rnorm=True)
+    fine_in = [ub, fb, *us[:2], *fs[:2]]
+    cases = {
+        "mg_sharded_packed_rr": (lambda k: k.packed_rr_sharded(ub, fb, us, fs, *b),
+                                 fine_in, w_rr),
+        "mg_sharded_packed_pc": (
+            lambda k: k.packed_pc_sharded(ub, fb, vb, us, fs, vs, *b, "bilinear"),
+            fine_in + [vb, *vs[:2]], w_pc),
+        "mg_sharded_packed_pc.rnorm": (
+            lambda k: k.packed_pc_sharded(ub, fb, vb, us, fs, vs, *b, "bilinear", rnorm=True),
+            fine_in + [vb, *vs[:2]], w_pcr),
+    }
+    out = _time_cases("timing_sharded_packed", cases,
+                      f"the block ({nl}, {n}) at row {nl} of {n}^2", nl * n)
+    del ub, fb, vb, us, fs, vs
+    torch.cuda.empty_cache()
+    u, f, V = _data(m, 2, seed=29, dev=dev)
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    del u, f
+    hm = 1.0 / m
+    whole = {
+        f"mg_packed_rr@{m}": (lambda k: k.packed_smooth_residual_restrict(up, fp, hm, nu),
+                             (up, fp), w_rr),
+        f"mg_packed_pc@{m}": (
+            lambda k: k.packed_prolong_correct_smooth(up, fp, V, hm, nu, "bilinear"),
+            (up, fp, V), w_pc),
+        f"mg_packed_pc.rnorm@{m}": (
+            lambda k: k.packed_prolong_correct_smooth_rnorm(up, fp, V, hm, nu, "bilinear"),
+            (up, fp, V), w_pcr),
+    }
+    t = _time_cases("timing_sharded_packed", whole, f"{m}^2", m * m)
+    for sharded, single in (("mg_sharded_packed_rr", "mg_packed_rr"),
+                            ("mg_sharded_packed_pc", "mg_packed_pc"),
+                            ("mg_sharded_packed_pc.rnorm", "mg_packed_pc.rnorm")):
+        print(f"[timing_sharded_packed] {sharded} on a ({nl}, {n}) block against {single} "
+              f"on {m}^2: {out[sharded]['ms'] / t[f'{single}@{m}']['ms']:.3f}x")
+    del up, fp, V
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh(mesh_shape):
+    """A mesh object of this shape, for the rules (no process group)."""
+    return ProcessMesh(shape=mesh_shape, rank=0, ranks=(0,) * SPMD_WORLD, backend="gloo")
+
+
+def packed_sharded(spec, mesh_shape):
+    """Whether a sharded solve of `spec` on the card runs the packed fine
+    level (K13/K14)."""
+    return use_packed_sharded(spec.with_(mesh_shape=mesh_shape), _mesh(mesh_shape), "cuda")
+
+
 def sharded_kernel_levels(spec, mesh_shape):
-    """The global sides at which a sharded solve of `spec` runs K9-K12: the
-    sharded levels (above replicate_below, the next level still splitting
-    evenly) where the dispatch rule picks the kernels on the card."""
-    mesh = ProcessMesh(shape=mesh_shape, rank=0, ranks=(0,) * SPMD_WORLD, backend="gloo")
+    """The global sides at which a sharded solve of `spec` runs K9-K12 or,
+    at a packed fine level, K13/K14: the sharded levels (above
+    replicate_below, the next level still splitting evenly) where the
+    dispatch rule picks the kernels on the card."""
+    mesh = _mesh(mesh_shape)
     return [g for g in level_sizes(spec.size)
             if g > spec.replicate_below and spmd.shardable(g // 2, mesh)
             and use_sharded_kernels(spec, g, spmd.block_shape(g, spec.ndim, mesh), "cuda")]
@@ -817,9 +991,14 @@ def sharded_kernel_levels(spec, mesh_shape):
 def sharded_launches(spec, mesh_shape, it):
     """One rank's launches in an `it`-cycle sharded solve: the down-leg
     (from zero below the fine level) and the up-leg at every sharded kernel
-    level, the up-leg with rnorm once per cycle."""
+    level, the up-leg with rnorm once per cycle; with a packed fine level,
+    K13 and K14 (rnorm) there, once per cycle."""
     L = len(sharded_kernel_levels(spec, mesh_shape))
     k_rr, k_pc, _, _ = _sharded_names(spec.ndim)
+    if packed_sharded(spec, mesh_shape):
+        return {"mg_sharded_packed_rr": it, "mg_sharded_packed_pc": it,
+                "mg_sharded_packed_pc.rnorm": it, k_rr: (L - 1) * it,
+                k_rr + ".zero": (L - 1) * it, k_pc: (L - 1) * it}
     return {k_rr: L * it, k_rr + ".zero": (L - 1) * it, k_pc: L * it, k_pc + ".rnorm": it}
 
 
@@ -852,6 +1031,7 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
             results.append({"label": label, "iterations": res.iterations,
                             "errs": res.errs.tolist(), "converged": res.converged,
                             "launches": launches, "cycle_ms": cycle_ms, "rel64": rel64,
+                            "packed": mg._packed,
                             "block": list(res.psi.shape), "device": str(mg.device),
                             "finite": bool(torch.isfinite(psi).all()),
                             "shape": list(psi.shape)})
@@ -881,8 +1061,11 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
     r0 = ranks[0]
     it, errs = r0["iterations"], r0["errs"]
     shape = f"{spec.size}^{spec.ndim} on {mesh_shape}"
-    print(f"[{label}] {shape}, {SPMD_WORLD} ranks ({how}): {it} cycles, converged="
+    what = f"{spec.scheme}{', fine level packed' if r0['packed'] else ''}"
+    print(f"[{label}] {shape} {what}, {SPMD_WORLD} ranks ({how}): {it} cycles, converged="
           f"{r0['converged']}, blocks {r0['block']} on {r0['device']}")
+    check(all(r["packed"] == packed_sharded(spec, mesh_shape) for r in ranks),
+          f"{shape}: the ranks' packed fine level is not the rule's")
     for k, (e, ej) in enumerate(zip(errs, ref_errs), 1):
         print(f"[{label}]   cycle {k}: relres {e:.6e}  reference {ej:.6e}  "
               f"rel diff {abs(e - ej) / ej:.2e}")
@@ -902,7 +1085,7 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
     for rank, r in enumerate(ranks):
         check_launches(f"{shape} rank {rank}", r["launches"], want,
                        "K9/K10 (K11/K12) at every sharded level >= kernel_min_size, "
-                       "no single-device kernel")
+                       "K13/K14 instead at a packed fine level, no single-device kernel")
     print(f"[{label}] sharded kernel levels {sharded_kernel_levels(spec, mesh_shape)}; "
           f"launches per rank {r0['launches']}")
     ms = [statistics.median(r["cycle_ms"]) for r in ranks]
@@ -913,33 +1096,45 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
 
 
 def phase_spmd(dev):
-    """The sharded tuned solves on 4 ranks sharing the card over gloo; the
-    single-device 16384^2 solve as the reference of the sharded one."""
-    mg, res, cycle_ms = _solve(SPEC_16K, dev)
-    check(res.converged, "the single-device 16384^2 tuned solve did not converge")
-    ref16k = res.errs.tolist()
-    print(f"[spmd] single-device 16384^2 tuned f32: {res.iterations} cycles, per-cycle wall "
-          f"ms median {statistics.median(cycle_ms):.3f}")
-    del mg, res
-    torch.cuda.empty_cache()
+    """The sharded solves on 4 ranks sharing the card over gloo; the
+    single-device 16384^2 solves (tuned, and fast with its packed fine
+    level) as the references of the sharded ones."""
+    refs16k = {}
+    for spec in (SPEC_16K, FAST_16K):
+        mg, res, cycle_ms = _solve(spec, dev)
+        what = f"{spec.scheme}{' packed' if mg._packed else ''}"
+        check(res.converged, f"the single-device 16384^2 {what} solve did not converge")
+        check(mg._packed == (spec.scheme == "fast"), f"the single-device 16384^2 {what} solve")
+        refs16k[spec.scheme] = res.errs.tolist()
+        print(f"[spmd] single-device 16384^2 {what} f32: {res.iterations} cycles, per-cycle "
+              f"wall ms median {statistics.median(cycle_ms):.3f}")
+        del mg, res
+        torch.cuda.empty_cache()
 
-    refs = [JAX_ERRS, JAX_ERRS, JAX_ERRS_3D[256], ref16k]
+    refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
+            "spmd16384": refs16k["tuned"], "spmd4096fast": JAX_ERRS_FAST[MAIN_N],
+            "spmd16384fast": refs16k["fast"]}
     t0 = time.perf_counter()
     ranks = _spawn_ranks("gloo", SPMD_CASES)
     print(f"[spmd] {SPMD_WORLD} ranks over gloo on {torch.cuda.device_count()} card(s): "
           f"{time.perf_counter() - t0:.1f} s for the spawn and every solve")
     launches = {}
-    for i, ((label, spec, mesh_shape, _), ref) in enumerate(zip(SPMD_CASES, refs)):
-        how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
-        launches[label] = _check_spmd(label, spec, mesh_shape, [r[i] for r in ranks], ref, how)
+    how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
+    for i, (label, spec, mesh_shape, _) in enumerate(SPMD_CASES):
+        launches[label] = _check_spmd(label, spec, mesh_shape, [r[i] for r in ranks],
+                                      refs[label], how)
     if torch.cuda.device_count() >= SPMD_WORLD:
-        nccl = _spawn_ranks("nccl", SPMD_CASES[:1])
-        _check_spmd("spmd4096", MAIN_SPEC, (2, 2), [r[0] for r in nccl], JAX_ERRS,
-                    "4 ranks, 4 cards, nccl")
+        cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast")
+                 and c[2] == ((2, 2) if c[0] == "spmd4096" else (4, 1))]
+        nccl = _spawn_ranks("nccl", cases)
+        for i, (label, spec, mesh_shape, _) in enumerate(cases):
+            _check_spmd(label, spec, mesh_shape, [r[i] for r in nccl], refs[label],
+                        "4 ranks, 4 cards, nccl")
     else:
         print(f"[spmd] NCCL: not run: {torch.cuda.device_count()} card(s), and NCCL refuses "
               f"two ranks on one GPU; the {SPMD_WORLD} ranks above ran over gloo")
-    return {"2d": launches["spmd16384"], "3d": launches["spmd256^3"]}
+    return {"2d": launches["spmd16384"], "3d": launches["spmd256^3"],
+            "packed": launches["spmd16384fast"]}
 
 
 def main():
@@ -993,10 +1188,14 @@ def main():
     phase_slice_fast(dev, 1024, compare=False)
     phase_slice_fast(dev, 16384, compare=False)
 
-    # the sharded tuned solve (explicit partition): the strip kernels, then
-    # 4 ranks solving 4096^2, 256^3 and 16384^2
+    # the sharded solves (explicit partition): the strip kernels, the
+    # packed strip kernels of the fast scheme on a mesh of one column, then
+    # 4 ranks solving 4096^2, 256^3 and 16384^2 (tuned) and 4096^2 and
+    # 16384^2 (fast, packed)
     phase_parity_sharded(dev, worst)
     times.update(phase_timing_sharded(dev))
+    phase_parity_sharded_packed(dev, worst)
+    times.update(phase_timing_sharded_packed(dev))
     solve_spmd = phase_spmd(dev)
 
     kernels, off_path = [], []
@@ -1008,7 +1207,8 @@ def main():
         if name.startswith("mg_packed"):
             solve = solve_fast
         if name.startswith("mg_sharded"):
-            solve = solve_spmd["3d" if name.endswith("3d") else "2d"]
+            solve = solve_spmd["3d" if name.endswith("3d") else
+                               "packed" if name.startswith("mg_sharded_packed") else "2d"]
         if name in OFF_PATH:
             off_path.append({**row, "trace_launches": trace[name]})
         else:

@@ -24,7 +24,9 @@ profiles its block of the sharded solve the same way, on
 time per cycle of the timed solve spent in the collectives
 (``shard.spmd.comm_seconds``): the halo strips, staged through host memory
 under gloo, and the all-gathers (the handoff to the replicated levels, the
-all-reduced sums).
+all-reduced sums).  ``--scheme fast --mesh MX 1`` profiles the packed
+sharded solve (``kernels.use_packed_sharded``: the fine level on the
+packed strip kernels K13/K14, whose names start with mg_ like the others').
 """
 
 from __future__ import annotations

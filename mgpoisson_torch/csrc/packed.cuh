@@ -1,5 +1,7 @@
-// Shared tile machinery of the two packed red-black kernels of the fast
-// scheme's fine level (K7 mg_packed_rr, K8 mg_packed_pc).
+// Shared tile machinery of the packed red-black kernels of the fast scheme's
+// fine level: K7 mg_packed_rr and K8 mg_packed_pc on the whole grid, and
+// their strip-fed twins K13 mg_sharded_packed_rr and K14
+// mg_sharded_packed_pc on one rank's block of a row-sharded mesh.
 //
 // The fine-level state stays checkerboard-packed for the whole solve: an
 // (n, n) array whose left half holds the red cells and right half the black,
@@ -29,6 +31,14 @@
 //
 // Arithmetic follows the packed functions of mgpoisson_torch/kernels/ops.py
 // (pallas.py _packed_core, _packed_residual) operation for operation.
+//
+// On a mesh of one column a rank's block is nl whole packed rows from an
+// even global row r0 (MgpRows; {n, 0} is the grid), its halo rows the
+// neighbours' edge rows, delivered as strips (MgpStrips, the layout of
+// kernels/ops.py packed_rr_sharded).  The tile keeps its GLOBAL row gi0,
+// which decides the colour pattern, the grid's edges and the bilinear
+// weights as on the whole grid; the block row gi - r0 addresses the block's
+// arrays, and the strip loader picks each halo row from its strip.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -67,6 +77,41 @@ static __device__ __forceinline__ bool mgp_in(int g, int n) {
   return (unsigned)g < (unsigned)n;
 }
 
+// A block of whole rows: nl rows from global row r0 (even).
+struct MgpRows {
+  int nl, r0;
+};
+
+// A block's halo rows, D deep: top holds block rows -D..-1, bot rows
+// nl..nl+D-1, each row as wide as the block's (zeros beyond the grid's edge).
+struct MgpStrips {
+  const float* top;
+  const float* bot;
+  int D;
+};
+
+// The tile of a launch over a block: mgp_tile with the global row shifted
+// by the block's first row.
+static __device__ __forceinline__ MgpTile mgp_tile_block(int n, int G, int r0) {
+  MgpTile t = mgp_tile(n, G);
+  t.gi0 += r0;
+  return t;
+}
+
+// Block row li of an array of `width` floats per row fed by strips: the
+// body's row or the strip's that holds it.  Null beyond the strips: only a
+// tile that overhangs the block's last row (nl not a multiple of MGP_TILE;
+// the solver's blocks are powers of two >= MGP_TILE) reaches one, and with
+// D >= G the shrinking exact region never lets it reach the block or the
+// ring a residual reads.
+static __device__ __forceinline__ const float* mgp_row(const float* body, const MgpStrips& s,
+                                                       int li, int nl, int width) {
+  if (li >= 0 && li < nl) return body + (size_t)li * width;
+  if (li < 0 && li >= -s.D) return s.top + (size_t)(li + s.D) * width;
+  if (li >= nl && li < nl + s.D) return s.bot + (size_t)(li - nl) * width;
+  return nullptr;
+}
+
 // Lane offset of the horizontal partner: red reads lane j-1 on even rows
 // and j+1 on odd rows, black the mirror.
 static __device__ __forceinline__ int mgp_dj(int gi, int colour) {
@@ -86,6 +131,27 @@ static __device__ void mgp_load(float* r, float* b, const float* __restrict__ A,
         const size_t g = (size_t)gi * t.n + gj;
         vr = A[g];
         vb = A[g + t.w];
+      }
+      r[k] = vr;
+      b[k] = vb;
+    }
+  }
+}
+
+// mgp_load for a block fed by strips: each tile row from the body or a
+// strip, by its block row; rows outside the grid read 0.
+static __device__ void mgp_load_strips(float* r, float* b, const float* __restrict__ A,
+                                       const MgpStrips& s, const MgpTile& t,
+                                       const MgpRows& blk) {
+  for (int li = threadIdx.y; li < t.S; li += blockDim.y) {
+    const int gi = t.gi0 + li;
+    const float* row = mgp_in(gi, t.n) ? mgp_row(A, s, gi - blk.r0, blk.nl, t.n) : nullptr;
+    for (int lj = threadIdx.x; lj < t.S; lj += blockDim.x) {
+      const int gj = t.gj0 + lj, k = li * t.S + lj;
+      float vr = 0.f, vb = 0.f;
+      if (row != nullptr && mgp_in(gj, t.w)) {
+        vr = row[gj];
+        vb = row[gj + t.w];
       }
       r[k] = vr;
       b[k] = vb;
@@ -138,6 +204,24 @@ static __device__ void mgp_store(float* __restrict__ A, const float* xr, const f
       const int lj = t.G + tj, gj = t.gj0 + lj;
       if (!mgp_in(gj, t.w)) continue;
       const size_t g = (size_t)gi * t.n + gj;
+      A[g] = xr[li * t.S + lj];
+      A[g + t.w] = xb[li * t.S + lj];
+    }
+  }
+}
+
+// mgp_store for a block: the tile's interior rows that lie in the block,
+// back to the block's (nl x n) array by their block row.
+static __device__ void mgp_store_block(float* __restrict__ A, const float* xr,
+                                       const float* xb, const MgpTile& t,
+                                       const MgpRows& blk) {
+  for (int ti = threadIdx.y; ti < MGP_TILE; ti += blockDim.y) {
+    const int li = t.G + ti, bi = t.gi0 + li - blk.r0;
+    if (!mgp_in(bi, blk.nl)) continue;
+    for (int tj = threadIdx.x; tj < MGP_TILE; tj += blockDim.x) {
+      const int lj = t.G + tj, gj = t.gj0 + lj;
+      if (!mgp_in(gj, t.w)) continue;
+      const size_t g = (size_t)bi * t.n + gj;
       A[g] = xr[li * t.S + lj];
       A[g + t.w] = xb[li * t.S + lj];
     }

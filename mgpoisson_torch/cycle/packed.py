@@ -11,18 +11,23 @@ restriction's output is already unpacked (coarse column J = packed lane
 J) and the prolongation takes the unpacked coarse correction.
 
 Engaged by the solver under ``kernels.use_packed``; MGPOISSON_PACKED=0
-turns it off, MGPOISSON_PACKED=1 turns it on for CPU tensors.
+turns it off, MGPOISSON_PACKED=1 turns it on for CPU tensors.  Under a
+row-sharded mesh the same packed fine level runs per rank on its block
+(``shard.spmd.SpmdCycle.cycle_packed``, K13/K14), engaged under
+``kernels.use_packed_sharded``.
 """
 
 from __future__ import annotations
 
 from mgpoisson_torch.cycle.vcycle import _cycle
-from mgpoisson_torch.kernels import cuda, ops, use_packed
+from mgpoisson_torch.kernels import cuda, ops, use_packed, use_packed_sharded
 
 
-# the JAX module's names: whether a solve of `spec` on `device` runs the
-# packed fine level, and the exact pack / unpack of the state
+# the JAX module's names: whether a solve of `spec` on `device` (on `mesh`)
+# runs the packed fine level, and the exact pack / unpack of the state (of
+# the grid, or of a rank's block of whole rows)
 supported = use_packed
+supported_spmd = use_packed_sharded
 pack, unpack = ops.pack_grid, ops.unpack_grid
 
 

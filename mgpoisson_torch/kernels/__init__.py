@@ -8,8 +8,10 @@
 
 ``get_ops(spec, level_size, device)`` picks one per level by
 ``use_kernels``, the one dispatch rule of the unpacked levels;
-``use_packed`` is the one rule of the fast scheme's packed fine level, and
-``use_sharded_kernels`` that of a sharded level's strip kernels.
+``use_packed`` is the one rule of the fast scheme's packed fine level,
+``use_sharded_kernels`` that of a sharded level's strip kernels, and
+``use_packed_sharded`` that of the packed fine level under a row-sharded
+mesh.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ def use_packed(spec, device) -> bool:
     - float32;
     - a CUDA device, or MGPOISSON_PACKED=1 on the CPU, which runs the
       plain packed ops as the JAX flag does."""
-    flag = os.environ.get("MGPOISSON_PACKED", "auto")
+    flag = _packed_flag()
     n = spec.size
     if (flag == "0" or spec.ndim != 2 or spec.mesh_shape is not None
             or spec.smoother_resolved != "rbgs" or spec.cycle not in ("v", "w")
@@ -102,5 +104,45 @@ def use_packed(spec, device) -> bool:
             or not all(1 <= nu <= cuda.PACKED_MAX_NU
                        for nu in (spec.nu_pre, spec.nu_post))
             or spec.dtype != "float32"):
+        return False
+    return torch.device(device).type == "cuda" or flag == "1"
+
+
+def _packed_flag() -> str:
+    return os.environ.get("MGPOISSON_PACKED", "auto")
+
+
+def use_packed_sharded(spec, mesh, device) -> bool:
+    """Whether a sharded solve of `spec` on `mesh` (a ``shard.mesh.
+    ProcessMesh``) keeps its fine level checkerboard-packed per rank and
+    runs it on K13/K14 (``shard.spmd.SpmdCycle.cycle_packed``); the rule of
+    the JAX package's ``mgpoisson.cycle.packed.supported_spmd``:
+
+    - MGPOISSON_PACKED is not "0";
+    - 2D, the rbgs smoother, a V or W cycle, backend not 'torch', float32
+      and no other sweep_dtype;
+    - a mesh of one column (mx, 1), so that a rank's block is whole rows;
+    - 1 <= nu_pre, nu_post <= 3;
+    - the fine level sharded: side above replicate_below, and both it and
+      its half split evenly over the mesh (``shard.spmd.shardable``);
+    - the JAX plan's own conditions (pallas.py packed_sharded_plan):
+      n % 256 == 0 and blocks of nl = n / mx >= 32 rows, nl % 16 == 0;
+    - the port's own: side >= kernel_min_size, and a CUDA device, or
+      MGPOISSON_PACKED=1 on the CPU, which runs the plain packed ops."""
+    from mgpoisson_torch.shard.spmd import shardable   # shard imports this module
+
+    flag = _packed_flag()
+    n = spec.size
+    mx, my = mesh.shape
+    nl = n // mx
+    if (flag == "0" or spec.ndim != 2 or spec.smoother_resolved != "rbgs"
+            or spec.cycle not in ("v", "w") or spec.backend == "torch"
+            or spec.dtype != "float32" or spec.sweep_dtype not in (None, spec.dtype)
+            or my != 1
+            or not all(1 <= nu <= cuda.PACKED_MAX_NU for nu in (spec.nu_pre, spec.nu_post))
+            or n <= spec.replicate_below or not shardable(n, mesh)
+            or not shardable(n // 2, mesh)
+            or n % 256 or nl < 32 or nl % 16
+            or n < spec.kernel_min_size):
         return False
     return torch.device(device).type == "cuda" or flag == "1"

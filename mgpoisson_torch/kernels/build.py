@@ -46,6 +46,11 @@ SIGNATURES = {
     "mg_sharded_pc": ((_P,) * 17 + (_I,) * 11 + (_F, _F, _F, _I, _P), _I),
     "mg_sharded_rr3d": ((_P,) * 12 + (_I,) * 10 + (_F, _F, _F, _I, _P), _I),
     "mg_sharded_pc3d": ((_P,) * 17 + (_I,) * 12 + (_F, _F, _F, _I, _P), _I),
+    # the packed strip kernels: the arrays, the u and f (and V) row strips
+    # (top, bot), then grid side, block rows, first row, strip depths, nu
+    # (and the prolongation kind)
+    "mg_sharded_packed_rr": ((_P,) * 8 + (_I,) * 5 + (_F, _F, _P), _I),
+    "mg_sharded_packed_pc": ((_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
 

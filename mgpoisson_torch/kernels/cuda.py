@@ -27,13 +27,20 @@ six:
   K9  ``mg_sharded_rr``   K11 ``mg_sharded_rr3d``  — ``smooth_rr_sharded``
   K10 ``mg_sharded_pc``   K12 ``mg_sharded_pc3d``  — ``pc_smooth_sharded``
 
+and two carry the packed fine level on a rank's block of whole rows of a
+row-sharded mesh, its halo rows from the neighbours' strips:
+
+  K13 ``mg_sharded_packed_rr`` — ``packed_rr_sharded``
+  K14 ``mg_sharded_packed_pc`` — ``packed_pc_sharded``
+
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
 not take it (``supports``, ``packed_supports``): f32, square 2D or cubic
 3D, contiguous, and the sweep count within the kernel's cap.  Which levels
-reach these wrappers at all is decided by two rules,
-``mgpoisson_torch.kernels.use_kernels`` and ``use_packed``.  Outputs are fresh
+reach these wrappers at all is decided by the rules of
+``mgpoisson_torch.kernels``: ``use_kernels``, ``use_packed``,
+``use_sharded_kernels`` and ``use_packed_sharded``.  Outputs are fresh
 ``torch.empty`` buffers (no in-place writes: a tile reads its
 neighbours' cells as halo), and launches go on the current stream.
 
@@ -79,7 +86,8 @@ launches = dict.fromkeys((
     "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
     "mg_sharded_rr", "mg_sharded_rr.zero", "mg_sharded_pc", "mg_sharded_pc.rnorm",
     "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
-    "mg_sharded_pc3d.rnorm"), 0)
+    "mg_sharded_pc3d.rnorm", "mg_sharded_packed_rr", "mg_sharded_packed_pc",
+    "mg_sharded_packed_pc.rnorm"), 0)
 
 
 def reset_launches() -> None:
@@ -461,6 +469,93 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
             None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,
             *_sharded_geometry(u, origin, n_global), d, dv, *tile, nu, SMOOTHERS[smoother],
             BCS[bc], PROLONG_KINDS[kind], *_scalars(h, u.ndim), int(bool(rnorm)))
+    if not rnorm:
+        return out
+    launches[name + ".rnorm"] += 1
+    return out, torch.sum(partials)
+
+
+# ------------------------- the packed fine level on one block of a row-sharded mesh
+
+def _check_packed_sharded(name, up, origin, n_global, nu, *others):
+    """A rank's packed block up of a grid of side n_global at `origin`: on
+    the card, f32, whole rows (nl, n_global) from column 0, nl and the first
+    row even and the block inside the grid, 1 <= nu <= PACKED_MAX_NU, and
+    the other operands matching (``_check_operands``)."""
+    if up.device.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors, got {up.device}")
+    if up.ndim != 2 or up.shape[1] != n_global or origin[1] != 0:
+        raise ValueError(f"{name}: needs a packed block of whole rows (nl, {n_global}) "
+                         f"at column 0, got {tuple(up.shape)} at {tuple(origin)}")
+    if not packed_supports(n_global, up.dtype, nu):
+        raise ValueError(f"{name}: no kernel for n={n_global} {up.dtype} nu={nu}")
+    nl, r0 = up.shape[0], origin[0]
+    if nl < 2 or (nl | r0) & 1 or r0 < 0 or r0 + nl > n_global:
+        raise ValueError(f"{name}: block {tuple(up.shape)} at {tuple(origin)} is not an "
+                         f"even block of a grid of side {n_global}")
+    _check_operands(name, up, *others)
+
+
+def _row_strip_args(name, strips, x, need, n_global):
+    """The (top, bot) pointers of block x's row strips and their depth D >=
+    need (``_strip_args`` for a block that spans every column)."""
+    if len(strips) != 4 or strips[2] is not None or strips[3] is not None:
+        raise ValueError(f"{name}: a packed block takes (top, bot, None, None) row strips")
+    ptrs, d = _strip_args(name, strips, x, need, n_global, 0)
+    return ptrs[:2], d
+
+
+def packed_rr_sharded(up, fp, ustrips, fstrips, origin, n_global, h, nu):
+    """The packed down-leg of one rank's block of whole rows, its halo rows
+    from the neighbours' strips: returns (up', Rc), Rc the block's UNPACKED
+    coarse rhs (K13)."""
+    if up.device.type == "cpu":
+        return ops.packed_rr_sharded(up, fp, ustrips, fstrips, origin, n_global, h, nu)
+    name = "mg_sharded_packed_rr"
+    halo = 2 * nu + 1
+    _check_packed_sharded(name, up, origin, n_global, nu, (fp, up.shape))
+    uptrs, d = _row_strip_args(name, ustrips, up, halo, n_global)
+    fptrs, df = _row_strip_args(name, fstrips, up, halo, n_global)
+    if df != d:
+        raise ValueError(f"{name}: u strips {d} deep, f strips {df}")
+    out = torch.empty_like(up)
+    Rc = torch.empty(_half(up.shape), dtype=up.dtype, device=up.device)
+    _launch(name, up, up.data_ptr(), fp.data_ptr(), out.data_ptr(), Rc.data_ptr(), *uptrs,
+            *fptrs, n_global, up.shape[0], int(origin[0]), d, nu, *_packed_scalars(h))
+    return out, Rc
+
+
+def packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin, n_global, h, nu,
+                      kind="inject", rnorm=False):
+    """The packed up-leg of one rank's block of whole rows: up += P(V), V
+    the block's unpacked coarse correction with its coarse row strips, then
+    nu rbgs sweeps; with rnorm also the block's sum(r^2), from one f32
+    partial per thread block summed here in a fixed order: up', or (up',
+    sum(r^2)) (K14)."""
+    if up.device.type == "cpu":
+        return ops.packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin,
+                                     n_global, h, nu, kind, rnorm)
+    name = "mg_sharded_packed_pc"
+    if kind not in PROLONG_KINDS:
+        raise ValueError(f"{name}: unknown prolongation {kind!r}")
+    halo = 2 * nu + bool(rnorm)
+    _check_packed_sharded(name, up, origin, n_global, nu, (fp, up.shape),
+                          (V, _half(up.shape)))
+    uptrs, d = _row_strip_args(name, ustrips, up, halo, n_global)
+    fptrs, df = _row_strip_args(name, fstrips, up, halo, n_global)
+    vptrs, dv = _row_strip_args(name, vstrips, V, ops.coarse_depth(halo), n_global // 2)
+    if df != d:
+        raise ValueError(f"{name}: u strips {d} deep, f strips {df}")
+    nl = up.shape[0]
+    out = torch.empty_like(up)
+    partials = None
+    if rnorm:
+        blocks = -(-(n_global // 2) // PACKED_TILE) * -(-nl // PACKED_TILE)
+        partials = torch.empty(blocks, dtype=torch.float32, device=up.device)
+    _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,
+            n_global, nl, int(origin[0]), d, dv, nu, PROLONG_KINDS[kind],
+            *_packed_scalars(h), int(bool(rnorm)))
     if not rnorm:
         return out
     launches[name + ".rnorm"] += 1

@@ -413,21 +413,24 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h,
 # prolongation takes the unpacked coarse correction.  ghost0 only, the fine
 # level's bc: out-of-range neighbours read 0.
 
-def _even_rows(n, device):
-    return (torch.arange(n, device=device) % 2 == 0).view(n, 1)
+def _rows(start, count, device):
+    """The global row index of `count` rows from row `start`, as a column."""
+    return torch.arange(start, start + count, device=device).view(count, 1)
 
 
 def _pack_views(u, up):
     """u as [row pair, row parity, lane, column parity] and up as [row
     pair, row parity, colour, lane]: red is the even column on even rows
     and the odd column on odd rows."""
-    n = u.shape[0]
-    return u.view(n // 2, 2, n // 2, 2), up.view(n // 2, 2, 2, n // 2)
+    n, m = u.shape
+    return u.view(n // 2, 2, m // 2, 2), up.view(n // 2, 2, 2, m // 2)
 
 
 def pack_grid(u):
-    """(n, n) -> (n, n) packed [xr | xb].  Exact data movement: four
-    strided copies, one pass over the array."""
+    """(n, m) -> (n, m) packed [xr | xb], n and m even.  Exact data
+    movement: four strided copies, one pass over the array.  Rows stay
+    rows, so on a mesh of one column the pack of a rank's block (first row
+    even) is that block of the packed grid."""
     u = u.contiguous()
     up = torch.empty_like(u)
     v, p = _pack_views(u, up)
@@ -462,17 +465,25 @@ def _lane_l(x):    # out[:, j] = x[:, j+1]
     return F.pad(x, (0, 1))[:, 1:]
 
 
-def _packed_core(xr, xb, cr, cb, nu):
+def _packed_core(xr, xb, cr, cb, nu, rows=None, n=None):
     """nu red-black sweeps on the packed planes (cr, cb = -h^2/4 * f
     packed alike): per colour X = (V + H) / 4 + c, V the vertical and H
-    the horizontal neighbour pair, in the Pallas kernel's order."""
-    er = _even_rows(xr.shape[0], xr.device)
+    the horizontal neighbour pair, in the Pallas kernel's order.
+
+    rows: the global row of each row (``_rows``; by default the array is
+    the whole grid), which decides the colour pattern; with the grid's side
+    n, rows outside the grid stay 0 (a block extended by its strips)."""
+    if rows is None:
+        rows = _rows(0, xr.shape[0], xr.device)
+    er = rows % 2 == 0
+    inside = None if n is None else (rows >= 0) & (rows < n)
 
     def colour_update(Y, cX, red):
         V = _rows_dn(Y) + _rows_up(Y)
         a, b = _lane_r(Y), _lane_l(Y)
         H = Y + (torch.where(er, a, b) if red else torch.where(er, b, a))
-        return (V + H) * 0.25 + cX
+        X = (V + H) * 0.25 + cX
+        return X if inside is None else torch.where(inside, X, 0.0)
 
     for _ in range(nu):
         xr = colour_update(xb, cr, red=True)
@@ -480,9 +491,12 @@ def _packed_core(xr, xb, cr, cb, nu):
     return xr, xb
 
 
-def _packed_residual(xr, xb, fr, fb, inv_hsq):
-    """Packed 5-point residual r = f - (nbr - 4u)/h^2 per colour."""
-    er = _even_rows(xr.shape[0], xr.device)
+def _packed_residual(xr, xb, fr, fb, inv_hsq, rows=None):
+    """Packed 5-point residual r = f - (nbr - 4u)/h^2 per colour (rows as
+    in ``_packed_core``)."""
+    if rows is None:
+        rows = _rows(0, xr.shape[0], xr.device)
+    er = rows % 2 == 0
     nr = (_rows_dn(xb) + _rows_up(xb) + xb
           + torch.where(er, _lane_r(xb), _lane_l(xb)))
     nb = (_rows_dn(xr) + _rows_up(xr) + xr
@@ -501,21 +515,25 @@ def _edge_weights(edge, dtype):
             torch.where(edge, 0.0, 0.25).to(dtype))
 
 
-def _packed_prolong(V, kind):
+def _packed_prolong(V, kind, rows=None, n_global=None):
     """The unpacked (n/2, n/2) coarse correction as the packed red and
     black planes (pallas.py _packed_prolong_stripe, whole grid): 'inject'
     is a row double; 'bilinear' the face-adapted row blend, then a +-1
-    packed-lane blend whose direction flips with row parity and colour."""
+    packed-lane blend whose direction flips with row parity and colour.
+    For rows of a larger grid of side n_global, `rows` gives the global
+    fine row of each output row (``_rows``), which places the grid's first
+    and last rows, where the row blend takes the edge weights."""
     v2 = torch.repeat_interleave(V, 2, dim=0)      # fine rows, packed lanes
     if kind == "inject":
         return v2, v2
     assert kind == "bilinear"
     n, w = v2.shape
-    er = _even_rows(n, V.device)
+    if rows is None:
+        rows, n_global = _rows(0, n, V.device), n
+    er = rows % 2 == 0
     vm = F.pad(v2, (0, 0, 2, 0))[:-2]
     vp = F.pad(v2, (0, 0, 0, 2))[2:]
-    rows = torch.arange(n, device=V.device).view(n, 1)
-    a0, b0 = _edge_weights((rows == 0) | (rows == n - 1), V.dtype)
+    a0, b0 = _edge_weights((rows == 0) | (rows == n_global - 1), V.dtype)
     B = a0 * v2 + b0 * torch.where(er, vm, vp)
     bl, br = _lane_r(B), _lane_l(B)
     cols = torch.arange(w, device=V.device).view(1, w)
@@ -562,6 +580,88 @@ def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
     r_r, r_b = _packed_residual(*_planes(up), *_planes(fp), 1.0 / (h * h))
     r = torch.cat([r_r, r_b], dim=1).to(_acc_dtype(up.dtype))
     return up, torch.sum(r * r)
+
+
+# ------------------------- the packed fine level on one block of a row-sharded mesh
+# On a mesh of one column (mx, 1) a rank's block is nl whole rows from an
+# even row r0, and its pack is rows r0..r0+nl of the packed grid
+# (pack_grid keeps rows), so the packed fine level runs per rank on packed
+# blocks whose halo is plain row strips of the neighbours' packed blocks:
+# top/bot (D, n), zeros beyond the grid's edge (shard.spmd.strips).  These
+# are the plain versions of the packed strip kernels K13/K14
+# (kernels.cuda.packed_rr_sharded, packed_pc_sharded) and compute what the
+# JAX package's packed_rr_sharded / packed_pc_sharded compute: the block
+# and its row strips concatenated, the packed legs above run there with the
+# colour pattern, the cells inside the grid and the bilinear edge rows
+# decided from the GLOBAL row (the strips are D = 2 nu + 1 deep, odd, so
+# the extended block's own row parity is the opposite of the global one),
+# then the block cut back out.  The JAX package exchanges 8-deep strips
+# instead; the values are the same.
+
+def _packed_r0(origin, what):
+    if origin[1] != 0:
+        raise ValueError(f"{what}: a packed block spans every column, got origin {origin}")
+    return origin[0]
+
+
+def _extend_rows(x, strips):
+    return torch.cat([strips[0], x, strips[1]], dim=0)
+
+
+def packed_rr_sharded(up, fp, ustrips, fstrips, origin, n_global, h, nu):
+    """The packed down-leg of one rank's block (K13): nu red-black sweeps,
+    the residual and the 2x2 restriction of the packed block up at global
+    `origin` (row, 0) of a grid of side n_global, its halo from the row
+    strips.  Returns (up', Rc), Rc the UNPACKED (nl/2, n/2) coarse rhs of
+    the block."""
+    d = _strip_depth(fstrips, 2 * nu + 1, "packed_rr_sharded")
+    r0 = _packed_r0(origin, "packed_rr_sharded")
+    ue, fe = _extend_rows(up, ustrips), _extend_rows(fp, fstrips)
+    rows = _rows(r0 - d, ue.shape[0], up.device)
+    (xr, xb), (fr, fb) = _planes(ue), _planes(fe)
+    hsq = h * h
+    xr, xb = _packed_core(xr, xb, fr * (-hsq * 0.25), fb * (-hsq * 0.25), nu,
+                          rows, n_global)
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / hsq, rows)
+    nl, w = up.shape[0], xr.shape[1]
+    Rc = (r_r + r_b)[d:d + nl].reshape(nl // 2, 2, w).sum(dim=1) * 0.25
+    return torch.cat([xr, xb], dim=1)[d:d + nl].contiguous(), Rc
+
+
+def packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin, n_global, h, nu,
+                      kind="inject", rnorm=False):
+    """The packed up-leg of one rank's block (K14): up += P(V), V the
+    block's UNPACKED (nl/2, n/2) coarse correction with its coarse row
+    strips, then nu red-black sweeps; with rnorm also the block's sum(r^2)
+    of the zero-ghost residual, accumulated in at least f32: up', or (up',
+    sum(r^2))."""
+    reach = 2 * nu + bool(rnorm)
+    d = _strip_depth(fstrips, reach, "packed_pc_sharded")
+    dv = _strip_depth(vstrips, coarse_depth(reach), "packed_pc_sharded (coarse)")
+    if 2 * dv < d:
+        raise ValueError(f"packed_pc_sharded: coarse strips of depth {dv} do not "
+                         f"cover fine strips of depth {d}")
+    r0 = _packed_r0(origin, "packed_pc_sharded")
+    ue, fe = _extend_rows(up, ustrips), _extend_rows(fp, fstrips)
+    rows = _rows(r0 - d, ue.shape[0], up.device)
+    inside = (rows >= 0) & (rows < n_global)
+    # the prolonged extended coarse block covers 2*dv fine halo rows per side
+    Ve = _extend_rows(V, vstrips)
+    pr, pb = _packed_prolong(Ve, kind, _rows(r0 - 2 * dv, 2 * Ve.shape[0], V.device),
+                             n_global)
+    lo = 2 * dv - d
+    (xr, xb), (fr, fb) = _planes(ue), _planes(fe)
+    xr = torch.where(inside, xr + pr[lo:lo + ue.shape[0]], 0.0)
+    xb = torch.where(inside, xb + pb[lo:lo + ue.shape[0]], 0.0)
+    mhq = -(h * h) * 0.25
+    xr, xb = _packed_core(xr, xb, fr * mhq, fb * mhq, nu, rows, n_global)
+    nl = up.shape[0]
+    out = torch.cat([xr, xb], dim=1)[d:d + nl].contiguous()
+    if not rnorm:
+        return out
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / (h * h), rows)
+    r = torch.cat([r_r, r_b], dim=1)[d:d + nl].to(_acc_dtype(up.dtype))
+    return out, torch.sum(r * r)
 
 
 # ------------------------------------------------------------------- metrics

@@ -22,6 +22,13 @@ its communication explicit:
   communicating.  (The JAX package sweeps such thin blocks with one
   exchange per sweep until replicate_below; the values are the same.)
 - sums are local sums, then ``all_reduce_sum``.
+- the fast scheme on a mesh of one column (``kernels.use_packed_sharded``)
+  keeps each rank's fine block checkerboard-packed for the whole solve
+  (``cycle_packed``, ``step_packed``): a block of whole rows packs to the
+  same rows of the packed grid, so its halo is plain row strips of the
+  neighbours' packed blocks, and the fine legs are the packed strip kernels
+  K13/K14; below them runs the unpacked sharded cycle on the unpacked
+  coarse rhs K13 emits.
 
 Under the gloo backend, card tensors are staged through pinned host memory
 for every collective (gloo's point-to-point is host-only); under NCCL they
@@ -29,7 +36,7 @@ go as they are.  The backend is the caller's choice
 (``multihost.initialize``): nothing here switches it.
 
 Not ported here (ROADMAP.md Queue 1 item 12): the mixed-precision step, the
-packed fine level under the partition, the adaptive cycles and FMG.
+adaptive cycles and FMG.
 """
 
 from __future__ import annotations
@@ -264,21 +271,49 @@ class SpmdCycle:
             V = self.cycle(V, R, 2 * h, g // 2, False)[0]
         return V
 
+    def cycle_packed(self, up, fp, want_r2=False):
+        """One cycle on this rank's PACKED fine block (up, fp) of a mesh of
+        one column (``kernels.use_packed_sharded``): K13, the unpacked
+        sharded cycle on its coarse rhs from zero, K14 (the plain packed
+        block ops on the CPU).  Returns (up', local sum(r^2) or None)."""
+        spec, mesh = self.spec, self.mesh
+        g, h, d = spec.size, spec.fine_h, self.depth
+        origin = block_origin(g, mesh)
+        fs = strips(fp, d, mesh)          # f is level-invariant: once
+        up, R = cuda.packed_rr_sharded(up, fp, strips(up, d, mesh), fs, origin, g, h,
+                                       spec.nu_pre)
+        V = self._coarse(R, h, g)
+        out = cuda.packed_pc_sharded(up, fp, V, strips(up, d, mesh), fs,
+                                     strips(V, self.cdepth, mesh), origin, g, h,
+                                     spec.nu_post, spec.prolong_kind, rnorm=want_r2)
+        return out if want_r2 else (out, None)
+
     def step(self, psi, f):
         """One cycle on this rank's block: (psi_new, rms_update, residual
         norm), the two metrics all-reduced and the same on every rank; only
         the one spec.stop selects is computed, the other is 0."""
+        h = self.spec.fine_h
+        return self._step(psi, f, lambda want_r2: self.cycle(psi, f, h, self.spec.size, True,
+                                                              want_r2))
+
+    def step_packed(self, pp, fp):
+        """``step`` on the rank's packed block (``cycle_packed``); the
+        update RMS is that of the packed difference, which the permutation
+        leaves as it is."""
+        return self._step(pp, fp, lambda want_r2: self.cycle_packed(pp, fp, want_r2))
+
+    def _step(self, psi, f, cycle):
         spec, mesh = self.spec, self.mesh
         zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
-        h, acc = spec.fine_h, ops._acc_dtype(psi.dtype)
+        acc = ops._acc_dtype(psi.dtype)
         if spec.stop == "update":
-            psi_new = self.cycle(psi, f, h, spec.size, True)[0]
+            psi_new = cycle(False)[0]
             d = (psi_new - psi).to(acc)
             sq = all_reduce_sum(torch.sum(d * d), mesh)
             return psi_new, torch.sqrt(sq / spec.size ** spec.ndim), zero
-        psi_new, r2 = self.cycle(psi, f, h, spec.size, True, want_r2=True)
+        psi_new, r2 = cycle(True)
         if r2 is None:
-            r2 = residual_sq_sum(psi_new, f, h, mesh)
+            r2 = residual_sq_sum(psi_new, f, spec.fine_h, mesh)
         rn = torch.sqrt(all_reduce_sum(r2.to(acc), mesh)).to(psi.dtype)
         return psi_new, zero, rn
 

@@ -20,7 +20,10 @@ With a mesh (``spec.mesh_shape``, or a ``shard.mesh.ProcessMesh``) the
 solver is one rank of the explicit partition (``shard.spmd``): ``rhs()``,
 ``init_state()``, ``step()`` and ``solve()`` take and give this rank's
 block, and the error history is the all-reduced one, the same on every
-rank.
+rank.  Where ``kernels.use_packed_sharded`` holds (the fast scheme on a
+mesh of one column), ``solve()`` packs the rank's psi and f blocks once and
+carries them through ``SpmdCycle.step_packed`` under the same callback
+rule.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from mgpoisson_torch.core.rhs import initial_guess, point_charge_block, point_ch
 from mgpoisson_torch.core.spec import Spec
 from mgpoisson_torch.cycle import packed
 from mgpoisson_torch.cycle.vcycle import make_cycle
-from mgpoisson_torch.kernels import ops, use_kernels, use_packed
+from mgpoisson_torch.kernels import ops, use_kernels, use_packed, use_packed_sharded
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import build_mesh
 
@@ -106,8 +109,11 @@ class MultigridPoisson:
         self._want_rnorm = spec.stop == "residual"
         self._spmd = None if mesh is None else spmd.SpmdCycle(spec, mesh)
         self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
-        self._packed = use_packed(spec, self.device)
-        if self._packed:
+        if mesh is None:
+            self._packed = use_packed(spec, self.device)
+        else:
+            self._packed = use_packed_sharded(spec, mesh, self.device)
+        if self._packed and mesh is None:
             self._packed_cycle = packed.make_packed_cycle(spec, rnorm=self._want_rnorm)
 
     # ------------------------------------------------------------ state
@@ -131,14 +137,16 @@ class MultigridPoisson:
         """One cycle + error. Returns (psi_new, err)."""
         return self._step(psi, f, self._r0(psi, f))
 
-    def _step(self, psi, f, r0, cycle=None):
+    def _step(self, psi, f, r0, packed_state=False):
         """err per spec.stop: 'update' — RMS of the iterate update (on
         packed state too: it is permutation-invariant); 'residual' —
-        ||r||/||r0||, with ||r||^2 fused into the cycle's fine up-leg."""
+        ||r||/||r0||, with ||r||^2 fused into the cycle's fine up-leg.
+        packed_state: psi and f are packed (the packed fine level)."""
         if self._spmd is not None:
-            psi_new, err_upd, rn = self._spmd.step(psi, f)
+            step = self._spmd.step_packed if packed_state else self._spmd.step
+            psi_new, err_upd, rn = step(psi, f)
             return psi_new, (rn / r0 if self._want_rnorm else err_upd)
-        cycle = cycle or self._cycle
+        cycle = self._packed_cycle if packed_state else self._cycle
         h = self.spec.fine_h
         if self._want_rnorm:
             psi_new, r2 = cycle(psi, f, h)
@@ -187,17 +195,17 @@ class MultigridPoisson:
 
         wants_psi = (error_callback is not None
                      and _callback_arity(error_callback) >= 3)
-        # the packed fine level: pack once, carry packed state, unpack at
-        # the end; a callback that takes psi gets the unpacked step
-        cycle = None
-        if self._packed and not wants_psi:
-            cycle = self._packed_cycle
+        # the packed fine level: pack once (the grid, or this rank's block),
+        # carry packed state, unpack at the end; a callback that takes psi
+        # gets the unpacked step
+        packed_state = self._packed and not wants_psi
+        if packed_state:
             psi, f = packed.pack(psi), packed.pack(f)
         errs = []
         converged = False
         it = 0
         for it in range(1, spec.maxiter + 1):
-            psi, err = self._step(psi, f, r0, cycle)
+            psi, err = self._step(psi, f, r0, packed_state)
             err_f = float(err)   # the one device->host readback per cycle
             errs.append(err_f)
             if error_callback is not None and (
@@ -207,7 +215,7 @@ class MultigridPoisson:
             if not (err_f >= spec.tol and math.isfinite(err_f)):
                 converged = err_f < spec.tol
                 break
-        if cycle is not None:
+        if packed_state:
             psi = packed.unpack(psi)
         return SolveResult(psi=psi, iterations=it,
                            errs=torch.tensor(errs, dtype=self._dtype),

@@ -263,3 +263,105 @@ def test_sharded_launch_counters(card):
                  "mg_sharded_pc.rnorm": 1, "mg_sharded_rr3d": 1, "mg_sharded_rr3d.zero": 1,
                  "mg_sharded_pc3d": 2, "mg_sharded_pc3d.rnorm": 1})
     assert cuda.launches == want
+
+
+# the packed strip kernels: every block of a mesh of one column, blocks of
+# one tile (256 on (8, 1): 32 rows) and of many (4096 on (4, 1)), at every
+# sweep count; the blocks' outputs stitched over the grid are K7/K8's
+PACKED_SHARDED = [(4096, 4), (1024, 2), (256, 8)]
+
+
+def _packed_blocks(n, mx, nu, up, fp, V):
+    nl, d = n // mx, 2 * nu + 1
+    for r0 in range(0, n, nl):
+        yield (r0, *block_from_grid(up, (r0, 0), (nl, n), d, cols=False),
+               *block_from_grid(fp, (r0, 0), (nl, n), d, cols=False),
+               *block_from_grid(V, (r0 // 2, 0), (nl // 2, n // 2), ops.coarse_depth(d),
+                                cols=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mx", PACKED_SHARDED)
+@pytest.mark.parametrize("nu", [1, 2, 3])
+def test_sharded_packed_kernels_vs_plain(card, n, mx, nu):
+    u, f, V = _data(n, n + nu + 13, card)
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    h, nl = 1.0 / n, n // mx
+    whole_u, whole_R = cuda.packed_smooth_residual_restrict(up, fp, h, nu)
+    st_u, st_R = torch.empty_like(up), torch.empty_like(whole_R)
+    whole = {k: cuda.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, k)
+             for k in ("inject", "bilinear")}
+    st = {k: torch.empty_like(up) for k in whole}
+    r2 = dict.fromkeys(whole, 0.0)
+    for r0, ub, us, fb, fs, vb, vs in _packed_blocks(n, mx, nu, up, fp, V):
+        b = ((r0, 0), n, h, nu)
+        got, want = (cuda.packed_rr_sharded(ub, fb, us, fs, *b),
+                     ops.packed_rr_sharded(ub, fb, us, fs, *b))
+        for g, w in zip(got, want):
+            assert _nmax(g, w) <= 1e-5
+        st_u[r0:r0 + nl], st_R[r0 // 2:(r0 + nl) // 2] = got
+        for kind in whole:
+            pa = (ub, fb, vb, us, fs, vs, *b, kind)
+            assert _nmax(cuda.packed_pc_sharded(*pa), ops.packed_pc_sharded(*pa)) <= 1e-5
+            (gu, g2), (wu, w2) = (cuda.packed_pc_sharded(*pa, rnorm=True),
+                                  ops.packed_pc_sharded(*pa, rnorm=True))
+            assert _nmax(gu, wu) <= 1e-5
+            assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+            st[kind][r0:r0 + nl] = gu
+            r2[kind] += float(g2)
+    # the same tiles and arithmetic as on the whole grid
+    assert torch.equal(st_u, whole_u) and torch.equal(st_R, whole_R)
+    for kind, (wu, w2) in whole.items():
+        assert torch.equal(st[kind], wu)
+        assert abs(r2[kind] / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_sharded_packed_wrappers_reject_what_the_kernels_do_not_take(card):
+    u, f, V = _data(64, 6, card)
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    ub, us = block_from_grid(up, (32, 0), (32, 64), 3, cols=False)
+    vb, vs = block_from_grid(V, (16, 0), (16, 32), 3, cols=False)
+    b = ((32, 0), 64, 1 / 64, 1)
+    shallow = block_from_grid(up, (32, 0), (32, 64), 2, cols=False)[1]
+    with pytest.raises(ValueError, match="strips 2 deep"):
+        cuda.packed_rr_sharded(ub, ub, shallow, shallow, *b)
+    with pytest.raises(ValueError, match="row strips"):
+        cuda.packed_rr_sharded(ub, ub, block_from_grid(up, (32, 0), (32, 64), 3)[1], us, *b)
+    with pytest.raises(ValueError, match="whole rows"):
+        cuda.packed_rr_sharded(ub[:, :32].contiguous(), ub[:, :32].contiguous(), us, us,
+                               (32, 32), *b[1:])
+    with pytest.raises(ValueError, match="even block"):
+        cuda.packed_rr_sharded(ub, ub, us, us, (33, 0), *b[1:])
+    with pytest.raises(ValueError, match="no kernel"):
+        cuda.packed_rr_sharded(ub, ub, us, us, (32, 0), 64, 1 / 64, 4)
+    with pytest.raises(ValueError, match="no kernel"):
+        dbl = [s.double() for s in us[:2]] + [None, None]
+        cuda.packed_rr_sharded(ub.double(), ub.double(), dbl, dbl, *b)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda.packed_pc_sharded(ub, ub, ub, us, us, vs, *b)
+    with pytest.raises(ValueError, match="unknown prolongation"):
+        cuda.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "cubic")
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda.packed_pc_sharded(ub, ub, vb, us, us, (vs[0].t().contiguous().t(), vs[1], None,
+                                                    None), *b)
+    assert _nmax(cuda.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "bilinear", rnorm=True)[0],
+                 ops.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "bilinear",
+                                       rnorm=True)[0]) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_sharded_packed_launch_counters(card):
+    u, f, V = _data(256, 8, card)
+    ub, us = block_from_grid(u, (64, 0), (64, 256), 3, cols=False)
+    vb, vs = block_from_grid(V, (32, 0), (32, 128), 3, cols=False)
+    b = ((64, 0), 256, 1 / 256, 1)
+    cuda.reset_launches()
+    cuda.packed_rr_sharded(ub, ub, us, us, *b)
+    cuda.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "bilinear")
+    cuda.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "bilinear", rnorm=True)
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_sharded_packed_rr": 1, "mg_sharded_packed_pc": 2,
+                 "mg_sharded_packed_pc.rnorm": 1})
+    assert cuda.launches == want

@@ -58,7 +58,8 @@ def test_profile_reads_a_3d_solve(tmp_path):
 def test_device_summary_counts_the_templated_kernels():
     """Device events of a trace: the union of their intervals, and the time
     in the mg_* kernels, whose template instances the trace names
-    "void mg_..<..>(..)"."""
+    "void mg_..<..>(..)", the packed strip kernels of a sharded fast solve
+    among them."""
     from types import SimpleNamespace
     from torch.autograd import DeviceType
 
@@ -69,8 +70,9 @@ def test_device_summary_counts_the_templated_kernels():
     prof = SimpleNamespace(events=lambda: [
         ev("void mg_smooth_rr_kernel<false>(float const*)", 0.0, 10.0),
         ev("mg_packed_rr_kernel(float const*)", 5.0, 15.0),
-        ev("void at::native::elementwise_kernel<128, 2>()", 20.0, 30.0)])
-    assert profile.device_summary(prof) == (3, 0.025, 0.02)
+        ev("void at::native::elementwise_kernel<128, 2>()", 20.0, 30.0),
+        ev("mg_sharded_packed_rr_kernel(float const*, MgpRows, MgpStrips)", 30.0, 40.0)])
+    assert profile.device_summary(prof) == (4, 0.035, 0.03)
 
 
 def test_sass_diff_compares_the_shared_functions():
