@@ -11,9 +11,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
               and shared memory.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
-              (4096 ... 256) x bc x smoother x nu; then the time of each at
-              4096^2 beside the plain version's (CUDA events, median of 25,
-              alternating) and beside its bound.
+              (4096 ... 256) x bc x smoother x nu, and at every side below
+              (128 ... 2: sides smaller than one warp's tile, the checked
+              edge path, the tile table's switch points) x bc with wjacobi
+              nu = 3, rbgs nu = 1 and 4 and jacobi nu = 7; then the time of
+              each at 4096^2 beside the plain version's (CUDA events, median
+              of 25, alternating; and the kernel's own device time from
+              torch.profiler, without the host's time to enqueue the call)
+              and beside its bound.
 4. slice    — the tuned-scheme 4096^2 f32 solve through
               MultigridPoisson(spec, device="cuda").solve(): the cycle count
               and per-cycle relres against the JAX package's, the returned
@@ -54,10 +59,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
               512^3 x bc x (wjacobi nu = 3, rbgs nu = 1, 2), from u
               and from zero, both prolongation kinds, rnorm; each kernel's
               outputs stitched over the blocks against the single-device
-              K2/K3 (K5/K6) on the whole grid.  Then (timing_sharded) K9/K10
-              on one (2, 2) block of 16384^2 beside K2/K3 on a whole 8192^2
-              array, and K11/K12 on one (2, 2) block of 256^3, each with its
-              plain version and bound.
+              K2/K3 (K5/K6) on the whole grid, where K9/K10 must be
+              bit-equal to K2/K3 (the same bodies, the same arithmetic per
+              cell).  Then (timing_sharded) K9/K10 on one (2, 2) block of
+              16384^2 beside K2/K3 on a whole 8192^2 array, and K11/K12 on
+              one (2, 2) block of 256^3, each with its plain version and
+              bound.
 11. parity_sharded_packed — the packed strip kernels K13/K14 of the fast
               scheme's fine level on a mesh of one column against their plain
               versions at every block of (4, 1), at every fine side of the
@@ -99,6 +106,7 @@ import datetime
 import itertools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,6 +117,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from mgpoisson_torch import MultigridPoisson, Spec
+from mgpoisson_torch.bench.profile import event_ms, kernel_ms
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
 from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packed_sharded,
@@ -148,6 +157,11 @@ JAX_ERRS_FAST = {
 }
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
+# the 2D parity below the main path's kernel levels (128 ... 2): the main
+# path's settings, the fast scheme's coarse rbgs nu = 1, and the deepest
+# halos (rbgs nu = 4, jacobi nu = 7)
+SMALL_SIDES = tuple(2 ** k for k in range(7, 0, -1))
+SMALL_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 4), ("jacobi", 7))
 RNORM_TOL = 1e-5           # relative, on sum(r^2): partials summed in another order
 RELRES_TOL = 0.01          # per-cycle relres against the JAX package, relative
 MAIN_N = 4096
@@ -242,9 +256,12 @@ def check(cond, msg):
 
 
 def nmax(got, want):
-    """(normalized max |diff|, max |diff|) of two tensors."""
+    """(normalized max |diff|, max |diff|) of two tensors; normalized by
+    the absolute max of `want`, or not at all where want is all zero (a 1x1
+    coarse R of a 2x2 level can be)."""
     d = float((got.double() - want.double()).abs().max())
-    return d / float(want.double().abs().max()), d
+    m = float(want.double().abs().max())
+    return (d / m if m > 0 else d), d
 
 
 def phase_device():
@@ -265,15 +282,36 @@ def phase_device():
     return card
 
 
+def ptxas_report(log):
+    """Per entry function of nvcc's -Xptxas -v log: registers, spill store
+    and load bytes, static shared memory bytes."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = {"registers": 0, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+        elif fn is not None:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads"),
+                             ("smem", r"(\d+) bytes smem")):
+                m = re.search(pat, line)
+                if m:
+                    out[fn][key] = int(m.group(1))
+    return out
+
+
 def phase_build():
     t0 = time.perf_counter()
     lib_path = build.build()
     build.load()
     print(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".log")
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
-            print(f"[build] {line.strip()}")
+    for fn, r in ptxas_report(log.read_text() if log.exists() else "").items():
+        print(f"[build] {fn}: {r['registers']} registers, {r['spill_stores']} / "
+              f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
+              "shared memory")
     # ptxas reports static shared memory only; the 3D kernels' is dynamic
     for name, halo, pc in (("mg_smooth3d", 3, False), ("mg_smooth_rr3d", 4, False),
                            ("mg_prolong_correct_smooth3d", 3, True),
@@ -303,64 +341,58 @@ def note(worst, kernel, tag, got, want, row, tol=PARITY_TOL):
 
 
 def note_r2(tag, got, want, row, tol=RNORM_TOL):
-    rel2 = abs(float(got) / float(want) - 1.0)
+    got, want = float(got), float(want)
+    rel2 = abs(got / want - 1.0) if want != 0 else abs(got)
     row.append(f"{tag}={rel2:.1e}")
     check(rel2 <= tol, f"{row[0]}: {tag} sum(r^2) relative difference {rel2:.3e} > {tol}")
 
 
-def phase_parity(dev, ndim, sides, worst):
+def _parity_settings(ndim, full):
+    """(smoother, nu) of the parity sweep: every smoother at nu 1 and 3
+    (and 7 for 2D jacobi), or below the main path's sides SMALL_SETTINGS."""
+    if not full:
+        return SMALL_SETTINGS
+    return [(smoother, nu) for smoother in ("jacobi", "wjacobi", "rbgs")
+            for nu in ((1, 3, 7) if smoother == "jacobi" and ndim == 2 else (1, 3))]
+
+
+def phase_parity(dev, ndim, sides, worst, small_sides=()):
     """Every kernel variant of rank `ndim` against its plain version at each
-    side; records per kernel the largest normalized and absolute
-    differences seen in `worst`."""
+    side (at `small_sides` with SMALL_SETTINGS only); records per kernel the
+    largest normalized and absolute differences seen in `worst`."""
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     label = "parity" if ndim == 2 else "parity3d"
 
-    for n in sides:
+    for n in list(sides) + list(small_sides):
         u, f, V = _data(n, ndim, seed=n, dev=dev)
         h = 1.0 / n
         for bc in ("ghost0", "face"):
-            for smoother in ("jacobi", "wjacobi", "rbgs"):
-                for nu in ((1, 3, 7) if smoother == "jacobi" and ndim == 2 else (1, 3)):
-                    row = [f"n={n} {bc} {smoother} nu={nu}"]
-                    a = (h, nu, smoother, bc)
-                    note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a),
-                         ops.smooth(u, f, *a), row)
-                    for tag, fk, fp, args in (
-                            (t_rr, cuda.smooth_residual_restrict,
-                             ops.smooth_residual_restrict, (u, f)),
-                            (t_rr + "z", cuda.smooth_residual_restrict_zero,
-                             ops.smooth_residual_restrict_zero, (f,))):
-                        (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
-                        note(worst, k_rr, f"{tag}.u", gu, wu, row)
-                        note(worst, k_rr, f"{tag}.R", gR, wR, row)
-                    for kind in ("inject", "bilinear"):
-                        pa = (u, f, V, h, nu, smoother, bc, kind)
-                        tag = t_pc + kind[0]
-                        note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
-                             ops.prolong_correct_smooth(*pa), row)
-                        (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
-                                              ops.prolong_correct_smooth_rnorm(*pa))
-                        note(worst, k_pc, tag + "r.u", gu, wu, row)
-                        note_r2(tag + "r.r2", g2, w2, row)
-                    torch.cuda.synchronize()
-                    print(f"[{label}] " + " ".join(row))
+            for smoother, nu in _parity_settings(ndim, n in sides):
+                row = [f"n={n} {bc} {smoother} nu={nu}"]
+                a = (h, nu, smoother, bc)
+                note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a),
+                     ops.smooth(u, f, *a), row)
+                for tag, fk, fp, args in (
+                        (t_rr, cuda.smooth_residual_restrict,
+                         ops.smooth_residual_restrict, (u, f)),
+                        (t_rr + "z", cuda.smooth_residual_restrict_zero,
+                         ops.smooth_residual_restrict_zero, (f,))):
+                    (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
+                    note(worst, k_rr, f"{tag}.u", gu, wu, row)
+                    note(worst, k_rr, f"{tag}.R", gR, wR, row)
+                for kind in ("inject", "bilinear"):
+                    pa = (u, f, V, h, nu, smoother, bc, kind)
+                    tag = t_pc + kind[0]
+                    note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
+                         ops.prolong_correct_smooth(*pa), row)
+                    (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
+                                          ops.prolong_correct_smooth_rnorm(*pa))
+                    note(worst, k_pc, tag + "r.u", gu, wu, row)
+                    note_r2(tag + "r.r2", g2, w2, row)
+                torch.cuda.synchronize()
+                print(f"[{label}] " + " ".join(row))
         del u, f, V
         torch.cuda.empty_cache()
-
-
-def _time_ms(fn, reps=TIMING_REPS):
-    """Median ms of one call, by CUDA events around each call."""
-    for _ in range(3):
-        fn()
-    times = []
-    for _ in range(reps):
-        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
 
 
 def _flat(x):
@@ -427,16 +459,20 @@ def _time_cases(label, cases, shape, cells):
     bound."""
     out = {}
     for name, (call, inputs, work) in cases.items():
-        p1 = _time_ms(lambda: call(ops))
-        k1 = _time_ms(lambda: call(cuda))
-        k2 = _time_ms(lambda: call(cuda))
-        p2 = _time_ms(lambda: call(ops))
+        p1 = event_ms(lambda: call(ops), TIMING_REPS)
+        k1 = event_ms(lambda: call(cuda), TIMING_REPS)
+        d1 = kernel_ms(lambda: call(cuda), TIMING_REPS)
+        d2 = kernel_ms(lambda: call(cuda), TIMING_REPS)
+        k2 = event_ms(lambda: call(cuda), TIMING_REPS)
+        p2 = event_ms(lambda: call(ops), TIMING_REPS)
         b_ms, b_by = bound_ms(inputs, call(cuda), work * cells)
         out[name] = {"ms": statistics.median([k1, k2]),
                      "plain_ms": statistics.median([p1, p2]),
-                     "bound_ms": b_ms, "bound_by": b_by}
-        print(f"[{label}] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms, "
-              f"plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "kernel_ms": statistics.median([d1, d2])}
+        print(f"[{label}] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms "
+              f"(device {d1:.4f} / {d2:.4f} ms, {100 * b_ms / max(d1, d2):.1f} % of the "
+              f"bound), plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return out
 
 
@@ -516,8 +552,8 @@ def phase_timing_packed(dev, n):
               f"{out[name]['ms'] / out[packed_name]['ms']:.3f}x")
     # the solver's pack of psi and f and unpack of psi, once per solve
     # (plain torch: exact data movement)
-    print(f"[timing_packed] pack_grid {_time_ms(lambda: cuda.pack_grid(u)):.4f} ms, "
-          f"unpack_grid {_time_ms(lambda: cuda.unpack_grid(up)):.4f} ms at {n}^2 f32")
+    print(f"[timing_packed] pack_grid {event_ms(lambda: cuda.pack_grid(u), TIMING_REPS):.4f} ms, "
+          f"unpack_grid {event_ms(lambda: cuda.unpack_grid(up), TIMING_REPS):.4f} ms at {n}^2 f32")
     del u, f, V, up, fp
     torch.cuda.empty_cache()
     return out
@@ -722,6 +758,7 @@ def phase_parity_sharded(dev, worst):
             for bc, (smoother, nu) in itertools.product(("ghost0", "face"), SHARDED_SETTINGS):
                 row = [f"n={n}^{ndim} {bc} {smoother} nu={nu}"]
                 w = _Worst(worst)
+                unequal = []   # 2D: stitched K9/K10 outputs that are not K2/K3's bits
                 a = (h, nu, smoother, bc)
                 whole = {"rr": cuda.smooth_residual_restrict(u, f, *a),
                          "rrz": cuda.smooth_residual_restrict_zero(f, *a)}
@@ -759,17 +796,27 @@ def phase_parity_sharded(dev, worst):
                             st[kind][0][fine] = gu
                             r2[kind] += float(g2)
                     m = "x".join(map(str, mesh))
+                    pairs = []
                     for key, tag in (("rr", f"{t_rr}~{s_rr}"), ("rrz", f"{t_rr}z~{s_rr}z")):
-                        w.note(None, f"{tag}.u@{m}", st[key][0], whole[key][0])
-                        w.note(None, f"{tag}.R@{m}", st[key][1], whole[key][1])
+                        pairs += [(f"{tag}.u@{m}", st[key][0], whole[key][0]),
+                                  (f"{tag}.R@{m}", st[key][1], whole[key][1])]
                     for kind in ("inject", "bilinear"):
                         tag = f"{t_pc}{kind[0]}~{s_pc}"
-                        w.note(None, f"{tag}.u@{m}", st[kind][0], whole[kind][0])
+                        pairs.append((f"{tag}.u@{m}", st[kind][0], whole[kind][0]))
                         w.tags[f"{tag}.r2@{m}"] = abs(r2[kind] / float(whole[kind][1]) - 1.0)
+                    for tag, got, want in pairs:
+                        w.note(None, tag, got, want)
+                        if ndim == 2 and not torch.equal(got, want):
+                            unequal.append(f"{tag} max |diff| {nmax(got, want)[1]:.3e}")
                     del st
                 w.check(row)
+                if ndim == 2:
+                    row.append("stitched: bit-equal to K2/K3" if not unequal else
+                               "stitched: NOT bit-equal to K2/K3: " + "; ".join(unequal))
                 torch.cuda.synchronize()
                 print("[parity_sharded] " + " ".join(row))
+                check(not unequal, f"{row[0]}: K9/K10 stitched over the blocks are not "
+                      "bit-equal to K2/K3")
             del u, f, V, whole
             torch.cuda.empty_cache()
 
@@ -1144,7 +1191,7 @@ def main():
     worst = {k: [0.0, 0.0] for k in KERNELS}
 
     # the 2D path: the tuned 4096^2 solve
-    phase_parity(dev, 2, kernel_levels(MAIN_SPEC), worst)
+    phase_parity(dev, 2, kernel_levels(MAIN_SPEC), worst, SMALL_SIDES)
     times = phase_timing(dev, MAIN_N, 2)
     it, solve2, trace2 = phase_slice("slice", MAIN_SPEC, dev, JAX_ITERATIONS, JAX_ERRS)
     L = len(kernel_levels(MAIN_SPEC))

@@ -85,6 +85,41 @@ def device_summary(prof):
     return len(evs), busy_us / 1e3, mg_us / 1e3
 
 
+def event_ms(fn, reps: int = 25) -> float:
+    """Median ms of one call of fn on the card, by CUDA events around each
+    call after 3 warm-up calls.  For a wrapper whose kernel is shorter than
+    the host's time to enqueue the call, this is the host's time."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times)
+
+
+def kernel_ms(fn, reps: int = 25) -> float:
+    """The mg_* kernels' own device ms per call of fn, from torch.profiler
+    over `reps` calls: the kernels' time without the host's.  A capture that
+    holds no mg_* event (the profiler drops one now and then) is taken
+    again, up to 3 times."""
+    fn()
+    dev = torch.device("cuda")
+    tries = 3
+    for _ in range(tries):
+        with trace(dev) as prof:
+            for _ in range(reps):
+                fn()
+        ms = device_summary(prof)[2]
+        if ms > 0:
+            return ms / reps
+    raise RuntimeError(f"kernel_ms: no mg_* kernel in {tries} profiler captures")
+
+
 def profile_solve(spec, device, out: str | None = None):
     """Warm-up, timed and profiled solves of `spec`; returns a dict of the
     per-cycle numbers."""

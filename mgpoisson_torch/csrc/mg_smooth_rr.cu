@@ -14,81 +14,96 @@
 // sharded level, its halo read from the neighbours' strips (stencil.cuh
 // MgStrips) and the boundary applied only where the block's edge is the
 // grid's.  The TPU kernel assembles its halo by DMA into a VMEM stripe with
-// a 128-lane column window; here the tile loader picks each halo cell from
-// its strip, and the global index does what the TPU's edge flags did.
+// a 128-lane column window; here the loader of a warp at the block's edge
+// picks body or strip per row of each lane's pair, and the global index
+// does what the TPU's edge flags did.
+//
 // Bound: HBM bytes, 3.25 arrays (read u, f; write u, R), 2.25 from zero;
-// the strips add 4D/nl + 4D/ml of an array (both u and f).
+// the strips add 4D/nl + 4D/ml of an array (both u and f).  Design
+// (stencil.cuh): one warp per 64-column register tile, H = steps + 1 so
+// the ring the residual reads stays exact, the sweeps' loop on nu at run
+// time over rows unrolled at compile time; each kernel is instanced per
+// smoother and per row count of the tile table, and each warp takes the
+// unchecked or the checked body.  The residual and the restriction run on
+// the registers: each lane's pair of columns and two rows are one coarse
+// cell.
 #include "stencil.cuh"
 
-// The leg on the block `blk`; each entry point below instantiates it once.
-template <bool kStrips>
-static __device__ __forceinline__ void mg_smooth_rr_body(
-    const float* __restrict__ U, const float* __restrict__ F, float* __restrict__ Uout,
-    float* __restrict__ Rout, const MgBlock& blk, const MgStrips& us, const MgStrips& fs,
-    int H, int nu, int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
-  extern __shared__ float smem[];
-  const MgTile t = mg_tile(blk, H);
-  float* a = smem;
-  float* b = a + t.S * t.S;
-  float* sf = b + t.S * t.S;
-  if constexpr (kStrips)
-    mg_load_strips(a, sf, U, F, us, fs, t);
-  else
-    mg_load(a, sf, U, F, t);
-  __syncthreads();
-  const float* u = mg_sweeps(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
-  if constexpr (kStrips)
-    mg_store_block(Uout, u, t);
-  else
-    mg_store(Uout, u, t);
-
-  // the tile origin is even, so each coarse cell's 2x2 fine cells lie in
-  // this tile; the halo keeps the ring the residual reads exact
-  const int ncl = t.nl / 2, mcl = t.ml / 2, T2 = MG_TILE / 2;
-  for (int k = threadIdx.x; k < T2 * T2; k += blockDim.x) {
-    const int ci = k / T2, cj = k % T2;
-    const int I = (int)blockIdx.y * T2 + ci, J = (int)blockIdx.x * T2 + cj;
-    if (!mg_in(I, ncl) || !mg_in(J, mcl)) continue;
-    const int i = t.H + 2 * ci, j = t.H + 2 * cj;
-    const float r00 = mg_residual(u, sf, t, i, j, bc, inv_hsq, adiag);
-    const float r10 = mg_residual(u, sf, t, i + 1, j, bc, inv_hsq, adiag);
-    const float r01 = mg_residual(u, sf, t, i, j + 1, bc, inv_hsq, adiag);
-    const float r11 = mg_residual(u, sf, t, i + 1, j + 1, bc, inv_hsq, adiag);
-    Rout[(size_t)I * mcl + J] = ((r00 + r10) + (r01 + r11)) * 0.25f;
+template <int kSm, int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ void mg2_rr_tile(const Mg2Args& a, const Mg2Tile& t) {
+  Mg2Pair<R> u;
+  Mg2Pair<R> f;
+  if (a.U) {
+    mg2_load<R, kStrips, kEdge>(u, a.U, a.us, t);
+  } else {
+#pragma unroll
+    for (int i = 0; i < R; ++i) u.put(i, make_float2(0.f, 0.f));
   }
+  mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
+  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
+  mg2_store<R, kEdge>(a.Uout, u, t);
+  mg2_restrict<R, kEdge>(a.Rout, u, f, t, a.bc, a.inv_hsq, a.adiag);
 }
 
-// K2: the whole n x n grid.  The block is built here from n, so the
-// compiler folds it away and the code is that of the grid-only kernel.
-__global__ void __launch_bounds__(MG_THREADS)
-mg_smooth_rr_kernel(const float* __restrict__ U, const float* __restrict__ F,
-                    float* __restrict__ Uout, float* __restrict__ Rout, int n, int H,
-                    int nu, int smoother, int bc, float inv_hsq, float inv_adiag,
-                    float adiag) {
-  mg_smooth_rr_body<false>(U, F, Uout, Rout, MgBlock{n, n, n, 0, 0}, MgStrips{}, MgStrips{},
-                           H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
+// The leg on the block a.blk; each entry point below instantiates it.
+template <int kSm, int R, bool kStrips>
+static __device__ __forceinline__ void mg2_rr_body(const Mg2Args& a) {
+  const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
+  if (!mg2_owns(t)) return;
+  if (mg2_inside<R>(t))
+    mg2_rr_tile<kSm, R, kStrips, false>(a, t);
+  else
+    mg2_rr_tile<kSm, R, kStrips, true>(a, t);
 }
+
+// K2: the whole n x n grid.
+template <int kSm, int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_smooth_rr_kernel(const Mg2Args a) {
+  mg2_rr_body<kSm, R, false>(a);
+}
+
+struct MgRrLaunch {
+  template <int kSm, int R>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2Args& a) {
+    mg_smooth_rr_kernel<kSm, R><<<grid, block, 0, stream>>>(a);
+  }
+};
 
 // K9: one rank's block, its halo from strips.
-__global__ void __launch_bounds__(MG_THREADS)
-mg_sharded_rr_kernel(const float* __restrict__ U, const float* __restrict__ F,
-                     float* __restrict__ Uout, float* __restrict__ Rout, MgBlock blk,
-                     MgStrips us, MgStrips fs, int H, int nu, int smoother, int bc,
-                     float inv_hsq, float inv_adiag, float adiag) {
-  mg_smooth_rr_body<true>(U, F, Uout, Rout, blk, us, fs, H, nu, smoother, bc, inv_hsq,
-                          inv_adiag, adiag);
+template <int kSm, int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_sharded_rr_kernel(const Mg2Args a) {
+  mg2_rr_body<kSm, R, true>(a);
 }
+
+struct MgShardedRrLaunch {
+  template <int kSm, int R>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2Args& a) {
+    mg_sharded_rr_kernel<kSm, R><<<grid, block, 0, stream>>>(a);
+  }
+};
 
 extern "C" int mg_smooth_rr(const float* u, const float* f, float* out, float* R, int n,
                             int nu, int smoother, int bc, float inv_hsq, float inv_adiag,
                             float adiag, int zero, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + 1;
-  const size_t bytes = mg_tile_floats(H) * sizeof(float);
-  if (bytes > MG_SMEM_LIMIT || n < 2) return (int)cudaErrorInvalidValue;
-  const dim3 grid(mg_tiles(n), mg_tiles(n));
-  mg_smooth_rr_kernel<<<grid, MG_THREADS, bytes, stream>>>(
-      zero ? nullptr : u, f, out, R, n, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
-  return (int)cudaGetLastError();
+  if (n < 2 || n & 1 || nu < 0 || mg2_halo(H) > MG2_MAX_HALO) return (int)cudaErrorInvalidValue;
+  if (!mg2_aligned(zero ? nullptr : u, f, out)) return (int)cudaErrorMisalignedAddress;
+  Mg2Args a{};
+  a.U = zero ? nullptr : u;
+  a.F = f;
+  a.Uout = out;
+  a.Rout = R;
+  a.blk = MgBlock{n, n, n, 0, 0};
+  a.H = H;
+  a.nu = nu;
+  a.bc = bc;
+  a.inv_hsq = inv_hsq;
+  a.inv_adiag = inv_adiag;
+  a.adiag = adiag;
+  return mg2_launch<MgRrLaunch>(smoother, mg2_rows(n, n, H),
+                                          mg2_grid(n, n, H), stream, a);
 }
 
 // One rank's (nl x ml) block at global (r0, c0) of an n x n level; u and f
@@ -101,14 +116,25 @@ extern "C" int mg_sharded_rr(const float* u, const float* f, float* out, float* 
                              int c0, int D, int nu, int smoother, int bc, float inv_hsq,
                              float inv_adiag, float adiag, int zero, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + 1;
-  const size_t bytes = mg_tile_floats(H) * sizeof(float);
-  if (bytes > MG_SMEM_LIMIT || nl < 2 || ml < 2 || (nl | ml | r0 | c0) & 1 || D < H)
+  if (nl < 2 || ml < 2 || (nl | ml | r0 | c0) & 1 || nu < 0 || D < H ||
+      mg2_halo(H) > MG2_MAX_HALO)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(mg_tiles(ml), mg_tiles(nl));
-  const MgStrips us = zero ? MgStrips{nullptr, nullptr, nullptr, nullptr, D}
-                           : MgStrips{ut, ub, ul, ur, D};
-  mg_sharded_rr_kernel<<<grid, MG_THREADS, bytes, stream>>>(
-      zero ? nullptr : u, f, out, R, MgBlock{n, nl, ml, r0, c0}, us,
-      MgStrips{ft, fb, fl, fr, D}, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
-  return (int)cudaGetLastError();
+  if (!mg2_aligned(f, ft, fb, out) || (!zero && !mg2_aligned(u, ut, ub)))
+    return (int)cudaErrorMisalignedAddress;
+  Mg2Args a{};
+  a.U = zero ? nullptr : u;
+  a.F = f;
+  a.Uout = out;
+  a.Rout = R;
+  a.blk = MgBlock{n, nl, ml, r0, c0};
+  a.us = zero ? MgStrips{nullptr, nullptr, nullptr, nullptr, D} : MgStrips{ut, ub, ul, ur, D};
+  a.fs = MgStrips{ft, fb, fl, fr, D};
+  a.H = H;
+  a.nu = nu;
+  a.bc = bc;
+  a.inv_hsq = inv_hsq;
+  a.inv_adiag = inv_adiag;
+  a.adiag = adiag;
+  return mg2_launch<MgShardedRrLaunch>(smoother, mg2_rows(nl, ml, H),
+                                                 mg2_grid(nl, ml, H), stream, a);
 }

@@ -5,9 +5,10 @@
 //
 // The Pallas 3D kernels block (z, y) with the whole x row in lanes, round
 // the y halo up to 8 sublanes and pick the blocks with a VMEM planner
-// (_plan3d).  None of that carries over.  As in the 2D kernels
-// (stencil.cuh), each block owns a T x T x T interior and loads it with a
-// halo of H cells on every side into shared memory; all nu sweeps run
+// (_plan3d).  None of that carries over.  Each block owns a T x T x T
+// interior and loads it with a halo of H cells on every side into shared
+// memory (the deep-halo trapezoid the 2D register tile of stencil.cuh
+// also runs, there per warp and in registers); all nu sweeps run
 // there over a region that shrinks by the dependency radius each step, so
 // the interior is exact after the last sweep and any power-of-two n runs
 // the same code.  H = steps for a smooth, steps + 1 where a residual

@@ -55,8 +55,8 @@ SIGNATURES = {
 }
 
 
-def sources():
-    return sorted(CSRC.glob("*.cu")), sorted(CSRC.glob("*.cuh"))
+def sources(csrc: Path = CSRC):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
 def nvcc() -> str:
@@ -72,13 +72,13 @@ def nvcc() -> str:
                        "CUDA kernels are built from source at first use")
 
 
-def library_path() -> Path:
-    cu, cuh = sources()
+def library_path(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
+    cu, cuh = sources(csrc)
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in cu + cuh:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    return BUILD_DIR / f"libmgpoisson_torch_{h.hexdigest()[:16]}.so"
+    return build_dir / f"libmgpoisson_torch_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds):
@@ -89,16 +89,18 @@ def _run(cmds):
     return [(p.returncode, out) for p, out in zip(procs, outs)]
 
 
-def build() -> Path:
+def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
     """Compiles the library unless this exact build is already there;
     returns its path.  nvcc's report (ptxas registers, shared memory,
-    spills) is kept beside it as ``<name>.log``."""
-    lib = library_path()
+    spills) is kept beside it as ``<name>.log``.  Another source tree
+    (`csrc`, e.g. a parent commit's, for bench/ab.py) builds the same
+    way into `build_dir`."""
+    lib = library_path(csrc, build_dir)
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = sources()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    build_dir.mkdir(parents=True, exist_ok=True)
+    cu, _ = sources(csrc)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs = [os.path.join(tmp, p.stem + ".o") for p in cu]
         cmds = [[nvcc(), *NVCC_FLAGS, "-c", str(p), "-o", o] for p, o in zip(cu, objs)]
         link = [nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", os.path.join(tmp, lib.name),
@@ -116,13 +118,18 @@ def build() -> Path:
     return lib
 
 
-@functools.cache
-def load() -> ctypes.CDLL:
-    """Builds (if needed) and loads the library once per process, with the
-    argument and result types of every entry point declared."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(path) -> ctypes.CDLL:
+    """Loads a built library with the argument and result types of every
+    entry point declared."""
+    lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """Builds (if needed) and loads the library once per process."""
+    return load_library(build())

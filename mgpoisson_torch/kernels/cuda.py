@@ -61,10 +61,20 @@ from mgpoisson_torch.kernels.build import load
 SMOOTHERS = {"jacobi": 0, "wjacobi": 1, "rbgs": 2}
 BCS = {"ghost0": 0, "face": 1}
 PROLONG_KINDS = {"inject": 0, "bilinear": 1}
-# 2D per-call sweep cap: the shared-memory halo grows by the dependency
-# radius per sweep (1 for the Jacobi variants, 2 for red-black GS)
+# 2D per-call sweep cap: the tile's halo grows by the dependency radius
+# per sweep (1 for the Jacobi variants, 2 for red-black GS), up to
+# MG2_MAX_HALO in csrc/stencil.cuh
 MAX_NU = {"jacobi": 8, "wjacobi": 8, "rbgs": 4}
-TILE = 32   # 2D interior cells per block side; MG_TILE in csrc/stencil.cuh
+# the 2D register tile (csrc/stencil.cuh): a warp loads TILE_COLS columns
+# and R rows with an even halo, TILE_WARPS warps per block in row bands;
+# the tile table (mg2_rows) takes R from TILE_ROWS = (small, shallow,
+# deep): deep above an even halo of TILE_SHALLOW_HALO, else shallow where
+# the level has at least TILE_FILL_WARPS warps of it, else small
+TILE_COLS = 64
+TILE_WARPS = 2
+TILE_ROWS = (16, 24, 40)
+TILE_SHALLOW_HALO = 4
+TILE_FILL_WARPS = 528
 # 3D cap on the halo depth, radius * nu plus the ring a residual reads
 # (K5, K6 with rnorm): the z halo the JAX package's planner admits
 # (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
@@ -99,6 +109,28 @@ def _steps(nu, smoother):
     """Shrinking-region steps of nu sweeps: red-black GS takes one per
     colour."""
     return 2 * nu if smoother == "rbgs" else nu
+
+
+def tile2d(nl: int, ml: int, halo: int) -> tuple[int, int]:
+    """(rows, columns) of the interior of one block of a 2D launch on an
+    (nl, ml) array or block whose kernel halo is `halo` (K1 steps, K2/K3
+    and K9/K10 steps + 1): the tile table of csrc/stencil.cuh, mg2_rows and
+    mg2_grid."""
+    hr = halo + (halo & 1)
+    cols = TILE_COLS - 2 * hr
+    small, shallow, deep = TILE_ROWS
+    if hr > TILE_SHALLOW_HALO:
+        rows = deep
+    else:
+        warps = -(-ml // cols) * -(-nl // (shallow - 2 * hr))
+        rows = shallow if warps >= TILE_FILL_WARPS else small
+    return TILE_WARPS * (rows - 2 * hr), cols
+
+
+def blocks2d(nl: int, ml: int, halo: int) -> int:
+    """Number of blocks of a 2D launch (one rnorm partial each)."""
+    rows, cols = tile2d(nl, ml, halo)
+    return -(-nl // rows) * -(-ml // cols)
 
 
 def tile3d(halo: int) -> int:
@@ -172,10 +204,19 @@ def _geometry(u, halo):
     return (n,) if u.ndim == 2 else (n, tile3d(halo))
 
 
-def _blocks(u, halo):
-    """Number of blocks of a launch on u (one rnorm partial each)."""
-    tile = TILE if u.ndim == 2 else tile3d(halo)
-    return (-(-u.shape[0] // tile)) ** u.ndim
+def rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
+    """Number of f32 Sigma r^2 partials, one per thread block, that an up-leg
+    with rnorm (K3, K6; K10, K12 on a rank's block) writes on an array or
+    block of this shape of a grid of side n_global: in 2D the tile table's
+    blocks at the tile halo steps + 1, in 3D the T^3 tiles over (n_global,
+    shape[0], shape[1]) (x whole) at the halo steps + 1."""
+    halo = _steps(nu, smoother) + 1
+    if len(shape) == 2:
+        return blocks2d(shape[0], shape[1], halo)
+    t, blocks = tile3d(halo), 1
+    for s in (n_global, shape[0], shape[1]):
+        blocks *= -(-s // t)
+    return blocks
 
 
 def _scalars(h, ndim):
@@ -250,7 +291,8 @@ def _pc(u, f, V, h, nu, smoother, bc, kind, rnorm):
     _check(name, u, nu, smoother, bc, rnorm, (f, u.shape), (V, _half(u.shape)))
     out = torch.empty_like(u)
     halo = _steps(nu, smoother) + rnorm
-    partials = (torch.empty(_blocks(u, halo), dtype=torch.float32, device=u.device)
+    partials = (torch.empty(rnorm_partials(u.shape, nu, smoother, u.shape[0]),
+                            dtype=torch.float32, device=u.device)
                 if rnorm else None)
     inv_hsq, inv_adiag, adiag = _scalars(h, u.ndim)
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
@@ -459,11 +501,8 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
     out = torch.empty_like(u)
     partials = None
     if rnorm:
-        t = TILE if u.ndim == 2 else tile3d(halo)
-        blocks = 1
-        for s in (n_global,) * (u.ndim - 2) + tuple(u.shape[:2]):
-            blocks *= -(-s // t)
-        partials = torch.empty(blocks, dtype=torch.float32, device=u.device)
+        partials = torch.empty(rnorm_partials(u.shape, nu, smoother, n_global),
+                               dtype=torch.float32, device=u.device)
     tile = (tile3d(halo),) if u.ndim == 3 else ()
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,

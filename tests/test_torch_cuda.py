@@ -7,9 +7,9 @@ where JAX is not installed; tests/conftest.py imports JAX, hence:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-Sizes include levels smaller than one tile (32x32 in 2D, 16^3 or 8^3 in
-3D, 32 rows x 32 packed lanes for the packed K7/K8) and levels of several
-tiles; the strip kernels K9-K12 run every block position of (2, 2) and
+Sizes include levels smaller than one tile (a warp's 64 columns in 2D,
+down to 2x2; 16^3 or 8^3 in 3D; 32 rows x 32 packed lanes for the packed
+K7/K8) and levels of several tiles; the strip kernels K9-K12 run every block position of (2, 2) and
 (4, 1) meshes, blocks and strips cut from a whole grid as the ranks'
 exchange delivers them.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel
 bar), 1e-5 relative on sum(r^2), whose partials are summed in another
@@ -38,16 +38,23 @@ def _data(n, seed, device, ndim=2):
 
 
 def _nmax(got, want):
-    return float((got.double() - want.double()).abs().max()
-                 / want.double().abs().max())
+    """max |got - want| over max |want|; the absolute max where want is all
+    zero (a 1x1 coarse R of a 2x2 level can be)."""
+    d = float((got.double() - want.double()).abs().max())
+    m = float(want.double().abs().max())
+    return d / m if m > 0 else d
 
 
 # 2D: each smoother at its sweep cap (nu <= 8, <= 4 for rbgs) or the tuned
-# scheme's wjacobi nu = 3.  3D: levels smaller than one tile (16^3 at
-# T = 16), one tile and several; the sweep counts at the composites' halo
-# cap (radius*nu + 1 <= 8), where the tile narrows to 8, and wjacobi nu = 3
-# (T = 16).
-CASES = ([(2, n, s, nu) for n in (16, 64, 256)
+# scheme's wjacobi nu = 3, so every row of the tile table (kernels.cuda
+# tile2d: at wjacobi 3 the small tile up to 512 and the shallow one at 1024
+# and 2048, the deep one at jacobi 7 and rbgs 4), at sides 2 ... 2048:
+# below one warp's tile, the first levels where a warp's loaded region
+# lies inside the grid, and several tiles.  3D: levels smaller than one
+# tile (16^3 at T = 16), one tile and several; the sweep counts at the
+# composites' halo cap (radius*nu + 1 <= 8), where the tile narrows to 8,
+# and wjacobi nu = 3 (T = 16).
+CASES = ([(2, n, s, nu) for n in (2, 4, 8, 16, 32, 64, 256, 512, 1024, 2048)
           for s, nu in (("jacobi", 7), ("wjacobi", 3), ("rbgs", 4))]
          + [(3, n, s, nu) for n in (16, 32, 64)
             for s, nu in (("jacobi", 7), ("wjacobi", 3), ("rbgs", 3))])
@@ -110,6 +117,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         cuda.smooth(u.t(), f, 1 / 64, 1, "jacobi", "ghost0")
     with pytest.raises(ValueError, match="does not match"):
         cuda.prolong_correct_smooth(u, f, u, 1 / 64, 1, "jacobi", "ghost0")
+    # the 2D tile moves 8 bytes per lane: an operand at an odd offset is refused
+    odd = torch.randn(64 * 64 + 1, device=card)[1:].view(64, 64)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.smooth(odd, f, 1 / 64, 1, "jacobi", "ghost0")
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.smooth_residual_restrict(u, odd, 1 / 64, 1, "jacobi", "ghost0")
 
 
 # the packed kernels: below one tile (32 rows x 32 packed lanes), one tile
@@ -191,8 +204,8 @@ def test_launch_counters(card):
 
 # the strip kernels: blocks below one tile, of one tile and of several, on
 # meshes with and without a column neighbour
-SHARDED = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (3, 32, (2, 2)),
-           (3, 64, (4, 1))]
+SHARDED = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (2, 4096, (2, 2)),
+           (3, 32, (2, 2)), (3, 64, (4, 1))]
 
 
 def _blocks(n, mesh, ndim):

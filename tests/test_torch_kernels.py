@@ -133,10 +133,16 @@ def test_prolong_correct_smooth_vs_pallas(smoother, bc, nu, kind, rnorm, path):
 
 
 def test_tile_matches_cuda_source():
-    """The wrapper sizes the rnorm partials by TILE, which must be the
-    kernels' MG_TILE."""
+    """The wrapper sizes the rnorm partials by the tile table of
+    kernels.cuda.tile2d, whose constants must be the kernels' own."""
     src = (Path(cuda.__file__).parents[1] / "csrc" / "stencil.cuh").read_text()
-    assert f"#define MG_TILE {cuda.TILE} " in src
+    for name, value in (("MG2_COLS", cuda.TILE_COLS), ("MG2_WARPS", cuda.TILE_WARPS),
+                        ("MG2_ROWS_SMALL", cuda.TILE_ROWS[0]),
+                        ("MG2_ROWS_SHALLOW", cuda.TILE_ROWS[1]),
+                        ("MG2_ROWS_DEEP", cuda.TILE_ROWS[2]),
+                        ("MG2_SHALLOW_HALO", cuda.TILE_SHALLOW_HALO),
+                        ("MG2_FILL_WARPS", cuda.TILE_FILL_WARPS)):
+        assert f"#define {name} {value} " in src
 
 
 @pytest.mark.parametrize("spec_kw,n,device,want", [

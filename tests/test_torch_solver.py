@@ -254,6 +254,7 @@ def test_port_imports_no_jax():
             "import mgpoisson_torch.shard.mesh, mgpoisson_torch.shard.multihost\n"
             "import mgpoisson_torch.shard.spmd\n"
             "import mgpoisson_torch.bench.profile, mgpoisson_torch.bench.sass_diff\n"
+            "import mgpoisson_torch.bench.ab\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mgpoisson')]\n"
