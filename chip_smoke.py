@@ -28,8 +28,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
               plain ops (backend="torch") for comparison.
 5. parity3d — each 3D kernel (K4-K6) against its plain version at every side
               the 3D paths give the kernels (512, 256) x bc x smoother x nu,
-              both prolongation kinds, rnorm and from zero; then the time of
-              each at 256^3 with the main path's settings.
+              both prolongation kinds, rnorm and from zero, and at every side
+              below (128 ... 2: sides smaller than one z-marching column or
+              chunk) x bc with wjacobi nu = 3, rbgs nu = 1 and rbgs nu = 2
+              (halo 5: K5 and K6 with rnorm on the cube tile, K6 on the
+              z-marching one); every K5/K6 output of the z-marching tile
+              (halo <= 4) must equal its plain version bit for bit.  Then
+              the time of each at 256^3 with the main path's settings.
 6. slice3d  — the tuned 256^3 f32 solve (BASELINE config 4) as in phase 4:
               cycles and relres against the JAX package's, f64 re-check,
               launches of the solve and of a traced V-cycle (K4), the same
@@ -162,6 +167,10 @@ PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 # halos (rbgs nu = 4, jacobi nu = 7)
 SMALL_SIDES = tuple(2 ** k for k in range(7, 0, -1))
 SMALL_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 4), ("jacobi", 7))
+# the 3D parity below the main path's sides (128 ... 2): the main path's
+# settings, the fast scheme's rbgs nu = 1 (both on the z-marching tile of
+# K5/K6) and rbgs nu = 2 (halo 5 with a residual: the cube tile)
+SMALL_SETTINGS_3D = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2))
 RNORM_TOL = 1e-5           # relative, on sum(r^2): partials summed in another order
 RELRES_TOL = 0.01          # per-cycle relres against the JAX package, relative
 MAIN_N = 4096
@@ -312,12 +321,19 @@ def phase_build():
         print(f"[build] {fn}: {r['registers']} registers, {r['spill_stores']} / "
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
-    # ptxas reports static shared memory only; the 3D kernels' is dynamic
-    for name, halo, pc in (("mg_smooth3d", 3, False), ("mg_smooth_rr3d", 4, False),
-                           ("mg_prolong_correct_smooth3d", 3, True),
-                           ("mg_prolong_correct_smooth3d.rnorm", 4, True)):
-        print(f"[build] {name} at the tuned scheme's halo {halo}: tile "
-              f"{cuda.tile3d(halo)}^3, {cuda.shared_bytes_3d(halo, pc)} bytes of "
+    # ptxas reports static shared memory only; the 3D kernels' is dynamic.
+    # K4 runs the cube tile; K5/K6 the z-marching tile at halos <= 4
+    print(f"[build] mg_smooth3d at the tuned scheme's halo 3: cube tile "
+          f"{cuda.tile3d(3)}^3, {cuda.shared_bytes_3d(3)} bytes of dynamic shared memory "
+          "per block")
+    for name, steps, rr in (("mg_smooth_rr3d", 3, True), ("mg_prolong_correct_smooth3d", 3, False),
+                            ("mg_prolong_correct_smooth3d.rnorm", 3, False)):
+        halo = steps + (name != "mg_prolong_correct_smooth3d")
+        t = cuda.tile3d_zm(halo)
+        print(f"[build] {name} at the tuned scheme's halo {halo}: z-marching tile, "
+              f"{cuda.ZM_COLS}^2 loaded cells per plane ({t}^2 owned), "
+              f"{cuda.zm_chunk(256, halo)} / {cuda.zm_chunk(512, halo)} planes per block at "
+              f"256^3 / 512^3, {cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of "
               "dynamic shared memory per block")
 
 
@@ -328,16 +344,19 @@ def _data(n, ndim, seed, dev):
             for s in (n, n, n // 2)]
 
 
-def note(worst, kernel, tag, got, want, row, tol=PARITY_TOL):
+def note(worst, kernel, tag, got, want, row, tol=PARITY_TOL, exact=False):
     """Appends tag=normalized max |diff| to `row` and checks it against
-    `tol`; with a kernel, records its largest normalized and absolute
-    differences in `worst`."""
+    `tol` (and, with `exact`, that the two are equal bit for bit); with a
+    kernel, records its largest normalized and absolute differences in
+    `worst`."""
     rel, ab = nmax(got, want)
     if kernel is not None:
         worst[kernel][0] = max(worst[kernel][0], rel)
         worst[kernel][1] = max(worst[kernel][1], ab)
     row.append(f"{tag}={rel:.1e}")
     check(rel <= tol, f"{tag} {row[0]}: normalized max |diff| {rel:.3e} > {tol}")
+    check(not exact or torch.equal(got, want),
+          f"{tag} {row[0]}: not bit-equal to its plain version (max |diff| {ab:.3e})")
 
 
 def note_r2(tag, got, want, row, tol=RNORM_TOL):
@@ -349,9 +368,10 @@ def note_r2(tag, got, want, row, tol=RNORM_TOL):
 
 def _parity_settings(ndim, full):
     """(smoother, nu) of the parity sweep: every smoother at nu 1 and 3
-    (and 7 for 2D jacobi), or below the main path's sides SMALL_SETTINGS."""
+    (and 7 for 2D jacobi), or below the main path's sides SMALL_SETTINGS
+    (SMALL_SETTINGS_3D)."""
     if not full:
-        return SMALL_SETTINGS
+        return SMALL_SETTINGS if ndim == 2 else SMALL_SETTINGS_3D
     return [(smoother, nu) for smoother in ("jacobi", "wjacobi", "rbgs")
             for nu in ((1, 3, 7) if smoother == "jacobi" and ndim == 2 else (1, 3))]
 
@@ -363,6 +383,11 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     label = "parity" if ndim == 2 else "parity3d"
 
+    def zm(halo):
+        """Whether a 3D leg at this halo runs the z-marching tile, whose
+        outputs equal the plain ops' bit for bit."""
+        return ndim == 3 and cuda.zmarch3d(halo)
+
     for n in list(sides) + list(small_sides):
         u, f, V = _data(n, ndim, seed=n, dev=dev)
         h = 1.0 / n
@@ -370,6 +395,7 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
             for smoother, nu in _parity_settings(ndim, n in sides):
                 row = [f"n={n} {bc} {smoother} nu={nu}"]
                 a = (h, nu, smoother, bc)
+                steps = ops.sweep_radius(smoother) * nu
                 note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a),
                      ops.smooth(u, f, *a), row)
                 for tag, fk, fp, args in (
@@ -378,17 +404,21 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
                         (t_rr + "z", cuda.smooth_residual_restrict_zero,
                          ops.smooth_residual_restrict_zero, (f,))):
                     (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
-                    note(worst, k_rr, f"{tag}.u", gu, wu, row)
-                    note(worst, k_rr, f"{tag}.R", gR, wR, row)
+                    note(worst, k_rr, f"{tag}.u", gu, wu, row, exact=zm(steps + 1))
+                    note(worst, k_rr, f"{tag}.R", gR, wR, row, exact=zm(steps + 1))
                 for kind in ("inject", "bilinear"):
                     pa = (u, f, V, h, nu, smoother, bc, kind)
                     tag = t_pc + kind[0]
                     note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
-                         ops.prolong_correct_smooth(*pa), row)
+                         ops.prolong_correct_smooth(*pa), row, exact=zm(steps))
                     (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
                                           ops.prolong_correct_smooth_rnorm(*pa))
-                    note(worst, k_pc, tag + "r.u", gu, wu, row)
+                    note(worst, k_pc, tag + "r.u", gu, wu, row, exact=zm(steps + 1))
                     note_r2(tag + "r.r2", g2, w2, row)
+                if ndim == 3:
+                    row.append("K5/K6: " + ", ".join(
+                        f"halo {hh} {'z-marching, bit-equal' if zm(hh) else 'cube tile'}"
+                        for hh in sorted({steps, steps + 1})))
                 torch.cuda.synchronize()
                 print(f"[{label}] " + " ".join(row))
         del u, f, V
@@ -1204,7 +1234,7 @@ def main():
                    f"K1 twice at each of the {L} kernel levels")
 
     # the 3D path: the tuned 256^3 solve, then 512^3
-    phase_parity(dev, 3, SIDES_3D, worst)
+    phase_parity(dev, 3, SIDES_3D, worst, SMALL_SIDES)
     times.update(phase_timing(dev, SPEC_3D.size, 3))
     it3, solve3, trace3 = phase_slice("slice3d", SPEC_3D, dev, JAX_ITERATIONS_3D,
                                    JAX_ERRS_3D[256])

@@ -1,8 +1,8 @@
-"""Times the 2D leg kernels of two builds in one process, in turns.
+"""Times the leg kernels of two builds in one process, in turns.
 
     python3 -m mgpoisson_torch.bench.ab --old build/parent/mgpoisson_torch/csrc \\
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
-        [--sharded 16384] [--reps 25]
+        [--sharded 16384] [--sides3d 256 512] [--old-tile3d] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -11,7 +11,9 @@ checkout's, loads both libraries and runs the same wrappers of
 and K3 with rnorm at every side (wjacobi nu = 3, the tuned scheme's
 settings of chip_smoke.py's timing phase) and at 4096^2 with rbgs nu = 1
 (the fast scheme's coarse levels); then K9/K10 on the (0, 0) block of a
-(2, 2) mesh of 16384^2.  Each case is timed old, new, new, old, each
+(2, 2) mesh of 16384^2; then the 3D legs K5, K5 from zero, K6 and K6
+with rnorm at every --sides3d side, with wjacobi nu = 3 and rbgs nu = 1.
+An empty --sides or --sides3d, or --sharded 0, skips that part.  Each case is timed old, new, new, old, each
 time two ways: CUDA events around each call, median of --reps calls
 (`*_ms`, what chip_smoke.py reports; at small sides it is the host's
 enqueue time), and the kernels' own device time per call from
@@ -21,8 +23,12 @@ between the two builds' outputs (0 where they round alike).  The old
 build's up-leg writes one Sigma r^2 partial per block of its own tile, so
 the partials are sized for it while it runs: by default the tile table of
 this checkout (kernels.cuda.tile2d), with --old-table that table with the
-other build's constants, with --old-tile T square T x T blocks (32: the
-build before the register tile, PR 5's).  Prints the card, one JSON
+other build's constants, with --old-tile T square T x T blocks (32: a
+build whose 2D legs ran one thread per cell of a 32 x 32 tile); with
+--old-tile3d the old build's whole-grid K6 runs the cube tile of
+csrc/stencil3d.cuh at every halo (a build without the z-marching tile),
+so its partials are one per T^3 block (kernels.cuda.strip_rnorm_partials
+over the whole grid).  Prints the card, one JSON
 line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 """
@@ -30,6 +36,7 @@ call: two calls may get two cards.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -58,11 +65,11 @@ def _bytes(*xs):
 class Builds:
     """The two libraries and a switch between them for kernels.cuda."""
 
-    def __init__(self, old_csrc: Path, old_tile: int, old_table=None):
+    def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False):
         root = build.BUILD_DIR.parent / "ab"
         self.libs = {"old": build.load_library(build.build(old_csrc, root)),
                      "new": build.load()}
-        self.old_tile = old_tile
+        self.old_tile, self.old_tile3d = old_tile, old_tile3d
         self.rnorm_partials = cuda.rnorm_partials
         self.table = {"new": (cuda.TILE_WARPS, cuda.TILE_ROWS),
                       "old": old_table or (cuda.TILE_WARPS, cuda.TILE_ROWS)}
@@ -71,12 +78,18 @@ class Builds:
         lib = self.libs[which]
         cuda.load = lambda: lib
         cuda.TILE_WARPS, cuda.TILE_ROWS = self.table[which]
-        if which == "new" or not self.old_tile:
-            cuda.rnorm_partials = self.rnorm_partials
-        else:
-            t = self.old_tile
-            cuda.rnorm_partials = (
-                lambda shape, nu, smoother, n: -(-shape[0] // t) * -(-shape[1] // t))
+        cuda.rnorm_partials = self.rnorm_partials
+        if which == "new":
+            return
+        t, cube, base = self.old_tile, self.old_tile3d, self.rnorm_partials
+
+        def partials(shape, nu, smoother, n):
+            if len(shape) == 3 and cube:
+                return cuda.strip_rnorm_partials(shape, nu, smoother, n)
+            if len(shape) == 2 and t:
+                return -(-shape[0] // t) * -(-shape[1] // t)
+            return base(shape, nu, smoother, n)
+        cuda.rnorm_partials = partials
 
 
 def _cases_whole(n, smoother, nu, dev):
@@ -95,6 +108,21 @@ def _cases_whole(n, smoother, nu, dev):
         cases["K1"] = lambda: cuda.smooth(u, f, h, nu, smoother, "ghost0")
     inputs = {"K1": (u, f), "K2": (u, f), "K2.zero": (f,), "K3": (u, f, V),
               "K3.rnorm": (u, f, V)}
+    return cases, inputs
+
+
+def _cases_whole3d(n, smoother, nu, dev):
+    g = torch.Generator(device=dev).manual_seed(n + nu)
+    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev) for s in (n, n, n // 2))
+    h = 1.0 / n
+    cases = {
+        "K5": lambda: cuda.smooth_residual_restrict(u, f, h, nu, smoother, "ghost0"),
+        "K5.zero": lambda: cuda.smooth_residual_restrict_zero(f, h, nu, smoother, "face"),
+        "K6": lambda: cuda.prolong_correct_smooth(u, f, V, h, nu, smoother, "face", "bilinear"),
+        "K6.rnorm": lambda: cuda.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother,
+                                                              "ghost0", "bilinear"),
+    }
+    inputs = {"K5": (u, f), "K5.zero": (f,), "K6": (u, f, V), "K6.rnorm": (u, f, V)}
     return cases, inputs
 
 
@@ -161,9 +189,13 @@ def main(argv=None):
                     metavar=("WARPS", "SMALL", "SHALLOW", "DEEP"),
                     help="a register tile's MG2_WARPS and MG2_ROWS_SMALL / _SHALLOW / _DEEP "
                     "where they differ from this checkout's")
-    ap.add_argument("--sides", type=int, nargs="+", default=[4096, 2048, 1024, 512, 256])
+    ap.add_argument("--sides", type=int, nargs="*", default=[4096, 2048, 1024, 512, 256])
     ap.add_argument("--sharded", type=int, default=16384,
                     help="global side of the (2, 2) mesh for K9/K10; 0 skips")
+    ap.add_argument("--sides3d", type=int, nargs="*", default=[256, 512])
+    ap.add_argument("--old-tile3d", action="store_true",
+                    help="the other build's whole-grid K6 runs the cube tile at every halo "
+                    "(before the z-marching tile)")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -174,7 +206,7 @@ def main(argv=None):
     print(f"card: {smi.stdout.strip()}", flush=True)
     dev = torch.device("cuda")
     table = args.old_table and (args.old_table[0], tuple(args.old_table[1:]))
-    builds = Builds(args.old, args.old_tile, table)
+    builds = Builds(args.old, args.old_tile, table, args.old_tile3d)
     settings = [(n, "wjacobi", 3) for n in args.sides]
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))
@@ -187,6 +219,13 @@ def main(argv=None):
         cases, inputs = _cases_sharded(args.sharded, dev)
         _run(builds, f"(0, 0) block of {args.sharded}^2 on (2, 2) wjacobi nu=3", cases,
              inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
+    for n, (smoother, nu) in itertools.product(args.sides3d, (("wjacobi", 3), ("rbgs", 1))):
+        cases, inputs = _cases_whole3d(n, smoother, nu, dev)
+        _run(builds, f"{n}^3 {smoother} nu={nu}", cases, inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -18,11 +18,18 @@
 // the colour and the trilinear edge weights from the global index.
 // Bound: HBM bytes, 3.125 arrays (read u, f, V; write u); the strips add
 // 4D/nzl + 4D/nyl of an array for u and f and 4 DV/nzl + 4 DV/nyl of V.
-// The design (stencil3d.cuh) reads each array once per block tile; the
-// halo costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior cell at
-// T = 16, H = 4 (wjacobi nu = 3 plus the residual ring of rnorm), 2.6 at
-// H = 3.
+//
+// Two tiles.  K6 at a halo H = steps (+ 1 with rnorm) <= 4 (the tuned
+// scheme's wjacobi nu = 3, the fast scheme's rbgs nu = 1) runs the
+// z-marching tile of stencil3d_zm.cuh (mg_pc3d_zm_kernel, one instance per
+// step count): the correction from a ring of three coarse planes, 1.78
+// loaded cells per interior cell in xy at H = 4, one Sigma r^2 partial per
+// block of its (x, y, chunk) grid.  K6 at deeper halos (mg_pc3d_kernel)
+// and K12 run the cube tile of stencil3d.cuh, which reads each array once
+// per block tile and costs (T + 2H)^3 / T^3 = 3.4 cells loaded per
+// interior cell at T = 16, H = 4, 2.6 at H = 3.
 #include "stencil3d.cuh"
+#include "stencil3d_zm.cuh"
 
 // The coarse tile covers the fine tile plus the trilinear +-1 coarse
 // shift: ceil(H/2) + 1 coarse halo cells.
@@ -128,7 +135,7 @@ static __device__ __forceinline__ void mg_pc3d_body(
     partials[((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x] = red[0];
 }
 
-// K6: the whole n^3 grid.  The block is built here from n, so the compiler
+// K6 at halos above MG3Z_MAX_HALO: the whole n^3 grid.  The block is built here from n, so the compiler
 // folds it away and the code is that of the grid-only kernel.
 __global__ void __launch_bounds__(MG3_THREADS)
 mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
@@ -157,12 +164,33 @@ static size_t mg_pc3d_bytes(int tile, int H) {
   return (mg3_tile_floats(tile, H) + SV * SV * SV + MG3_THREADS) * sizeof(float);
 }
 
+// K6 at halos up to MG3Z_MAX_HALO: the z-marching tile, one instance per
+// step count, smoother and bc (mg3z_pick_from).
+template <int STEPS, int kSm, bool kFace>
+__global__ void __launch_bounds__(MG3Z_THREADS, 1) mg_pc3d_zm_kernel(Mg3zArgs a) {
+  mg3z_leg<STEPS, kSm, kFace, false>(a);
+}
+
+template <int STEPS, int kSm, bool kFace>
+struct MgPc3dZm {
+  static __host__ Mg3zKernel fn() { return mg_pc3d_zm_kernel<STEPS, kSm, kFace>; }
+};
+
+// The whole n^3 grid: the z-marching tile where it takes the halo (with
+// rnorm one partial per block of mg3z_grid), else the cube tile of side
+// `tile` (kernels/cuda.py tile3d; one partial per T^3 block).
 extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const float* V,
                                            float* out, float* partials, int n, int tile,
                                            int nu, int smoother, int bc, int kind,
                                            float inv_hsq, float inv_adiag, float adiag,
                                            int rnorm, cudaStream_t stream) {
-  const int H = mg_steps(nu, smoother) + (rnorm ? 1 : 0);
+  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
+  if (mg3z_takes(H)) {
+    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, mg3z_chunk(n, H),
+                     kind, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(steps, smoother, bc), a,
+                       mg3z_bytes(steps, false, true), stream);
+  }
   const size_t bytes = mg_pc3d_bytes(tile, H);
   const Mg3Block grid{n, n, n, 0, 0};
   const int rc = mg3_prepare((const void*)mg_pc3d_kernel, grid, tile, bytes);

@@ -16,13 +16,20 @@
 // the neighbours' strips (stencil3d.cuh Mg3Strips), the boundary applied
 // only where the block's edge is the grid's.  The TPU kernel's 8-sublane y
 // window and block planner (sharded_plan3) exist for VMEM and are not
-// carried over: the tile and its halo are those of K5.
+// carried over.
 // Bound: HBM bytes, 3.125 arrays (read u, f; write u, R), 2.125 from zero;
 // the strips add 4D/nzl + 4D/nyl of an array (both u and f).
-// The design (stencil3d.cuh) reads each array once per block tile; the
-// halo costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior cell at
-// T = 16, H = 4 (wjacobi nu = 3 plus the residual ring).
+//
+// Two tiles.  K5 at a halo H = steps + 1 <= 4 (the tuned scheme's wjacobi
+// nu = 3, the fast scheme's rbgs nu = 1) runs the z-marching tile of
+// stencil3d_zm.cuh (mg_rr3d_zm_kernel, one instance per step count): 1.78
+// loaded cells per interior cell in xy at H = 4, the restriction from a
+// ring of residual planes.  K5 at deeper halos (mg_smooth_rr3d_kernel) and
+// K11 run the cube tile of stencil3d.cuh, which reads each array once per
+// block tile and costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior
+// cell at T = 16, H = 4.
 #include "stencil3d.cuh"
+#include "stencil3d_zm.cuh"
 
 // The leg on the block `blk`; each entry point below instantiates it once.
 template <bool kStrips>
@@ -64,7 +71,7 @@ static __device__ __forceinline__ void mg_smooth_rr3d_body(
   }
 }
 
-// K5: the whole n^3 grid.  The block is built here from n, so the compiler
+// K5 at halos above MG3Z_MAX_HALO: the whole n^3 grid.  The block is built here from n, so the compiler
 // folds it away and the code is that of the grid-only kernel.
 __global__ void __launch_bounds__(MG3_THREADS)
 mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
@@ -85,10 +92,30 @@ mg_sharded_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                             inv_adiag, adiag);
 }
 
+// K5 at halos up to MG3Z_MAX_HALO: the z-marching tile, one instance per
+// step count, smoother and bc (mg3z_pick_from).
+template <int STEPS, int kSm, bool kFace>
+__global__ void __launch_bounds__(MG3Z_THREADS, 1) mg_rr3d_zm_kernel(Mg3zArgs a) {
+  mg3z_leg<STEPS, kSm, kFace, true>(a);
+}
+
+template <int STEPS, int kSm, bool kFace>
+struct MgRr3dZm {
+  static __host__ Mg3zKernel fn() { return mg_rr3d_zm_kernel<STEPS, kSm, kFace>; }
+};
+
+// The whole n^3 grid: the z-marching tile where it takes the halo, else
+// the cube tile of side `tile` (kernels/cuda.py tile3d).
 extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float* R, int n,
                               int tile, int nu, int smoother, int bc, float inv_hsq,
                               float inv_adiag, float adiag, int zero, cudaStream_t stream) {
-  const int H = mg_steps(nu, smoother) + 1;
+  const int steps = mg_steps(nu, smoother), H = steps + 1;
+  if (mg3z_takes(H)) {
+    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, mg3z_chunk(n, H), 0,
+                     inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc), a,
+                       mg3z_bytes(steps, true, false), stream);
+  }
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
   const Mg3Block grid{n, n, n, 0, 0};
   const int rc = mg3_prepare((const void*)mg_smooth_rr3d_kernel, grid, tile, bytes);

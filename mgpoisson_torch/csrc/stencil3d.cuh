@@ -1,7 +1,11 @@
-// Shared tile machinery of the 3D stencil kernels (K4 mg_smooth3d, K5
-// mg_smooth_rr3d, K6 mg_prolong_correct_smooth3d, and the strip-fed K11
-// mg_sharded_rr3d and K12 mg_sharded_pc3d of a sharded level): the 7-point
-// operator on an (n, n, n) array, z-major (index (z * n + y) * n + x).
+// The cube tile of the 3D stencil kernels: K4 mg_smooth3d, the strip-fed
+// K11 mg_sharded_rr3d and K12 mg_sharded_pc3d of a sharded level, and the
+// whole-grid K5 mg_smooth_rr3d and K6 mg_prolong_correct_smooth3d at halos
+// above 4 (MG3Z_MAX_HALO: K5 and K6 with rnorm at jacobi/wjacobi nu >= 4 or
+// rbgs nu >= 2, K6 without at nu >= 5 or rbgs nu >= 3).  K5/K6 at halos up
+// to 4, the main path's, run the z-marching tile of stencil3d_zm.cuh, which
+// takes the enums and MG3_OMEGA from here.  The 7-point operator on an
+// (n, n, n) array, z-major (index (z * n + y) * n + x).
 //
 // The Pallas 3D kernels block (z, y) with the whole x row in lanes, round
 // the y halo up to 8 sublanes and pick the blocks with a VMEM planner
@@ -21,8 +25,8 @@
 // dynamic shared memory.  The price of the deep halo is redundant work:
 // at T = 16, H = 4 a block loads (24/16)^3 = 3.4 cells per interior cell
 // and its three sweeps update 22^3 + 20^3 + 18^3 = 24480 cells for 4096
-// interior ones (2.0 per interior cell per sweep).  A z-marching (2.5D)
-// tile would cut both and is later work.
+// interior ones (2.0 per interior cell per sweep).  The z-marching (2.5D)
+// tile of stencil3d_zm.cuh cuts both for the whole-grid K5/K6.
 //
 // What bounds these kernels on an H100 is HBM bytes: each op passes over
 // device memory once (K4 3 arrays, K5 3.125, 2.125 from zero, K6 3.125);
@@ -37,8 +41,9 @@
 // also multiplies by).
 //
 // As in 2D (stencil.cuh), a launch covers one block of the grid
-// (Mg3Block): the whole grid for K4-K6, a rank's (nzl, nyl, n) block for
-// K11/K12, whose mesh cuts axes z and y and keeps x whole.  The global index
+// (Mg3Block): the whole grid for K4 (and K5/K6 at deep halos), a rank's
+// (nzl, nyl, n) block for K11/K12, whose mesh cuts axes z and y and keeps x
+// whole.  The global index
 // decides inside/outside, the edges, the colour and the trilinear weights;
 // the block index addresses the arrays, and a strip-fed launch reads its
 // halo from the neighbours' strips (Mg3Strips).

@@ -33,6 +33,11 @@ row-sharded mesh, its halo rows from the neighbours' strips:
   K13 ``mg_sharded_packed_rr`` — ``packed_rr_sharded``
   K14 ``mg_sharded_packed_pc`` — ``packed_pc_sharded``
 
+K5/K6 run two tiles by halo depth (``zmarch3d``): the z-marching tile of
+``csrc/stencil3d_zm.cuh`` at halos <= 4 (the main path's), the cube tile of
+``csrc/stencil3d.cuh`` beyond, which K4 and the strip entries K11/K12 run
+at every halo.
+
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
@@ -80,6 +85,15 @@ TILE_FILL_WARPS = 528
 # (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
 # nu <= 3, K4 alone jacobi/wjacobi nu <= 8 and rbgs nu <= 4
 MAX_HALO_3D = 8
+# the whole-grid K5/K6 at a halo <= ZM_MAX_HALO run the z-marching tile of
+# csrc/stencil3d_zm.cuh: ZM_COLS x ZM_COLS loaded cells per plane (a warp
+# per row), a chunk of planes per block from the chunk table (zm_chunk,
+# tuned for the ZM_SMS SMs of an H100); deeper halos, K4 and the strip
+# entries K11/K12 run the cube tile of csrc/stencil3d.cuh (tile3d)
+ZM_COLS = 32
+ZM_MAX_HALO = 4
+ZM_SMS = 132
+ZM_MIN_CHUNK = 32
 # packed kernels: the JAX package's sweep cap (pallas.py packed_plan) and
 # the tile side in rows and packed lanes, MGP_TILE in csrc/packed.cuh
 PACKED_MAX_NU = 3
@@ -152,6 +166,57 @@ def shared_bytes_3d(halo: int, pc: bool = False) -> int:
     return 4 * floats
 
 
+def zmarch3d(halo: int) -> bool:
+    """Whether the whole-grid 3D legs (K5, K6) run the z-marching tile at
+    this halo depth, else the cube tile: csrc/stencil3d_zm.cuh mg3z_takes."""
+    return halo <= ZM_MAX_HALO
+
+
+def tile3d_zm(halo: int) -> int:
+    """Interior cells per xy side of a z-marching block (mg3z_side)."""
+    return ZM_COLS - 2 * halo
+
+
+def zm_chunk(n: int, halo: int) -> int:
+    """Planes per z-marching block on an n^3 level at this halo: the chunk
+    table of mg3z_chunk.  One block runs per SM, so a launch takes
+    ceil(blocks / ZM_SMS) rounds of c + 2 halo plane-steps; the chunk c
+    (n, n/2, ... down to ZM_MIN_CHUNK) with the fewest in all, the larger
+    on a tie."""
+    t = tile3d_zm(halo)
+    cols = -(-n // t)
+    best, best_cost, c = n, None, n
+    while c >= 1 and n % c == 0 and (c == n or c >= ZM_MIN_CHUNK):
+        cost = -(-(cols * cols * (n // c)) // ZM_SMS) * (c + 2 * halo)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+        if c & 1:
+            break
+        c //= 2
+    return best
+
+
+def blocks3d(n: int, halo: int) -> int:
+    """Number of blocks of a whole-grid 3D launch (K5, K6) on an n^3 level
+    at this halo (one rnorm partial each): the z-marching tile's (x, y,
+    chunk) grid, or the cube tile's T^3 blocks."""
+    if zmarch3d(halo):
+        t = tile3d_zm(halo)
+        return (-(-n // t)) ** 2 * -(-n // zm_chunk(n, halo))
+    return (-(-n // tile3d(halo))) ** 3
+
+
+def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False) -> int:
+    """Dynamic shared memory of one z-marching block, as the C entries size
+    it (mg3z_bytes): two planes per stage (steps + 1 stages), K5's ring of
+    four residual planes (`rr`), K6's ring of three coarse planes (`pc`)."""
+    plane = ZM_COLS * ZM_COLS
+    floats = (steps + 1) * 2 * plane + (4 * plane if rr else 0)
+    if pc:
+        floats += 3 * (ZM_COLS // 2 + 3) ** 2
+    return 4 * floats
+
+
 def supports(n: int, dtype: torch.dtype, nu: int, smoother: str, ndim: int = 2,
              residual: bool = True) -> bool:
     """Whether the kernels take an n^ndim level of this dtype with nu
@@ -199,17 +264,27 @@ def _half(shape):
 
 
 def _geometry(u, halo):
-    """The launch's size arguments: n, and in 3D the tile side too."""
+    """The launch's size arguments: n, and in 3D the cube tile's side too
+    (used where zmarch3d(halo) is false)."""
     n = u.shape[0]
     return (n,) if u.ndim == 2 else (n, tile3d(halo))
 
 
 def rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
-    """Number of f32 Sigma r^2 partials, one per thread block, that an up-leg
-    with rnorm (K3, K6; K10, K12 on a rank's block) writes on an array or
-    block of this shape of a grid of side n_global: in 2D the tile table's
-    blocks at the tile halo steps + 1, in 3D the T^3 tiles over (n_global,
-    shape[0], shape[1]) (x whole) at the halo steps + 1."""
+    """Number of f32 Sigma r^2 partials, one per thread block, that a
+    whole-grid up-leg with rnorm (K3, K6) writes on an array of this shape
+    of a grid of side n_global: in 2D the tile table's blocks at the halo
+    steps + 1, in 3D the blocks of blocks3d at that halo."""
+    halo = _steps(nu, smoother) + 1
+    if len(shape) == 2:
+        return blocks2d(shape[0], shape[1], halo)
+    return blocks3d(n_global, halo)
+
+
+def strip_rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
+    """The same for a strip up-leg (K10, K12) on one rank's block of this
+    shape: in 2D the tile table's blocks, in 3D the cube tile's T^3 blocks
+    over (n_global, shape[0], shape[1]) (x whole) at the halo steps + 1."""
     halo = _steps(nu, smoother) + 1
     if len(shape) == 2:
         return blocks2d(shape[0], shape[1], halo)
@@ -501,7 +576,7 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
     out = torch.empty_like(u)
     partials = None
     if rnorm:
-        partials = torch.empty(rnorm_partials(u.shape, nu, smoother, n_global),
+        partials = torch.empty(strip_rnorm_partials(u.shape, nu, smoother, n_global),
                                dtype=torch.float32, device=u.device)
     tile = (tile3d(halo),) if u.ndim == 3 else ()
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),

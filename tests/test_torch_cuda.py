@@ -85,6 +85,46 @@ def test_kernels_vs_plain(card, ndim, n, smoother, nu, bc):
     torch.cuda.synchronize()
 
 
+# the whole-grid K5/K6 on the z-marching tile (csrc/stencil3d_zm.cuh,
+# halos <= 4): sides below one 32 x 32 column and one 64-plane chunk (2, 4,
+# 8), one column of several chunks' worth (128), and several (256); the
+# tuned scheme's wjacobi nu = 3, the fast scheme's rbgs nu = 1, jacobi nu =
+# 1, and rbgs nu = 2 (halo 5: the cube tile) beside them.  The z-marching
+# tile rounds as the plain ops do: its u and R equal them bit for bit.
+ZM_CASES = [(n, s, nu) for n in (2, 4, 8, 128, 256)
+            for s, nu in (("wjacobi", 3), ("rbgs", 1), ("jacobi", 1), ("rbgs", 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,smoother,nu", ZM_CASES)
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_kernels3d_zmarch_vs_plain(card, n, smoother, nu, bc):
+    u, f, V = _data(n, n + nu, card, ndim=3)
+    h = 1.0 / n
+    a = (h, nu, smoother, bc)
+    steps = 2 * nu if smoother == "rbgs" else nu
+
+    def same(got, want, halo):
+        if cuda.zmarch3d(halo):
+            assert torch.equal(got, want)
+        assert _nmax(got, want) <= 1e-5
+
+    for got, want in zip(cuda.smooth_residual_restrict(u, f, *a),
+                         ops.smooth_residual_restrict(u, f, *a)):
+        same(got, want, steps + 1)
+    for got, want in zip(cuda.smooth_residual_restrict_zero(f, *a),
+                         ops.smooth_residual_restrict_zero(f, *a)):
+        same(got, want, steps + 1)
+    for kind in ("inject", "bilinear"):
+        pa = (u, f, V, h, nu, smoother, bc, kind)
+        same(cuda.prolong_correct_smooth(*pa), ops.prolong_correct_smooth(*pa), steps)
+        got_u, got_r2 = cuda.prolong_correct_smooth_rnorm(*pa)
+        want_u, want_r2 = ops.prolong_correct_smooth_rnorm(*pa)
+        same(got_u, want_u, steps + 1)
+        assert abs(float(got_r2) / float(want_r2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_kernels3d_halo_caps(card):
     """K4 alone takes a halo of 8 (rbgs nu = 4, jacobi nu = 8); the

@@ -172,3 +172,136 @@ def test_3d_tile_fits_shared_memory():
     # the tuned scheme's K5 / K6 with rnorm: T = 16, H = 4
     assert cuda.shared_bytes_3d(4) == 4 * 3 * 24 ** 3
     assert cuda.shared_bytes_3d(4, pc=True) == 180960
+
+
+# ------------------------------------- the z-marching tile of K5/K6 (whole grid)
+# kernels.cuda mirrors csrc/stencil3d_zm.cuh: which halos the tile takes
+# (zmarch3d / mg3z_takes), its interior side (tile3d_zm / mg3z_side), its
+# planes per block (zm_chunk / mg3z_chunk, the chunk table) and its shared memory
+# (shared_bytes_3d_zm / mg3z_bytes).  K6's rnorm partials are one per
+# block of that launch, so the counts must agree or K6 writes past them.
+
+import re
+from pathlib import Path
+
+_ZM_HEADER = (Path(cuda.__file__).parents[1] / "csrc" / "stencil3d_zm.cuh").read_text()
+
+
+def _zm_define(name):
+    return int(re.search(rf"#define {name} (\d+)", _ZM_HEADER).group(1))
+
+
+SIDES_3D = [2 ** k for k in range(1, 11)]   # 2 ... 1024
+SMOOTHERS_3D = ("jacobi", "wjacobi", "rbgs")
+
+
+def _admitted(residual):
+    """Every (smoother, nu >= 1) the 3D caps admit for a leg with or
+    without a residual ring."""
+    return [(sm, nu) for sm in SMOOTHERS_3D for nu in range(1, 9)
+            if cuda.supports(256, torch.float32, nu, sm, ndim=3, residual=residual)]
+
+
+def test_zmarch_constants_mirror_the_header():
+    assert cuda.ZM_COLS == _zm_define("MG3Z_COLS") == _zm_define("MG3Z_ROWS")
+    assert cuda.ZM_MAX_HALO == _zm_define("MG3Z_MAX_HALO")
+    assert cuda.ZM_SMS == _zm_define("MG3Z_SMS")
+    assert cuda.ZM_MIN_CHUNK == _zm_define("MG3Z_MIN_CHUNK")
+
+
+@pytest.mark.parametrize("halo", range(0, cuda.MAX_HALO_3D + 1))
+def test_zmarch_tile_geometry(halo):
+    """The halos 0 ... 4 run the z-marching tile, 5 ... 8 the cube tile;
+    the z-marching interior is even (2x2x2 restriction cells and
+    trilinear parities stay inside a block) and leaves at least two
+    halo-deep rings of threads."""
+    takes = cuda.zmarch3d(halo)
+    assert takes == (halo <= 4)
+    if not takes:
+        return
+    t = cuda.tile3d_zm(halo)
+    assert t == cuda.ZM_COLS - 2 * halo and t % 2 == 0 and t >= 24
+
+
+@pytest.mark.parametrize("n", SIDES_3D)
+def test_zmarch_blocks_cover_the_grid(n):
+    """Every z-marching launch's blocks cover the n^3 grid with no block
+    beyond it, and the chunk divides n (every block owns whole planes)."""
+    for halo in range(0, cuda.ZM_MAX_HALO + 1):
+        c = cuda.zm_chunk(n, halo)
+        assert n % c == 0 and (c == n or c >= cuda.ZM_MIN_CHUNK)
+        t = cuda.tile3d_zm(halo)
+        g = -(-n // t)
+        assert g * t >= n and (g - 1) * t < n
+        assert cuda.blocks3d(n, halo) == g * g * (n // c)
+
+
+def _rounds_cost(n, halo, c):
+    blocks = (-(-n // cuda.tile3d_zm(halo))) ** 2 * (n // c)
+    return -(-blocks // cuda.ZM_SMS) * (c + 2 * halo)
+
+
+@pytest.mark.parametrize("n", SIDES_3D)
+def test_zmarch_chunk_table_picks_the_fewest_plane_steps(n):
+    """The chunk table's pick costs no more rounds x plane-steps than any
+    other power-of-two chunk it may take, and is the largest of the
+    cheapest."""
+    for halo in range(0, cuda.ZM_MAX_HALO + 1):
+        cands = [n >> k for k in range(0, 12)
+                 if (n >> k) >= 1 and ((n >> k) == n or (n >> k) >= cuda.ZM_MIN_CHUNK)]
+        costs = {c: _rounds_cost(n, halo, c) for c in cands}
+        best = min(costs.values())
+        assert cuda.zm_chunk(n, halo) == max(c for c, v in costs.items() if v == best)
+
+
+def test_zmarch_chunk_table_at_the_main_path():
+    """The tuned scheme's levels on an H100: one chunk per column at 256^3
+    (K5 at halo 4: 121 blocks, one round), 128 planes at 512^3 (K5: 1936
+    blocks, 15 rounds of 136 plane-steps)."""
+    assert [cuda.zm_chunk(256, h) for h in (3, 4)] == [256, 256]
+    assert [cuda.zm_chunk(512, h) for h in (3, 4)] == [128, 128]
+    assert cuda.blocks3d(256, 4) == 121 and cuda.blocks3d(512, 4) == 22 * 22 * 4
+
+
+@pytest.mark.parametrize("smoother,nu", _admitted(residual=True))
+def test_k6_rnorm_partials_match_the_launch(smoother, nu):
+    """K6 with rnorm writes one partial per block of its launch: the
+    z-marching grid at halos <= 4, the cube tile's T^3 blocks beyond."""
+    halo = (2 * nu if smoother == "rbgs" else nu) + 1
+    for n in SIDES_3D:
+        if cuda.zmarch3d(halo):
+            t = cuda.tile3d_zm(halo)
+            want = (-(-n // t)) ** 2 * -(-n // cuda.zm_chunk(n, halo))
+        else:
+            want = (-(-n // cuda.tile3d(halo))) ** 3
+        assert cuda.rnorm_partials((n, n, n), nu, smoother, n) == want, n
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("smoother,nu", _admitted(residual=True))
+def test_k12_strip_partials_keep_the_cube_tile(mesh, smoother, nu):
+    """K12 (the strip entry) keeps the cube tile at every halo: one
+    partial per T^3 block over (n, nzl, nyl), as before the z-marching
+    tile."""
+    halo = (2 * nu if smoother == "rbgs" else nu) + 1
+    t = cuda.tile3d(halo)
+    for n in SIDES_3D[2:]:
+        shape = (n // mesh[0], n // mesh[1], n)
+        want = -(-n // t) * -(-shape[0] // t) * -(-shape[1] // t)
+        assert cuda.strip_rnorm_partials(shape, nu, smoother, n) == want
+
+
+@pytest.mark.parametrize("halo", range(0, cuda.ZM_MAX_HALO + 1))
+def test_zmarch_shared_memory_fits(halo):
+    """A z-marching block's dynamic shared memory (two planes per stage,
+    K5's four residual planes, K6's three coarse planes) stays within the
+    227 KB a block may opt in to, and under 100 KB, at every halo it
+    takes."""
+    plane = 4 * cuda.ZM_COLS ** 2
+    coarse = 4 * 3 * (cuda.ZM_COLS // 2 + 3) ** 2
+    for steps, rr in ((halo - 1, True), (halo, False), (halo - 1, False)):
+        if steps < 0:
+            continue
+        got = cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)
+        assert got == 2 * (steps + 1) * plane + (4 * plane if rr else coarse)
+        assert got <= 100 * 1024 <= 232448
