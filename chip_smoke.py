@@ -30,11 +30,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
               the 3D paths give the kernels (512, 256) x bc x smoother x nu,
               both prolongation kinds, rnorm and from zero, and at every side
               below (128 ... 2: sides smaller than one z-marching column or
-              chunk) x bc with wjacobi nu = 3, rbgs nu = 1 and rbgs nu = 2
-              (halo 5: K5 and K6 with rnorm on the cube tile, K6 on the
-              z-marching one); every K5/K6 output of the z-marching tile
-              (halo <= 4) must equal its plain version bit for bit.  Then
-              the time of each at 256^3 with the main path's settings.
+              chunk) x bc with wjacobi nu = 3, rbgs nu = 1, rbgs nu = 2 and
+              jacobi nu = 4 (halo 5: K5 and K6 with rnorm on the cube tile,
+              K6 on the z-marching one); every K4-K6 output, of either tile,
+              must equal its plain version bit for bit.  Then the time of
+              each at 256^3 with the main path's settings.
 6. slice3d  — the tuned 256^3 f32 solve (BASELINE config 4) as in phase 4:
               cycles and relres against the JAX package's, f64 re-check,
               launches of the solve and of a traced V-cycle (K4), the same
@@ -65,11 +65,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
               and from zero, both prolongation kinds, rnorm; each kernel's
               outputs stitched over the blocks against the single-device
               K2/K3 (K5/K6) on the whole grid, where K9/K10 must be
-              bit-equal to K2/K3 (the same bodies, the same arithmetic per
-              cell).  Then (timing_sharded) K9/K10 on one (2, 2) block of
-              16384^2 beside K2/K3 on a whole 8192^2 array, and K11/K12 on
-              one (2, 2) block of 256^3, each with its plain version and
-              bound.
+              bit-equal to K2/K3 and K11/K12 to K5/K6 (the same bodies, the
+              same arithmetic per cell), and every K11/K12 output to its
+              plain version.  Then (timing_sharded) K9/K10 on one (2, 2)
+              block of 16384^2 beside K2/K3 on a whole 8192^2 array, and
+              K11/K12 on one (2, 2) block of 256^3 beside K5/K6 on the whole
+              256^3 per cell, each with its plain version and bound.
 11. parity_sharded_packed — the packed strip kernels K13/K14 of the fast
               scheme's fine level on a mesh of one column against their plain
               versions at every block of (4, 1), at every fine side of the
@@ -169,8 +170,10 @@ SMALL_SIDES = tuple(2 ** k for k in range(7, 0, -1))
 SMALL_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 4), ("jacobi", 7))
 # the 3D parity below the main path's sides (128 ... 2): the main path's
 # settings, the fast scheme's rbgs nu = 1 (both on the z-marching tile of
-# K5/K6) and rbgs nu = 2 (halo 5 with a residual: the cube tile)
-SMALL_SETTINGS_3D = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2))
+# K5/K6), rbgs nu = 2 and jacobi nu = 4 (halo 5 with a residual: the cube
+# tile; at n = 2, face, jacobi nu = 4 K5's 1x1x1 R is a sum with
+# cancellation)
+SMALL_SETTINGS_3D = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2), ("jacobi", 4))
 RNORM_TOL = 1e-5           # relative, on sum(r^2): partials summed in another order
 RELRES_TOL = 0.01          # per-cycle relres against the JAX package, relative
 MAIN_N = 4096
@@ -322,7 +325,8 @@ def phase_build():
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
     # ptxas reports static shared memory only; the 3D kernels' is dynamic.
-    # K4 runs the cube tile; K5/K6 the z-marching tile at halos <= 4
+    # K4 runs the cube tile; K5/K6 and K11/K12 the z-marching tile at halos
+    # <= 4
     print(f"[build] mg_smooth3d at the tuned scheme's halo 3: cube tile "
           f"{cuda.tile3d(3)}^3, {cuda.shared_bytes_3d(3)} bytes of dynamic shared memory "
           "per block")
@@ -335,6 +339,18 @@ def phase_build():
               f"{cuda.zm_chunk(256, halo)} / {cuda.zm_chunk(512, halo)} planes per block at "
               f"256^3 / 512^3, {cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of "
               "dynamic shared memory per block")
+    # the strip entries on the 256^3 solve's (2, 2) block
+    nzl, nyl = SPEC_3D.size // 2, SPEC_3D.size // 2
+    for name, steps, rr in (("mg_sharded_rr3d", 3, True), ("mg_sharded_pc3d", 3, False),
+                            ("mg_sharded_pc3d.rnorm", 3, False)):
+        halo = steps + (name != "mg_sharded_pc3d")
+        t, c = cuda.tile3d_zm(halo), cuda.zm_chunk(SPEC_3D.size, halo, nzl, nyl)
+        print(f"[build] {name} at the tuned scheme's halo {halo} on the ({nzl}, {nyl}, "
+              f"{SPEC_3D.size}) block of {SPEC_3D.size}^3 on (2, 2): z-marching tile, "
+              f"{t}^2 owned cells per column, {c} planes per block, "
+              f"{cuda.blocks3d(SPEC_3D.size, halo, nzl, nyl)} blocks, "
+              f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of dynamic shared "
+              "memory per block")
 
 
 def _data(n, ndim, seed, dev):
@@ -383,10 +399,9 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     label = "parity" if ndim == 2 else "parity3d"
 
-    def zm(halo):
-        """Whether a 3D leg at this halo runs the z-marching tile, whose
-        outputs equal the plain ops' bit for bit."""
-        return ndim == 3 and cuda.zmarch3d(halo)
+    # every 3D output equals its plain version bit for bit, on the
+    # z-marching tile (halo <= 4) and on the cube tile alike
+    exact = ndim == 3
 
     for n in list(sides) + list(small_sides):
         u, f, V = _data(n, ndim, seed=n, dev=dev)
@@ -397,27 +412,27 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
                 a = (h, nu, smoother, bc)
                 steps = ops.sweep_radius(smoother) * nu
                 note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a),
-                     ops.smooth(u, f, *a), row)
+                     ops.smooth(u, f, *a), row, exact=exact)
                 for tag, fk, fp, args in (
                         (t_rr, cuda.smooth_residual_restrict,
                          ops.smooth_residual_restrict, (u, f)),
                         (t_rr + "z", cuda.smooth_residual_restrict_zero,
                          ops.smooth_residual_restrict_zero, (f,))):
                     (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
-                    note(worst, k_rr, f"{tag}.u", gu, wu, row, exact=zm(steps + 1))
-                    note(worst, k_rr, f"{tag}.R", gR, wR, row, exact=zm(steps + 1))
+                    note(worst, k_rr, f"{tag}.u", gu, wu, row, exact=exact)
+                    note(worst, k_rr, f"{tag}.R", gR, wR, row, exact=exact)
                 for kind in ("inject", "bilinear"):
                     pa = (u, f, V, h, nu, smoother, bc, kind)
                     tag = t_pc + kind[0]
                     note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
-                         ops.prolong_correct_smooth(*pa), row, exact=zm(steps))
+                         ops.prolong_correct_smooth(*pa), row, exact=exact)
                     (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
                                           ops.prolong_correct_smooth_rnorm(*pa))
-                    note(worst, k_pc, tag + "r.u", gu, wu, row, exact=zm(steps + 1))
+                    note(worst, k_pc, tag + "r.u", gu, wu, row, exact=exact)
                     note_r2(tag + "r.r2", g2, w2, row)
                 if ndim == 3:
-                    row.append("K5/K6: " + ", ".join(
-                        f"halo {hh} {'z-marching, bit-equal' if zm(hh) else 'cube tile'}"
+                    row.append("bit-equal; K5/K6: " + ", ".join(
+                        f"halo {hh} {'z-marching' if cuda.zmarch3d(hh) else 'cube'} tile"
                         for hh in sorted({steps, steps + 1})))
                 torch.cuda.synchronize()
                 print(f"[{label}] " + " ".join(row))
@@ -744,17 +759,20 @@ def _block_slices(origin, shape, coarse=False):
 
 class _Worst:
     """The largest normalized difference per tag of one configuration, and
-    per kernel over the run (in `worst`)."""
+    per kernel over the run (in `worst`); the tags of the outputs that were
+    to be bit-equal and are not (in `unequal`)."""
 
     def __init__(self, worst):
-        self.worst, self.tags = worst, {}
+        self.worst, self.tags, self.unequal = worst, {}, []
 
-    def note(self, kernel, tag, got, want):
+    def note(self, kernel, tag, got, want, exact=False):
         rel, ab = nmax(got, want)
         self.tags[tag] = max(self.tags.get(tag, 0.0), rel)
         if kernel is not None:
             self.worst[kernel][0] = max(self.worst[kernel][0], rel)
             self.worst[kernel][1] = max(self.worst[kernel][1], ab)
+        if exact and not torch.equal(got, want):
+            self.unequal.append(f"{tag} max |diff| {ab:.3e}")
 
     def check(self, row):
         for tag, rel in self.tags.items():
@@ -777,7 +795,8 @@ def phase_parity_sharded(dev, worst):
     """K9-K12 against their plain versions at every block position of the
     (2, 2) and (4, 1) meshes and every side of sharded_sides, and their
     outputs stitched over the blocks against the single-device kernels on
-    the whole grid."""
+    the whole grid.  Bit-equal: the stitched outputs (K9/K10 to K2/K3,
+    K11/K12 to K5/K6) and every K11/K12 output to its plain version."""
     sides_of = sharded_sides()
     print(f"[parity_sharded] global sides {sides_of} on the meshes {SHARDED_MESHES}")
     for ndim, sides in sides_of.items():
@@ -788,7 +807,7 @@ def phase_parity_sharded(dev, worst):
             for bc, (smoother, nu) in itertools.product(("ghost0", "face"), SHARDED_SETTINGS):
                 row = [f"n={n}^{ndim} {bc} {smoother} nu={nu}"]
                 w = _Worst(worst)
-                unequal = []   # 2D: stitched K9/K10 outputs that are not K2/K3's bits
+                exact = ndim == 3   # the blocks' outputs against the plain block ops
                 a = (h, nu, smoother, bc)
                 whole = {"rr": cuda.smooth_residual_restrict(u, f, *a),
                          "rrz": cuda.smooth_residual_restrict_zero(f, *a)}
@@ -811,16 +830,16 @@ def phase_parity_sharded(dev, worst):
                                                      ("rrz", t_rr + "z", (None, fb, None, fs), True)):
                             (gu, gR), (wu, wR) = (cuda.smooth_rr_sharded(*args, *b, zero=zero),
                                                   ops.smooth_rr_sharded(*args, *b, zero=zero))
-                            w.note(k_rr, tag + ".u", gu, wu)
-                            w.note(k_rr, tag + ".R", gR, wR)
+                            w.note(k_rr, tag + ".u", gu, wu, exact)
+                            w.note(k_rr, tag + ".R", gR, wR, exact)
                             st[key][0][fine], st[key][1][coarse] = gu, gR
                         for kind in ("inject", "bilinear"):
                             pa = (ub, fb, vb, us, fs, vs, origin, n, *a, kind)
                             (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
                                                   ops.pc_smooth_sharded(*pa, rnorm=True))
                             tag = t_pc + kind[0]
-                            w.note(k_pc, tag, cuda.pc_smooth_sharded(*pa), wu)
-                            w.note(k_pc, tag + "r.u", gu, wu)
+                            w.note(k_pc, tag, cuda.pc_smooth_sharded(*pa), wu, exact)
+                            w.note(k_pc, tag + "r.u", gu, wu, exact)
                             w.tags[tag + "r.r2"] = max(w.tags.get(tag + "r.r2", 0.0),
                                                        abs(float(g2) / float(w2) - 1.0))
                             st[kind][0][fine] = gu
@@ -835,26 +854,27 @@ def phase_parity_sharded(dev, worst):
                         pairs.append((f"{tag}.u@{m}", st[kind][0], whole[kind][0]))
                         w.tags[f"{tag}.r2@{m}"] = abs(r2[kind] / float(whole[kind][1]) - 1.0)
                     for tag, got, want in pairs:
-                        w.note(None, tag, got, want)
-                        if ndim == 2 and not torch.equal(got, want):
-                            unequal.append(f"{tag} max |diff| {nmax(got, want)[1]:.3e}")
+                        w.note(None, tag, got, want, exact=True)
                     del st
                 w.check(row)
-                if ndim == 2:
-                    row.append("stitched: bit-equal to K2/K3" if not unequal else
-                               "stitched: NOT bit-equal to K2/K3: " + "; ".join(unequal))
+                what = f"{t_rr}/{t_pc}: stitched bit-equal to {s_rr}/{s_pc}" + (
+                    ", blocks bit-equal to plain" if exact else "")
+                row.append(what if not w.unequal else
+                           f"NOT bit-equal ({what}): " + "; ".join(w.unequal))
                 torch.cuda.synchronize()
                 print("[parity_sharded] " + " ".join(row))
-                check(not unequal, f"{row[0]}: K9/K10 stitched over the blocks are not "
-                      "bit-equal to K2/K3")
+                check(not w.unequal, f"{row[0]}: {t_rr}/{t_pc} not bit-equal where they "
+                      f"must be: {'; '.join(w.unequal)}")
             del u, f, V, whole
             torch.cuda.empty_cache()
 
 
-def phase_timing_sharded(dev):
+def phase_timing_sharded(dev, whole3d):
     """K9/K10 on the (0, 0) block of a (2, 2) mesh at 16384^2 (8192^2) with
     the main path's settings, beside K2/K3 on a whole 8192^2 array; K11/K12
-    on the (0, 0) block of 256^3; each with its plain version and bound."""
+    on the (0, 0) block of 256^3 beside K5/K6 on the whole 256^3 per cell
+    (`whole3d`: phase_timing's 3D times); each with its plain version and
+    bound."""
     out = {}
     d = exchange_depth(MAIN_SPEC)
     dv = ops.coarse_depth(d)
@@ -888,6 +908,15 @@ def phase_timing_sharded(dev):
                                f"the (0, 0) block {shape} of {n}^{ndim}", cells))
         del ub, fb, vb, us, fs, vs
         torch.cuda.empty_cache()
+        if ndim == 3:
+            single = RANK[3][0]
+            for sharded, whole in ((k_rr, single[1]), (k_rr + ".zero", single[1] + ".zero"),
+                                   (k_pc, single[2]), (k_pc + ".rnorm", single[2] + ".rnorm")):
+                per, per_whole = (out[sharded]["kernel_ms"] / cells,
+                                  whole3d[whole]["kernel_ms"] / n ** 3)
+                print(f"[timing_sharded] {sharded} on the block {shape}: {1e6 * per:.4f} ns of "
+                      f"device time per cell against {whole} on {n}^3: {1e6 * per_whole:.4f} "
+                      f"ns ({per / per_whole:.3f}x)")
     # beside K9/K10: K2/K3 on a whole array of the block's side
     n = TIMING_SHARDED[2] // 2
     u, f, V = _data(n, 2, seed=19, dev=dev)
@@ -1270,7 +1299,7 @@ def main():
     # 4 ranks solving 4096^2, 256^3 and 16384^2 (tuned) and 4096^2 and
     # 16384^2 (fast, packed)
     phase_parity_sharded(dev, worst)
-    times.update(phase_timing_sharded(dev))
+    times.update(phase_timing_sharded(dev, times))
     phase_parity_sharded_packed(dev, worst)
     times.update(phase_timing_sharded_packed(dev))
     solve_spmd = phase_spmd(dev)

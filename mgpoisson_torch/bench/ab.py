@@ -2,7 +2,8 @@
 
     python3 -m mgpoisson_torch.bench.ab --old build/parent/mgpoisson_torch/csrc \\
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
-        [--sharded 16384] [--sides3d 256 512] [--old-tile3d] [--reps 25]
+        [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
+        [--old-strip3d] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -12,9 +13,13 @@ and K3 with rnorm at every side (wjacobi nu = 3, the tuned scheme's
 settings of chip_smoke.py's timing phase) and at 4096^2 with rbgs nu = 1
 (the fast scheme's coarse levels); then K9/K10 on the (0, 0) block of a
 (2, 2) mesh of 16384^2; then the 3D legs K5, K5 from zero, K6 and K6
-with rnorm at every --sides3d side, with wjacobi nu = 3 and rbgs nu = 1.
-An empty --sides or --sides3d, or --sharded 0, skips that part.  Each case is timed old, new, new, old, each
-time two ways: CUDA events around each call, median of --reps calls
+with rnorm at every --sides3d side, with wjacobi nu = 3 (and K4) and rbgs
+nu = 1;
+then their strip entries K11, K11 from zero, K12 and K12 with rnorm on the
+(0, 0) block of a (2, 2) mesh of --sharded3d^3, with the same two
+settings (K11/K12 only with --sharded3d; an empty --sides or --sides3d,
+or --sharded 0, skips that part).  Each case is timed old, new, new, old,
+each time two ways: CUDA events around each call, median of --reps calls
 (`*_ms`, what chip_smoke.py reports; at small sides it is the host's
 enqueue time), and the kernels' own device time per call from
 torch.profiler over --reps calls (`*_kernel_ms`).  With each: the bound
@@ -27,9 +32,9 @@ other build's constants, with --old-tile T square T x T blocks (32: a
 build whose 2D legs ran one thread per cell of a 32 x 32 tile); with
 --old-tile3d the old build's whole-grid K6 runs the cube tile of
 csrc/stencil3d.cuh at every halo (a build without the z-marching tile),
-so its partials are one per T^3 block (kernels.cuda.strip_rnorm_partials
-over the whole grid).  Prints the card, one JSON
-line per case and exits non-zero without a GPU.  Compares only inside one
+so its partials are one per T^3 block; with --old-strip3d the old build's
+K12 does (a build whose strip entries K11/K12 keep the cube tile).  Prints
+the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 """
 
@@ -65,12 +70,14 @@ def _bytes(*xs):
 class Builds:
     """The two libraries and a switch between them for kernels.cuda."""
 
-    def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False):
+    def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False,
+                 old_strip3d=False):
         root = build.BUILD_DIR.parent / "ab"
         self.libs = {"old": build.load_library(build.build(old_csrc, root)),
                      "new": build.load()}
-        self.old_tile, self.old_tile3d = old_tile, old_tile3d
+        self.old_tile, self.old_tile3d, self.old_strip3d = old_tile, old_tile3d, old_strip3d
         self.rnorm_partials = cuda.rnorm_partials
+        self.strip_rnorm_partials = cuda.strip_rnorm_partials
         self.table = {"new": (cuda.TILE_WARPS, cuda.TILE_ROWS),
                       "old": old_table or (cuda.TILE_WARPS, cuda.TILE_ROWS)}
 
@@ -79,17 +86,30 @@ class Builds:
         cuda.load = lambda: lib
         cuda.TILE_WARPS, cuda.TILE_ROWS = self.table[which]
         cuda.rnorm_partials = self.rnorm_partials
+        cuda.strip_rnorm_partials = self.strip_rnorm_partials
         if which == "new":
             return
         t, cube, base = self.old_tile, self.old_tile3d, self.rnorm_partials
 
         def partials(shape, nu, smoother, n):
             if len(shape) == 3 and cube:
-                return cuda.strip_rnorm_partials(shape, nu, smoother, n)
+                return _cube_partials(shape, nu, smoother, n)
             if len(shape) == 2 and t:
                 return -(-shape[0] // t) * -(-shape[1] // t)
             return base(shape, nu, smoother, n)
         cuda.rnorm_partials = partials
+        if self.old_strip3d:
+            strip = self.strip_rnorm_partials
+            cuda.strip_rnorm_partials = lambda shape, nu, smoother, n: (
+                _cube_partials(shape, nu, smoother, n) if len(shape) == 3
+                else strip(shape, nu, smoother, n))
+
+
+def _cube_partials(shape, nu, smoother, n):
+    """The Sigma r^2 partials of a 3D up-leg on the cube tile at every halo:
+    one per T^3 block over the (shape[0], shape[1], n) array or block."""
+    t = cuda.tile3d(cuda._steps(nu, smoother) + 1)
+    return -(-n // t) * -(-shape[0] // t) * -(-shape[1] // t)
 
 
 def _cases_whole(n, smoother, nu, dev):
@@ -122,7 +142,10 @@ def _cases_whole3d(n, smoother, nu, dev):
         "K6.rnorm": lambda: cuda.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother,
                                                               "ghost0", "bilinear"),
     }
-    inputs = {"K5": (u, f), "K5.zero": (f,), "K6": (u, f, V), "K6.rnorm": (u, f, V)}
+    if smoother == "wjacobi":
+        cases["K4"] = lambda: cuda.smooth(u, f, h, nu, smoother, "ghost0")
+    inputs = {"K4": (u, f), "K5": (u, f), "K5.zero": (f,), "K6": (u, f, V),
+              "K6.rnorm": (u, f, V)}
     return cases, inputs
 
 
@@ -148,6 +171,31 @@ def _cases_sharded(n, dev):
     }
     inputs = {"K9": (ub, fb, us, fs), "K9.zero": (fb, fs), "K10": (ub, fb, vb, us, fs, vs),
               "K10.rnorm": (ub, fb, vb, us, fs, vs)}
+    return cases, inputs
+
+
+def _cases_sharded3d(n, smoother, nu, dev):
+    spec = Spec(size=n, ndim=3, dtype="float32", scheme="tuned")
+    d = exchange_depth(spec)
+    g = torch.Generator(device=dev).manual_seed(n + nu + 1)
+    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev) for s in (n, n, n // 2))
+    shape = (n // 2, n // 2, n)
+    ub, us = block_from_grid(u, (0, 0), shape, d)
+    fb, fs = block_from_grid(f, (0, 0), shape, d)
+    vb, vs = block_from_grid(V, (0, 0), (n // 4, n // 4, n // 2), ops.coarse_depth(d))
+    del u, f, V
+    b, s = ((0, 0), n, 1.0 / n), (nu, smoother)
+    cases = {
+        "K11": lambda: cuda.smooth_rr_sharded(ub, fb, us, fs, *b, *s, "ghost0"),
+        "K11.zero": lambda: cuda.smooth_rr_sharded(None, fb, None, fs, *b, *s, "face",
+                                                   zero=True),
+        "K12": lambda: cuda.pc_smooth_sharded(ub, fb, vb, us, fs, vs, *b, *s, "face",
+                                              "bilinear"),
+        "K12.rnorm": lambda: cuda.pc_smooth_sharded(ub, fb, vb, us, fs, vs, *b, *s, "ghost0",
+                                                    "bilinear", rnorm=True),
+    }
+    inputs = {"K11": (ub, fb, us, fs), "K11.zero": (fb, fs), "K12": (ub, fb, vb, us, fs, vs),
+              "K12.rnorm": (ub, fb, vb, us, fs, vs)}
     return cases, inputs
 
 
@@ -196,6 +244,12 @@ def main(argv=None):
     ap.add_argument("--old-tile3d", action="store_true",
                     help="the other build's whole-grid K6 runs the cube tile at every halo "
                     "(before the z-marching tile)")
+    ap.add_argument("--sharded3d", type=int, default=0,
+                    help="global side of the (2, 2) mesh for K11/K12 (256: the sharded "
+                    "256^3 solve's block); 0, the default, skips")
+    ap.add_argument("--old-strip3d", action="store_true",
+                    help="the other build's K12 runs the cube tile at every halo (before "
+                    "the strip-fed z-marching tile)")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -206,7 +260,7 @@ def main(argv=None):
     print(f"card: {smi.stdout.strip()}", flush=True)
     dev = torch.device("cuda")
     table = args.old_table and (args.old_table[0], tuple(args.old_table[1:]))
-    builds = Builds(args.old, args.old_tile, table, args.old_tile3d)
+    builds = Builds(args.old, args.old_tile, table, args.old_tile3d, args.old_strip3d)
     settings = [(n, "wjacobi", 3) for n in args.sides]
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))
@@ -224,6 +278,12 @@ def main(argv=None):
     for n, (smoother, nu) in itertools.product(args.sides3d, (("wjacobi", 3), ("rbgs", 1))):
         cases, inputs = _cases_whole3d(n, smoother, nu, dev)
         _run(builds, f"{n}^3 {smoother} nu={nu}", cases, inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
+    for smoother, nu in (("wjacobi", 3), ("rbgs", 1)) if args.sharded3d else ():
+        cases, inputs = _cases_sharded3d(args.sharded3d, smoother, nu, dev)
+        _run(builds, f"(0, 0) block of {args.sharded3d}^3 on (2, 2) {smoother} nu={nu}",
+             cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()
     return 0

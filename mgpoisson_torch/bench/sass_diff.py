@@ -4,8 +4,12 @@
 
 Disassembles both libraries (``cuobjdump -sass``, from the CUDA toolkit),
 cuts each listing into its functions and prints one JSON line per function
-that both hold: its name, its instruction count in each, and whether the
-instructions are the same once addresses and encodings are dropped.  This
+that both hold: its name, its instruction count in each, whether the
+instructions are the same once addresses and encodings are dropped, and
+where they are not, whether they are the same once every register's
+number and the operand-reuse hints (`.reuse`, which follow the registers)
+are dropped (`registers_only`: the same instructions and operands in the
+same order, in other registers).  This
 shows whether a change to shared tile code left a kernel's code as it was,
 e.g. the single-device kernels of a commit against its parent's build.
 Exits non-zero if cuobjdump fails.
@@ -40,6 +44,15 @@ def functions(listing: str) -> dict:
     return out
 
 
+_REGISTER = re.compile(r"\b(U?R|U?P|B)(\d+)\b")
+
+
+def unnumbered(code):
+    """The instructions with each register's number and reuse hint dropped,
+    its file kept (R, UR, P, UP, B; RZ, PT and the like are kept whole)."""
+    return [_REGISTER.sub(lambda m: m.group(1), ins).replace(".reuse", "") for ins in code]
+
+
 def compare(old: dict, new: dict):
     """One row per function in both listings, in the new one's order; where
     the code differs, the number of positions that differ and the first
@@ -54,6 +67,7 @@ def compare(old: dict, new: dict):
             diff = [[k, a, b] for k, (a, b) in enumerate(zip(old[name], code)) if a != b]
             row["differing"] = len(diff) + abs(len(code) - len(old[name]))
             row["first_differences"] = diff[:3]
+            row["registers_only"] = unnumbered(old[name]) == unnumbered(code)
         rows.append(row)
     return rows
 

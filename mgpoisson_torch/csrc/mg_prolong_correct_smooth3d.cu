@@ -19,15 +19,18 @@
 // Bound: HBM bytes, 3.125 arrays (read u, f, V; write u); the strips add
 // 4D/nzl + 4D/nyl of an array for u and f and 4 DV/nzl + 4 DV/nyl of V.
 //
-// Two tiles.  K6 at a halo H = steps (+ 1 with rnorm) <= 4 (the tuned
-// scheme's wjacobi nu = 3, the fast scheme's rbgs nu = 1) runs the
+// Two tiles.  At a halo H = steps (+ 1 with rnorm) <= 4 (the tuned
+// scheme's wjacobi nu = 3, the fast scheme's rbgs nu = 1) K6 runs the
 // z-marching tile of stencil3d_zm.cuh (mg_pc3d_zm_kernel, one instance per
-// step count): the correction from a ring of three coarse planes, 1.78
-// loaded cells per interior cell in xy at H = 4, one Sigma r^2 partial per
-// block of its (x, y, chunk) grid.  K6 at deeper halos (mg_pc3d_kernel)
-// and K12 run the cube tile of stencil3d.cuh, which reads each array once
-// per block tile and costs (T + 2H)^3 / T^3 = 3.4 cells loaded per
-// interior cell at T = 16, H = 4, 2.6 at H = 3.
+// step count, smoother and bc) and K12 its strip-fed form
+// (mg_sharded_pc3d_zm.cu, the same instances with kStrips, V's coarse ring
+// filled from V's block and coarse strips): the correction from a ring of
+// three coarse planes, 1.78 loaded cells per interior cell in xy at H = 4,
+// one Sigma r^2 partial per block of its (x, y, chunk) grid.  At deeper
+// halos both run the cube tile of stencil3d.cuh (mg_pc3d_kernel,
+// mg_sharded_pc3d_kernel), which reads each array once per block tile and
+// costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
+// H = 5.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -59,14 +62,14 @@ static __device__ __forceinline__ float mg3_prolong(const float* sv, int SV, int
   const float a0 = ez ? 0.5f : 0.75f, b0 = ez ? 0.f : 0.25f;
   const float a1 = ey ? 0.5f : 0.75f, b1 = ey ? 0.f : 0.25f;
   const float a2 = ex ? 0.5f : 0.75f, b2 = ex ? 0.f : 0.25f;
-  float out = ((a0 * a1) * a2) * R;
-  out = out + ((a0 * a1) * b2) * sv[k + dx];
-  out = out + ((a0 * b1) * a2) * sv[k + dy];
-  out = out + ((a0 * b1) * b2) * sv[k + dy + dx];
-  out = out + ((b0 * a1) * a2) * sv[k + dz];
-  out = out + ((b0 * a1) * b2) * sv[k + dz + dx];
-  out = out + ((b0 * b1) * a2) * sv[k + dz + dy];
-  out = out + ((b0 * b1) * b2) * sv[k + dz + dy + dx];
+  float out = __fmul_rn(__fmul_rn(__fmul_rn(a0, a1), a2), R);
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(a0, a1), b2), sv[k + dx]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(a0, b1), a2), sv[k + dy]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(a0, b1), b2), sv[k + dy + dx]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(b0, a1), a2), sv[k + dz]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(b0, a1), b2), sv[k + dz + dx]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(b0, b1), a2), sv[k + dz + dy]));
+  out = __fadd_rn(out, __fmul_rn(__fmul_rn(__fmul_rn(b0, b1), b2), sv[k + dz + dy + dx]));
   return out;
 }
 
@@ -109,8 +112,8 @@ static __device__ __forceinline__ void mg_pc3d_body(
   for (int k = threadIdx.x; k < S3; k += blockDim.x) {
     const int l = k % S, q = k / S, j = q % S, i = q / S;
     if (mg3_in(t, i, j, l))
-      a[k] = a[k] + mg3_prolong(sv, SV, cz0, cy0, cx0, t.gz0 + i, t.gy0 + j, t.gx0 + l, n,
-                                kind);
+      a[k] = __fadd_rn(a[k], mg3_prolong(sv, SV, cz0, cy0, cx0, t.gz0 + i, t.gy0 + j,
+                                         t.gx0 + l, n, kind));
   }
   __syncthreads();
   const float* u = mg3_sweeps(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
@@ -147,8 +150,8 @@ mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                       inv_adiag, adiag);
 }
 
-// K12: one rank's block, its fine halo from the u and f strips and its
-// coarse halo from V's.
+// K12 at halos above MG3Z_MAX_HALO: one rank's block, its fine halo from
+// the u and f strips and its coarse halo from V's.
 __global__ void __launch_bounds__(MG3_THREADS)
 mg_sharded_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                        const float* __restrict__ V, float* __restrict__ Uout,
@@ -168,7 +171,7 @@ static size_t mg_pc3d_bytes(int tile, int H) {
 // step count, smoother and bc (mg3z_pick_from).
 template <int STEPS, int kSm, bool kFace>
 __global__ void __launch_bounds__(MG3Z_THREADS, 1) mg_pc3d_zm_kernel(Mg3zArgs a) {
-  mg3z_leg<STEPS, kSm, kFace, false>(a);
+  mg3z_leg<STEPS, kSm, kFace, false, false>(a, Mg3zStrips{});
 }
 
 template <int STEPS, int kSm, bool kFace>
@@ -186,10 +189,10 @@ extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const
                                            int rnorm, cudaStream_t stream) {
   const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
   if (mg3z_takes(H)) {
-    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, mg3z_chunk(n, H),
-                     kind, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(steps, smoother, bc), a,
-                       mg3z_bytes(steps, false, true), stream);
+    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
+                     mg3z_chunk(n, n, n, H), kind, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(steps, smoother, bc),
+                       Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, false, true), stream);
   }
   const size_t bytes = mg_pc3d_bytes(tile, H);
   const Mg3Block grid{n, n, n, 0, 0};
@@ -203,8 +206,10 @@ extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
 // f strips D >= H deep, V's coarse strips DV >= ceil(H/2) + 1 deep (the
-// left/right ones null on a mesh of one column).  With rnorm, one partial
-// per block of the (ceil(n/T), ceil(nyl/T), ceil(nzl/T)) grid.
+// left/right ones null on a mesh of one column).  The z-marching tile
+// where it takes the halo (with rnorm one partial per block of mg3z_grid
+// over the block), else the cube tile of side `tile` (one partial per
+// block of the (ceil(n/T), ceil(nyl/T), ceil(nzl/T)) grid).
 extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, float* out,
                                float* partials, const float* ut, const float* ub,
                                const float* ul, const float* ur, const float* ft,
@@ -214,10 +219,18 @@ extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, f
                                int D, int DV, int tile, int nu, int smoother, int bc,
                                int kind, float inv_hsq, float inv_adiag, float adiag,
                                int rnorm, cudaStream_t stream) {
-  const int H = mg_steps(nu, smoother) + (rnorm ? 1 : 0);
-  const size_t bytes = mg_pc3d_bytes(tile, H);
+  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
   const Mg3Block blk{n, nzl, nyl, z0, y0};
   if (D < H || DV < mg3_coarse_halo(H)) return (int)cudaErrorInvalidValue;
+  if (mg3z_takes(H)) {
+    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
+                     mg3z_chunk(n, nyl, nzl, H), kind, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg_sharded_pc3d_zm_pick(steps, smoother, bc), blk, a,
+                       mg3z_bytes(steps, false, true), stream,
+                       Mg3zStrips{blk, Mg3Strips{ut, ub, ul, ur, D},
+                                  Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{vt, vb, vl, vr, DV}});
+  }
+  const size_t bytes = mg_pc3d_bytes(tile, H);
   const int rc = mg3_prepare((const void*)mg_sharded_pc3d_kernel, blk, tile, bytes);
   if (rc != 0) return rc;
   mg_sharded_pc3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(

@@ -1,0 +1,22 @@
+// K11 mg_sharded_rr3d on the z-marching tile: the strip-fed instances of
+// the down-leg of stencil3d_zm.cuh (mg3z_leg with kStrips), one per step
+// count, smoother and bc, at halos H = steps + 1 <= MG3Z_MAX_HALO.  The
+// entry point, its checks and the cube tile of deeper halos are in
+// mg_smooth_rr3d.cu beside K5; these instances have a source of their own
+// so that nvcc builds them in parallel with K5's.
+#include "stencil3d_zm.cuh"
+
+template <int STEPS, int kSm, bool kFace>
+__global__ void __launch_bounds__(MG3Z_THREADS, 1)
+    mg_sharded_rr3d_zm_kernel(Mg3zArgs a, Mg3zStrips b) {
+  mg3z_leg<STEPS, kSm, kFace, true, true>(a, b);
+}
+
+template <int STEPS, int kSm, bool kFace>
+struct MgShardedRr3dZm {
+  static __host__ Mg3zStripKernel fn() { return mg_sharded_rr3d_zm_kernel<STEPS, kSm, kFace>; }
+};
+
+Mg3zStripKernel mg_sharded_rr3d_zm_pick(int steps, int smoother, int bc) {
+  return mg3z_pick_from<MgShardedRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc);
+}

@@ -20,14 +20,16 @@
 // Bound: HBM bytes, 3.125 arrays (read u, f; write u, R), 2.125 from zero;
 // the strips add 4D/nzl + 4D/nyl of an array (both u and f).
 //
-// Two tiles.  K5 at a halo H = steps + 1 <= 4 (the tuned scheme's wjacobi
-// nu = 3, the fast scheme's rbgs nu = 1) runs the z-marching tile of
-// stencil3d_zm.cuh (mg_rr3d_zm_kernel, one instance per step count): 1.78
-// loaded cells per interior cell in xy at H = 4, the restriction from a
-// ring of residual planes.  K5 at deeper halos (mg_smooth_rr3d_kernel) and
-// K11 run the cube tile of stencil3d.cuh, which reads each array once per
-// block tile and costs (T + 2H)^3 / T^3 = 3.4 cells loaded per interior
-// cell at T = 16, H = 4.
+// Two tiles.  At a halo H = steps + 1 <= 4 (the tuned scheme's wjacobi nu
+// = 3, the fast scheme's rbgs nu = 1) K5 runs the z-marching tile of
+// stencil3d_zm.cuh (mg_rr3d_zm_kernel, one instance per step count,
+// smoother and bc) and K11 its strip-fed form (mg_sharded_rr3d_zm.cu, the
+// same instances with kStrips): 1.78 loaded cells per interior cell in xy
+// at H = 4, the restriction from a ring of residual planes.  At deeper
+// halos both run the cube tile of stencil3d.cuh (mg_smooth_rr3d_kernel,
+// mg_sharded_rr3d_kernel), which reads each array once per block tile and
+// costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
+// H = 5.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -66,8 +68,7 @@ static __device__ __forceinline__ void mg_smooth_rr3d_body(
     for (int d = 0; d < 8; ++d)
       r[d] = mg3_residual(u, sf, t, i + (d >> 2), j + ((d >> 1) & 1), l + (d & 1), bc,
                           inv_hsq, adiag);
-    const float s = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
-    Rout[((size_t)gI * ncy + gJ) * ncx + gK] = s * 0.125f;
+    Rout[((size_t)gI * ncy + gJ) * ncx + gK] = __fmul_rn(mg3_sum8(r), 0.125f);
   }
 }
 
@@ -82,7 +83,7 @@ mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                              Mg3Strips{}, T, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
 }
 
-// K11: one rank's block, its halo from strips.
+// K11 at halos above MG3Z_MAX_HALO: one rank's block, its halo from strips.
 __global__ void __launch_bounds__(MG3_THREADS)
 mg_sharded_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                        float* __restrict__ Uout, float* __restrict__ Rout, Mg3Block blk,
@@ -96,7 +97,7 @@ mg_sharded_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
 // step count, smoother and bc (mg3z_pick_from).
 template <int STEPS, int kSm, bool kFace>
 __global__ void __launch_bounds__(MG3Z_THREADS, 1) mg_rr3d_zm_kernel(Mg3zArgs a) {
-  mg3z_leg<STEPS, kSm, kFace, true>(a);
+  mg3z_leg<STEPS, kSm, kFace, true, false>(a, Mg3zStrips{});
 }
 
 template <int STEPS, int kSm, bool kFace>
@@ -111,10 +112,10 @@ extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float*
                               float inv_adiag, float adiag, int zero, cudaStream_t stream) {
   const int steps = mg_steps(nu, smoother), H = steps + 1;
   if (mg3z_takes(H)) {
-    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, mg3z_chunk(n, H), 0,
-                     inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc), a,
-                       mg3z_bytes(steps, true, false), stream);
+    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
+                     mg3z_chunk(n, n, n, H), 0, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc),
+                       Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, true, false), stream);
   }
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
   const Mg3Block grid{n, n, n, 0, 0};
@@ -128,7 +129,9 @@ extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float*
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
 // f strips D >= H deep (ut..ur unused from zero; ul/ur and fl/fr null on a
-// mesh of one column).
+// mesh of one column).  The z-marching tile where it takes the halo (its
+// chunk from the chunk table over the block), else the cube tile of side
+// `tile`.
 extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float* R,
                                const float* ut, const float* ub, const float* ul,
                                const float* ur, const float* ft, const float* fb,
@@ -136,14 +139,21 @@ extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float
                                int z0, int y0, int D, int tile, int nu, int smoother, int bc,
                                float inv_hsq, float inv_adiag, float adiag, int zero,
                                cudaStream_t stream) {
-  const int H = mg_steps(nu, smoother) + 1;
-  const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
+  const int steps = mg_steps(nu, smoother), H = steps + 1;
   const Mg3Block blk{n, nzl, nyl, z0, y0};
   if (D < H) return (int)cudaErrorInvalidValue;
-  const int rc = mg3_prepare((const void*)mg_sharded_rr3d_kernel, blk, tile, bytes);
-  if (rc != 0) return rc;
   const Mg3Strips us = zero ? Mg3Strips{nullptr, nullptr, nullptr, nullptr, D}
                             : Mg3Strips{ut, ub, ul, ur, D};
+  if (mg3z_takes(H)) {
+    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
+                     mg3z_chunk(n, nyl, nzl, H), 0, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(mg_sharded_rr3d_zm_pick(steps, smoother, bc), blk, a,
+                       mg3z_bytes(steps, true, false), stream,
+                       Mg3zStrips{blk, us, Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{}});
+  }
+  const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
+  const int rc = mg3_prepare((const void*)mg_sharded_rr3d_kernel, blk, tile, bytes);
+  if (rc != 0) return rc;
   mg_sharded_rr3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
       zero ? nullptr : u, f, out, R, blk, us, Mg3Strips{ft, fb, fl, fr, D}, tile, H, nu,
       smoother, bc, inv_hsq, inv_adiag, adiag);

@@ -1,11 +1,12 @@
-// The cube tile of the 3D stencil kernels: K4 mg_smooth3d, the strip-fed
-// K11 mg_sharded_rr3d and K12 mg_sharded_pc3d of a sharded level, and the
-// whole-grid K5 mg_smooth_rr3d and K6 mg_prolong_correct_smooth3d at halos
-// above 4 (MG3Z_MAX_HALO: K5 and K6 with rnorm at jacobi/wjacobi nu >= 4 or
-// rbgs nu >= 2, K6 without at nu >= 5 or rbgs nu >= 3).  K5/K6 at halos up
-// to 4, the main path's, run the z-marching tile of stencil3d_zm.cuh, which
-// takes the enums and MG3_OMEGA from here.  The 7-point operator on an
-// (n, n, n) array, z-major (index (z * n + y) * n + x).
+// The cube tile of the 3D stencil kernels: K4 mg_smooth3d, and the legs
+// K5 mg_smooth_rr3d and K6 mg_prolong_correct_smooth3d with their strip
+// entries K11 mg_sharded_rr3d and K12 mg_sharded_pc3d at halos above 4
+// (MG3Z_MAX_HALO: K5/K11 and K6/K12 with rnorm at jacobi/wjacobi nu >= 4 or
+// rbgs nu >= 2, K6/K12 without at nu >= 5 or rbgs nu >= 3).  At halos up
+// to 4, the main path's, the legs run the z-marching tile of
+// stencil3d_zm.cuh, which takes the enums, MG3_OMEGA, Mg3Block, Mg3Strips,
+// mg3_fetch and mg3_sum8 from here.  The 7-point operator on an (n, n, n)
+// array, z-major (index (z * n + y) * n + x).
 //
 // The Pallas 3D kernels block (z, y) with the whole x row in lanes, round
 // the y halo up to 8 sublanes and pick the blocks with a VMEM planner
@@ -26,19 +27,25 @@
 // at T = 16, H = 4 a block loads (24/16)^3 = 3.4 cells per interior cell
 // and its three sweeps update 22^3 + 20^3 + 18^3 = 24480 cells for 4096
 // interior ones (2.0 per interior cell per sweep).  The z-marching (2.5D)
-// tile of stencil3d_zm.cuh cuts both for the whole-grid K5/K6.
+// tile of stencil3d_zm.cuh cuts both for the legs at halos up to 4.
 //
 // What bounds these kernels on an H100 is HBM bytes: each op passes over
 // device memory once (K4 3 arrays, K5 3.125, 2.125 from zero, K6 3.125);
 // the halo re-reads mostly hit L2.  This first version keeps one thread
 // per cell with __syncthreads() between steps.
 //
-// Arithmetic follows mgpoisson_torch/kernels/ops.py operation for
-// operation (neighbour sums in axis order z, y, x; the same Jacobi form),
-// with the divisions by h^2 and by the diagonal taken as multiplications
-// by their reciprocals (exact for 1/h^2 with h = 1/size; 1/adiag =
-// -h^2/6 is the rounded reciprocal that torch's CUDA division by a scalar
-// also multiplies by).
+// Arithmetic: as the z-marching tile and stencil.cuh, every add and
+// multiply rounded on its own (__fadd_rn, __fmul_rn; nvcc would otherwise
+// contract pairs of them into FMAs) in the order of
+// mgpoisson_torch/kernels/ops.py: neighbour sums in axis order z, y, x
+// with face's subtractions after each axis pair, the Jacobi form,
+// wjacobi's u + omega (jac - u), the residual f - (nbr/h^2 + adiag u),
+// prolong's 2^3 taps and the restriction's 2x2x2 sum in torch's order
+// (mg3_sum8), so every output equals the plain ops bit for bit.  The
+// divisions by h^2 and by the diagonal are multiplications by their
+// reciprocals (exact for 1/h^2 with h = 1/size; 1/adiag = -h^2/6 is the
+// rounded reciprocal that torch's CUDA division by a scalar also
+// multiplies by).
 //
 // As in 2D (stencil.cuh), a launch covers one block of the grid
 // (Mg3Block): the whole grid for K4 (and K5/K6 at deep halos), a rank's
@@ -144,20 +151,20 @@ static __device__ __forceinline__ float mg3_nbr(const float* s, const Mg3Tile& t
   const int S = t.S, SS = S * S, k = (i * S + j) * S + l, last = t.n - 1;
   const int gz = t.gz0 + i, gy = t.gy0 + j, gx = t.gx0 + l;
   const float c = s[k];
-  float acc = (gz > 0 ? s[k - SS] : 0.f) + (gz < last ? s[k + SS] : 0.f);
+  float acc = __fadd_rn(gz > 0 ? s[k - SS] : 0.f, gz < last ? s[k + SS] : 0.f);
   if (bc == MG_FACE) {
-    if (gz == 0) acc -= c;
-    if (gz == last) acc -= c;
+    if (gz == 0) acc = __fsub_rn(acc, c);
+    if (gz == last) acc = __fsub_rn(acc, c);
   }
-  acc = acc + ((gy > 0 ? s[k - S] : 0.f) + (gy < last ? s[k + S] : 0.f));
+  acc = __fadd_rn(acc, __fadd_rn(gy > 0 ? s[k - S] : 0.f, gy < last ? s[k + S] : 0.f));
   if (bc == MG_FACE) {
-    if (gy == 0) acc -= c;
-    if (gy == last) acc -= c;
+    if (gy == 0) acc = __fsub_rn(acc, c);
+    if (gy == last) acc = __fsub_rn(acc, c);
   }
-  acc = acc + ((gx > 0 ? s[k - 1] : 0.f) + (gx < last ? s[k + 1] : 0.f));
+  acc = __fadd_rn(acc, __fadd_rn(gx > 0 ? s[k - 1] : 0.f, gx < last ? s[k + 1] : 0.f));
   if (bc == MG_FACE) {
-    if (gx == 0) acc -= c;
-    if (gx == last) acc -= c;
+    if (gx == 0) acc = __fsub_rn(acc, c);
+    if (gx == last) acc = __fsub_rn(acc, c);
   }
   return acc;
 }
@@ -167,7 +174,26 @@ static __device__ __forceinline__ float mg3_residual(const float* su, const floa
                                                      const Mg3Tile& t, int i, int j, int l,
                                                      int bc, float inv_hsq, float adiag) {
   const int k = (i * t.S + j) * t.S + l;
-  return sf[k] - (mg3_nbr(su, t, i, j, l, bc) * inv_hsq + adiag * su[k]);
+  return __fsub_rn(sf[k], __fadd_rn(__fmul_rn(mg3_nbr(su, t, i, j, l, bc), inv_hsq),
+                                    __fmul_rn(adiag, su[k])));
+}
+
+// The Jacobi value (f - nbr/h^2) / adiag at local (i, j, l), tile index c,
+// as ops.jacobi_sweep.
+static __device__ __forceinline__ float mg3_jacobi(const float* su, const float* sf,
+                                                   const Mg3Tile& t, int i, int j, int l,
+                                                   int c, int bc, float inv_hsq,
+                                                   float inv_adiag) {
+  return __fmul_rn(__fsub_rn(sf[c], __fmul_rn(mg3_nbr(su, t, i, j, l, bc), inv_hsq)),
+                   inv_adiag);
+}
+
+// The 2x2x2 sum of the restriction, r[(dz << 2) | (dy << 1) | dx], in the
+// order torch's reduction of ops.restrict takes on the card: z pairs, then
+// y, then x ((r000 + r100) + (r010 + r110)) + ((r001 + r101) + (r011 + r111)).
+static __device__ __forceinline__ float mg3_sum8(const float (&r)[8]) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[4]), __fadd_rn(r[2], r[6])),
+                   __fadd_rn(__fadd_rn(r[1], r[5]), __fadd_rn(r[3], r[7])));
 }
 
 // Loads the S^3 tile of u and f; cells outside the domain read 0.
@@ -226,10 +252,12 @@ static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const M
       const int c = (i * S + j) * S + l;
       if (smoother == MG_RBGS) {
         if (((t.gz0 + i + t.gy0 + j + t.gx0 + l) & 1) != colour) continue;
-        a[c] = (sf[c] - mg3_nbr(a, t, i, j, l, bc) * inv_hsq) * inv_adiag;
+        a[c] = mg3_jacobi(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
       } else {
-        const float jac = (sf[c] - mg3_nbr(a, t, i, j, l, bc) * inv_hsq) * inv_adiag;
-        b[c] = smoother == MG_WJACOBI ? a[c] + MG3_OMEGA * (jac - a[c]) : jac;
+        const float jac = mg3_jacobi(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
+        b[c] = smoother == MG_WJACOBI
+                   ? __fadd_rn(a[c], __fmul_rn(MG3_OMEGA, __fsub_rn(jac, a[c])))
+                   : jac;
       }
     }
     __syncthreads();

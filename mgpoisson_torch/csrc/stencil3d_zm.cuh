@@ -66,27 +66,31 @@
 #define MG3Z_MIN_CHUNK 32   // the fewest planes per block the table picks
 #define MG3Z_CSIDE (MG3Z_ROWS / 2 + 3)   // side of one of K6's coarse planes
 
-// Whether the whole-grid legs run this tile at halo H (else the cube
-// tile); mirrored by kernels/cuda.py zmarch3d.
+// Whether the legs run this tile at halo H (else the cube tile); mirrored
+// by kernels/cuda.py zmarch3d.
 static __host__ __device__ inline bool mg3z_takes(int H) { return H <= MG3Z_MAX_HALO; }
 
 // Interior cells per block side at halo H (mirrored by kernels/cuda.py
 // tile3d_zm).
 static __host__ __device__ inline int mg3z_side(int H) { return MG3Z_COLS - 2 * H; }
 
-// The chunk table: planes per block on an n^3 level at halo H (mirrored by
-// kernels/cuda.py zm_chunk).  One 1024-thread block runs per SM, so a
-// launch takes ceil(blocks / SMs) rounds of a block's march of c + 2H
-// planes; the table picks the chunk c (n, n/2, ... down to MG3Z_MIN_CHUNK)
-// with the fewest plane-steps in all, the larger on a tie.  At 256^3 that
-// is the whole column (H = 4: 121 blocks in one round of 264 planes, not 4
-// rounds of 72 at 64 planes), at 512^3 128 planes.
-static __host__ __device__ inline int mg3z_chunk(int n, int H) {
-  const int cols = (n + mg3z_side(H) - 1) / mg3z_side(H);
-  int best = n;
+// The chunk table: planes per block on a block of nzl planes of nyl rows
+// of n cells at halo H (mirrored by kernels/cuda.py zm_chunk; the whole
+// n^3 grid is nzl = nyl = n).  One 1024-thread block runs per SM, so a
+// launch over ceil(n/T) ceil(nyl/T) columns takes ceil(blocks / SMs)
+// rounds of a block's march of c + 2H planes; the table picks the chunk c
+// (nzl, nzl/2, ... down to MG3Z_MIN_CHUNK) with the fewest plane-steps in
+// all, the larger on a tie.  At 256^3 that is the whole column (H = 4: 121
+// blocks in one round of 264 planes, not 4 rounds of 72 at 64 planes), at
+// 512^3 128 planes; on a (128, 128, 256) block of 256^3 on a (2, 2) mesh
+// 64 planes (132 blocks, one round of 72).
+static __host__ __device__ inline int mg3z_chunk(int n, int nyl, int nzl, int H) {
+  const int T = mg3z_side(H);
+  const long long cols = (long long)((n + T - 1) / T) * ((nyl + T - 1) / T);
+  int best = nzl;
   long long best_cost = -1;
-  for (int c = n; c >= 1 && n % c == 0 && (c == n || c >= MG3Z_MIN_CHUNK); c /= 2) {
-    const long long blocks = (long long)cols * cols * (n / c);
+  for (int c = nzl; c >= 1 && nzl % c == 0 && (c == nzl || c >= MG3Z_MIN_CHUNK); c /= 2) {
+    const long long blocks = cols * (nzl / c);
     const long long cost = (blocks + MG3Z_SMS - 1) / MG3Z_SMS * (c + 2 * H);
     if (best_cost < 0 || cost < best_cost) {
       best = c;
@@ -97,9 +101,11 @@ static __host__ __device__ inline int mg3z_chunk(int n, int H) {
   return best;
 }
 
-static __host__ inline dim3 mg3z_grid(int n, int H) {
-  const int T = mg3z_side(H), c = mg3z_chunk(n, H);
-  return dim3((n + T - 1) / T, (n + T - 1) / T, (n + c - 1) / c);
+// The launch grid over a block (x, y, chunk); one Sigma r^2 partial per
+// block of it.
+static __host__ inline dim3 mg3z_grid(const Mg3Block& b, int H, int chunk) {
+  const int T = mg3z_side(H);
+  return dim3((b.n + T - 1) / T, (b.nyl + T - 1) / T, (b.nzl + chunk - 1) / chunk);
 }
 
 // Dynamic shared memory of one block: the stages' double-buffered planes,
@@ -150,29 +156,79 @@ static __device__ __forceinline__ float mg3z_nbr(const Mg3zWin& w, float ylo, fl
   return acc;
 }
 
-// The 2x2x2 sum of the restriction, r[(dz << 2) | (dy << 1) | dx], in the
-// order torch's reduction of ops.restrict takes on the card: z pairs, then
-// y, then x ((r000 + r100) + (r010 + r110)) + ((r001 + r101) + (r011 + r111)).
-static __device__ __forceinline__ float mg3z_sum8(const float (&r)[8]) {
-  return __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[4]), __fadd_rn(r[2], r[6])),
-                   __fadd_rn(__fadd_rn(r[1], r[5]), __fadd_rn(r[3], r[7])));
+// A strip-fed leg's block and strips (K11, K12): the rank's (nzl, nyl, n)
+// block at global (z0, y0) (stencil3d.cuh Mg3Block) and its u, f and, for
+// K12, V strips (Mg3Strips; V's coarse: (DV, nyl/2, n/2) top and bot,
+// (nzl/2 + 2 DV, DV, n/2) left and right).  The whole-grid legs take none.
+struct Mg3zStrips {
+  Mg3Block blk;
+  Mg3Strips us, fs, vs;
+};
+
+// kStrips: the address of block plane z (-D <= z < nzl + D) in column
+// (yb, x) of an array fed by strips: the body or its top or bot strip for
+// a row of the block (0 <= yb < nyl), the left or right strip for a row
+// of the y halo.  Computed only at a switch of source; the march adds a
+// plane stride, nyl * n or D * n, in between.
+static __device__ __forceinline__ const float* mg3z_src(const float* body, const Mg3Strips& s,
+                                                        int z, int yb, int x, int nzl, int nyl,
+                                                        int n) {
+  const long long D = s.D, pl = (long long)nyl * n;
+  if (yb >= 0 && yb < nyl) {
+    const long long c = (long long)yb * n + x;
+    if (z < 0) return s.top + (z + D) * pl + c;
+    if (z < nzl) return body + z * pl + c;
+    return s.bot + (z - nzl) * pl + c;
+  }
+  const float* side = yb < 0 ? s.left : s.right;
+  return side + ((z + D) * D + (yb < 0 ? yb + D : yb - nyl)) * n + x;
+}
+
+// kStrips: K12's coarse cell (Z, cy, cx) of V, global index, from V's
+// block and coarse strips; 0 outside the grid (c_in: the column is inside)
+// and beyond the strips, where the ring's last prefetch may lie (one plane
+// past the bottom strip at H = 4).
+static __device__ __forceinline__ float mg3z_coarse(const float* V, const Mg3zStrips& b,
+                                                    bool c_in, int Z, int cy, int cx) {
+  const Mg3Block& k = b.blk;
+  const int nc = k.n / 2;
+  return c_in && mg_in(Z, nc) ? mg3_fetch(V, b.vs, Z - k.z0 / 2, cy - k.y0 / 2, cx, k.nzl / 2,
+                                          k.nyl / 2, nc)
+                              : 0.f;
 }
 
 // The leg of one block: K5 (kRR: sweeps, residual with the level's bc,
 // restriction) or K6 (correction, sweeps, and with partials the
 // zero-ghost sum(r^2)).  STEPS = mg_steps(nu, smoother), kSm the smoother
-// (any at STEPS = 0), kFace the level's bc.
-template <int STEPS, int kSm, bool kFace, bool kRR>
-static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
+// (any at STEPS = 0), kFace the level's bc.  With kStrips the leg runs on a
+// rank's block (K11, K12; `b`): the launch grid covers the block, the
+// GLOBAL index (the block's origin added) decides inside/outside, the
+// edges, the colour and the trilinear weights, the BLOCK index addresses
+// the arrays, the stores and K11's R, and the halo comes from the strips.
+// Without it every block-index term below is the global one, and the code
+// is the whole-grid leg's.
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips>
+static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStrips& b) {
   extern __shared__ float smem[];
   constexpr int W = MG3Z_COLS, R = MG3Z_ROWS, P = MG3Z_PLANE, CS = MG3Z_CSIDE;
   const int l = (int)threadIdx.x, j = (int)threadIdx.y, me = j * W + l;
   const int n = a.n, H = a.H, T = W - 2 * H;
   const int x0 = (int)blockIdx.x * T, y0 = (int)blockIdx.y * T, z0 = (int)blockIdx.z * a.chunk;
-  const int gx = x0 - H + l, gy = y0 - H + j, gz0 = z0 - H;
-  const int zl = min(a.chunk, n - z0);   // planes this block owns
+  // the block's extents and origin; yb, zb0: this thread's row and the
+  // march's first plane in the block's index
+  const int nzl = kStrips ? b.blk.nzl : n, nyl = kStrips ? b.blk.nyl : n;
+  const int oz = kStrips ? b.blk.z0 : 0, oy = kStrips ? b.blk.y0 : 0;
+  const int yb = y0 - H + j, zb0 = z0 - H;
+  const int gx = x0 - H + l, gy = kStrips ? oy + yb : yb, gz0 = kStrips ? oz + zb0 : zb0;
+  const int zl = min(a.chunk, nzl - z0);   // planes this block owns
   const bool in_xy = mg_in(gx, n) && mg_in(gy, n);
-  const bool owns_xy = in_xy && l >= H && l < W - H && j >= H && j < R - H;
+  const bool owns_xy = in_xy && l >= H && l < W - H && j >= H && j < R - H &&
+                       (!kStrips || yb < nyl);
+  // kStrips: whether the row has a source (the block's rows and the D of
+  // the strips on each side); a cell of the grid beyond them reads 0 and
+  // is never stored, and no owned cell depends on it (D >= H)
+  const int D = kStrips ? b.fs.D : 0;
+  const bool src = !kStrips || (yb >= -D && yb < nyl + D);
   const bool y0e = gy == 0, y1e = gy == n - 1, x0e = gx == 0, x1e = gx == n - 1;
   float my = y0e || y1e ? -1.f : 0.f, mx = x0e || x1e ? -1.f : 0.f;
   asm volatile("" : "+f"(my), "+f"(mx));   // kept, not rebuilt per stage
@@ -188,7 +244,8 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
   // K6: the thread's coarse cell and trilinear weights, and the coarse
   // cell it loads into the ring (the first CS * CS threads)
   const int nc = n / 2;
-  const int cy0 = ((y0 - H) >> 1) - 1, cx0 = ((x0 - H) >> 1) - 1;
+  const int cy0 = kStrips ? (oy >> 1) + ((y0 - H) >> 1) - 1 : ((y0 - H) >> 1) - 1,
+            cx0 = ((x0 - H) >> 1) - 1;
   int cbase = ((gy >> 1) - cy0) * CS + ((gx >> 1) - cx0);
   int dyo = (gy & 1) ? CS : -CS, dxo = (gx & 1) ? 1 : -1;
   // the y and x weight products of the 4 xy taps, (a1 a2, a1 b2, b1 a2,
@@ -209,7 +266,12 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
   };
   if (loads_c) {
     const int Zf = gz0 >> 1;
-    for (int Z = Zf - 1; Z <= Zf + 1; ++Z) cv[slot(Z) * CS * CS + me] = coarse(Z);
+    for (int Z = Zf - 1; Z <= Zf + 1; ++Z) {
+      if constexpr (kStrips)
+        cv[slot(Z) * CS * CS + me] = mg3z_coarse(a.V, b, c_in, Z, cy0 + ly, cx0 + lx);
+      else
+        cv[slot(Z) * CS * CS + me] = coarse(Z);
+    }
   }
   if (!kRR) __syncthreads();
 
@@ -217,15 +279,16 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
   // restricts, its first fine cell in the plane and its coarse index
   const int T2 = T / 2, cyr = me / T2, cxr = me - (me / T2) * T2;
   const int c_at = (H + 2 * cyr) * W + H + 2 * cxr;
-  const bool owns_c = kRR && me < T2 * T2 && mg_in(y0 / 2 + cyr, nc) && mg_in(x0 / 2 + cxr, nc);
+  const int ncy = kStrips ? nyl / 2 : nc;   // coarse rows of the block
+  const bool owns_c = kRR && me < T2 * T2 && mg_in(y0 / 2 + cyr, ncy) && mg_in(x0 / 2 + cxr, nc);
   const size_t c_out = owns_c ? (size_t)(y0 / 2 + cyr) * nc + (x0 / 2 + cxr) : 0;
 
   // per-thread stage mask, kept opaque so that ptxas does not rebuild it
   // from the tile origin in every stage: bit 0 where the cell lies in the
-  // grid's xy, bit s (1 <= s <= STEPS) where stage s updates it (inside
+  // grid's xy (and has a source), bit s (1 <= s <= STEPS) where stage s updates it (inside
   // the stage's shrinking rows and lanes), bit STEPS + 1 where the cell is
   // owned (the stored u and the residual stage)
-  unsigned act = in_xy ? 1u : 0u;
+  unsigned act = in_xy && src ? 1u : 0u;
 #pragma unroll
   for (int s = 1; s <= STEPS; ++s)
     if (in_xy && l >= s && l < W - s && j >= s && j < R - s) act |= 1u << s;
@@ -234,14 +297,28 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
   const bool has_u = U != nullptr;
   const int pxy = (gy + gx) & 1;   // red-black colour of the column at z = 0
 
-  // running pointers: u and f of the next plane to load, the output plane
+  // running pointers: u and f of the next plane to load, the output
+  // plane, and their plane strides (kStrips: the loads' is the source's)
   const long long nnl = (long long)nn;
-  const long long off0 = (long long)gz0 * nnl + (long long)col;
-  const float* pU = (has_u ? U : F) + off0;
-  const float* pF = F + off0;
-  float* pO = a.Uout + (off0 - STEPS * nnl);
-  float pu = has_u && in_xy && mg_in(gz0, n) ? __ldg(pU) : 0.f;
-  float pf = in_xy && mg_in(gz0, n) ? __ldg(pF) : 0.f;
+  const float* pU;
+  const float* pF;
+  float* pO;
+  long long pl, plo;
+  if constexpr (kStrips) {
+    pl = yb >= 0 && yb < nyl ? (long long)nyl * n : (long long)D * n;
+    plo = (long long)nyl * n;
+    pF = mg3z_src(F, b.fs, zb0, yb, gx, nzl, nyl, n);
+    pU = has_u ? mg3z_src(U, b.us, zb0, yb, gx, nzl, nyl, n) : pF;
+    pO = a.Uout + ((long long)(zb0 - STEPS) * nyl + yb) * n + gx;
+  } else {
+    const long long off0 = (long long)gz0 * nnl + (long long)col;
+    pl = plo = nnl;
+    pU = (has_u ? U : F) + off0;
+    pF = F + off0;
+    pO = a.Uout + (off0 - STEPS * nnl);
+  }
+  float pu = has_u && in_xy && src && mg_in(gz0, n) ? __ldg(pU) : 0.f;
+  float pf = in_xy && src && mg_in(gz0, n) ? __ldg(pF) : 0.f;
 
   Mg3zWin w[STEPS + 1];
   float fq[STEPS + 2];   // fq[i]: f at march plane k - i
@@ -260,14 +337,26 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
     // stage 0: plane k, loaded one step ahead (K6: corrected by P(V))
     float v0 = pu;
     const float fnew = pf;
-    pU += nnl;
-    pF += nnl;
-    const bool zn = (act & 1u) && mg_in(gz + 1, n);
+    pU += pl;
+    pF += pl;
+    if constexpr (kStrips) {   // the rows of the block switch source here
+      const int zb = zb0 + k + 1;
+      if (zb == 0 || zb == nzl) {
+        pF = mg3z_src(F, b.fs, zb, yb, gx, nzl, nyl, n);
+        pU = has_u ? mg3z_src(U, b.us, zb, yb, gx, nzl, nyl, n) : pF;
+      }
+    }
+    const bool zn = (act & 1u) && mg_in(gz + 1, n) && (!kStrips || zb0 + k + 1 < nzl + D);
     pu = has_u && zn ? __ldg(pU) : 0.f;
     pf = zn ? __ldg(pF) : 0.f;
     float cnext = 0.f;
     const bool c_step = !kRR && (gz & 1);   // odd fine plane: the next coarse plane
-    if (c_step && loads_c) cnext = coarse((gz >> 1) + 2);
+    if (c_step && loads_c) {
+      if constexpr (kStrips)
+        cnext = mg3z_coarse(a.V, b, c_in, (gz >> 1) + 2, cy0 + ly, cx0 + lx);
+      else
+        cnext = coarse((gz >> 1) + 2);
+    }
     if constexpr (!kRR) {
       if ((act & 1u) && mg_in(gz, n)) {
         const int Z = gz >> 1;
@@ -327,7 +416,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
     {
       const int p = k - STEPS;
       if (((act >> (STEPS + 1)) & 1u) && p >= H && p < H + zl) *pO = w[STEPS].hi;
-      pO += nnl;
+      pO += plo;
     }
 
     // the residual stage on plane k - STEPS - 1: K5 with the level's bc
@@ -358,7 +447,8 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
         const float* r0 = rsh + ((q - 1) & 3) * P + c_at;
         const float* r1 = rsh + (q & 3) * P + c_at;
         float r8[8] = {r0[0], r0[1], r0[W], r0[W + 1], r1[0], r1[1], r1[W], r1[W + 1]};
-        a.Rout[(size_t)(gq >> 1) * nc * nc + c_out] = __fmul_rn(mg3z_sum8(r8), 0.125f);
+        a.Rout[(size_t)((kStrips ? gq - oz : gq) >> 1) * ncy * nc + c_out] =
+            __fmul_rn(mg3_sum8(r8), 0.125f);
       }
     }
     if (c_step && loads_c) cv[slot((gz >> 1) + 2) * CS * CS + me] = cnext;
@@ -381,20 +471,24 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a) {
   }
 }
 
-using Mg3zKernel = void (*)(Mg3zArgs);
+using Mg3zKernel = void (*)(Mg3zArgs);                // the whole grid
+using Mg3zStripKernel = void (*)(Mg3zArgs, Mg3zStrips);  // a rank's block
 
 // The instance of a leg's kernel template K<STEPS, kSm, kFace> for a step
 // count, smoother and bc known at run time: every step count up to
 // kMaxSteps for the Jacobi variants, the even ones for red-black GS (2 nu);
 // STEPS = 0 (no sweep) is one instance for every smoother.  Null for any
 // other.
+template <template <int, int, bool> class K>
+using Mg3zFn = decltype(K<0, MG_JACOBI, false>::fn());
+
 template <template <int, int, bool> class K, int S, int kSm>
-static __host__ Mg3zKernel mg3z_bc(int bc) {
+static __host__ Mg3zFn<K> mg3z_bc(int bc) {
   return bc == MG_FACE ? K<S, kSm, true>::fn() : K<S, kSm, false>::fn();
 }
 
 template <template <int, int, bool> class K, int S, int kMaxSteps>
-static __host__ Mg3zKernel mg3z_pick_from(int steps, int smoother, int bc) {
+static __host__ Mg3zFn<K> mg3z_pick_from(int steps, int smoother, int bc) {
   if constexpr (S > kMaxSteps) {
     return nullptr;
   } else {
@@ -413,15 +507,27 @@ static __host__ Mg3zKernel mg3z_pick_from(int steps, int smoother, int bc) {
 }
 
 // Opts `kernel` (null: no instance for the step count and smoother) in to
-// its dynamic shared memory and launches it on the n^3 grid at halo a.H,
-// which the caller has checked with mg3z_takes; returns a cudaError_t.
-static __host__ inline int mg3z_launch(Mg3zKernel kernel, const Mg3zArgs& a, size_t bytes,
-                                       cudaStream_t stream) {
-  if (kernel == nullptr || a.n < 2 || (a.n & 1)) return (int)cudaErrorInvalidValue;
+// its dynamic shared memory and launches it on the block `blk` (the whole
+// grid: {n, n, n, 0, 0}) at halo a.H, which the caller has checked with
+// mg3z_takes, with the arguments `args`; returns a cudaError_t.
+template <class Kernel, class... Args>
+static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const Mg3zArgs& a,
+                                       size_t bytes, cudaStream_t stream, Args... args) {
+  if (kernel == nullptr || blk.n < 2 || (blk.n & 1) || blk.nzl < 2 || blk.nyl < 2 ||
+      (blk.nzl | blk.nyl | blk.z0 | blk.y0) & 1 || a.chunk < 1 || blk.nzl % a.chunk)
+    return (int)cudaErrorInvalidValue;
   const int rc = (int)cudaFuncSetAttribute((const void*)kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
   if (rc != 0) return rc;
-  kernel<<<mg3z_grid(a.n, a.H), dim3(MG3Z_COLS, MG3Z_ROWS), bytes, stream>>>(a);
+  kernel<<<mg3z_grid(blk, a.H, a.chunk), dim3(MG3Z_COLS, MG3Z_ROWS), bytes, stream>>>(a,
+                                                                                      args...);
   return (int)cudaGetLastError();
 }
+
+// The strip instances of K11 and K12 (kStrips), each source of its own so
+// that nvcc builds them beside the whole-grid legs (mg_sharded_rr3d_zm.cu,
+// mg_sharded_pc3d_zm.cu); null where no instance takes the step count and
+// smoother.
+Mg3zStripKernel mg_sharded_rr3d_zm_pick(int steps, int smoother, int bc);
+Mg3zStripKernel mg_sharded_pc3d_zm_pick(int steps, int smoother, int bc);

@@ -33,10 +33,11 @@ row-sharded mesh, its halo rows from the neighbours' strips:
   K13 ``mg_sharded_packed_rr`` — ``packed_rr_sharded``
   K14 ``mg_sharded_packed_pc`` — ``packed_pc_sharded``
 
-K5/K6 run two tiles by halo depth (``zmarch3d``): the z-marching tile of
-``csrc/stencil3d_zm.cuh`` at halos <= 4 (the main path's), the cube tile of
-``csrc/stencil3d.cuh`` beyond, which K4 and the strip entries K11/K12 run
-at every halo.
+K5/K6 and their strip entries K11/K12 run two tiles by halo depth
+(``zmarch3d``): the z-marching tile of ``csrc/stencil3d_zm.cuh`` at halos
+<= 4 (the main path's; K11/K12 in its strip-fed form, over a rank's block
+with its own chunk table), the cube tile of ``csrc/stencil3d.cuh`` beyond,
+which K4 runs at every halo.
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
@@ -85,11 +86,12 @@ TILE_FILL_WARPS = 528
 # (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
 # nu <= 3, K4 alone jacobi/wjacobi nu <= 8 and rbgs nu <= 4
 MAX_HALO_3D = 8
-# the whole-grid K5/K6 at a halo <= ZM_MAX_HALO run the z-marching tile of
-# csrc/stencil3d_zm.cuh: ZM_COLS x ZM_COLS loaded cells per plane (a warp
-# per row), a chunk of planes per block from the chunk table (zm_chunk,
-# tuned for the ZM_SMS SMs of an H100); deeper halos, K4 and the strip
-# entries K11/K12 run the cube tile of csrc/stencil3d.cuh (tile3d)
+# K5/K6 and the strip entries K11/K12 at a halo <= ZM_MAX_HALO run the
+# z-marching tile of csrc/stencil3d_zm.cuh: ZM_COLS x ZM_COLS loaded cells
+# per plane (a warp per row), a chunk of planes per block from the chunk
+# table (zm_chunk, over the grid or a rank's block, tuned for the ZM_SMS
+# SMs of an H100); deeper halos and K4 run the cube tile of
+# csrc/stencil3d.cuh (tile3d)
 ZM_COLS = 32
 ZM_MAX_HALO = 4
 ZM_SMS = 132
@@ -167,8 +169,9 @@ def shared_bytes_3d(halo: int, pc: bool = False) -> int:
 
 
 def zmarch3d(halo: int) -> bool:
-    """Whether the whole-grid 3D legs (K5, K6) run the z-marching tile at
-    this halo depth, else the cube tile: csrc/stencil3d_zm.cuh mg3z_takes."""
+    """Whether the 3D legs (K5, K6 and their strip entries K11, K12) run
+    the z-marching tile at this halo depth, else the cube tile:
+    csrc/stencil3d_zm.cuh mg3z_takes."""
     return halo <= ZM_MAX_HALO
 
 
@@ -177,17 +180,20 @@ def tile3d_zm(halo: int) -> int:
     return ZM_COLS - 2 * halo
 
 
-def zm_chunk(n: int, halo: int) -> int:
-    """Planes per z-marching block on an n^3 level at this halo: the chunk
-    table of mg3z_chunk.  One block runs per SM, so a launch takes
-    ceil(blocks / ZM_SMS) rounds of c + 2 halo plane-steps; the chunk c
-    (n, n/2, ... down to ZM_MIN_CHUNK) with the fewest in all, the larger
-    on a tie."""
+def zm_chunk(n: int, halo: int, nzl: int | None = None, nyl: int | None = None) -> int:
+    """Planes per z-marching block at this halo on a block of nzl planes of
+    nyl rows of n cells (by default the whole n^3 level): the chunk table of
+    mg3z_chunk.  One block runs per SM, so a launch over ceil(n/T)
+    ceil(nyl/T) columns takes ceil(blocks / ZM_SMS) rounds of c + 2 halo
+    plane-steps; the chunk c (nzl, nzl/2, ... down to ZM_MIN_CHUNK) with
+    the fewest in all, the larger on a tie."""
+    nzl = n if nzl is None else nzl
+    nyl = n if nyl is None else nyl
     t = tile3d_zm(halo)
-    cols = -(-n // t)
-    best, best_cost, c = n, None, n
-    while c >= 1 and n % c == 0 and (c == n or c >= ZM_MIN_CHUNK):
-        cost = -(-(cols * cols * (n // c)) // ZM_SMS) * (c + 2 * halo)
+    cols = -(-n // t) * -(-nyl // t)
+    best, best_cost, c = nzl, None, nzl
+    while c >= 1 and nzl % c == 0 and (c == nzl or c >= ZM_MIN_CHUNK):
+        cost = -(-(cols * (nzl // c)) // ZM_SMS) * (c + 2 * halo)
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
         if c & 1:
@@ -196,14 +202,18 @@ def zm_chunk(n: int, halo: int) -> int:
     return best
 
 
-def blocks3d(n: int, halo: int) -> int:
-    """Number of blocks of a whole-grid 3D launch (K5, K6) on an n^3 level
-    at this halo (one rnorm partial each): the z-marching tile's (x, y,
-    chunk) grid, or the cube tile's T^3 blocks."""
+def blocks3d(n: int, halo: int, nzl: int | None = None, nyl: int | None = None) -> int:
+    """Number of blocks of a 3D leg's launch at this halo (one rnorm partial
+    each) on a block of nzl planes of nyl rows of n cells (by default the
+    whole n^3 level): the z-marching tile's (x, y, chunk) grid, or the cube
+    tile's T^3 blocks."""
+    nzl = n if nzl is None else nzl
+    nyl = n if nyl is None else nyl
     if zmarch3d(halo):
         t = tile3d_zm(halo)
-        return (-(-n // t)) ** 2 * -(-n // zm_chunk(n, halo))
-    return (-(-n // tile3d(halo))) ** 3
+        return -(-n // t) * -(-nyl // t) * -(-nzl // zm_chunk(n, halo, nzl, nyl))
+    t = tile3d(halo)
+    return -(-n // t) * -(-nyl // t) * -(-nzl // t)
 
 
 def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False) -> int:
@@ -265,7 +275,7 @@ def _half(shape):
 
 def _geometry(u, halo):
     """The launch's size arguments: n, and in 3D the cube tile's side too
-    (used where zmarch3d(halo) is false)."""
+    (used where zmarch3d(halo) is false, as by the strip entries' `tile`)."""
     n = u.shape[0]
     return (n,) if u.ndim == 2 else (n, tile3d(halo))
 
@@ -283,15 +293,14 @@ def rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
 
 def strip_rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
     """The same for a strip up-leg (K10, K12) on one rank's block of this
-    shape: in 2D the tile table's blocks, in 3D the cube tile's T^3 blocks
-    over (n_global, shape[0], shape[1]) (x whole) at the halo steps + 1."""
+    shape: in 2D the tile table's blocks, in 3D the blocks of blocks3d over
+    the (shape[0], shape[1], n_global) block (x whole) at the halo
+    steps + 1: the z-marching grid at halos <= ZM_MAX_HALO, the cube tile's
+    T^3 blocks beyond."""
     halo = _steps(nu, smoother) + 1
     if len(shape) == 2:
         return blocks2d(shape[0], shape[1], halo)
-    t, blocks = tile3d(halo), 1
-    for s in (n_global, shape[0], shape[1]):
-        blocks *= -(-s // t)
-    return blocks
+    return blocks3d(n_global, halo, shape[0], shape[1])
 
 
 def _scalars(h, ndim):

@@ -243,9 +243,11 @@ def test_launch_counters(card):
 
 
 # the strip kernels: blocks below one tile, of one tile and of several, on
-# meshes with and without a column neighbour
-SHARDED = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (2, 4096, (2, 2)),
-           (3, 32, (2, 2)), (3, 64, (4, 1))]
+# meshes with and without a column neighbour; in 3D every side 256 ... 8 on
+# both meshes (blocks of 2 planes up to (128, 128, 256) and (64, 256,
+# 256), one z-marching chunk or several)
+SHARDED = ([(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (2, 4096, (2, 2))]
+           + [(3, n, mesh) for n in (256, 128, 64, 32, 16, 8) for mesh in ((2, 2), (4, 1))])
 
 
 def _blocks(n, mesh, ndim):
@@ -256,30 +258,137 @@ def _blocks(n, mesh, ndim):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ndim,n,mesh", SHARDED)
-@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 2), ("jacobi", 1)])
+@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 2), ("jacobi", 1),
+                                         ("rbgs", 1)])
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
 def test_sharded_kernels_vs_plain(card, ndim, n, mesh, smoother, nu, bc):
+    """Every block's outputs against the plain block ops; in 3D they are
+    equal bit for bit (K11/K12 round as the plain ops do on either tile),
+    and stitched over the blocks they equal K5/K6 on the whole grid."""
     u, f, V = _data(n, n + nu, card, ndim)
     d = ops.sweep_radius(smoother) * nu + 1
     cols = mesh[1] > 1
+    h = 1.0 / n
+
+    def same(got, want):
+        if ndim == 3:
+            assert torch.equal(got, want)
+        assert _nmax(got, want) <= 1e-5
+
+    whole = {"rr": cuda.smooth_residual_restrict(u, f, h, nu, smoother, bc),
+             "rrz": cuda.smooth_residual_restrict_zero(f, h, nu, smoother, bc)}
+    for kind in ("inject", "bilinear"):
+        whole[kind] = (cuda.prolong_correct_smooth(u, f, V, h, nu, smoother, bc, kind),
+                       *cuda.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother, bc, kind))
+    st = {k: [torch.empty_like(x) for x in v[:2]] for k, v in whole.items()}
+    r2 = dict.fromkeys(("inject", "bilinear"), 0.0)
     for origin, shape in _blocks(n, mesh, ndim):
         ub, us = block_from_grid(u, origin, shape, d, cols)
         fb, fs = block_from_grid(f, origin, shape, d, cols)
         vb, vs = block_from_grid(V, [o // 2 for o in origin], [s // 2 for s in shape],
                                  ops.coarse_depth(d), cols)
-        a = (origin, n, 1.0 / n, nu, smoother, bc)
-        for got, want in zip(cuda.smooth_rr_sharded(ub, fb, us, fs, *a)
-                             + cuda.smooth_rr_sharded(None, fb, None, fs, *a, zero=True),
-                             ops.smooth_rr_sharded(ub, fb, us, fs, *a)
-                             + ops.smooth_rr_sharded(None, fb, None, fs, *a, zero=True)):
-            assert _nmax(got, want) <= 1e-5
+        fine = tuple(slice(o, o + s) for o, s in zip(origin, shape[:2]))
+        coarse = tuple(slice(o // 2, (o + s) // 2) for o, s in zip(origin, shape[:2]))
+        a = (origin, n, h, nu, smoother, bc)
+        for key, args, zero in (("rr", (ub, fb, us, fs), False),
+                                ("rrz", (None, fb, None, fs), True)):
+            got = cuda.smooth_rr_sharded(*args, *a, zero=zero)
+            for g, w in zip(got, ops.smooth_rr_sharded(*args, *a, zero=zero)):
+                same(g, w)
+            st[key][0][fine], st[key][1][coarse] = got
         for kind in ("inject", "bilinear"):
-            pa = (ub, fb, vb, us, fs, vs, origin, n, 1.0 / n, nu, smoother, bc, kind)
-            assert _nmax(cuda.pc_smooth_sharded(*pa), ops.pc_smooth_sharded(*pa)) <= 1e-5
+            pa = (ub, fb, vb, us, fs, vs, origin, n, h, nu, smoother, bc, kind)
+            got = cuda.pc_smooth_sharded(*pa)
+            same(got, ops.pc_smooth_sharded(*pa))
             (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
                                   ops.pc_smooth_sharded(*pa, rnorm=True))
-            assert _nmax(gu, wu) <= 1e-5
+            same(gu, wu)
             assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+            st[kind][0][fine], st[kind][1][fine] = got, gu
+            r2[kind] += float(g2)
+    if ndim == 3:
+        for key, outs in st.items():
+            for got, want in zip(outs, whole[key]):
+                assert torch.equal(got, want), key
+        for kind, total in r2.items():
+            assert abs(total / float(whole[kind][2]) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+def _guarded(x, pad):
+    """x in the middle of a NaN-filled buffer: a kernel that reads past
+    either end of x reads NaN."""
+    buf = torch.full((x.numel() + 2 * pad,), float("nan"), device=x.device)
+    buf[pad:pad + x.numel()] = x.reshape(-1)
+    return buf[pad:pad + x.numel()].view(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 1), ("jacobi", 2)])
+def test_sharded3d_kernels_read_nothing_beyond_their_strips(card, mesh, smoother, nu):
+    """K11/K12 on the z-marching tile read only their block and strips:
+    with the strips exactly as deep as the legs need (D = the halo, DV =
+    ops.coarse_depth(D)) and every array in the middle of NaN, the outputs
+    still equal the plain ones.  At halo 4 (wjacobi nu = 3 with rnorm) the
+    coarse ring's last prefetch lies one plane past V's bottom strip of
+    every block, and its first planes at the top strip's first."""
+    n = 64
+    u, f, V = _data(n, 31 + nu, card, ndim=3)
+    h, cols = 1.0 / n, mesh[1] > 1
+    for rnorm in (False, True):
+        d = ops.sweep_radius(smoother) * nu + rnorm
+        for origin, shape in _blocks(n, mesh, 3):
+            ub, us = block_from_grid(u, origin, shape, d, cols)
+            fb, fs = block_from_grid(f, origin, shape, d, cols)
+            vb, vs = block_from_grid(V, [o // 2 for o in origin], [s // 2 for s in shape],
+                                     ops.coarse_depth(d), cols)
+            pad = ub.numel()
+            g = [[_guarded(x, pad) if x is not None else None for x in xs]
+                 for xs in ((ub, fb, vb), us, fs, vs)]
+            a = (origin, n, h, nu, smoother, "face")
+            if rnorm:
+                for got, want in zip(cuda.smooth_rr_sharded(g[0][0], g[0][1], g[1], g[2], *a),
+                                     ops.smooth_rr_sharded(ub, fb, us, fs, *a)):
+                    assert torch.equal(got, want)
+            pa = (*g[0], *g[1:], *a, "bilinear")
+            want = ops.pc_smooth_sharded(ub, fb, vb, us, fs, vs, *a, "bilinear", rnorm=rnorm)
+            got = cuda.pc_smooth_sharded(*pa, rnorm=rnorm)
+            if rnorm:
+                assert torch.equal(got[0], want[0])
+                assert abs(float(got[1]) / float(want[1]) - 1.0) <= 1e-5
+            else:
+                assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+# the cube tile (K4 at every halo, K5/K6 and K11/K12 at halos 5-8) rounds
+# as the plain ops do since it takes each add and multiply on its own: its
+# outputs equal them bit for bit.  n = 2, face, jacobi nu = 4 puts K5's
+# 1x1x1 coarse R, a sum with cancellation, at halo 5.
+CUBE_CASES = [(n, s, nu) for n in (2, 4, 8, 16, 32)
+              for s, nu in (("jacobi", 4), ("rbgs", 2), ("wjacobi", 5), ("jacobi", 7))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,smoother,nu", CUBE_CASES)
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_cube_tile_rounds_like_plain(card, n, smoother, nu, bc):
+    u, f, V = _data(n, 3 * n + nu, card, ndim=3)
+    a = (1.0 / n, nu, smoother, bc)
+    assert torch.equal(cuda.smooth(u, f, *a), ops.smooth(u, f, *a))
+    for got, want in zip(cuda.smooth_residual_restrict(u, f, *a)
+                         + cuda.smooth_residual_restrict_zero(f, *a),
+                         ops.smooth_residual_restrict(u, f, *a)
+                         + ops.smooth_residual_restrict_zero(f, *a)):
+        assert torch.equal(got, want)
+    for kind in ("inject", "bilinear"):
+        pa = (u, f, V, *a, kind)
+        assert torch.equal(cuda.prolong_correct_smooth(*pa), ops.prolong_correct_smooth(*pa))
+        (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
+                              ops.prolong_correct_smooth_rnorm(*pa))
+        assert torch.equal(gu, wu)
+        assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
     torch.cuda.synchronize()
 
 

@@ -280,15 +280,84 @@ def test_k6_rnorm_partials_match_the_launch(smoother, nu):
 @pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
 @pytest.mark.parametrize("smoother,nu", _admitted(residual=True))
 def test_k12_strip_partials_keep_the_cube_tile(mesh, smoother, nu):
-    """K12 (the strip entry) keeps the cube tile at every halo: one
-    partial per T^3 block over (n, nzl, nyl), as before the z-marching
-    tile."""
+    """K12 (the strip entry) with rnorm writes one partial per block of its
+    launch over the rank's (nzl, nyl, n) block: the z-marching grid (x,
+    y, chunk from the chunk table over the block) at halos <= 4, and it
+    keeps the cube tile's T^3 blocks over (n, nzl, nyl) beyond."""
     halo = (2 * nu if smoother == "rbgs" else nu) + 1
-    t = cuda.tile3d(halo)
     for n in SIDES_3D[2:]:
         shape = (n // mesh[0], n // mesh[1], n)
-        want = -(-n // t) * -(-shape[0] // t) * -(-shape[1] // t)
+        if cuda.zmarch3d(halo):
+            t = cuda.tile3d_zm(halo)
+            c = cuda.zm_chunk(n, halo, shape[0], shape[1])
+            want = -(-n // t) * -(-shape[1] // t) * (shape[0] // c)
+        else:
+            t = cuda.tile3d(halo)
+            want = -(-n // t) * -(-shape[0] // t) * -(-shape[1] // t)
         assert cuda.strip_rnorm_partials(shape, nu, smoother, n) == want
+
+
+# the strip entries K11/K12 on the z-marching tile: the chunk table over a
+# rank's block (nzl, nyl, n) of the (2, 2) and (4, 1) meshes
+BLOCK_SIDES = [2 ** k for k in range(2, 11)]   # 4 ... 1024
+
+
+def _block_cost(n, nzl, nyl, halo, c):
+    t = cuda.tile3d_zm(halo)
+    blocks = -(-n // t) * -(-nyl // t) * (nzl // c)
+    return -(-blocks // cuda.ZM_SMS) * (c + 2 * halo)
+
+
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1)])
+@pytest.mark.parametrize("n", BLOCK_SIDES)
+def test_zmarch_chunk_table_over_a_block(mesh, n):
+    """Over a rank's block the chunk divides nzl (every block owns whole
+    planes of the rank's), the launch grid covers the block with no block
+    beyond it, and the pick costs no more rounds x plane-steps than any
+    other chunk it may take, the largest of the cheapest."""
+    nzl, nyl = n // mesh[0], n // mesh[1]
+    for halo in range(0, cuda.ZM_MAX_HALO + 1):
+        c = cuda.zm_chunk(n, halo, nzl, nyl)
+        assert nzl % c == 0 and (c == nzl or c >= cuda.ZM_MIN_CHUNK)
+        t = cuda.tile3d_zm(halo)
+        gx, gy = -(-n // t), -(-nyl // t)
+        assert gx * t >= n and (gx - 1) * t < n and gy * t >= nyl and (gy - 1) * t < nyl
+        assert cuda.blocks3d(n, halo, nzl, nyl) == gx * gy * (nzl // c)
+        cands = [nzl >> k for k in range(0, 12)
+                 if (nzl >> k) >= 1 and ((nzl >> k) == nzl or (nzl >> k) >= cuda.ZM_MIN_CHUNK)]
+        costs = {k: _block_cost(n, nzl, nyl, halo, k) for k in cands}
+        best = min(costs.values())
+        assert c == max(k for k, v in costs.items() if v == best)
+
+
+def test_zmarch_chunk_table_at_the_sharded_path():
+    """The 256^3 solve on (2, 2): the (128, 128, 256) block at halo 4 (K11,
+    K12 with rnorm) has 11 x 6 = 66 columns and takes 64 planes per block,
+    132 blocks in one round of 72 plane-steps (128 planes: 66 blocks, one
+    round of 136); on (4, 1) the (64, 256, 256) block, 121 columns, takes
+    64 too.  The whole grid is the same table with nzl = nyl = n."""
+    assert cuda.zm_chunk(256, 4, 128, 128) == 64
+    assert cuda.blocks3d(256, 4, 128, 128) == 132
+    assert cuda.zm_chunk(256, 4, 64, 256) == 64
+    assert cuda.blocks3d(256, 4, 64, 256) == 121
+    for n in SIDES_3D:
+        for halo in range(0, cuda.ZM_MAX_HALO + 1):
+            assert cuda.zm_chunk(n, halo, n, n) == cuda.zm_chunk(n, halo)
+            assert cuda.blocks3d(n, halo, n, n) == cuda.blocks3d(n, halo)
+
+
+@pytest.mark.parametrize("leg", ["rr", "pc", "pc.rnorm"])
+def test_zmarch_strip_instances_fit_shared_memory(leg):
+    """The strip instances of K11 (rr), K12 and K12 with rnorm take the
+    whole-grid legs' shared memory (csrc/stencil3d_zm.cuh mg3z_bytes):
+    under 100 KB at every step count whose halo the z-marching tile takes."""
+    residual = leg != "pc"
+    for smoother, nu in [(sm, nu) for sm in SMOOTHERS_3D for nu in range(0, 5)]:
+        steps = 2 * nu if smoother == "rbgs" else nu
+        if not cuda.zmarch3d(steps + residual):
+            continue
+        got = cuda.shared_bytes_3d_zm(steps, rr=leg == "rr", pc=leg != "rr")
+        assert 0 < got <= 100 * 1024, (smoother, nu)
 
 
 @pytest.mark.parametrize("halo", range(0, cuda.ZM_MAX_HALO + 1))

@@ -97,4 +97,18 @@ def test_sass_diff_compares_the_shared_functions():
         {"function": k2[0], "instructions_old": 2, "instructions_new": 2, "identical": True},
         {"function": "_Z4gonev", "instructions_old": 1, "instructions_new": 2,
          "identical": False, "differing": 2,
-         "first_differences": [[0, "EXIT", "IADD3 R0, R1, 0x1, RZ"]]}]
+         "first_differences": [[0, "EXIT", "IADD3 R0, R1, 0x1, RZ"]], "registers_only": False}]
+
+
+def test_sass_diff_tells_a_register_renaming():
+    """Code that differs only in which registers it was given is flagged
+    registers_only; a changed instruction, immediate or operand kind is
+    not."""
+    from mgpoisson_torch.bench import sass_diff
+    old = ["S2R R19, SR_TID.X", "IMAD R23, R19, UR4, -R5", "@!P1 STG.E [R23], R19", "EXIT"]
+    renamed = ["S2R R7, SR_TID.X", "IMAD R9, R7.reuse, UR4, -R5", "@!P0 STG.E [R9], R7",
+               "EXIT"]
+    changed = ["S2R R7, SR_TID.X", "IMAD R9, R7, 0x4, -R7", "@!P0 STG.E [R9], R7", "EXIT"]
+    rows = sass_diff.compare({"f": old, "g": old}, {"f": renamed, "g": changed})
+    assert [(r["identical"], r["registers_only"]) for r in rows] == [(False, True),
+                                                                     (False, False)]
