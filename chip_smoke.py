@@ -8,7 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
               limit (nvidia-smi) and turns TF32 off.
 2. build    — builds every CUDA kernel from mgpoisson_torch/csrc (one nvcc
               per source, in parallel) and prints ptxas's registers, spills
-              and shared memory.
+              and shared memory (K8/K14 among them: the register tile's
+              instances), and the tiles' geometry.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
               (4096 ... 256) x bc x smoother x nu, and at every side below
@@ -45,12 +46,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
 8. parity_packed — the packed fine level of the fast scheme: pack/unpack
               exact on the card; K7 and K8 (both prolongation kinds, rnorm)
               against their plain packed versions at 16384 ... 256 x nu in
-              {1, 2, 3}; the unpacked result of each against K2 / K3 (rbgs,
+              {1, 2, 3}, every K8 output bit-equal, and K8 also at 128 ... 2
+              with nu = 1 and 3 (the checked edge path, sides below one
+              warp); the unpacked result of each against K2 / K3 (rbgs,
               ghost0) on the unpacked grid, two formulas that differ by add
               order only; then the time of K7, K8 and K8 with rnorm at
               4096^2 (rbgs nu = 1, bilinear, the fast scheme's fine
               settings) beside K2 and K3 at the same settings unpacked,
-              and the time of the solver's pack and unpack.
+              each pair with its device times and bounds, and the time of
+              the solver's pack and unpack.
 9. slice_fast — the fast-scheme 4096^2 f32 solve, packed, as in phase 4
               (cycles, relres, f64 re-check, launches), then the same spec
               with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
@@ -77,10 +81,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
               packed sharded solves of phase 12 (16384, 4096) x nu in {1, 2,
               3}, both prolongation kinds, with and without rnorm; each
               kernel's outputs stitched over the blocks against K7/K8 on the
-              whole packed grid (expected bit-equal: the same tiles, the same
-              arithmetic).  Then (timing_sharded_packed) K13/K14 on an
-              interior (4096, 16384) block beside K7/K8 on a whole 8192^2
-              array, each with its plain version and bound.
+              whole packed grid (the same tiles, the same arithmetic): every
+              K14 output bit-equal to its plain version and, stitched, to
+              K8; K13 stitched against K7 reported.  Then
+              (timing_sharded_packed) K13/K14 on an interior (4096, 16384)
+              block beside K7/K8 on a whole 8192^2 array, each with its
+              plain version and bound.
 12. spmd    — the sharded f32 solves through MultigridPoisson with a mesh: 4
               ranks spawned on the card over a gloo process group (the strips
               staged through host memory: NCCL refuses two ranks on one GPU)
@@ -351,6 +357,17 @@ def phase_build():
               f"{cuda.blocks3d(SPEC_3D.size, halo, nzl, nyl)} blocks, "
               f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of dynamic shared "
               "memory per block")
+    # the packed up-leg on the 2D register tile at the fast scheme's fine
+    # settings (rbgs nu = 1), on the whole 4096^2 grid and on the sharded
+    # 16384^2 solve's (4096, 16384) block; its ptxas lines are above
+    for name, nl, n in (("mg_packed_pc", 4096, 4096), ("mg_sharded_packed_pc", 4096, 16384)):
+        for rnorm in (False, True):
+            halo = 2 + rnorm
+            rows, cols = cuda.tile2d(nl, n, halo)
+            print(f"[build] {name}{'.rnorm' if rnorm else ''} at rbgs nu = 1 on ({nl}, {n}): "
+                  f"register tile, halo {halo} (even {halo + (halo & 1)}), {rows} x {cols} "
+                  f"owned cells per block of {cuda.TILE_WARPS} warps, "
+                  f"{cuda.blocks2d(nl, n, halo)} blocks, no dynamic shared memory")
 
 
 def _data(n, ndim, seed, dev):
@@ -521,42 +538,60 @@ def _time_cases(label, cases, shape, cells):
     return out
 
 
+def _beside(a, b):
+    """Two timed cases side by side: device ms, share of each one's bound,
+    and the ratio b / a of device and of event times."""
+    return (f"device {a['kernel_ms']:.4f} / {b['kernel_ms']:.4f} ms "
+            f"({b['kernel_ms'] / a['kernel_ms']:.3f}x), "
+            f"{100 * a['bound_ms'] / a['kernel_ms']:.1f} / "
+            f"{100 * b['bound_ms'] / b['kernel_ms']:.1f} % of the bounds "
+            f"{a['bound_ms']:.4f} / {b['bound_ms']:.4f} ms; events {a['ms']:.4f} / "
+            f"{b['ms']:.4f} ms ({b['ms'] / a['ms']:.3f}x)")
+
+
 def phase_parity_packed(dev, worst):
     """K7 and K8 against their plain packed versions at every fine side of
     the packed solves and nu in {1, 2, 3}; each unpacked result against the
-    unpacked kernels K2 / K3 (rbgs, ghost0) on the unpacked grid."""
-    for n in PACKED_SIDES:
+    unpacked kernels K2 / K3 (rbgs, ghost0) on the unpacked grid.  Every K8
+    output must equal its plain version bit for bit, here and at the sides
+    below (128 ... 2: the checked edge path, sides below one warp) with nu
+    = 1 and 3."""
+    for n in PACKED_SIDES + SMALL_SIDES:
         u, f, V = _data(n, 2, seed=n + 1, dev=dev)
         up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
         check(torch.equal(cuda.unpack_grid(up), u) and torch.equal(cuda.unpack_grid(fp), f),
               f"unpack(pack(u)) != u at {n}^2")
         h = 1.0 / n
-        for nu in (1, 2, 3):
+        full = n in PACKED_SIDES
+        for nu in (1, 2, 3) if full else (1, 3):
             row = [f"n={n} nu={nu}"]
             a = (h, nu)
-            (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, *a),
-                                  ops.packed_smooth_residual_restrict(up, fp, *a))
-            note(worst, "mg_packed_rr", "K7.u", gu, wu, row)
-            note(worst, "mg_packed_rr", "K7.R", gR, wR, row)
-            xu, xR = cuda.smooth_residual_restrict(u, f, h, nu, "rbgs", "ghost0")
-            note(worst, None, "K7~K2.u", cuda.unpack_grid(gu), xu, row, CROSS_TOL)
-            note(worst, None, "K7~K2.R", gR, xR, row, CROSS_TOL)
+            if full:
+                (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, *a),
+                                      ops.packed_smooth_residual_restrict(up, fp, *a))
+                note(worst, "mg_packed_rr", "K7.u", gu, wu, row)
+                note(worst, "mg_packed_rr", "K7.R", gR, wR, row)
+                xu, xR = cuda.smooth_residual_restrict(u, f, h, nu, "rbgs", "ghost0")
+                note(worst, None, "K7~K2.u", cuda.unpack_grid(gu), xu, row, CROSS_TOL)
+                note(worst, None, "K7~K2.R", gR, xR, row, CROSS_TOL)
             for kind in ("inject", "bilinear"):
                 pa = (up, fp, V, *a, kind)
                 tag = "K8" + kind[0]
                 gu = cuda.packed_prolong_correct_smooth(*pa)
-                note(worst, "mg_packed_pc", tag, gu, ops.packed_prolong_correct_smooth(*pa), row)
+                note(worst, "mg_packed_pc", tag, gu, ops.packed_prolong_correct_smooth(*pa), row,
+                     exact=True)
                 (gru, g2), (wru, w2) = (cuda.packed_prolong_correct_smooth_rnorm(*pa),
                                         ops.packed_prolong_correct_smooth_rnorm(*pa))
-                note(worst, "mg_packed_pc", tag + "r.u", gru, wru, row)
+                note(worst, "mg_packed_pc", tag + "r.u", gru, wru, row, exact=True)
                 note_r2(tag + "r.r2", g2, w2, row)
-                xa = (u, f, V, h, nu, "rbgs", "ghost0", kind)
-                note(worst, None, tag + "~K3", cuda.unpack_grid(gu),
-                     cuda.prolong_correct_smooth(*xa), row, CROSS_TOL)
-                note_r2(tag + "r~K3.r2", g2, cuda.prolong_correct_smooth_rnorm(*xa)[1], row,
-                        CROSS_TOL)
+                if full:
+                    xa = (u, f, V, h, nu, "rbgs", "ghost0", kind)
+                    note(worst, None, tag + "~K3", cuda.unpack_grid(gu),
+                         cuda.prolong_correct_smooth(*xa), row, CROSS_TOL)
+                    note_r2(tag + "r~K3.r2", g2, cuda.prolong_correct_smooth_rnorm(*xa)[1],
+                            row, CROSS_TOL)
             torch.cuda.synchronize()
-            print("[parity_packed] " + " ".join(row))
+            print("[parity_packed] " + " ".join(row) + "; K8 bit-equal")
         del u, f, V, up, fp
         torch.cuda.empty_cache()
 
@@ -594,7 +629,7 @@ def phase_timing_packed(dev, n):
                               ("mg_packed_pc", "mg_prolong_correct_smooth@rbgs"),
                               ("mg_packed_pc.rnorm", "mg_prolong_correct_smooth.rnorm@rbgs")):
         print(f"[timing_packed] packed {packed_name} against unpacked {name}: "
-              f"{out[name]['ms'] / out[packed_name]['ms']:.3f}x")
+              + _beside(out[packed_name], out[name]))
     # the solver's pack of psi and f and unpack of psi, once per solve
     # (plain torch: exact data movement)
     print(f"[timing_packed] pack_grid {event_ms(lambda: cuda.pack_grid(u), TIMING_REPS):.4f} ms, "
@@ -948,8 +983,10 @@ def phase_parity_sharded_packed(dev, worst):
     """K13/K14 against their plain versions at every block of (4, 1) and
     every fine side of packed_sharded_sides, nu in {1, 2, 3}, both
     prolongation kinds, with and without rnorm; each kernel's outputs
-    stitched over the blocks against K7/K8 on the whole packed grid, where
-    they are expected bit-equal (the same arithmetic on the same values)."""
+    stitched over the blocks against K7/K8 on the whole packed grid.  Every
+    K14 output must equal its plain version and, stitched, K8 bit for bit
+    (the same tile and arithmetic on the same values); K13 stitched is
+    expected bit-equal to K7 and reported."""
     mx = 4
     for n in packed_sharded_sides():
         u, f, V = _data(n, 2, seed=n + 9, dev=dev)
@@ -984,10 +1021,11 @@ def phase_parity_sharded_packed(dev, worst):
                     pa = (ub, fb, vb, us, fs, vs, *b, kind)
                     tag = "K14" + kind[0]
                     gp = cuda.packed_pc_sharded(*pa)
-                    w.note("mg_sharded_packed_pc", tag, gp, ops.packed_pc_sharded(*pa))
+                    w.note("mg_sharded_packed_pc", tag, gp, ops.packed_pc_sharded(*pa),
+                           exact=True)
                     (gr, g2), (wr, w2) = (cuda.packed_pc_sharded(*pa, rnorm=True),
                                           ops.packed_pc_sharded(*pa, rnorm=True))
-                    w.note("mg_sharded_packed_pc", tag + "r.u", gr, wr)
+                    w.note("mg_sharded_packed_pc", tag + "r.u", gr, wr, exact=True)
                     w.tags[tag + "r.r2"] = max(w.tags.get(tag + "r.r2", 0.0),
                                                abs(float(g2) / float(w2) - 1.0))
                     st[kind][fine], st[kind + "r"][fine] = gp, gr
@@ -1001,14 +1039,16 @@ def phase_parity_sharded_packed(dev, worst):
                 w.tags[f"K14{k}r~K8r.r2"] = abs(r2[kind] / float(whole[kind + "r"][1]) - 1.0)
             gaps = []
             for tag, got, want in pairs:
-                w.note(None, tag, got, want)
+                w.note(None, tag, got, want, exact=tag.startswith("K14"))
                 if not torch.equal(got, want):
                     gaps.append(f"{tag} max |diff| {nmax(got, want)[1]:.3e}")
             w.check(row)
-            row.append("stitched: bit-equal to K7/K8" if not gaps
+            row.append("K14 blocks bit-equal to plain; stitched: bit-equal to K7/K8" if not gaps
                        else "stitched: NOT bit-equal to K7/K8: " + "; ".join(gaps))
             torch.cuda.synchronize()
             print("[parity_sharded_packed] " + " ".join(row))
+            check(not w.unequal, f"{row[0]}: K14 not bit-equal where it must be: "
+                  f"{'; '.join(w.unequal)}")
             del whole, st
             torch.cuda.empty_cache()
         del up, fp, V
@@ -1066,7 +1106,7 @@ def phase_timing_sharded_packed(dev):
                             ("mg_sharded_packed_pc", "mg_packed_pc"),
                             ("mg_sharded_packed_pc.rnorm", "mg_packed_pc.rnorm")):
         print(f"[timing_sharded_packed] {sharded} on a ({nl}, {n}) block against {single} "
-              f"on {m}^2: {out[sharded]['ms'] / t[f'{single}@{m}']['ms']:.3f}x")
+              f"on {m}^2: " + _beside(out[sharded], t[f"{single}@{m}"]))
     del up, fp, V
     torch.cuda.empty_cache()
     return out

@@ -3,7 +3,8 @@
     python3 -m mgpoisson_torch.bench.ab --old build/parent/mgpoisson_torch/csrc \\
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
         [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
-        [--old-strip3d] [--reps 25]
+        [--old-strip3d] [--packed 4096 ...] [--sharded-packed 16384]
+        [--old-packed-tile 32] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -18,7 +19,12 @@ nu = 1;
 then their strip entries K11, K11 from zero, K12 and K12 with rnorm on the
 (0, 0) block of a (2, 2) mesh of --sharded3d^3, with the same two
 settings (K11/K12 only with --sharded3d; an empty --sides or --sides3d,
-or --sharded 0, skips that part).  Each case is timed old, new, new, old,
+or --sharded 0, skips that part); then the packed legs of the fast
+scheme's fine level at every --packed side: K8 and K8 with rnorm, both
+prolongation kinds, and K7 beside them as a control, at rbgs nu = 1, 2, 3;
+then K14 and K14 with rnorm (bilinear, nu = 1) and K13 as a control on
+the interior (n/4, n) block of --sharded-packed^2 on (4, 1), its strips
+as the solver exchanges them.  Each case is timed old, new, new, old,
 each time two ways: CUDA events around each call, median of --reps calls
 (`*_ms`, what chip_smoke.py reports; at small sides it is the host's
 enqueue time), and the kernels' own device time per call from
@@ -33,7 +39,10 @@ build whose 2D legs ran one thread per cell of a 32 x 32 tile); with
 --old-tile3d the old build's whole-grid K6 runs the cube tile of
 csrc/stencil3d.cuh at every halo (a build without the z-marching tile),
 so its partials are one per T^3 block; with --old-strip3d the old build's
-K12 does (a build whose strip entries K11/K12 keep the cube tile).  Prints
+K12 does (a build whose strip entries K11/K12 keep the cube tile); with
+--old-packed-tile T the old build's K8/K14 write one per T x T packed tile
+(32: a build whose packed up-leg ran the shared-memory tile of
+csrc/packed.cuh).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 """
@@ -71,13 +80,15 @@ class Builds:
     """The two libraries and a switch between them for kernels.cuda."""
 
     def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False,
-                 old_strip3d=False):
+                 old_strip3d=False, old_packed_tile=0):
         root = build.BUILD_DIR.parent / "ab"
         self.libs = {"old": build.load_library(build.build(old_csrc, root)),
                      "new": build.load()}
         self.old_tile, self.old_tile3d, self.old_strip3d = old_tile, old_tile3d, old_strip3d
+        self.old_packed_tile = old_packed_tile
         self.rnorm_partials = cuda.rnorm_partials
         self.strip_rnorm_partials = cuda.strip_rnorm_partials
+        self.packed_rnorm_partials = cuda.packed_rnorm_partials
         self.table = {"new": (cuda.TILE_WARPS, cuda.TILE_ROWS),
                       "old": old_table or (cuda.TILE_WARPS, cuda.TILE_ROWS)}
 
@@ -87,8 +98,12 @@ class Builds:
         cuda.TILE_WARPS, cuda.TILE_ROWS = self.table[which]
         cuda.rnorm_partials = self.rnorm_partials
         cuda.strip_rnorm_partials = self.strip_rnorm_partials
+        cuda.packed_rnorm_partials = self.packed_rnorm_partials
         if which == "new":
             return
+        if self.old_packed_tile:
+            pt = self.old_packed_tile
+            cuda.packed_rnorm_partials = lambda nl, n, nu: -(-(n // 2) // pt) * -(-nl // pt)
         t, cube, base = self.old_tile, self.old_tile3d, self.rnorm_partials
 
         def partials(shape, nu, smoother, n):
@@ -199,6 +214,46 @@ def _cases_sharded3d(n, smoother, nu, dev):
     return cases, inputs
 
 
+def _cases_packed(n, nu, dev):
+    g = torch.Generator(device=dev).manual_seed(n + nu + 2)
+    u, f, V = (torch.randn((s, s), generator=g, device=dev) for s in (n, n, n // 2))
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    del u, f
+    h = 1.0 / n
+    cases = {"K7": lambda: cuda.packed_smooth_residual_restrict(up, fp, h, nu)}
+    inputs = {"K7": (up, fp)}
+    for kind in ("bilinear", "inject"):
+        k = "" if kind == "bilinear" else " inject"
+        cases["K8" + k] = lambda kind=kind: cuda.packed_prolong_correct_smooth(
+            up, fp, V, h, nu, kind)
+        cases["K8.rnorm" + k] = lambda kind=kind: cuda.packed_prolong_correct_smooth_rnorm(
+            up, fp, V, h, nu, kind)
+        inputs["K8" + k] = inputs["K8.rnorm" + k] = (up, fp, V)
+    return cases, inputs
+
+
+def _cases_sharded_packed(n, dev):
+    """K13/K14 on the interior block (n/4, n) at row n/4 of n^2 on (4, 1),
+    rbgs nu = 1, bilinear: the sharded fast solve's fine block."""
+    spec = Spec(size=n, dtype="float32", scheme="fast")
+    d, nu, nl = exchange_depth(spec), 1, n // 4
+    g = torch.Generator(device=dev).manual_seed(23)
+    rand = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    ub, fb, vb = rand(nl, n), rand(nl, n), rand(nl // 2, n // 2)
+    us, fs = (rand(d, n), rand(d, n), None, None), (rand(d, n), rand(d, n), None, None)
+    vs = (rand(ops.coarse_depth(d), n // 2), rand(ops.coarse_depth(d), n // 2), None, None)
+    b = ((nl, 0), n, 1.0 / n, nu)
+    cases = {
+        "K13": lambda: cuda.packed_rr_sharded(ub, fb, us, fs, *b),
+        "K14": lambda: cuda.packed_pc_sharded(ub, fb, vb, us, fs, vs, *b, "bilinear"),
+        "K14.rnorm": lambda: cuda.packed_pc_sharded(ub, fb, vb, us, fs, vs, *b, "bilinear",
+                                                    rnorm=True),
+    }
+    inputs = {"K13": (ub, fb, us, fs), "K14": (ub, fb, vb, us, fs, vs),
+              "K14.rnorm": (ub, fb, vb, us, fs, vs)}
+    return cases, inputs
+
+
 def _run(builds, label, cases, inputs, reps):
     for name, call in cases.items():
         outs = {}
@@ -250,6 +305,14 @@ def main(argv=None):
     ap.add_argument("--old-strip3d", action="store_true",
                     help="the other build's K12 runs the cube tile at every halo (before "
                     "the strip-fed z-marching tile)")
+    ap.add_argument("--packed", type=int, nargs="*", default=[],
+                    help="sides of the packed legs K7/K8 at rbgs nu = 1, 2, 3")
+    ap.add_argument("--sharded-packed", type=int, default=0,
+                    help="global side of the (4, 1) mesh for K13/K14 (16384: the sharded "
+                    "fast solve's block); 0, the default, skips")
+    ap.add_argument("--old-packed-tile", type=int, default=0,
+                    help="the other build's packed tile side (its K8/K14 rnorm partials, one "
+                    "per T x T packed tile), 32 before the register tile; 0: the register tile")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -260,7 +323,8 @@ def main(argv=None):
     print(f"card: {smi.stdout.strip()}", flush=True)
     dev = torch.device("cuda")
     table = args.old_table and (args.old_table[0], tuple(args.old_table[1:]))
-    builds = Builds(args.old, args.old_tile, table, args.old_tile3d, args.old_strip3d)
+    builds = Builds(args.old, args.old_tile, table, args.old_tile3d, args.old_strip3d,
+                    args.old_packed_tile)
     settings = [(n, "wjacobi", 3) for n in args.sides]
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))
@@ -283,6 +347,18 @@ def main(argv=None):
     for smoother, nu in (("wjacobi", 3), ("rbgs", 1)) if args.sharded3d else ():
         cases, inputs = _cases_sharded3d(args.sharded3d, smoother, nu, dev)
         _run(builds, f"(0, 0) block of {args.sharded3d}^3 on (2, 2) {smoother} nu={nu}",
+             cases, inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
+    for n, nu in itertools.product(args.packed, (1, 2, 3)):
+        cases, inputs = _cases_packed(n, nu, dev)
+        _run(builds, f"{n}^2 packed rbgs nu={nu}", cases, inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
+    if args.sharded_packed:
+        n = args.sharded_packed
+        cases, inputs = _cases_sharded_packed(n, dev)
+        _run(builds, f"({n // 4}, {n}) block at row {n // 4} of {n}^2 on (4, 1) rbgs nu=1",
              cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()

@@ -28,18 +28,6 @@
 // butterfly of shuffles per warp and an ordered sum of the block's warps.
 #include "stencil.cuh"
 
-// Coarse cell (lI, lJ) of the block's V (global (gI, gJ)), 0 outside the
-// coarse grid: from the array or, fed by strips, from the one that holds it.
-template <bool kStrips>
-static __device__ __forceinline__ float mg2_coarse(const float* __restrict__ V,
-                                                   const MgStrips& vs, const Mg2Tile& t, int lI,
-                                                   int lJ, int gI, int gJ) {
-  const int nc = t.n / 2;
-  if (!mg_in(gI, nc) || !mg_in(gJ, nc)) return 0.f;
-  if (kStrips) return mg_fetch(V, vs, lI, lJ, t.nl / 2, t.ml / 2);
-  return V[(size_t)gI * nc + gJ];
-}
-
 // P(V) of one fine cell in ops.prolong's order: per axis the bilinear
 // weights are (a, b) = (0.75, 0.25) inside and (0.5, 0) at the GLOBAL fine
 // edges, R the parent, S0 the coarse neighbour across rows on the side of

@@ -1,7 +1,7 @@
-// Shared tile machinery of the packed red-black kernels of the fast scheme's
-// fine level: K7 mg_packed_rr and K8 mg_packed_pc on the whole grid, and
-// their strip-fed twins K13 mg_sharded_packed_rr and K14
-// mg_sharded_packed_pc on one rank's block of a row-sharded mesh.
+// Shared-memory tile of the packed down-leg of the fast scheme's fine level:
+// K7 mg_packed_rr on the whole grid and its strip-fed twin K13
+// mg_sharded_packed_rr on one rank's block of a row-sharded mesh.  (The
+// packed up-leg K8/K14 runs the register tile, stencil_packed.cuh.)
 //
 // The fine-level state stays checkerboard-packed for the whole solve: an
 // (n, n) array whose left half holds the red cells and right half the black,

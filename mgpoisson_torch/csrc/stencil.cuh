@@ -1,7 +1,8 @@
 // Shared tile machinery of the 2D stencil kernels (K1 mg_smooth, K2
 // mg_smooth_rr, K3 mg_prolong_correct_smooth, and the strip-fed K9
 // mg_sharded_rr and K10 mg_sharded_pc of a sharded level).  The 3D tile
-// (stencil3d.cuh) takes the enums, mg_steps and mg_in from here.
+// (stencil3d.cuh) takes the enums, mg_steps and mg_in from here; the
+// packed up-leg K8/K14 runs this tile on packed state (stencil_packed.cuh).
 //
 // One 2D-tiled geometry replaces the Pallas kernels' three (row stripes,
 // whole-array VMEM, two-axis blocks), which exist only because of the TPU's
@@ -261,6 +262,19 @@ static __device__ __forceinline__ float2 mg2_fetch2(const float* body, const MgS
     return p ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
   }
   return make_float2(mg_fetch(body, s, li, lj, nl, ml), mg_fetch(body, s, li, lj + 1, nl, ml));
+}
+
+// Coarse cell (lI, lJ) of the block's V (global (gI, gJ)) of an up-leg
+// (K3/K10, K8/K14), 0 outside the coarse grid: from the array or, fed by
+// strips, from the one that holds it.
+template <bool kStrips>
+static __device__ __forceinline__ float mg2_coarse(const float* __restrict__ V,
+                                                   const MgStrips& vs, const Mg2Tile& t, int lI,
+                                                   int lJ, int gI, int gJ) {
+  const int nc = t.n / 2;
+  if (!mg_in(gI, nc) || !mg_in(gJ, nc)) return 0.f;
+  if (kStrips) return mg_fetch(V, vs, lI, lJ, t.nl / 2, t.ml / 2);
+  return V[(size_t)gI * nc + gJ];
 }
 
 // Loads the warp's R rows of X into x, the lane's even and odd column;

@@ -37,7 +37,11 @@ K5/K6 and their strip entries K11/K12 run two tiles by halo depth
 (``zmarch3d``): the z-marching tile of ``csrc/stencil3d_zm.cuh`` at halos
 <= 4 (the main path's; K11/K12 in its strip-fed form, over a rank's block
 with its own chunk table), the cube tile of ``csrc/stencil3d.cuh`` beyond,
-which K4 runs at every halo.
+which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
+register tile of ``csrc/stencil.cuh``, and so do the packed up-leg K8 and
+its strip entry K14 on packed state (``csrc/stencil_packed.cuh``); the
+packed down-leg K7 and its strip entry K13 run the shared-memory tile of
+``csrc/packed.cuh``.
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
@@ -96,10 +100,8 @@ ZM_COLS = 32
 ZM_MAX_HALO = 4
 ZM_SMS = 132
 ZM_MIN_CHUNK = 32
-# packed kernels: the JAX package's sweep cap (pallas.py packed_plan) and
-# the tile side in rows and packed lanes, MGP_TILE in csrc/packed.cuh
+# packed kernels: the JAX package's sweep cap (pallas.py packed_plan)
 PACKED_MAX_NU = 3
-PACKED_TILE = 32
 
 # Launches per kernel, counted where the wrapper launches it; ".zero" and
 # ".rnorm" count the flagged launches among them.  Read and reset by
@@ -416,6 +418,14 @@ def packed_supports(n: int, dtype: torch.dtype, nu: int) -> bool:
     return dtype == torch.float32 and n >= 2 and n % 2 == 0 and 1 <= nu <= PACKED_MAX_NU
 
 
+def packed_rnorm_partials(nl: int, n: int, nu: int) -> int:
+    """Number of f32 Sigma r^2 partials, one per thread block, that the
+    packed up-leg with rnorm (K8 on the grid, nl = n; K14 on a block of nl
+    whole rows) writes: it runs the 2D register tile on the fine geometry
+    of the packed (nl, n) array at the halo 2 nu + 1 (blocks2d)."""
+    return blocks2d(nl, n, 2 * nu + 1)
+
+
 def _check_packed(name, up, nu, *others):
     if up.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {up.device}")
@@ -452,9 +462,8 @@ def _packed_pc(up, fp, V, h, nu, kind, rnorm):
     _check_packed(name, up, nu, (fp, up.shape), (V, _half(up.shape)))
     n = up.shape[0]
     out = torch.empty_like(up)
-    blocks = -(-(n // 2) // PACKED_TILE) * -(-n // PACKED_TILE)
-    partials = (torch.empty(blocks, dtype=torch.float32, device=up.device)
-                if rnorm else None)
+    partials = (torch.empty(packed_rnorm_partials(n, n, nu), dtype=torch.float32,
+                            device=up.device) if rnorm else None)
     _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
             partials.data_ptr() if rnorm else None, n, nu, PROLONG_KINDS[kind],
             *_packed_scalars(h), int(rnorm))
@@ -673,8 +682,8 @@ def packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin, n_global, h,
     out = torch.empty_like(up)
     partials = None
     if rnorm:
-        blocks = -(-(n_global // 2) // PACKED_TILE) * -(-nl // PACKED_TILE)
-        partials = torch.empty(blocks, dtype=torch.float32, device=up.device)
+        partials = torch.empty(packed_rnorm_partials(nl, n_global, nu), dtype=torch.float32,
+                               device=up.device)
     _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,
             n_global, nl, int(origin[0]), d, dv, nu, PROLONG_KINDS[kind],
