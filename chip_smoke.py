@@ -8,8 +8,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
               limit (nvidia-smi) and turns TF32 off.
 2. build    — builds every CUDA kernel from mgpoisson_torch/csrc (one nvcc
               per source, in parallel) and prints ptxas's registers, spills
-              and shared memory (K8/K14 among them: the register tile's
-              instances), and the tiles' geometry.
+              and shared memory (K7/K8 and K13/K14 among them: the register
+              tile's instances), and the tiles' geometry.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
               (4096 ... 256) x bc x smoother x nu, and at every side below
@@ -46,9 +46,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 8. parity_packed — the packed fine level of the fast scheme: pack/unpack
               exact on the card; K7 and K8 (both prolongation kinds, rnorm)
               against their plain packed versions at 16384 ... 256 x nu in
-              {1, 2, 3}, every K8 output bit-equal, and K8 also at 128 ... 2
-              with nu = 1 and 3 (the checked edge path, sides below one
-              warp); the unpacked result of each against K2 / K3 (rbgs,
+              {1, 2, 3} and at 128 ... 2 with nu = 1 and 3 (the checked
+              edge path, sides below one warp), every K7 and K8 output
+              bit-equal; the unpacked result of each against K2 / K3 (rbgs,
               ghost0) on the unpacked grid, two formulas that differ by add
               order only; then the time of K7, K8 and K8 with rnorm at
               4096^2 (rbgs nu = 1, bilinear, the fast scheme's fine
@@ -59,7 +59,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
               (cycles, relres, f64 re-check, launches), then the same spec
               with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
               plain ops, each with its per-cycle wall; then 1024^2 and
-              16384^2 with the same checks.
+              16384^2 with the same checks.  Then (strided) the tuned and
+              the fast 256^2 solves of an f or psi0 that is transposed,
+              Fortran-order NumPy or a view at an odd 4-byte offset: each
+              gives the psi and the cycle count of its dense copy, bit for
+              bit.
 10. parity_sharded — the strip kernels K9-K12 of the sharded solve against
               their plain versions at every block position of the (2, 2) and
               (4, 1) meshes, blocks and strips cut from a whole grid as the
@@ -82,8 +86,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
               3}, both prolongation kinds, with and without rnorm; each
               kernel's outputs stitched over the blocks against K7/K8 on the
               whole packed grid (the same tiles, the same arithmetic): every
-              K14 output bit-equal to its plain version and, stitched, to
-              K8; K13 stitched against K7 reported.  Then
+              K13 and K14 output bit-equal to its plain version and,
+              stitched, to K7 / K8.  Then
               (timing_sharded_packed) K13/K14 on an interior (4096, 16384)
               block beside K7/K8 on a whole 8192^2 array, each with its
               plain version and bound.
@@ -124,6 +128,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
@@ -357,14 +362,13 @@ def phase_build():
               f"{cuda.blocks3d(SPEC_3D.size, halo, nzl, nyl)} blocks, "
               f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of dynamic shared "
               "memory per block")
-    # the packed up-leg on the 2D register tile at the fast scheme's fine
+    # the packed legs on the 2D register tile at the fast scheme's fine
     # settings (rbgs nu = 1), on the whole 4096^2 grid and on the sharded
-    # 16384^2 solve's (4096, 16384) block; its ptxas lines are above
-    for name, nl, n in (("mg_packed_pc", 4096, 4096), ("mg_sharded_packed_pc", 4096, 16384)):
-        for rnorm in (False, True):
-            halo = 2 + rnorm
+    # 16384^2 solve's (4096, 16384) block; their ptxas lines are above
+    for leg, nl, n in (("mg_packed", 4096, 4096), ("mg_sharded_packed", 4096, 16384)):
+        for name, halo in ((leg + "_rr", 3), (leg + "_pc", 2), (leg + "_pc.rnorm", 3)):
             rows, cols = cuda.tile2d(nl, n, halo)
-            print(f"[build] {name}{'.rnorm' if rnorm else ''} at rbgs nu = 1 on ({nl}, {n}): "
+            print(f"[build] {name} at rbgs nu = 1 on ({nl}, {n}): "
                   f"register tile, halo {halo} (even {halo + (halo & 1)}), {rows} x {cols} "
                   f"owned cells per block of {cuda.TILE_WARPS} warps, "
                   f"{cuda.blocks2d(nl, n, halo)} blocks, no dynamic shared memory")
@@ -552,10 +556,10 @@ def _beside(a, b):
 def phase_parity_packed(dev, worst):
     """K7 and K8 against their plain packed versions at every fine side of
     the packed solves and nu in {1, 2, 3}; each unpacked result against the
-    unpacked kernels K2 / K3 (rbgs, ghost0) on the unpacked grid.  Every K8
-    output must equal its plain version bit for bit, here and at the sides
-    below (128 ... 2: the checked edge path, sides below one warp) with nu
-    = 1 and 3."""
+    unpacked kernels K2 / K3 (rbgs, ghost0) on the unpacked grid.  Every K7
+    and K8 output must equal its plain version bit for bit, here and at the
+    sides below (128 ... 2: the checked edge path, sides below one warp)
+    with nu = 1 and 3."""
     for n in PACKED_SIDES + SMALL_SIDES:
         u, f, V = _data(n, 2, seed=n + 1, dev=dev)
         up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
@@ -566,11 +570,11 @@ def phase_parity_packed(dev, worst):
         for nu in (1, 2, 3) if full else (1, 3):
             row = [f"n={n} nu={nu}"]
             a = (h, nu)
+            (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, *a),
+                                  ops.packed_smooth_residual_restrict(up, fp, *a))
+            note(worst, "mg_packed_rr", "K7.u", gu, wu, row, exact=True)
+            note(worst, "mg_packed_rr", "K7.R", gR, wR, row, exact=True)
             if full:
-                (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, *a),
-                                      ops.packed_smooth_residual_restrict(up, fp, *a))
-                note(worst, "mg_packed_rr", "K7.u", gu, wu, row)
-                note(worst, "mg_packed_rr", "K7.R", gR, wR, row)
                 xu, xR = cuda.smooth_residual_restrict(u, f, h, nu, "rbgs", "ghost0")
                 note(worst, None, "K7~K2.u", cuda.unpack_grid(gu), xu, row, CROSS_TOL)
                 note(worst, None, "K7~K2.R", gR, xR, row, CROSS_TOL)
@@ -591,7 +595,7 @@ def phase_parity_packed(dev, worst):
                     note_r2(tag + "r~K3.r2", g2, cuda.prolong_correct_smooth_rnorm(*xa)[1],
                             row, CROSS_TOL)
             torch.cuda.synchronize()
-            print("[parity_packed] " + " ".join(row) + "; K8 bit-equal")
+            print("[parity_packed] " + " ".join(row) + "; K7, K8 bit-equal")
         del u, f, V, up, fp
         torch.cuda.empty_cache()
 
@@ -769,6 +773,44 @@ def phase_slice_fast(dev, n, compare):
                 os.environ["MGPOISSON_PACKED"] = old
         compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
     return launches
+
+
+def _misaligned(x):
+    """x's values in a dense row-major view at an odd 4-byte offset."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    check(out.is_contiguous() and out.data_ptr() % 8 == 4, "no odd-offset view")
+    return out
+
+
+def phase_strided(dev):
+    """The solver's entry takes f and psi0 of any strides and offset (ROADMAP
+    Queue 3 F1): the tuned and the fast 256^2 solves (the fast one packed)
+    of a transposed f, a Fortran-order NumPy f or psi0 and views at an odd
+    4-byte offset give the psi and the cycle count of the dense copies, bit
+    for bit."""
+    n = 256
+    for scheme in ("tuned", "fast"):
+        spec = MAIN_SPEC.with_(size=n, scheme=scheme, tol=1e-8, maxiter=50)
+        mg = MultigridPoisson(spec, device=dev)
+        f = mg.rhs()
+        f[n // 4, n // 2 + 3] = 3.0e5     # not symmetric: f.t() is another problem
+        ft = f.t().contiguous()
+        fortran = lambda x: np.asfortranarray(x.cpu().numpy())
+        want = mg.solve(ft)
+        cases = {"transposed f": (f.t(), None), "Fortran-order f": (fortran(ft), None),
+                 "odd-offset f": (_misaligned(ft), None),
+                 "Fortran-order psi0": (ft, fortran(-ft)),
+                 "odd-offset psi0": (ft, _misaligned(-ft))}
+        for what, (f_in, psi0) in cases.items():
+            got = mg.solve(f_in, psi0=psi0)
+            check(got.iterations == want.iterations and torch.equal(got.psi, want.psi),
+                  f"{scheme} {n}^2 solve of a {what}: {got.iterations} cycles against "
+                  f"{want.iterations}, psi {'equal' if torch.equal(got.psi, want.psi) else 'differs'}")
+        print(f"[strided] {scheme}{' packed' if mg._packed else ''} {n}^2: "
+              f"{', '.join(cases)}: each {want.iterations} cycles, psi bit-equal to the dense "
+              "copies'")
 
 
 # ------------------------------------------------------------ the sharded solve
@@ -984,9 +1026,8 @@ def phase_parity_sharded_packed(dev, worst):
     every fine side of packed_sharded_sides, nu in {1, 2, 3}, both
     prolongation kinds, with and without rnorm; each kernel's outputs
     stitched over the blocks against K7/K8 on the whole packed grid.  Every
-    K14 output must equal its plain version and, stitched, K8 bit for bit
-    (the same tile and arithmetic on the same values); K13 stitched is
-    expected bit-equal to K7 and reported."""
+    K13 and K14 output must equal its plain version and, stitched, K7 / K8
+    bit for bit (the same tile and arithmetic on the same values)."""
     mx = 4
     for n in packed_sharded_sides():
         u, f, V = _data(n, 2, seed=n + 9, dev=dev)
@@ -1014,8 +1055,8 @@ def phase_parity_sharded_packed(dev, worst):
                 b = ((r0, 0), n, h, nu)
                 (gu, gR), (wu, wR) = (cuda.packed_rr_sharded(ub, fb, us, fs, *b),
                                       ops.packed_rr_sharded(ub, fb, us, fs, *b))
-                w.note("mg_sharded_packed_rr", "K13.u", gu, wu)
-                w.note("mg_sharded_packed_rr", "K13.R", gR, wR)
+                w.note("mg_sharded_packed_rr", "K13.u", gu, wu, exact=True)
+                w.note("mg_sharded_packed_rr", "K13.R", gR, wR, exact=True)
                 st["rr"][0][fine], st["rr"][1][coarse] = gu, gR
                 for kind in ("inject", "bilinear"):
                     pa = (ub, fb, vb, us, fs, vs, *b, kind)
@@ -1037,17 +1078,14 @@ def phase_parity_sharded_packed(dev, worst):
                 pairs += [(f"K14{k}~K8", st[kind], whole[kind]),
                           (f"K14{k}r~K8r.u", st[kind + "r"], whole[kind + "r"][0])]
                 w.tags[f"K14{k}r~K8r.r2"] = abs(r2[kind] / float(whole[kind + "r"][1]) - 1.0)
-            gaps = []
             for tag, got, want in pairs:
-                w.note(None, tag, got, want, exact=tag.startswith("K14"))
-                if not torch.equal(got, want):
-                    gaps.append(f"{tag} max |diff| {nmax(got, want)[1]:.3e}")
+                w.note(None, tag, got, want, exact=True)
             w.check(row)
-            row.append("K14 blocks bit-equal to plain; stitched: bit-equal to K7/K8" if not gaps
-                       else "stitched: NOT bit-equal to K7/K8: " + "; ".join(gaps))
+            row.append("K13/K14 blocks bit-equal to plain; stitched: bit-equal to K7/K8"
+                       if not w.unequal else "NOT bit-equal: " + "; ".join(w.unequal))
             torch.cuda.synchronize()
             print("[parity_sharded_packed] " + " ".join(row))
-            check(not w.unequal, f"{row[0]}: K14 not bit-equal where it must be: "
+            check(not w.unequal, f"{row[0]}: K13/K14 not bit-equal where they must be: "
                   f"{'; '.join(w.unequal)}")
             del whole, st
             torch.cuda.empty_cache()
@@ -1333,6 +1371,7 @@ def main():
     solve_fast = phase_slice_fast(dev, MAIN_N, compare=True)
     phase_slice_fast(dev, 1024, compare=False)
     phase_slice_fast(dev, 16384, compare=False)
+    phase_strided(dev)
 
     # the sharded solves (explicit partition): the strip kernels, the
     # packed strip kernels of the fast scheme on a mesh of one column, then

@@ -20,11 +20,10 @@ then their strip entries K11, K11 from zero, K12 and K12 with rnorm on the
 (0, 0) block of a (2, 2) mesh of --sharded3d^3, with the same two
 settings (K11/K12 only with --sharded3d; an empty --sides or --sides3d,
 or --sharded 0, skips that part); then the packed legs of the fast
-scheme's fine level at every --packed side: K8 and K8 with rnorm, both
-prolongation kinds, and K7 beside them as a control, at rbgs nu = 1, 2, 3;
-then K14 and K14 with rnorm (bilinear, nu = 1) and K13 as a control on
-the interior (n/4, n) block of --sharded-packed^2 on (4, 1), its strips
-as the solver exchanges them.  Each case is timed old, new, new, old,
+scheme's fine level at every --packed side: K7, and K8 and K8 with rnorm
+in both prolongation kinds, at rbgs nu = 1, 2, 3; then K13, K14 and K14
+with rnorm (bilinear, nu = 1) on the interior (n/4, n) block of
+--sharded-packed^2 on (4, 1), its strips as the solver exchanges them.  Each case is timed old, new, new, old,
 each time two ways: CUDA events around each call, median of --reps calls
 (`*_ms`, what chip_smoke.py reports; at small sides it is the host's
 enqueue time), and the kernels' own device time per call from
@@ -41,8 +40,8 @@ csrc/stencil3d.cuh at every halo (a build without the z-marching tile),
 so its partials are one per T^3 block; with --old-strip3d the old build's
 K12 does (a build whose strip entries K11/K12 keep the cube tile); with
 --old-packed-tile T the old build's K8/K14 write one per T x T packed tile
-(32: a build whose packed up-leg ran the shared-memory tile of
-csrc/packed.cuh).  Prints
+(32: a build whose packed up-leg ran a shared-memory tile of 32 x 32
+packed lanes, before the register tile).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 """

@@ -40,8 +40,9 @@ def spec_from_jax(fields: dict) -> Spec:
 def state_from_numpy(psi, f, device="cuda", dtype=torch.float32, mesh=None):
     """The JAX package's psi and f, as numpy arrays, as the port's
     tensors: (psi, f) in `dtype` on `device` (the card unless told
-    otherwise), each a fresh copy; with a ``shard.mesh.ProcessMesh``,
-    this rank's blocks of them (``shard.multihost.local_block``).  A
+    otherwise), each a fresh dense row-major copy (a Fortran-order array
+    too); with a ``shard.mesh.ProcessMesh``, this rank's blocks of them
+    (``shard.multihost.local_block``).  A
     packed array of the JAX package's fast solve comes across the same
     way; ``kernels.ops.unpack_grid`` gives its grid."""
     if isinstance(dtype, str):
@@ -49,4 +50,5 @@ def state_from_numpy(psi, f, device="cuda", dtype=torch.float32, mesh=None):
     arrays = [np.asarray(a) for a in (psi, f)]
     if mesh is not None:
         arrays = [local_block(a, mesh) for a in arrays]
-    return tuple(torch.tensor(a, dtype=dtype, device=device) for a in arrays)
+    return tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+                 for a in arrays)

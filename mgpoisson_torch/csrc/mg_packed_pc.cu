@@ -41,28 +41,15 @@ mg_sharded_packed_pc_kernel(const Mg2pArgs a) {
   mg2p_pc_body<R, true>(a);
 }
 
-template <int R, bool kStrips>
-static void mg2p_go(dim3 grid, cudaStream_t stream, const Mg2pArgs& a) {
-  const dim3 block(32, MG2_WARPS);
-  if constexpr (kStrips)
-    mg_sharded_packed_pc_kernel<R><<<grid, block, 0, stream>>>(a);
-  else
-    mg_packed_pc_kernel<R><<<grid, block, 0, stream>>>(a);
-}
-
-// Launches the instance of the tile table's R on the (nl x n) block.
-template <bool kStrips>
-static int mg2p_launch(const Mg2pArgs& a, cudaStream_t stream) {
-  const int R = mg2_rows(a.blk.nl, a.blk.ml, a.H);
-  const dim3 grid = mg2_grid(a.blk.nl, a.blk.ml, a.H);
-  if (R == MG2_ROWS_DEEP)
-    mg2p_go<MG2_ROWS_DEEP, kStrips>(grid, stream, a);
-  else if (R == MG2_ROWS_SHALLOW)
-    mg2p_go<MG2_ROWS_SHALLOW, kStrips>(grid, stream, a);
-  else
-    mg2p_go<MG2_ROWS_SMALL, kStrips>(grid, stream, a);
-  return (int)cudaGetLastError();
-}
+struct MgPackedPcLaunch {
+  template <int R, bool kStrips>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2pArgs& a) {
+    if constexpr (kStrips)
+      mg_sharded_packed_pc_kernel<R><<<grid, block, 0, stream>>>(a);
+    else
+      mg_packed_pc_kernel<R><<<grid, block, 0, stream>>>(a);
+  }
+};
 
 static Mg2pArgs mg2p_args(const float* up, const float* fp, const float* V, float* out,
                           float* partials, int nu, int kind, float mhq, float inv_hsq,
@@ -90,7 +77,7 @@ extern "C" int mg_packed_pc(const float* up, const float* fp, const float* V, fl
     return (int)cudaErrorInvalidValue;
   Mg2pArgs a = mg2p_args(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
   a.blk = MgBlock{n, n, n, 0, 0};
-  return mg2p_launch<false>(a, stream);
+  return mg2p_launch<MgPackedPcLaunch, false>(a, stream);
 }
 
 // One rank's packed (nl x n) block from global row r0 of an n x n level, V
@@ -115,5 +102,5 @@ extern "C" int mg_sharded_packed_pc(const float* up, const float* fp, const floa
   a.us = MgStrips{ut, ub, nullptr, nullptr, D};
   a.fs = MgStrips{ft, fb, nullptr, nullptr, D};
   a.vs = MgStrips{vt, vb, nullptr, nullptr, Dv};
-  return mg2p_launch<true>(a, stream);
+  return mg2p_launch<MgPackedPcLaunch, true>(a, stream);
 }

@@ -11,106 +11,82 @@
 //
 // K13 replaces _packed_rr_sharded, mgpoisson/kernels/pallas.py, behind
 // packed_rr_sharded: the same leg on one rank's block of nl whole packed
-// rows of a row-sharded mesh, its halo rows read from the neighbours'
-// strips (packed.cuh MgpStrips).  The TPU kernel DMAs each row stripe with
-// its 8-deep strip rows into VMEM and gates its boundary on per-device edge
-// flags; here the tile loader picks each halo row from its strip and the
-// global row does what the flags did.  Rc is the block's (nl/2, n/2) coarse
-// rhs, coarse rows from r0/2.
+// rows of a row-sharded mesh, its halo rows read from the neighbours' u and
+// f strips (stencil.cuh MgStrips, left/right null: a mesh of one column).
+// The TPU kernel DMAs each row stripe with its 8-deep strip rows into VMEM
+// and gates its boundary on per-device edge flags; here the tile loader
+// picks each halo row from its strip and the global row does what the flags
+// did.  Rc is the block's (nl/2, n/2) coarse rhs, coarse rows from r0/2.
+//
 // Bound: HBM bytes, 3.25 arrays (read up, fp; write up', Rc); K13's strips
-// add 4D/nl of an array.
-#include "packed.cuh"
-
-// The leg on the block `blk` ({n, 0} for the grid); each entry point below
-// instantiates it once.
-template <bool kStrips>
-static __device__ __forceinline__ void mgp_rr_body(
-    const float* __restrict__ U, const float* __restrict__ F, float* __restrict__ Uout,
-    float* __restrict__ Rout, const MgpTile& t, const MgpRows& blk, const MgpStrips& us,
-    const MgpStrips& fs, int nu, float mhq, float inv_hsq) {
-  extern __shared__ float smem[];
-  const int SS = t.S * t.S;
-  float* xr = smem;
-  float* xb = xr + SS;
-  float* fr = xb + SS;
-  float* fb = fr + SS;
-  if constexpr (kStrips) {
-    mgp_load_strips(xr, xb, U, us, t, blk);
-    mgp_load_strips(fr, fb, F, fs, t, blk);
-  } else {
-    mgp_load(xr, xb, U, t);
-    mgp_load(fr, fb, F, t);
-  }
-  __syncthreads();
-  mgp_sweeps(xr, xb, fr, fb, t, nu, mhq);
-  if constexpr (kStrips)
-    mgp_store_block(Uout, xr, xb, t, blk);
-  else
-    mgp_store(Uout, xr, xb, t);
-
-  // ((r_r + r_b) on row 2I + (r_r + r_b) on row 2I+1) / 4, as
-  // ops.packed_smooth_residual_restrict; the halo keeps the ring the
-  // residual reads exact.  I is the block's coarse row.
-  const int T2 = MGP_TILE / 2;
-  for (int ci = threadIdx.y; ci < T2; ci += blockDim.y) {
-    const int I = (int)blockIdx.y * T2 + ci, li = t.G + 2 * ci;
-    if (I >= blk.nl / 2) continue;
-    for (int tj = threadIdx.x; tj < MGP_TILE; tj += blockDim.x) {
-      const int lj = t.G + tj, gj = t.gj0 + lj;
-      if (gj >= t.w) continue;
-      const float s0 = mgp_residual(xr, xb, fr, t, li, lj, 0, inv_hsq) +
-                       mgp_residual(xb, xr, fb, t, li, lj, 1, inv_hsq);
-      const float s1 = mgp_residual(xr, xb, fr, t, li + 1, lj, 0, inv_hsq) +
-                       mgp_residual(xb, xr, fb, t, li + 1, lj, 1, inv_hsq);
-      Rout[(size_t)I * t.w + gj] = (s0 + s1) * 0.25f;
-    }
-  }
-}
+// add 4D/nl of an array.  Design: the 2D register tile of K2 (stencil.cuh)
+// on packed state (stencil_packed.cuh): a warp per 64 fine columns, R rows
+// of the tile table in registers, one shuffle per cell and colour step, no
+// shared memory; the residual and the restriction run on the registers.
+// Halo H = 2 nu + 1, K2's at rbgs, so at nu = 1 the tile loads what K2's
+// loads.
+#include "stencil_packed.cuh"
 
 // K7: the whole n x n grid.
-__global__ void __launch_bounds__(MGP_TX * MGP_TY)
-mg_packed_rr_kernel(const float* __restrict__ U, const float* __restrict__ F,
-                    float* __restrict__ Uout, float* __restrict__ Rout, int n, int nu,
-                    float mhq, float inv_hsq) {
-  mgp_rr_body<false>(U, F, Uout, Rout, mgp_tile(n, 2 * nu + 1), MgpRows{n, 0}, MgpStrips{},
-                     MgpStrips{}, nu, mhq, inv_hsq);
+template <int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_packed_rr_kernel(const Mg2pArgs a) {
+  mg2p_rr_body<R, false>(a);
 }
 
 // K13: one rank's block of whole rows, its halo rows from strips.
-__global__ void __launch_bounds__(MGP_TX * MGP_TY)
-mg_sharded_packed_rr_kernel(const float* __restrict__ U, const float* __restrict__ F,
-                            float* __restrict__ Uout, float* __restrict__ Rout, MgpRows blk,
-                            MgpStrips us, MgpStrips fs, int n, int nu, float mhq,
-                            float inv_hsq) {
-  mgp_rr_body<true>(U, F, Uout, Rout, mgp_tile_block(n, 2 * nu + 1, blk.r0), blk, us, fs, nu,
-                    mhq, inv_hsq);
+template <int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_sharded_packed_rr_kernel(const Mg2pArgs a) {
+  mg2p_rr_body<R, true>(a);
+}
+
+struct MgPackedRrLaunch {
+  template <int R, bool kStrips>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2pArgs& a) {
+    if constexpr (kStrips)
+      mg_sharded_packed_rr_kernel<R><<<grid, block, 0, stream>>>(a);
+    else
+      mg_packed_rr_kernel<R><<<grid, block, 0, stream>>>(a);
+  }
+};
+
+static Mg2pArgs mg2p_rr_args(const float* up, const float* fp, float* out, float* Rc, int nu,
+                             float mhq, float inv_hsq) {
+  Mg2pArgs a{};
+  a.U = up;
+  a.F = fp;
+  a.Uout = out;
+  a.Rout = Rc;
+  a.H = 2 * nu + 1;
+  a.nu = nu;
+  a.mhq = mhq;
+  a.inv_hsq = inv_hsq;
+  return a;
 }
 
 extern "C" int mg_packed_rr(const float* up, const float* fp, float* out, float* Rc, int n,
                             int nu, float mhq, float inv_hsq, cudaStream_t stream) {
-  const int S = mgp_side(2 * nu + 1);
-  const size_t bytes = 4 * (size_t)S * S * sizeof(float);
-  if (n < 2 || n % 2 || nu < 1 || nu > MGP_MAX_NU || bytes > MGP_SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(mgp_tiles(n / 2), mgp_tiles(n)), block(MGP_TX, MGP_TY);
-  mg_packed_rr_kernel<<<grid, block, bytes, stream>>>(up, fp, out, Rc, n, nu, mhq, inv_hsq);
-  return (int)cudaGetLastError();
+  if (n < 2 || n % 2 || nu < 1 || nu > MG2P_MAX_NU) return (int)cudaErrorInvalidValue;
+  Mg2pArgs a = mg2p_rr_args(up, fp, out, Rc, nu, mhq, inv_hsq);
+  a.blk = MgBlock{n, n, n, 0, 0};
+  return mg2p_launch<MgPackedRrLaunch, false>(a, stream);
 }
 
 // One rank's packed (nl x n) block from global row r0 of an n x n level; u
-// and f row strips (D x n) D >= 2 nu + 1 deep.
+// and f row strips (D x n) D >= 2 nu + 1 deep.  The tile's even halo, 2 nu
+// + 2, reaches one row beyond strips of D = 2 nu + 1: that row reads 0 and
+// stays outside the exact region.
 extern "C" int mg_sharded_packed_rr(const float* up, const float* fp, float* out, float* Rc,
                                     const float* ut, const float* ub, const float* ft,
                                     const float* fb, int n, int nl, int r0, int D, int nu,
                                     float mhq, float inv_hsq, cudaStream_t stream) {
-  const int G = 2 * nu + 1, S = mgp_side(G);
-  const size_t bytes = 4 * (size_t)S * S * sizeof(float);
   if (n < 2 || n % 2 || nl < 2 || (nl | r0) & 1 || r0 < 0 || r0 + nl > n || nu < 1 ||
-      nu > MGP_MAX_NU || D < G || bytes > MGP_SMEM_LIMIT)
+      nu > MG2P_MAX_NU || D < 2 * nu + 1)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(mgp_tiles(n / 2), mgp_tiles(nl)), block(MGP_TX, MGP_TY);
-  mg_sharded_packed_rr_kernel<<<grid, block, bytes, stream>>>(
-      up, fp, out, Rc, MgpRows{nl, r0}, MgpStrips{ut, ub, D}, MgpStrips{ft, fb, D}, n, nu, mhq,
-      inv_hsq);
-  return (int)cudaGetLastError();
+  Mg2pArgs a = mg2p_rr_args(up, fp, out, Rc, nu, mhq, inv_hsq);
+  a.blk = MgBlock{n, nl, n, r0, 0};
+  a.us = MgStrips{ut, ub, nullptr, nullptr, D};
+  a.fs = MgStrips{ft, fb, nullptr, nullptr, D};
+  return mg2p_launch<MgPackedRrLaunch, true>(a, stream);
 }

@@ -2,7 +2,8 @@
 // mg_smooth_rr, K3 mg_prolong_correct_smooth, and the strip-fed K9
 // mg_sharded_rr and K10 mg_sharded_pc of a sharded level).  The 3D tile
 // (stencil3d.cuh) takes the enums, mg_steps and mg_in from here; the
-// packed up-leg K8/K14 runs this tile on packed state (stencil_packed.cuh).
+// packed legs K7/K8 and K13/K14 run this tile on packed state
+// (stencil_packed.cuh).
 //
 // One 2D-tiled geometry replaces the Pallas kernels' three (row stripes,
 // whole-array VMEM, two-axis blocks), which exist only because of the TPU's

@@ -1,9 +1,11 @@
 // The 2D register tile of stencil.cuh on checkerboard-packed state: the
-// pieces of the packed up-leg K8 mg_packed_pc and its strip entry K14
-// mg_sharded_packed_pc that differ from the unpacked legs' (the loader, the
-// store, the packed ops' sweep, residual and bilinear blend).  Geometry,
-// checked and unchecked bodies, shuffles, strip picks and the Sigma r^2
-// partial are stencil.cuh's, unchanged.
+// pieces of the fast scheme's packed fine-level legs that differ from the
+// unpacked legs' (the loader, the store, the packed ops' sweep, residual,
+// restriction and bilinear blend), for the down-leg K7 mg_packed_rr and its
+// strip entry K13 mg_sharded_packed_rr, and the up-leg K8 mg_packed_pc and
+// its strip entry K14 mg_sharded_packed_pc.  Geometry, checked and
+// unchecked bodies, shuffles, strip picks and the Sigma r^2 partial are
+// stencil.cuh's, unchanged.
 //
 // The fine level stays packed for the whole fast solve (kernels/ops.py
 // pack_grid): an (n, n) array whose left half holds the red cells and right
@@ -20,7 +22,8 @@
 // plane) and swaps them on odd rows; the store swaps back.  Every tile
 // origin is even (the halo Hr is), so the swap of each unrolled row is
 // known at compile time and costs nothing.  The coarse column of the pair
-// is packed lane J too, so V (UNPACKED, (n/2, n/2)) is read as K3 reads it.
+// is packed lane J too, so the UNPACKED (n/2, n/2) coarse arrays are read
+// (V, as K3 reads it) and written (Rc, as K2 writes R) lane by lane.
 //
 // In the pair's terms the packed neighbours of a cell are the unpacked
 // ones: for x0 the "same lane" neighbour of the other colour is x1 and the
@@ -28,26 +31,31 @@
 // x0 to the right, on either row parity.  Red is the colour of (i, 2J) on
 // even rows, so red-black colour steps are stencil.cuh's (colour P: x0 on
 // rows with i % 2 == P, x1 on the others).  The arithmetic is that of the
-// packed ops (ops._packed_core, _packed_residual, _packed_prolong), which
-// differs from the unpacked legs' in form and order:
+// packed ops (ops._packed_core, _packed_residual, _packed_prolong,
+// packed_smooth_residual_restrict), which differs from the unpacked legs'
+// in form and order:
 //
 //   sweep     X = ((up + dn) + (same + partner)) * 0.25 + f * (-h^2/4)
 //   residual  r = f - ((((up + dn) + same) + partner) - 4 x) * (1/h^2)
+//   restrict  Rc = ((r_red + r_black on row 2I) + (the same on row 2I + 1))
+//             * 0.25: the rows' sums first, where mg2_restrict sums the
+//             columns first
 //   prolong   B = a0 V + b0 V(partner coarse row), then a1 B + b1 B(lane
 //             beside), each pass with (0.5, 0) at the grid's edge lines
 //
 // each add and multiply rounded on its own (__fadd_rn, __fmul_rn), so every
 // output equals the plain packed ops bit for bit.  The bc is ghost0 (the
 // fine level's by definition): cells outside the grid load 0 and are never
-// updated.  Halo: H = 2 nu steps, + 1 where the rnorm residual reads one
-// more ring; the tile rounds it up to even.
+// updated.  Halo: H = 2 nu steps, + 1 where a residual reads one more ring
+// (the down-leg, the up-leg with rnorm); the tile rounds it up to even.
 #pragma once
 
 #include "stencil.cuh"
 
 #define MG2P_MAX_NU 3   // the JAX package's packed cap (pallas.py packed_plan)
 
-// Everything the packed up-leg takes; partials only with rnorm.
+// Everything a packed leg takes: V, vs, kind and partials (only with
+// rnorm) for the up-leg, Rout for the down-leg.
 struct Mg2pArgs {
   const float* U;
   const float* F;
@@ -58,6 +66,7 @@ struct Mg2pArgs {
   MgStrips us, fs, vs;
   int H, nu, kind;
   float mhq, inv_hsq;   // -h^2/4 and 1/h^2, as the plain packed ops
+  float* Rout;
 };
 
 // Loads the warp's R rows of the packed X (a block of whole rows, c0 = 0)
@@ -246,6 +255,16 @@ static __device__ __forceinline__ void mg2p_sweeps(Mg2Pair<R>& u, const Mg2Pair<
   }
 }
 
+// The ghost0 residual of row i's pair (x0, x1) (ops._packed_residual).
+template <int R>
+static __device__ __forceinline__ float2 mg2p_resid2(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
+                                                     int i, float inv_hsq) {
+  const float x0 = u.x0[i], x1 = u.x1[i];
+  return make_float2(
+      mg2p_resid(x0, u.x0[i - 1], u.x0[i + 1], x1, mg2_from_left(x1), f.x0[i], inv_hsq),
+      mg2p_resid(x1, u.x1[i - 1], u.x1[i + 1], x0, mg2_from_right(x0), f.x1[i], inv_hsq));
+}
+
 // sum(r^2) of the ghost0 residual over the warp's owned cells.
 template <int R, bool kEdge>
 static __device__ __forceinline__ float mg2p_rsq(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
@@ -255,17 +274,37 @@ static __device__ __forceinline__ float mg2p_rsq(const Mg2Pair<R>& u, const Mg2P
 #pragma unroll
   for (int i = 1; i < R - 1; ++i) {
     if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
-    const float x0 = u.x0[i], x1 = u.x1[i];
-    const float r0 = mg2p_resid(x0, u.x0[i - 1], u.x0[i + 1], x1, mg2_from_left(x1), f.x0[i],
-                                inv_hsq);
-    const float r1 = mg2p_resid(x1, u.x1[i - 1], u.x1[i + 1], x0, mg2_from_right(x0), f.x1[i],
-                                inv_hsq);
+    const float2 r = mg2p_resid2<R>(u, f, i, inv_hsq);
     if (owns && (!kEdge || mg_in(t.li0 + i, t.nl))) {
-      acc = __fmaf_rn(r0, r0, acc);
-      acc = __fmaf_rn(r1, r1, acc);
+      acc = __fmaf_rn(r.x, r.x, acc);
+      acc = __fmaf_rn(r.y, r.y, acc);
     }
   }
   return acc;
+}
+
+// The ghost0 residual of the warp's interior, restricted into the block's
+// UNPACKED (nl/2 x n/2) coarse rhs: a lane's pair over a row pair is one
+// coarse cell, coarse column J = its packed lane (mg2_restrict's geometry),
+// one coalesced 4-byte store per lane and row pair.  The pair holds red and
+// black on either row parity (swapped on odd rows), so each row's r_red +
+// r_black is x0's plus x1's in that order or the other, the same sum.
+template <int R, bool kEdge>
+static __device__ __forceinline__ void mg2p_restrict(float* __restrict__ Rout,
+                                                     const Mg2Pair<R>& u, const Mg2Pair<R>& f,
+                                                     const Mg2Tile& t, float inv_hsq) {
+  const int J = t.lj0 / 2 + t.lane, w = t.n / 2;
+  const bool owns = mg2_lane_owns<kEdge>(t);
+#pragma unroll
+  for (int i = 2; i < R - 2; i += 2) {
+    if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
+    const float2 r0 = mg2p_resid2<R>(u, f, i, inv_hsq);
+    const float2 r1 = mg2p_resid2<R>(u, f, i + 1, inv_hsq);
+    const int I = (t.li0 + i) / 2;
+    if (owns && (!kEdge || mg_in(I, t.nl / 2)))
+      Rout[(size_t)I * w + J] =
+          __fmul_rn(__fadd_rn(__fadd_rn(r0.x, r0.y), __fadd_rn(r1.x, r1.y)), 0.25f);
+  }
 }
 
 template <int R, bool kStrips, bool kEdge>
@@ -290,4 +329,41 @@ static __device__ __forceinline__ void mg2p_pc_body(const Mg2pArgs& a) {
     acc = mg2_inside<R>(t) ? mg2p_pc_tile<R, kStrips, false>(a, t)
                            : mg2p_pc_tile<R, kStrips, true>(a, t);
   if (a.partials != nullptr) mg2_partial(acc, a.partials);
+}
+
+template <int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ void mg2p_rr_tile(const Mg2pArgs& a, const Mg2Tile& t) {
+  Mg2Pair<R> u;
+  Mg2Pair<R> f;
+  mg2p_load<R, kStrips, kEdge>(u, a.U, a.us, t);
+  mg2p_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
+  mg2p_sweeps<R, kEdge>(u, f, t, a.nu, a.mhq);
+  mg2p_store<R, kEdge>(a.Uout, u, t);
+  mg2p_restrict<R, kEdge>(a.Rout, u, f, t, a.inv_hsq);
+}
+
+// The packed down-leg on the block a.blk ({n, n, n, 0, 0} for the grid).
+template <int R, bool kStrips>
+static __device__ __forceinline__ void mg2p_rr_body(const Mg2pArgs& a) {
+  const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
+  if (!mg2_owns(t)) return;
+  if (mg2_inside<R>(t))
+    mg2p_rr_tile<R, kStrips, false>(a, t);
+  else
+    mg2p_rr_tile<R, kStrips, true>(a, t);
+}
+
+// Launches L::go<R, kStrips> (one leg's instances) for the tile table's R
+// on the (nl x n) block a.blk at halo a.H; returns the launch's error.
+template <class L, bool kStrips>
+static __host__ int mg2p_launch(const Mg2pArgs& a, cudaStream_t stream) {
+  const int R = mg2_rows(a.blk.nl, a.blk.ml, a.H);
+  const dim3 grid = mg2_grid(a.blk.nl, a.blk.ml, a.H), block(32, MG2_WARPS);
+  if (R == MG2_ROWS_DEEP)
+    L::template go<MG2_ROWS_DEEP, kStrips>(grid, block, stream, a);
+  else if (R == MG2_ROWS_SHALLOW)
+    L::template go<MG2_ROWS_SHALLOW, kStrips>(grid, block, stream, a);
+  else
+    L::template go<MG2_ROWS_SMALL, kStrips>(grid, block, stream, a);
+  return (int)cudaGetLastError();
 }

@@ -38,10 +38,9 @@ K5/K6 and their strip entries K11/K12 run two tiles by halo depth
 <= 4 (the main path's; K11/K12 in its strip-fed form, over a rank's block
 with its own chunk table), the cube tile of ``csrc/stencil3d.cuh`` beyond,
 which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
-register tile of ``csrc/stencil.cuh``, and so do the packed up-leg K8 and
-its strip entry K14 on packed state (``csrc/stencil_packed.cuh``); the
-packed down-leg K7 and its strip entry K13 run the shared-memory tile of
-``csrc/packed.cuh``.
+register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
+and their strip entries K13/K14 on packed state
+(``csrc/stencil_packed.cuh``).
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain

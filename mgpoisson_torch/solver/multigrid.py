@@ -24,6 +24,12 @@ rank.  Where ``kernels.use_packed_sharded`` holds (the fast scheme on a
 mesh of one column), ``solve()`` packs the rank's psi and f blocks once and
 carries them through ``SpmdCycle.step_packed`` under the same callback
 rule.
+
+Every entry (``solve``, ``step``, ``init_state``) takes f and psi as
+tensors of any strides and offset, as the JAX package takes any array: it
+hands the cycle dense row-major tensors at an 8-byte boundary, which is
+what the kernels take (``_dense``), copying only a tensor that is not one
+and never writing a caller's tensor.
 """
 
 from __future__ import annotations
@@ -56,6 +62,15 @@ class SolveResult:
     def __iter__(self):
         yield self.psi
         yield self.errs
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """x as a dense row-major tensor whose data starts at an 8-byte
+    boundary (the 2D kernels move 8 bytes per lane and refuse other
+    operands): x itself where it is one, else a fresh copy."""
+    if x.is_contiguous() and x.data_ptr() % 8 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _callback_arity(cb) -> int:
@@ -128,13 +143,14 @@ class MultigridPoisson:
         return point_charge_rhs(spec.size, spec.ndim, self._dtype, self.device)
 
     def init_state(self, f: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """psi0 = -f."""
-        return initial_guess(self.rhs() if f is None else f)
+        """psi0 = -f, dense and row-major whatever f's strides."""
+        return initial_guess(self.rhs() if f is None else _dense(f))
 
     # ------------------------------------------------------------- step
 
     def step(self, psi, f):
         """One cycle + error. Returns (psi_new, err)."""
+        psi, f = _dense(psi), _dense(f)
         return self._step(psi, f, self._r0(psi, f))
 
     def _step(self, psi, f, r0, packed_state=False):
@@ -184,13 +200,13 @@ class MultigridPoisson:
         error_callback(iter, err, psi)."""
         spec = self.spec
         f = (self.rhs() if f is None
-             else torch.as_tensor(f, dtype=self._dtype, device=self.device))
+             else _dense(torch.as_tensor(f, dtype=self._dtype, device=self.device)))
         if psi0 is None:
             psi = self.init_state(f)
         else:
-            # a copy, never the caller's tensor
-            psi = torch.as_tensor(psi0, dtype=self._dtype,
-                                  device=self.device).clone()
+            # a dense row-major copy, never the caller's tensor
+            psi = torch.as_tensor(psi0, dtype=self._dtype, device=self.device).clone(
+                memory_format=torch.contiguous_format)
         r0 = self._r0(psi, f)
 
         wants_psi = (error_callback is not None

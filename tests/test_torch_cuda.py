@@ -8,20 +8,23 @@ where JAX is not installed; tests/conftest.py imports JAX, hence:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Sizes include levels smaller than one tile (a warp's 64 columns in 2D,
-down to 2x2; 16^3 or 8^3 in 3D; 32 rows x 32 packed lanes for the packed
-K7; the register tile's warp for K8) and levels of several tiles; the
+down to 2x2; 16^3 or 8^3 in 3D; the register tile's warp for the packed
+K7/K8) and levels of several tiles; the
 strip kernels K9-K12 run every block position of (2, 2) and (4, 1) meshes,
 blocks and strips cut from a whole grid as the ranks' exchange delivers
 them.  Bars: normalized max |diff| <= 1e-5 (the ROADMAP's f32 kernel bar),
 and bit-equality where a kernel rounds each operation as its plain version
-does (K8, K14, K11/K12 and the cube tile); 1e-5 relative on sum(r^2),
-whose partials are summed in another order."""
+does (K7/K8, K13/K14, K11/K12 and the cube tile); 1e-5 relative on
+sum(r^2), whose partials are summed in another order.  The solver takes
+f and psi0 of any strides and offset (test_solver_takes_any_strided_input)."""
 
 import itertools
 
+import numpy as np
 import pytest
 import torch
 
+from mgpoisson_torch import MultigridPoisson, Spec
 from mgpoisson_torch.kernels import cuda, ops
 from mgpoisson_torch.shard.spmd import block_from_grid
 
@@ -167,9 +170,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(card):
         cuda.smooth_residual_restrict(u, odd, 1 / 64, 1, "jacobi", "ghost0")
 
 
-# the packed kernels: below one tile (K7: 32 rows x 32 packed lanes; K8:
-# a warp's 64 columns), one tile and several, at the sweep counts 1 and the
-# cap 3.  K8 rounds each operation as the plain packed ops: bit-equal.
+# the packed kernels: below one tile (a warp's 64 columns), one tile and
+# several, at the sweep counts 1 and the cap 3.  K7 and K8 round each
+# operation as the plain packed ops: bit-equal.
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [16, 64, 256, 1024])
 @pytest.mark.parametrize("nu", [1, 3])
@@ -179,7 +182,7 @@ def test_packed_kernels_vs_plain(card, n, nu):
     h = 1.0 / n
     for got, want in zip(cuda.packed_smooth_residual_restrict(up, fp, h, nu),
                          ops.packed_smooth_residual_restrict(up, fp, h, nu)):
-        assert _nmax(got, want) <= 1e-5
+        assert torch.equal(got, want)
     for kind in ("inject", "bilinear"):
         pa = (up, fp, V, h, nu, kind)
         assert torch.equal(cuda.packed_prolong_correct_smooth(*pa),
@@ -463,7 +466,7 @@ def test_sharded_packed_kernels_vs_plain(card, n, mx, nu):
         got, want = (cuda.packed_rr_sharded(ub, fb, us, fs, *b),
                      ops.packed_rr_sharded(ub, fb, us, fs, *b))
         for g, w in zip(got, want):
-            assert _nmax(g, w) <= 1e-5
+            assert torch.equal(g, w)
         st_u[r0:r0 + nl], st_R[r0 // 2:(r0 + nl) // 2] = got
         for kind in whole:
             pa = (ub, fb, vb, us, fs, vs, *b, kind)
@@ -486,10 +489,11 @@ def test_sharded_packed_kernels_vs_plain(card, n, mx, nu):
 @pytest.mark.parametrize("n,mx", [(256, 4), (64, 2)])
 @pytest.mark.parametrize("nu", [1, 2, 3])
 def test_sharded_packed_pc_reads_nothing_beyond_its_strips(card, n, mx, nu):
-    """K14 reads only its block and strips: with the strips the solver
-    exchanges (D = 2 nu + 1, Dv = ops.coarse_depth(D)) and every operand in
-    the middle of NaN, its outputs still equal the plain ones.  With rnorm
-    the tile's even halo, 2 nu + 2, reaches one row beyond the strips."""
+    """K14, and K13, read only their block and strips: with the strips the
+    solver exchanges (D = 2 nu + 1, Dv = ops.coarse_depth(D)) and every
+    operand in the middle of NaN, their outputs still equal the plain ones.
+    With a residual (K13, K14 with rnorm) the tile's even halo, 2 nu + 2,
+    reaches one row beyond the strips."""
     u, f, V = _data(n, 41 + nu, card)
     up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
     h = 1.0 / n
@@ -497,6 +501,10 @@ def test_sharded_packed_pc_reads_nothing_beyond_its_strips(card, n, mx, nu):
         pad = ub.numel()
         g = [[_guarded(x, pad) if x is not None else None for x in xs]
              for xs in ((ub, fb, vb), us, fs, vs)]
+        b = ((r0, 0), n, h, nu)
+        for got, want in zip(cuda.packed_rr_sharded(g[0][0], g[0][1], g[1], g[2], *b),
+                             ops.packed_rr_sharded(ub, fb, us, fs, *b)):
+            assert torch.equal(got, want)
         for kind in ("inject", "bilinear"):
             b = ((r0, 0), n, h, nu, kind)
             assert torch.equal(cuda.packed_pc_sharded(*g[0], *g[1:], *b),
@@ -556,3 +564,46 @@ def test_sharded_packed_launch_counters(card):
     want.update({"mg_sharded_packed_rr": 1, "mg_sharded_packed_pc": 2,
                  "mg_sharded_packed_pc.rnorm": 1})
     assert cuda.launches == want
+
+
+def _misaligned(x):
+    """x's values in a dense row-major view at an odd 4-byte offset."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 8 == 4
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["tuned", "fast"])
+def test_solver_takes_any_strided_input(card, scheme):
+    """solve() takes f and psi0 of any strides and offset, as the JAX
+    package takes any array: a transposed f, a Fortran-order NumPy f or
+    psi0 and a view at an odd 4-byte offset give the psi and the iteration
+    count of their dense row-major copies, bit for bit (ROADMAP Queue 3
+    F1); step() likewise.  256^2 runs the kernels, the fast scheme on its
+    packed fine level."""
+    spec = Spec(size=256, dtype="float32", scheme=scheme, stop="residual", tol=1e-8,
+                maxiter=50)
+    mg = MultigridPoisson(spec, device="cuda")
+    f = mg.rhs()
+    f[40, 200] = 3.0e5                      # not symmetric: f.t() is another problem
+    ft = f.t().contiguous()
+    fortran = lambda x: np.asfortranarray(x.cpu().numpy())
+    for f_in, f_ref, psi0 in ((f.t(), ft, None), (fortran(ft), ft, None),
+                              (_misaligned(ft), ft, None), (ft, ft, fortran(-ft)),
+                              (ft, ft, _misaligned(-ft))):
+        before = [x.clone() if torch.is_tensor(x) else x.copy() for x in (f_in, psi0)
+                  if x is not None]
+        want = mg.solve(f_ref, psi0=None if psi0 is None else -ft)
+        got = mg.solve(f_in, psi0=psi0)
+        assert got.iterations == want.iterations and torch.equal(got.psi, want.psi)
+        for x, b in zip((x for x in (f_in, psi0) if x is not None), before):
+            assert (torch.equal(x, b) if torch.is_tensor(x) else np.array_equal(x, b))
+    psi = mg.init_state(ft)
+    want = mg.step(psi, ft)
+    for a, b in ((psi.t().contiguous().t(), f.t()), (_misaligned(psi), _misaligned(ft))):
+        got = mg.step(a, b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()

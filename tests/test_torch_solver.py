@@ -178,6 +178,88 @@ def test_psi0_is_copied_not_aliased():
     torch.testing.assert_close(res1.psi, res2.psi, rtol=0, atol=0)
 
 
+
+def _guard_cycles(mt, seen):
+    """Wraps the solver's cycles in a stub that asserts that every operand
+    it is handed is a dense row-major tensor at an 8-byte boundary, as the
+    kernels take them (their 2D tile moves 8 bytes per lane)."""
+    def guard(cycle):
+        def stub(u, f, h):
+            for x in (u, f):
+                assert x.is_contiguous() and x.data_ptr() % 8 == 0, (x.stride(), x.data_ptr())
+            seen.append(tuple(u.shape))
+            return cycle(u, f, h)
+        return stub
+    mt._cycle = guard(mt._cycle)
+    if mt._packed:
+        mt._packed_cycle = guard(mt._packed_cycle)
+
+
+def _odd_offset(a):
+    """a's values as a dense row-major f32 tensor at an odd 4-byte offset."""
+    buf = torch.empty(a.size + 1, dtype=torch.float32)
+    x = buf[1:].view(a.shape)
+    x.copy_(torch.from_numpy(a))
+    assert x.is_contiguous() and x.data_ptr() % 8 == 4
+    return x
+
+
+# (f, psi0) given to solve() as another layout than a dense row-major array
+# at an 8-byte boundary; None: the default psi0 = -f
+STRIDED = {
+    "transposed f": (lambda a: torch.from_numpy(a.T.copy()).t(), None),
+    "fortran f": (np.asfortranarray, None),
+    "fortran psi0": (torch.from_numpy, np.asfortranarray),
+    "odd-offset f": (_odd_offset, None),
+    "odd-offset psi0": (torch.from_numpy, _odd_offset),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STRIDED))
+@pytest.mark.parametrize("scheme,n", [("tuned", 32), ("fast", 256)])
+def test_solver_hands_the_cycle_dense_operands(monkeypatch, case, scheme, n):
+    """F1 (ROADMAP Queue 3): solve() and step() take f and psi0 of any
+    strides and offset and hand the cycle (the kernels, on the card) dense
+    row-major operands at an 8-byte boundary, with the psi and the
+    iteration count of the dense copies and the callers' arrays unwritten;
+    the fast scheme at 256 on its packed fine level (MGPOISSON_PACKED=1)."""
+    monkeypatch.setenv("MGPOISSON_PACKED", "1")
+    mt = mgpoisson_torch.MultigridPoisson(
+        mgpoisson_torch.Spec(size=n, dtype="float32", scheme=scheme, stop="residual",
+                             tol=1e-6, maxiter=3), device="cpu")
+    assert mt._packed == (scheme == "fast")
+    rng = np.random.default_rng(n)
+    a = mt.rhs().numpy()
+    a[n // 4, n // 2 + 3] = 3.0e5                 # not symmetric: a.T is another problem
+    p = (-a + rng.normal(size=a.shape)).astype(np.float32)
+    make_f, make_psi0 = STRIDED[case]
+    f_in = make_f(a)
+    psi0_in = None if make_psi0 is None else make_psi0(p)
+    want = mt.solve(torch.from_numpy(a), psi0=None if psi0_in is None else torch.from_numpy(p))
+    want_step = mt.step(torch.from_numpy(p), torch.from_numpy(a))
+    seen = []
+    _guard_cycles(mt, seen)
+    got = mt.solve(f_in, psi0=psi0_in)
+    assert len(seen) == got.iterations == want.iterations
+    assert torch.equal(got.psi, want.psi)
+    for x, v in ((f_in, a), (psi0_in, p)):
+        if x is not None:
+            assert np.array_equal(np.asarray(x), v)     # the caller's array, unwritten
+    # step() likewise, on tensors of the same layouts
+    psi_in = torch.as_tensor(make_f(p) if make_psi0 is None else make_psi0(p))
+    seen.clear()
+    got = mt.step(psi_in, torch.as_tensor(f_in))
+    assert len(seen) == 1 and all(torch.equal(g, w) for g, w in zip(got, want_step))
+
+
+def test_state_from_numpy_gives_dense_tensors():
+    """A Fortran-order or strided NumPy array comes across as a dense
+    row-major tensor (F1)."""
+    a = np.asfortranarray(np.random.default_rng(1).normal(size=(8, 12)))
+    psi, f = state_from_numpy(a, a[:, ::2], "cpu")
+    for t, v in ((psi, a), (f, a[:, ::2])):
+        assert t.is_contiguous() and np.array_equal(t.numpy(), v.astype(np.float32))
+
 VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(smoother="rbgs"), dict(cycle="w"), dict(stop="residual"),
          dict(coarse_size=4), dict(h=0.01), dict(dtype="float64"),
