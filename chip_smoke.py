@@ -27,6 +27,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
               a traced V-cycle (the per-stage debugging path, the one caller
               of K1) with the counters zeroed again; then the same solve on
               plain ops (backend="torch") for comparison.
+4b. parity_bf16 — the bf16 forms of K1-K3 against their plain torch
+              versions in bf16, at every side the two bf16 solves give the
+              kernels (4096 ... 256) and at 128 ... 2, x bc x (jacobi and
+              wjacobi nu 1-3, rbgs nu 1-2), both prolongation kinds, from
+              zero and with rnorm: every output bit-equal, sum(r^2) within
+              1e-5; then (timing_bf16) each form at 4096^2 with the main
+              path's settings beside its f32 form's device time from the
+              same run, each with its bound and share of it.
+4c. slice_mixed — the mixed-precision refinement solve (f32 with a bf16
+              V-cycle, tuned 4096^2, the JAX package's bench config):
+              refinement steps against the JAX package's count (equal or
+              within one), each step's relres beside the JAX package's, an
+              f64 re-check, the bf16 forms' launches, the same solve on
+              plain ops (the same history, bit for bit), and device ms,
+              launches and wall per step from torch.profiler beside the f32
+              tuned 4096^2 solve's.  Then (slice_bf16) the pure bf16 solve
+              (12 cycles, tol 1e-30): its history beside the JAX package's
+              and beside its plain-ops twin (equal), its launches, and a
+              traced bf16 V-cycle (K1's bf16 form).
 5. parity3d — each 3D kernel (K4-K6) against its plain version at every side
               the 3D paths give the kernels (512, 256) x bc x smoother x nu,
               both prolongation kinds, rnorm and from zero, and at every side
@@ -106,9 +125,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
               single-device kernel).  With 4 or more cards, the tuned and the
               packed 4096^2 solves again over NCCL.
 
-The last lines are a JSON object of the off-path kernels (K1, K4, with
-their launches in the traced cycles), a JSON object of the main paths'
-kernels (K2, K3 with their launches in the 4096^2 tuned solve; K5, K6 with
+The last lines are a JSON object of the off-path kernels (K1, K4 and K1's
+bf16 form, with their launches in the traced cycles), a JSON object of the
+main paths' kernels (K2, K3 with their launches in the 4096^2 tuned solve;
+the bf16 forms of K2 and K3 with theirs in the mixed 4096^2 solve; K5, K6 with
 theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
 K9, K10 with one rank's in the sharded 16384^2 solve, K11, K12 in the
 sharded 256^3 solve and K13, K14 in the sharded fast 16384^2 solve), the
@@ -134,7 +154,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from mgpoisson_torch import MultigridPoisson, Spec
-from mgpoisson_torch.bench.profile import event_ms, kernel_ms
+from mgpoisson_torch.bench.profile import event_ms, kernel_ms, profile_solve
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
 from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packed_sharded,
@@ -173,6 +193,24 @@ JAX_ERRS_FAST = {
     16384: [3.840496323737064e-11],
 }
 
+# the same package and backend on a CPU for Spec(size=4096,
+# dtype='float32', sweep_dtype='bfloat16', scheme='tuned', stop='residual',
+# tol=1e-10): 13 refinement steps, converged, with this relres per step
+# (the incoming iterate's: 1.0 first)
+JAX_ITERATIONS_MIXED = 13
+JAX_ERRS_MIXED = [1.0, 0.01529780589044094, 0.006269084755331278, 0.0010397398145869374,
+                  0.00023754766152705997, 4.224124495522119e-05, 5.796138793812133e-06,
+                  1.413964696439507e-06, 1.7821612630086747e-07, 7.977005722636932e-09,
+                  2.0543007295259486e-09, 5.675052650033763e-10, 7.26461737987627e-11]
+# ... and for Spec(size=4096, dtype='bfloat16', scheme='tuned',
+# stop='residual', tol=1e-30, maxiter=12): 12 cycles, finite, not converged;
+# after the second cycle the relres grows (r = f - A psi in bf16 is all
+# cancellation at this h; on the TPU the same solve went non-finite)
+JAX_ERRS_BF16 = [0.01336669921875, 0.001251220703125, 0.002716064453125, 0.0037994384765625,
+                 0.00799560546875, 0.01153564453125, 0.01031494140625, 0.029052734375,
+                 0.0167236328125, 0.026611328125, 0.042236328125, 0.0712890625]
+BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_pallas_bf16.py)
+
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 # the 2D parity below the main path's kernel levels (128 ... 2): the main
 # path's settings, the fast scheme's coarse rbgs nu = 1, and the deepest
@@ -194,6 +232,12 @@ SPEC_3D = Spec(size=256, ndim=3, dtype="float32", scheme="tuned", stop="residual
                tol=1e-10)
 SIDES_3D = (512, 256)      # the 3D levels the 256^3 and 512^3 solves run on the kernels
 FAST_SPEC = MAIN_SPEC.with_(scheme="fast")
+# the bf16 paths: mixed-precision refinement (bench.py's sec_bf16 config) and
+# the pure bf16 solve; the bf16 parity's settings
+MIXED_SPEC = MAIN_SPEC.with_(sweep_dtype="bfloat16")
+BF16_SPEC = MAIN_SPEC.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
+BF16_SETTINGS = tuple([(sm, nu) for sm in ("jacobi", "wjacobi") for nu in (1, 2, 3)]
+                      + [("rbgs", 1), ("rbgs", 2)])
 PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves, and 256
 CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
 # the sharded solve: its meshes and the sweep settings of its schemes; its
@@ -229,9 +273,10 @@ TIMING_REPS = 25
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
-# kernel -> (source, the Pallas kernel it replaces); K1 and K4 run only on
-# the traced cycles, K2, K3, K5, K6, K7 and K8 carry the solves
-OFF_PATH = ("mg_smooth", "mg_smooth3d")
+# kernel -> (source, the Pallas kernel it replaces); K1 and K4 (and K1's
+# bf16 form) run only on the traced cycles, K2, K3, K5, K6, K7 and K8 (and
+# the bf16 forms of K2 and K3) carry the solves
+OFF_PATH = ("mg_smooth", "mg_smooth3d", "mg_smooth_bf16")
 KERNELS = {
     "mg_smooth": ("mgpoisson_torch/csrc/mg_smooth.cu",
                   "mgpoisson/kernels/pallas.py:587"),
@@ -239,6 +284,12 @@ KERNELS = {
                      "mgpoisson/kernels/pallas.py:2223"),
     "mg_prolong_correct_smooth": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
                                   "mgpoisson/kernels/pallas.py:2482"),
+    "mg_smooth_bf16": ("mgpoisson_torch/csrc/mg_smooth.cu",
+                       "mgpoisson/kernels/pallas.py:587"),
+    "mg_smooth_rr_bf16": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
+                          "mgpoisson/kernels/pallas.py:2223"),
+    "mg_prolong_correct_smooth_bf16": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
+                                       "mgpoisson/kernels/pallas.py:2482"),
     "mg_smooth3d": ("mgpoisson_torch/csrc/mg_smooth3d.cu",
                     "mgpoisson/kernels/pallas.py:1558"),
     "mg_smooth_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
@@ -263,6 +314,8 @@ KERNELS = {
                              "mgpoisson/kernels/pallas.py:4621"),
 }
 # per rank: the (smooth, rr, pc) kernels and the tags of the parity lines
+# (their bf16 forms: the names with BF16)
+BF16 = "_bf16"
 RANK = {2: (("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"), ("K1", "K2", "K3")),
         3: (("mg_smooth3d", "mg_smooth_rr3d", "mg_prolong_correct_smooth3d"),
             ("K4", "K5", "K6"))}
@@ -331,10 +384,19 @@ def phase_build():
     build.load()
     print(f"[build] {lib_path.name} ready in {time.perf_counter() - t0:.1f} s")
     log = lib_path.with_suffix(".log")
-    for fn, r in ptxas_report(log.read_text() if log.exists() else "").items():
+    report = ptxas_report(log.read_text() if log.exists() else "")
+    for fn, r in report.items():
         print(f"[build] {fn}: {r['registers']} registers, {r['spill_stores']} / "
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
+    # the bf16 forms of K1-K3 (one instance per smoother and tile row count)
+    bf16 = {fn: r for fn, r in report.items() if BF16 in fn}
+    check(len(bf16) == 27, f"{len(bf16)} bf16 kernel instances in the ptxas report, not 27")
+    regs = sorted(r["registers"] for r in bf16.values())
+    spilled = [fn for fn, r in bf16.items() if r["spill_stores"] or r["spill_loads"]]
+    print(f"[build] bf16 forms of K1-K3: {len(bf16)} instances, {regs[0]}-{regs[-1]} registers, "
+          f"{len(spilled)} with spills")
+    check(not spilled, f"bf16 instances spill: {spilled}")
     # ptxas reports static shared memory only; the 3D kernels' is dynamic.
     # K4 runs the cube tile; K5/K6 and K11/K12 the z-marching tile at halos
     # <= 4
@@ -491,14 +553,15 @@ def bound_ms(inputs, outputs, operations):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(dev, n, ndim):
+def phase_timing(dev, n, ndim, dtype=torch.float32):
     """Each kernel of this rank and its plain version at side n with the
     main path's settings (wjacobi, nu=3; ghost0 on the fine level, face
     where the kernel runs on coarse levels), alternating plain and kernel;
-    with each its bound."""
-    u, f, V = _data(n, ndim, seed=7, dev=dev)
+    with each its bound.  With dtype bf16, the bf16 forms (2D)."""
+    u, f, V = (t.to(dtype) for t in _data(n, ndim, seed=7, dev=dev))
     h, cells = 1.0 / n, n ** ndim
-    k_smooth, k_rr, k_pc = RANK[ndim][0]
+    suffix = BF16 if dtype == torch.bfloat16 else ""
+    k_smooth, k_rr, k_pc = (k + suffix for k in RANK[ndim][0])
     cases = {
         k_smooth: (lambda m: m.smooth(u, f, h, 3, "wjacobi", "ghost0"),
                    (u, f), _work(ndim, 3, "wjacobi", "smooth")),
@@ -513,13 +576,13 @@ def phase_timing(dev, n, ndim):
             u, f, V, h, 3, "wjacobi", "ghost0", "bilinear"),
             (u, f, V), _work(ndim, 3, "wjacobi", "pc", "bilinear", rnorm=True)),
     }
-    out = _time_cases("timing", cases, f"{n}^{ndim}", cells)
+    out = _time_cases("timing" + suffix, cases, f"{n}^{ndim}", cells, "bf16" if suffix else "f32")
     del u, f, V
     torch.cuda.empty_cache()
     return out
 
 
-def _time_cases(label, cases, shape, cells):
+def _time_cases(label, cases, shape, cells, dtype="f32"):
     """Times each case's kernel (through kernels.cuda) and plain version
     (kernels.ops), in turns plain, kernel, kernel, plain; with each its
     bound."""
@@ -536,7 +599,7 @@ def _time_cases(label, cases, shape, cells):
                      "plain_ms": statistics.median([p1, p2]),
                      "bound_ms": b_ms, "bound_by": b_by,
                      "kernel_ms": statistics.median([d1, d2])}
-        print(f"[{label}] {name} at {shape} f32: kernel {k1:.4f} / {k2:.4f} ms "
+        print(f"[{label}] {name} at {shape} {dtype}: kernel {k1:.4f} / {k2:.4f} ms "
               f"(device {d1:.4f} / {d2:.4f} ms, {100 * b_ms / max(d1, d2):.1f} % of the "
               f"bound), plain {p1:.4f} / {p2:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return out
@@ -716,7 +779,7 @@ def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=Tru
 
 def compare_solve(label, what, spec, dev, it, launches, warm_up=True):
     """Another solve of the same problem, for its per-cycle wall: it must
-    take `it` cycles and launch exactly `launches`."""
+    take `it` cycles and launch exactly `launches`.  Returns its result."""
     if warm_up:
         _solve(spec, dev)
     cuda.reset_launches()
@@ -727,6 +790,167 @@ def compare_solve(label, what, spec, dev, it, launches, warm_up=True):
     ms = statistics.median(cycle_ms)
     print(f"[{label}] per-cycle wall ms, median (all): {what:<8} {ms:.3f} "
           f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
+    return res
+
+
+def phase_parity_bf16(dev, worst):
+    """The bf16 forms of K1-K3 against their plain torch versions in bf16
+    at every level side the two bf16 solves give the kernels (4096 ...
+    256) and at 128 ... 2, x bc x BF16_SETTINGS, both prolongation kinds,
+    from zero and with rnorm: every output bit-equal (each op rounded to
+    bf16 as torch rounds it), sum(r^2) within RNORM_TOL."""
+    (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[2]
+    k_smooth, k_rr, k_pc = k_smooth + BF16, k_rr + BF16, k_pc + BF16
+    for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES):
+        u, f, V = (t.to(torch.bfloat16) for t in _data(n, 2, seed=n + 2, dev=dev))
+        h = 1.0 / n
+        for bc in ("ghost0", "face"):
+            for smoother, nu in BF16_SETTINGS:
+                row = [f"n={n} {bc} {smoother} nu={nu}"]
+                a = (h, nu, smoother, bc)
+                note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a), ops.smooth(u, f, *a),
+                     row, exact=True)
+                for tag, fk, fp, args in (
+                        (t_rr, cuda.smooth_residual_restrict,
+                         ops.smooth_residual_restrict, (u, f)),
+                        (t_rr + "z", cuda.smooth_residual_restrict_zero,
+                         ops.smooth_residual_restrict_zero, (f,))):
+                    (gu, gR), (wu, wR) = fk(*args, *a), fp(*args, *a)
+                    note(worst, k_rr, f"{tag}.u", gu, wu, row, exact=True)
+                    note(worst, k_rr, f"{tag}.R", gR, wR, row, exact=True)
+                for kind in ("inject", "bilinear"):
+                    pa = (u, f, V, h, nu, smoother, bc, kind)
+                    tag = t_pc + kind[0]
+                    note(worst, k_pc, tag, cuda.prolong_correct_smooth(*pa),
+                         ops.prolong_correct_smooth(*pa), row, exact=True)
+                    (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
+                                          ops.prolong_correct_smooth_rnorm(*pa))
+                    note(worst, k_pc, tag + "r.u", gu, wu, row, exact=True)
+                    note_r2(tag + "r.r2", g2, w2, row)
+                check(gu.dtype == torch.bfloat16 and g2.dtype == torch.float32,
+                      f"bf16 up-leg dtypes {gu.dtype}, {g2.dtype}")
+                torch.cuda.synchronize()
+                print("[parity_bf16] " + " ".join(row) + "; bit-equal")
+        del u, f, V
+        torch.cuda.empty_cache()
+
+
+def _steps_beside(label, errs, jax_errs):
+    for k, e in enumerate(errs, 1):
+        ej = jax_errs[k - 1] if k <= len(jax_errs) else float("nan")
+        print(f"[{label}]   cycle {k}: relres {e:.6e}  jax {ej:.6e}")
+
+
+def _per_cycle_profile(label, spec, dev):
+    """torch.profiler's device ms, launches and mg_* ms per cycle of a
+    solve of `spec`, beside its wall (bench/profile.py)."""
+    row = profile_solve(spec, dev)
+    print(f"[{label}] {spec.dtype}{'/' + spec.sweep_dtype if spec.sweep_dtype else ''} "
+          f"{spec.size}^2 per cycle: device {row['device_ms_per_cycle']:.4f} ms, mg_* "
+          f"{row['mg_kernel_ms_per_cycle']:.4f} ms, {row['launches_per_cycle']:.1f} launches, "
+          f"wall {row['wall_ms_per_cycle']:.3f} ms (busy share "
+          f"{row['device_busy_share']:.3f}); {row['cycles']} cycles")
+    return row
+
+
+def phase_slice_mixed(dev):
+    """The mixed-precision refinement solve of MIXED_SPEC: steps against the
+    JAX package's count, each step's relres beside the JAX package's, the
+    first one 1.0 (the incoming iterate's), an f64 re-check, the bf16
+    forms' launches (per step K2 from u at 4096, from zero below, K3 without
+    rnorm at every kernel level: the JAX step hands the cycle a zeros array
+    and stops on the residual it computes itself), the plain-ops twin (the
+    same history, bit for bit) and the per-step device time beside the f32
+    solve's.  Returns the solve's launches."""
+    label, spec = "slice_mixed", MIXED_SPEC
+    _solve(spec, dev)
+    cuda.reset_launches()
+    mg, res, cycle_ms = _solve(spec, dev)
+    launches = dict(cuda.launches)
+    it, errs = res.iterations, res.errs.tolist()
+    print(f"[{label}] f32 with bf16 sweeps, tuned {spec.size}^2 on {dev}: {it} steps, "
+          f"converged={res.converged}, final relres {res.final_err:.6e}; the JAX package "
+          f"takes {JAX_ITERATIONS_MIXED}")
+    _steps_beside(label, errs, JAX_ERRS_MIXED)
+    check(res.converged, "the mixed 4096^2 solve did not converge")
+    check(errs[0] == 1.0, f"the first step's relres is {errs[0]}, not 1.0 (the incoming psi0)")
+    check(res.errs.dtype == torch.float32, f"the history is {res.errs.dtype}")
+    check(abs(it - JAX_ITERATIONS_MIXED) <= 1,
+          f"{it} steps, the JAX package takes {JAX_ITERATIONS_MIXED}")
+    if it != JAX_ITERATIONS_MIXED:
+        print(f"[{label}] {it} steps against {JAX_ITERATIONS_MIXED}: the bf16 V-cycles differ "
+              "in the restriction's sum (bf16 adds under XLA on the CPU, f32 in torch) and "
+              "the bilinear blend (bf16 in xla.prolong, f32 here as in the Pallas up-leg)")
+    f = mg.rhs()
+    f64, psi64 = f.double(), res.psi.double()
+    rel64 = float(ops.residual_norm(psi64, f64, spec.fine_h)
+                  / ops.residual_norm(-f64, f64, spec.fine_h))
+    del f64, psi64
+    print(f"[{label}] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
+    check(rel64 < spec.tol, f"mixed 4096^2: f64 relres of the returned psi {rel64:.3e} >= tol")
+    L = len(kernel_levels(spec))
+    check_launches("4096^2 mixed solve", launches, _expected({
+        "mg_smooth_rr_bf16": it * L, "mg_smooth_rr_bf16.zero": it * (L - 1),
+        "mg_prolong_correct_smooth_bf16": it * L}),
+        f"per step the bf16 K2 from u at {spec.size} and from zero below, and the bf16 K3 "
+        f"without rnorm, at each of the {L} kernel levels; no f32 kernel")
+    print(f"[{label}] per-step wall ms, median (all): kernels {statistics.median(cycle_ms):.3f} "
+          f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
+    plain = compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
+    check(torch.equal(plain.psi, res.psi) and plain.errs.tolist() == errs,
+          f"the plain-ops mixed solve differs: {plain.errs.tolist()} vs {errs}")
+    print(f"[{label}] plain-ops twin: the same psi and {it} relres values, bit for bit")
+    mixed_row = _per_cycle_profile(label, spec, dev)
+    f32_row = _per_cycle_profile(label, MAIN_SPEC, dev)
+    print(f"[{label}] mixed step / f32 tuned cycle: device "
+          f"{mixed_row['device_ms_per_cycle'] / f32_row['device_ms_per_cycle']:.3f}x, mg_* "
+          f"{mixed_row['mg_kernel_ms_per_cycle'] / f32_row['mg_kernel_ms_per_cycle']:.3f}x, "
+          f"wall {mixed_row['wall_ms_per_cycle'] / f32_row['wall_ms_per_cycle']:.3f}x")
+    return launches
+
+
+def phase_slice_bf16(dev):
+    """The pure bf16 solve of BF16_SPEC (12 cycles at tol 1e-30): its
+    history beside the JAX package's and equal to its plain-ops twin's,
+    its launches, and a traced bf16 V-cycle (the one caller of K1's bf16
+    form).  Returns the traced cycle's launches."""
+    label, spec = "slice_bf16", BF16_SPEC
+    _solve(spec, dev)
+    cuda.reset_launches()
+    mg, res, cycle_ms = _solve(spec, dev)
+    launches = dict(cuda.launches)
+    it, errs = res.iterations, res.errs.tolist()
+    print(f"[{label}] bf16 tuned {spec.size}^2 on {dev}: {it} cycles (maxiter "
+          f"{spec.maxiter}), final relres {res.final_err:.6e}; the JAX package's beside")
+    _steps_beside(label, errs, JAX_ERRS_BF16)
+    check(res.psi.dtype == torch.bfloat16 and res.errs.dtype == torch.float32,
+          f"psi {res.psi.dtype}, history {res.errs.dtype}")
+    # the first cycle, from psi0 = -f, before bf16's cancellation sets in
+    check(abs(errs[0] - JAX_ERRS_BF16[0]) <= BF16_TOL * JAX_ERRS_BF16[0],
+          f"bf16 4096^2 cycle 1: relres {errs[0]:.6e} vs the JAX package's "
+          f"{JAX_ERRS_BF16[0]:.6e}")
+    L = len(kernel_levels(spec))
+    check_launches("4096^2 bf16 solve", launches, _expected({
+        "mg_smooth_rr_bf16": it * L, "mg_smooth_rr_bf16.zero": it * (L - 1),
+        "mg_prolong_correct_smooth_bf16": it * L,
+        "mg_prolong_correct_smooth_bf16.rnorm": it}),
+        f"one bf16 K2 and K3 per cycle at each of the {L} kernel levels, K2 from zero "
+        "below the fine level, K3 with rnorm at it")
+    # the same psi bit for bit; the relres from Sigma r^2 summed in another
+    # order (the kernel's partials), so within one bf16 ulp after rounding
+    plain = compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
+    check(torch.equal(plain.psi, res.psi), "the plain-ops bf16 solve's psi differs")
+    check(all(abs(a - b) <= 2 ** -7 * abs(b) for a, b in zip(errs, plain.errs.tolist())),
+          f"the plain-ops bf16 solve's history differs: {plain.errs.tolist()} vs {errs}")
+    print(f"[{label}] plain-ops twin: the same psi bit for bit, relres "
+          f"{' '.join(f'{e:.6e}' for e in plain.errs.tolist())}")
+    cuda.reset_launches()
+    v_cycle(res.psi, mg.rhs(), spec.fine_h, spec, trace=[])
+    torch.cuda.synchronize()
+    trace = dict(cuda.launches)
+    check_launches("4096^2 traced bf16 V-cycle", trace, _expected({"mg_smooth_bf16": 2 * L}),
+                   f"K1's bf16 form twice at each of the {L} kernel levels")
+    return trace
 
 
 def check_launches(label, got, want, what):
@@ -1340,6 +1564,17 @@ def main():
     check_launches("4096^2 traced V-cycle", trace2, _expected({"mg_smooth": 2 * L}),
                    f"K1 twice at each of the {L} kernel levels")
 
+    # the bf16 forms of K1-K3: the mixed-precision 4096^2 solve and the
+    # pure bf16 one
+    phase_parity_bf16(dev, worst)
+    times_bf16 = phase_timing(dev, MAIN_N, 2, torch.bfloat16)
+    for name, t in times_bf16.items():
+        f32 = name.replace(BF16, "")
+        print(f"[timing_bf16] {name} against its f32 form: " + _beside(times[f32], t))
+    times.update(times_bf16)
+    solve_mixed = phase_slice_mixed(dev)
+    trace_bf16 = phase_slice_bf16(dev)
+
     # the 3D path: the tuned 256^3 solve, then 512^3
     phase_parity(dev, 3, SIDES_3D, worst, SMALL_SIDES)
     times.update(phase_timing(dev, SPEC_3D.size, 3))
@@ -1389,6 +1624,8 @@ def main():
                "max_abs_err": worst[name][1], "max_norm_err": worst[name][0],
                **times[name], "library_ms": None}
         solve, trace = (solve3, trace3) if name.endswith("3d") else (solve2, trace2)
+        if name.endswith(BF16):
+            solve, trace = solve_mixed, trace_bf16
         if name.startswith("mg_packed"):
             solve = solve_fast
         if name.startswith("mg_sharded"):

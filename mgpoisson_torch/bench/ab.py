@@ -4,7 +4,7 @@
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
         [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
         [--old-strip3d] [--packed 4096 ...] [--sharded-packed 16384]
-        [--old-packed-tile 32] [--reps 25]
+        [--old-packed-tile 32] [--dtype {float32,bfloat16}] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -44,6 +44,11 @@ K12 does (a build whose strip entries K11/K12 keep the cube tile); with
 packed lanes, before the register tile).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
+
+With --dtype bfloat16 it times the bf16 forms of K1-K3 (the 2D legs at
+every --sides side, as above) and nothing else: every other kernel is f32
+only.  The other build must have them (this checkout's tree or a later
+one).
 """
 
 from __future__ import annotations
@@ -126,9 +131,10 @@ def _cube_partials(shape, nu, smoother, n):
     return -(-n // t) * -(-shape[0] // t) * -(-shape[1] // t)
 
 
-def _cases_whole(n, smoother, nu, dev):
+def _cases_whole(n, smoother, nu, dev, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(n + nu)
-    u, f, V = (torch.randn((s, s), generator=g, device=dev) for s in (n, n, n // 2))
+    u, f, V = (torch.randn((s, s), generator=g, device=dev).to(dtype)
+               for s in (n, n, n // 2))
     h = 1.0 / n
     kind = "bilinear"
     cases = {
@@ -281,7 +287,10 @@ def _run(builds, label, cases, inputs, reps):
             "old_spread": old_spread, "max_norm_diff_new_vs_old": diff}), flush=True)
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """The command line; with --dtype bfloat16 only the 2D whole-grid legs
+    run (--sharded, --sides3d, --sharded3d, --packed and --sharded-packed
+    are cleared: their kernels are f32 only)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the other build's csrc")
     ap.add_argument("--old-tile", type=int, default=0,
@@ -312,8 +321,19 @@ def main(argv=None):
     ap.add_argument("--old-packed-tile", type=int, default=0,
                     help="the other build's packed tile side (its K8/K14 rnorm partials, one "
                     "per T x T packed tile), 32 before the register tile; 0: the register tile")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="bfloat16: the bf16 forms of K1-K3 only")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
+    args.dtype = getattr(torch, args.dtype)
+    if args.dtype == torch.bfloat16:
+        args.sharded, args.sides3d, args.sharded3d = 0, [], 0
+        args.packed, args.sharded_packed = [], 0
+    return args
+
+
+def main(argv=None):
+    args = parse_args(argv)
     if not torch.cuda.is_available():
         print("ab: needs a CUDA device", file=sys.stderr)
         return 1
@@ -328,8 +348,9 @@ def main(argv=None):
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))
     for n, smoother, nu in settings:
-        cases, inputs = _cases_whole(n, smoother, nu, dev)
-        _run(builds, f"{n}^2 {smoother} nu={nu}", cases, inputs, args.reps)
+        cases, inputs = _cases_whole(n, smoother, nu, dev, args.dtype)
+        dt = " bf16" if args.dtype == torch.bfloat16 else ""
+        _run(builds, f"{n}^2{dt} {smoother} nu={nu}", cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()
     if args.sharded:

@@ -3,12 +3,19 @@
 
     python -m mgpoisson_torch.bench.profile [--size 4096] [--ndim {2,3}]
         [--scheme {tuned,fast}] [--device cuda] [--kernel-min-size 256 2]
-        [--tol 1e-10] [--out DIR] [--mesh MX MY [--dist-backend gloo]]
+        [--tol 1e-10] [--maxiter N] [--dtype {float32,float64,bfloat16}]
+        [--sweep-dtype {float32,float64,bfloat16}] [--out DIR]
+        [--mesh MX MY [--dist-backend gloo]]
 
-For each kernel_min_size it runs the f32 residual-stop solve of the scheme
+For each kernel_min_size it runs the residual-stop solve of the scheme
 (tuned by default; fast runs the packed fine level on the card, see
 ``mgpoisson_torch.kernels.use_packed``) in 2D, or 3D with --ndim 3 (e.g.
---size 256 --ndim 3), three times on the device: a warm-up, one timed solve (wall ms per cycle from
+--size 256 --ndim 3), in --dtype (f32 by default; bfloat16 is the pure
+bf16 solve, which levels off: give it --tol 1e-30 --maxiter 12) and, with
+a --sweep-dtype other than it, as mixed-precision refinement (e.g.
+--sweep-dtype bfloat16: an f32 solve whose V-cycle runs in bf16 on the
+bf16 forms of K1-K3, one refinement step per "cycle" below), three times
+on the device: a warm-up, one timed solve (wall ms per cycle from
 the error callback, each cycle ending in a scalar readback) and one solve
 under torch.profiler.  From the profiled solve it prints, per cycle, the
 device launches, the device time (union of the device events' intervals)
@@ -48,6 +55,9 @@ from mgpoisson_torch.kernels import build
 from mgpoisson_torch.kernels import cuda as cuda_kernels
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.solver.multigrid import MultigridPoisson
+
+
+DTYPES = ("float32", "float64", "bfloat16")
 
 
 def _sync(device):
@@ -139,7 +149,7 @@ def profile_solve(spec, device, out: str | None = None):
     it = res.iterations
     wall_ms = statistics.median(cycle_ms)
     row = {"size": spec.size, "ndim": spec.ndim, "scheme": spec.scheme,
-           "packed": mg._packed, "kernel_min_size": spec.kernel_min_size,
+           "dtype": spec.dtype, "sweep_dtype": spec.sweep_dtype, "packed": mg._packed, "kernel_min_size": spec.kernel_min_size,
            "device": str(mg.device), "cycles": it, "converged": res.converged,
            "final_err": res.final_err, "profiled_cycles": res_p.iterations,
            "wall_ms_per_cycle": wall_ms, "cycle_ms": cycle_ms,
@@ -184,6 +194,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--kernel-min-size", type=int, nargs="+", default=[256])
     p.add_argument("--tol", type=float, default=1e-10)
+    p.add_argument("--maxiter", type=int, default=Spec.maxiter)
+    p.add_argument("--dtype", choices=DTYPES, default="float32")
+    p.add_argument("--sweep-dtype", choices=DTYPES, default=None,
+                   help="another dtype for the V-cycle: mixed-precision refinement")
     p.add_argument("--out", default=None,
                    help="directory for one Chrome trace per solve")
     p.add_argument("--mesh", type=int, nargs=2, default=None, metavar=("MX", "MY"),
@@ -195,11 +209,13 @@ def main(argv=None):
         Path(args.out).mkdir(parents=True, exist_ok=True)
     specs, outs = [], []
     for kms in args.kernel_min_size:
-        specs.append(Spec(size=args.size, ndim=args.ndim, dtype="float32",
-                          scheme=args.scheme, stop="residual", tol=args.tol,
-                          kernel_min_size=kms,
+        specs.append(Spec(size=args.size, ndim=args.ndim, dtype=args.dtype,
+                          sweep_dtype=args.sweep_dtype, scheme=args.scheme, stop="residual",
+                          tol=args.tol, maxiter=args.maxiter, kernel_min_size=kms,
                           mesh_shape=None if args.mesh is None else tuple(args.mesh)))
         tag = ("" if args.ndim == 2 else "_3d") + ("" if args.scheme == "tuned" else "_fast")
+        tag += "" if args.dtype == "float32" else f"_{args.dtype}"
+        tag += "" if args.sweep_dtype in (None, args.dtype) else f"_sweep_{args.sweep_dtype}"
         if args.mesh is not None:
             tag += "_mesh{}x{}".format(*args.mesh) + "_rank{rank}"
         outs.append(str(Path(args.out) / f"solve_{args.size}{tag}_kms{kms}.json")

@@ -44,11 +44,24 @@ def state_from_numpy(psi, f, device="cuda", dtype=torch.float32, mesh=None):
     too); with a ``shard.mesh.ProcessMesh``, this rank's blocks of them
     (``shard.multihost.local_block``).  A
     packed array of the JAX package's fast solve comes across the same
-    way; ``kernels.ops.unpack_grid`` gives its grid."""
+    way; ``kernels.ops.unpack_grid`` gives its grid.  A bf16 array of the
+    JAX package (numpy dtype ``bfloat16`` from ml_dtypes, which torch does
+    not read) comes across bit for bit."""
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     arrays = [np.asarray(a) for a in (psi, f)]
     if mesh is not None:
         arrays = [local_block(a, mesh) for a in arrays]
-    return tuple(torch.tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-                 for a in arrays)
+    return tuple(_tensor(a).to(dtype=dtype, device=device) for a in arrays)
+
+
+def _tensor(a) -> torch.Tensor:
+    """A fresh dense row-major CPU tensor of the numpy array `a`, in its
+    dtype.  numpy has no bf16 of its own: the JAX package's bf16 arrays
+    carry ml_dtypes' ``bfloat16`` (2 bytes), which torch.tensor refuses, so
+    their bits go across as int16 and are viewed as torch.bfloat16 (this
+    module does not import ml_dtypes, which comes with JAX)."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+        return torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+    return torch.tensor(a)

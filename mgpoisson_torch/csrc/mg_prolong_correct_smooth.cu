@@ -26,6 +26,13 @@
 // one 4-byte load per lane, and the bilinear taps across pairs come from
 // the lanes beside it (the two outer lanes load theirs).  Sum(r^2) is a
 // butterfly of shuffles per warp and an ordered sum of the block's warps.
+//
+// The bf16 form of K3 (mg_prolong_correct_smooth_bf16, with the rnorm
+// flag) runs the same tile on bf16 u, f and V, rounding as plain torch does
+// in bf16 (stencil.cuh, Mg2Elem); P(V) is blended in f32 and rounded once,
+// as ops.prolong_correct does in a sub-f32 dtype and as the Pallas up-leg
+// does (pallas.py _bilinear_blend_2d); the partials stay f32.  Bound 1.625
+// arrays of f32 bytes.  K10 has no bf16 form.
 #include "stencil.cuh"
 
 // P(V) of one fine cell in ops.prolong's order: per axis the bilinear
@@ -45,9 +52,10 @@ static __device__ __forceinline__ float mg2_blend(float R, float S0, float S1, f
 // coarse row i/2 (the origin is even), so coarse rows -1 .. R/2 of the
 // tile cover the bilinear +-1 shifts; vc[k] is the lane's coarse column in
 // coarse row k - 1.
-template <int R, bool kStrips, bool kEdge>
-static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args& a,
+template <int R, bool kStrips, bool kEdge, class T>
+static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2ArgsOf<T>& a,
                                                    const Mg2Tile& t) {
+  using E = Mg2Elem<T>;
   constexpr int K = R / 2 + 2;
   const int lI0 = t.li0 / 2 - 1, gI0 = t.gi0 / 2 - 1;
   const int lJ = t.lj0 / 2 + t.lane, gJ = t.gj0 / 2 + t.lane;
@@ -56,9 +64,9 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args&
   const Mg2Cols c = mg2_cols_of(t);
   float vc[K];
   if (!kEdge) {
-    const float* p = a.V + (size_t)lI0 * (t.ml / 2) + lJ;
+    const T* p = a.V + (size_t)lI0 * (t.ml / 2) + lJ;
 #pragma unroll
-    for (int k = 0; k < K; ++k) vc[k] = __ldg(p + (size_t)k * (t.ml / 2));
+    for (int k = 0; k < K; ++k) vc[k] = E::ldg(p + (size_t)k * (t.ml / 2));
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k)
@@ -69,8 +77,8 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args&
     for (int i = 0; i < R; ++i) {
       const bool in = !kEdge || (c.in && mg_in(t.gi0 + i, t.n));
       if (in) {
-        u.x0[i] = __fadd_rn(u.x0[i], vc[i / 2 + 1]);
-        u.x1[i] = __fadd_rn(u.x1[i], vc[i / 2 + 1]);
+        u.x0[i] = E::rd(__fadd_rn(u.x0[i], vc[i / 2 + 1]));
+        u.x1[i] = E::rd(__fadd_rn(u.x1[i], vc[i / 2 + 1]));
       }
     }
     return;
@@ -81,7 +89,7 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args&
     float e = 0.f;
     if (outer)
       e = kEdge ? mg2_coarse<kStrips>(a.V, a.vs, t, lI0 + k, lJ + side, gI0 + k, gJ + side)
-                : __ldg(a.V + (size_t)(lI0 + k) * (t.ml / 2) + (lJ + side));
+                : E::ldg(a.V + (size_t)(lI0 + k) * (t.ml / 2) + (lJ + side));
     const float fl = mg2_from_left(vc[k]), fr = mg2_from_right(vc[k]);
     l = t.lane == 0 ? e : fl;
     r = t.lane == 31 ? e : fr;
@@ -100,11 +108,11 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args&
       const bool row_edge = kEdge && (gi == 0 || gi == t.n - 1);
       const bool in = !kEdge || (c.in && mg_in(gi, t.n));
       const float S0 = d ? vc[k + 1] : vc[k - 1];
-      const float p0 = mg2_blend(vc[k], S0, lc, d ? lp : lm, row_edge, kEdge && c.lo0);
-      const float p1 = mg2_blend(vc[k], S0, rc, d ? rp : rm, row_edge, kEdge && c.hi1);
+      const float p0 = E::rd(mg2_blend(vc[k], S0, lc, d ? lp : lm, row_edge, kEdge && c.lo0));
+      const float p1 = E::rd(mg2_blend(vc[k], S0, rc, d ? rp : rm, row_edge, kEdge && c.hi1));
       if (in) {
-        u.x0[i] = __fadd_rn(u.x0[i], p0);
-        u.x1[i] = __fadd_rn(u.x1[i], p1);
+        u.x0[i] = E::rd(__fadd_rn(u.x0[i], p0));
+        u.x1[i] = E::rd(__fadd_rn(u.x1[i], p1));
       }
     }
     lm = lc;
@@ -114,22 +122,22 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2Args&
   }
 }
 
-template <int kSm, int R, bool kStrips, bool kEdge>
-static __device__ __forceinline__ float mg2_pc_tile(const Mg2Args& a, const Mg2Tile& t) {
+template <int kSm, int R, bool kStrips, bool kEdge, class T>
+static __device__ __forceinline__ float mg2_pc_tile(const Mg2ArgsOf<T>& a, const Mg2Tile& t) {
   Mg2Pair<R> u;
   Mg2Pair<R> f;
   mg2_load<R, kStrips, kEdge>(u, a.U, a.us, t);
   mg2_correct<R, kStrips, kEdge>(u, a, t);
   mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
+  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
   mg2_store<R, kEdge>(a.Uout, u, t);
   if (a.partials == nullptr) return 0.f;
-  return mg2_rsq<R, kEdge>(u, f, t, a.inv_hsq, a.adiag);
+  return mg2_rsq<R, kEdge, T>(u, f, t, a.inv_hsq, a.adiag);
 }
 
 // The leg on the block a.blk; each entry point below instantiates it.
-template <int kSm, int R, bool kStrips>
-static __device__ __forceinline__ void mg2_pc_body(const Mg2Args& a) {
+template <int kSm, int R, bool kStrips, class T>
+static __device__ __forceinline__ void mg2_pc_body(const Mg2ArgsOf<T>& a) {
   const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
   float acc = 0.f;
   if (mg2_owns(t))
@@ -167,15 +175,28 @@ struct MgShardedPcLaunch {
   }
 };
 
-extern "C" int mg_prolong_correct_smooth(const float* u, const float* f, const float* V,
-                                         float* out, float* partials, int n, int nu,
-                                         int smoother, int bc, int kind, float inv_hsq,
-                                         float inv_adiag, float adiag, int rnorm,
-                                         cudaStream_t stream) {
+// K3 in bf16: the whole n x n grid.
+template <int kSm, int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_pc_bf16_kernel(const Mg2ArgsBf16 a) {
+  mg2_pc_body<kSm, R, false>(a);
+}
+
+struct MgPcBf16Launch {
+  template <int kSm, int R>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2ArgsBf16& a) {
+    mg_pc_bf16_kernel<kSm, R><<<grid, block, 0, stream>>>(a);
+  }
+};
+
+template <class L, class A, class T>
+static int mg_pc_entry(const T* u, const T* f, const T* V, T* out, float* partials, int n,
+                       int nu, int smoother, int bc, int kind, float inv_hsq, float inv_adiag,
+                       float adiag, int rnorm, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + 1;
   if (n < 2 || n & 1 || nu < 0 || mg2_halo(H) > MG2_MAX_HALO) return (int)cudaErrorInvalidValue;
-  if (!mg2_aligned(u, f, out)) return (int)cudaErrorMisalignedAddress;
-  Mg2Args a{};
+  if (!mg2_aligned<T>(u, f, out)) return (int)cudaErrorMisalignedAddress;
+  A a{};
   a.U = u;
   a.F = f;
   a.V = V;
@@ -189,8 +210,26 @@ extern "C" int mg_prolong_correct_smooth(const float* u, const float* f, const f
   a.inv_hsq = inv_hsq;
   a.inv_adiag = inv_adiag;
   a.adiag = adiag;
-  return mg2_launch<MgPcLaunch>(smoother, mg2_rows(n, n, H),
-                                          mg2_grid(n, n, H), stream, a);
+  return mg2_launch<L>(smoother, mg2_rows(n, n, H), mg2_grid(n, n, H), stream, a);
+}
+
+extern "C" int mg_prolong_correct_smooth(const float* u, const float* f, const float* V,
+                                         float* out, float* partials, int n, int nu,
+                                         int smoother, int bc, int kind, float inv_hsq,
+                                         float inv_adiag, float adiag, int rnorm,
+                                         cudaStream_t stream) {
+  return mg_pc_entry<MgPcLaunch, Mg2Args>(u, f, V, out, partials, n, nu, smoother, bc, kind,
+                                          inv_hsq, inv_adiag, adiag, rnorm, stream);
+}
+
+extern "C" int mg_prolong_correct_smooth_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
+                                              const __nv_bfloat16* V, __nv_bfloat16* out,
+                                              float* partials, int n, int nu, int smoother,
+                                              int bc, int kind, float inv_hsq, float inv_adiag,
+                                              float adiag, int rnorm, cudaStream_t stream) {
+  return mg_pc_entry<MgPcBf16Launch, Mg2ArgsBf16>(u, f, V, out, partials, n, nu, smoother, bc,
+                                                  kind, inv_hsq, inv_adiag, adiag, rnorm,
+                                                  stream);
 }
 
 // One rank's (nl x ml) block at global (r0, c0) of an n x n level; u and f

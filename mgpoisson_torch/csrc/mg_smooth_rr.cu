@@ -27,10 +27,15 @@
 // unchecked or the checked body.  The residual and the restriction run on
 // the registers: each lane's pair of columns and two rows are one coarse
 // cell.
+//
+// The bf16 form of K2 (mg_smooth_rr_bf16, with the from-zero flag) runs the
+// same tile on bf16 u, f and R, rounding as plain torch does in bf16
+// (stencil.cuh, Mg2Elem): bound 1.625 arrays of f32 bytes, 1.125 from zero.
+// K9 has no bf16 form.
 #include "stencil.cuh"
 
-template <int kSm, int R, bool kStrips, bool kEdge>
-static __device__ __forceinline__ void mg2_rr_tile(const Mg2Args& a, const Mg2Tile& t) {
+template <int kSm, int R, bool kStrips, bool kEdge, class T>
+static __device__ __forceinline__ void mg2_rr_tile(const Mg2ArgsOf<T>& a, const Mg2Tile& t) {
   Mg2Pair<R> u;
   Mg2Pair<R> f;
   if (a.U) {
@@ -40,14 +45,14 @@ static __device__ __forceinline__ void mg2_rr_tile(const Mg2Args& a, const Mg2Ti
     for (int i = 0; i < R; ++i) u.put(i, make_float2(0.f, 0.f));
   }
   mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
+  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
   mg2_store<R, kEdge>(a.Uout, u, t);
   mg2_restrict<R, kEdge>(a.Rout, u, f, t, a.bc, a.inv_hsq, a.adiag);
 }
 
 // The leg on the block a.blk; each entry point below instantiates it.
-template <int kSm, int R, bool kStrips>
-static __device__ __forceinline__ void mg2_rr_body(const Mg2Args& a) {
+template <int kSm, int R, bool kStrips, class T>
+static __device__ __forceinline__ void mg2_rr_body(const Mg2ArgsOf<T>& a) {
   const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
   if (!mg2_owns(t)) return;
   if (mg2_inside<R>(t))
@@ -84,13 +89,28 @@ struct MgShardedRrLaunch {
   }
 };
 
-extern "C" int mg_smooth_rr(const float* u, const float* f, float* out, float* R, int n,
-                            int nu, int smoother, int bc, float inv_hsq, float inv_adiag,
-                            float adiag, int zero, cudaStream_t stream) {
+// K2 in bf16: the whole n x n grid.
+template <int kSm, int R>
+__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
+mg_smooth_rr_bf16_kernel(const Mg2ArgsBf16 a) {
+  mg2_rr_body<kSm, R, false>(a);
+}
+
+struct MgRrBf16Launch {
+  template <int kSm, int R>
+  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2ArgsBf16& a) {
+    mg_smooth_rr_bf16_kernel<kSm, R><<<grid, block, 0, stream>>>(a);
+  }
+};
+
+template <class L, class A, class T>
+static int mg_smooth_rr_entry(const T* u, const T* f, T* out, T* R, int n, int nu,
+                              int smoother, int bc, float inv_hsq, float inv_adiag, float adiag,
+                              int zero, cudaStream_t stream) {
   const int H = mg_steps(nu, smoother) + 1;
   if (n < 2 || n & 1 || nu < 0 || mg2_halo(H) > MG2_MAX_HALO) return (int)cudaErrorInvalidValue;
-  if (!mg2_aligned(zero ? nullptr : u, f, out)) return (int)cudaErrorMisalignedAddress;
-  Mg2Args a{};
+  if (!mg2_aligned<T>(zero ? nullptr : u, f, out)) return (int)cudaErrorMisalignedAddress;
+  A a{};
   a.U = zero ? nullptr : u;
   a.F = f;
   a.Uout = out;
@@ -102,8 +122,23 @@ extern "C" int mg_smooth_rr(const float* u, const float* f, float* out, float* R
   a.inv_hsq = inv_hsq;
   a.inv_adiag = inv_adiag;
   a.adiag = adiag;
-  return mg2_launch<MgRrLaunch>(smoother, mg2_rows(n, n, H),
-                                          mg2_grid(n, n, H), stream, a);
+  return mg2_launch<L>(smoother, mg2_rows(n, n, H), mg2_grid(n, n, H), stream, a);
+}
+
+extern "C" int mg_smooth_rr(const float* u, const float* f, float* out, float* R, int n,
+                            int nu, int smoother, int bc, float inv_hsq, float inv_adiag,
+                            float adiag, int zero, cudaStream_t stream) {
+  return mg_smooth_rr_entry<MgRrLaunch, Mg2Args>(u, f, out, R, n, nu, smoother, bc, inv_hsq,
+                                                 inv_adiag, adiag, zero, stream);
+}
+
+extern "C" int mg_smooth_rr_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
+                                 __nv_bfloat16* out, __nv_bfloat16* R, int n, int nu,
+                                 int smoother, int bc, float inv_hsq, float inv_adiag,
+                                 float adiag, int zero, cudaStream_t stream) {
+  return mg_smooth_rr_entry<MgRrBf16Launch, Mg2ArgsBf16>(u, f, out, R, n, nu, smoother, bc,
+                                                         inv_hsq, inv_adiag, adiag, zero,
+                                                         stream);
 }
 
 // One rank's (nl x ml) block at global (r0, c0) of an n x n level; u and f

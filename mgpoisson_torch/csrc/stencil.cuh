@@ -66,6 +66,20 @@
 // is rounded on its own (__fadd_rn, __fmul_rn), as the plain ops round
 // them: no instance contracts a product into an FMA another one keeps.
 //
+// The bf16 forms of K1-K3 run the same tile on bf16 arrays (the element
+// type T of Mg2ArgsOf and of the loads, stores and arithmetic below):
+// a lane's pair of columns is one 4-byte __nv_bfloat162, the values stay
+// in f32 registers, and every add and multiply of the f32 form is followed
+// by a round to bf16 (Mg2Elem<T>::rd, nothing for f32), which is what
+// plain torch does on a bf16 tensor: each op computes in f32 and rounds
+// its result to bf16, a Python scalar (1/h^2, the damped-Jacobi weight
+// rounded to bf16 as the JAX package rounds it) taken in f32.  The
+// up-leg's bilinear blend runs in f32 and is rounded once, as the plain
+// op (ops.prolong_correct) and the Pallas kernels blend; the restriction
+// adds its four values in f32 and rounds the sum once, as torch's sum
+// does; sum(r^2) squares the bf16 residual in f32.  The f32 instances are
+// those of the f32-only tile, instruction for instruction.
+//
 // A launch covers one block of the grid (MgBlock): the whole grid for
 // K1-K3, a rank's block for K9/K10.  Two index spaces follow from it: the
 // GLOBAL index decides everything the grid decides (inside or outside, the
@@ -76,6 +90,7 @@
 // no extended block is ever assembled in device memory.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -149,25 +164,78 @@ static __host__ inline dim3 mg2_grid(int nl, int ml, int H) {
               mg2_ceil(nl, MG2_WARPS * (mg2_rows(nl, ml, H) - 2 * mg2_halo(H))));
 }
 
-// Whether every pointer is 8-byte aligned (null is): a float2 needs it.
-template <class... P>
+// Whether every pointer is aligned for a lane's pair of T (null is): 8
+// bytes for a float2, 4 for a __nv_bfloat162.
+template <class T = float, class... P>
 static __host__ inline bool mg2_aligned(const P*... p) {
-  return ((((uintptr_t)p & 7) == 0) && ...);
+  return ((((uintptr_t)p & (2 * sizeof(T) - 1)) == 0) && ...);
 }
 
-// Everything a 2D leg kernel takes.  V/vs and partials only for K3/K10,
-// Rout for K2/K9; U == nullptr means u is identically zero (not read).
-struct Mg2Args {
-  const float* U;
-  const float* F;
-  const float* V;
-  float* Uout;
-  float* Rout;
+// Everything a 2D leg kernel takes, its arrays of element type T.  V/vs
+// and partials only for K3/K10, Rout for K2/K9; U == nullptr means u is
+// identically zero (not read).  The strips (K9/K10) are f32 only.
+template <class T>
+struct Mg2ArgsOf {
+  const T* U;
+  const T* F;
+  const T* V;
+  T* Uout;
+  T* Rout;
   float* partials;
   MgBlock blk;
   MgStrips us, fs, vs;
   int H, nu, bc, kind;
   float inv_hsq, inv_adiag, adiag;
+};
+struct Mg2Args : Mg2ArgsOf<float> {};
+struct Mg2ArgsBf16 : Mg2ArgsOf<__nv_bfloat16> {};
+
+// Per element type: the loads of one value and of a lane's pair (ldg
+// through the read-only path), the store of a pair, `cvt`, an f32 value as
+// a T, `rd`, the round of an f32 result to T that plain torch makes after
+// each op, and `omega`, the 2D damped-Jacobi weight 0.8 rounded to T as
+// ops.wjacobi_sweep (and the JAX package's weak-typed scalar) rounds it.
+template <class T>
+struct Mg2Elem;
+
+template <>
+struct Mg2Elem<float> {
+  static constexpr float omega = 0.8f;
+  static __device__ __forceinline__ float rd(float x) { return x; }
+  static __device__ __forceinline__ float ld(const float* p) { return *p; }
+  static __device__ __forceinline__ float ldg(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float2 ld2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  static __device__ __forceinline__ float2 ldg2(const float* p) {
+    return __ldg(reinterpret_cast<const float2*>(p));
+  }
+  static __device__ __forceinline__ float cvt(float v) { return v; }
+  static __device__ __forceinline__ void st2(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+};
+
+template <>
+struct Mg2Elem<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr float omega = 0.80078125f;   // 0.8f rounded to bf16 (0x3f4d)
+  static __device__ __forceinline__ float rd(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  }
+  static __device__ __forceinline__ float ld(const T* p) { return __bfloat162float(*p); }
+  static __device__ __forceinline__ float ldg(const T* p) { return __bfloat162float(__ldg(p)); }
+  static __device__ __forceinline__ float2 ld2(const T* p) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  }
+  static __device__ __forceinline__ float2 ldg2(const T* p) {
+    return __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+  }
+  // the values are bf16 already (rounded by rd): the conversions are exact
+  static __device__ __forceinline__ T cvt(float v) { return __float2bfloat16_rn(v); }
+  static __device__ __forceinline__ void st2(T* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
 };
 
 // One warp's place: the block and global index of its local (0, 0).
@@ -268,27 +336,26 @@ static __device__ __forceinline__ float2 mg2_fetch2(const float* body, const MgS
 // Coarse cell (lI, lJ) of the block's V (global (gI, gJ)) of an up-leg
 // (K3/K10, K8/K14), 0 outside the coarse grid: from the array or, fed by
 // strips, from the one that holds it.
-template <bool kStrips>
-static __device__ __forceinline__ float mg2_coarse(const float* __restrict__ V,
+template <bool kStrips, class T>
+static __device__ __forceinline__ float mg2_coarse(const T* __restrict__ V,
                                                    const MgStrips& vs, const Mg2Tile& t, int lI,
                                                    int lJ, int gI, int gJ) {
   const int nc = t.n / 2;
   if (!mg_in(gI, nc) || !mg_in(gJ, nc)) return 0.f;
-  if (kStrips) return mg_fetch(V, vs, lI, lJ, t.nl / 2, t.ml / 2);
-  return V[(size_t)gI * nc + gJ];
+  if constexpr (kStrips) return mg_fetch(V, vs, lI, lJ, t.nl / 2, t.ml / 2);
+  return Mg2Elem<T>::ld(V + (size_t)gI * nc + gJ);
 }
 
 // Loads the warp's R rows of X into x, the lane's even and odd column;
 // cells outside the grid read 0.
-template <int R, bool kStrips, bool kEdge>
-static __device__ __forceinline__ void mg2_load(Mg2Pair<R>& x, const float* __restrict__ X,
+template <int R, bool kStrips, bool kEdge, class T>
+static __device__ __forceinline__ void mg2_load(Mg2Pair<R>& x, const T* __restrict__ X,
                                                 const MgStrips& s, const Mg2Tile& t) {
   const int lj = t.lj0 + 2 * t.lane;
   if (!kEdge) {
-    const float* p = X + (size_t)t.li0 * t.ml + lj;
+    const T* p = X + (size_t)t.li0 * t.ml + lj;
 #pragma unroll
-    for (int i = 0; i < R; ++i)
-      x.put(i, __ldg(reinterpret_cast<const float2*>(p + (size_t)i * t.ml)));
+    for (int i = 0; i < R; ++i) x.put(i, Mg2Elem<T>::ldg2(p + (size_t)i * t.ml));
     return;
   }
   const int gj = t.gj0 + 2 * t.lane;
@@ -297,10 +364,10 @@ static __device__ __forceinline__ void mg2_load(Mg2Pair<R>& x, const float* __re
   for (int i = 0; i < R; ++i) {
     float2 v = make_float2(0.f, 0.f);
     if (col_in && mg_in(t.gi0 + i, t.n)) {
-      if (kStrips)
+      if constexpr (kStrips)
         v = mg2_fetch2(X, s, t.li0 + i, lj, t.nl, t.ml);
       else
-        v = *reinterpret_cast<const float2*>(X + (size_t)(t.gi0 + i) * t.n + gj);
+        v = Mg2Elem<T>::ld2(X + (size_t)(t.gi0 + i) * t.n + gj);
     }
     x.put(i, v);
   }
@@ -309,34 +376,43 @@ static __device__ __forceinline__ void mg2_load(Mg2Pair<R>& x, const float* __re
 // Neighbour sum of a cell c in ops.neighbor_sum's order; on the checked
 // body, face subtracts c on the grid's edge lines (row_lo/row_hi: the
 // cell's row is the first/last; col_edge: its column is the first or last).
-template <bool kEdge>
+// Each op's result rounded to T (rd), here and below.
+template <bool kEdge, class T = float>
 static __device__ __forceinline__ float mg2_nbr(float c, float up, float dn, float lf, float rt,
                                                 bool face, bool row_lo, bool row_hi,
                                                 bool col_edge) {
-  float acc = __fadd_rn(up, dn);
+  using E = Mg2Elem<T>;
+  float acc = E::rd(__fadd_rn(up, dn));
   if (kEdge && face) {
-    if (row_lo) acc = __fsub_rn(acc, c);
-    if (row_hi) acc = __fsub_rn(acc, c);
+    if (row_lo) acc = E::rd(__fsub_rn(acc, c));
+    if (row_hi) acc = E::rd(__fsub_rn(acc, c));
   }
-  acc = __fadd_rn(acc, __fadd_rn(lf, rt));
-  if (kEdge && face && col_edge) acc = __fsub_rn(acc, c);
+  acc = E::rd(__fadd_rn(acc, E::rd(__fadd_rn(lf, rt))));
+  if (kEdge && face && col_edge) acc = E::rd(__fsub_rn(acc, c));
   return acc;
 }
 
 // One smoother update of cell c from its neighbour sum, as ops'
-// jacobi_sweep / wjacobi_sweep (omega = 0.8 in 2D) / rbgs_sweep.
-template <int kSm>
+// jacobi_sweep / wjacobi_sweep (omega = 0.8 in 2D, in T: Mg2Elem::omega) /
+// rbgs_sweep.
+template <int kSm, class T = float>
 static __device__ __forceinline__ float mg2_relax(float c, float f, float nbr, float inv_hsq,
                                                   float inv_adiag) {
-  const float jac = __fmul_rn(__fsub_rn(f, __fmul_rn(nbr, inv_hsq)), inv_adiag);
-  if (kSm == MG_WJACOBI) return __fadd_rn(c, __fmul_rn(0.8f, __fsub_rn(jac, c)));
+  using E = Mg2Elem<T>;
+  const float jac = E::rd(__fmul_rn(E::rd(__fsub_rn(f, E::rd(__fmul_rn(nbr, inv_hsq)))),
+                                    inv_adiag));
+  if (kSm == MG_WJACOBI)
+    return E::rd(__fadd_rn(c, E::rd(__fmul_rn(E::omega, E::rd(__fsub_rn(jac, c))))));
   return jac;
 }
 
 // r = f - (nbr/h^2 + adiag*u), as ops.residual.
+template <class T = float>
 static __device__ __forceinline__ float mg2_resid(float c, float f, float nbr, float inv_hsq,
                                                   float adiag) {
-  return __fsub_rn(f, __fadd_rn(__fmul_rn(nbr, inv_hsq), __fmul_rn(adiag, c)));
+  using E = Mg2Elem<T>;
+  return E::rd(__fsub_rn(
+      f, E::rd(__fadd_rn(E::rd(__fmul_rn(nbr, inv_hsq)), E::rd(__fmul_rn(adiag, c))))));
 }
 
 // The lane's edge facts on the checked body.
@@ -355,7 +431,7 @@ static __device__ __forceinline__ Mg2Cols mg2_cols_of(const Mg2Tile& t) {
 // P.  The tile origin is even, so that is the even column on rows with i %
 // 2 == P and the odd one on the others; every neighbour has the other
 // colour, so the order of the updates does not matter.
-template <int P, int R, bool kEdge>
+template <int P, int R, bool kEdge, class T = float>
 static __device__ __forceinline__ void mg2_colour(Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                   const Mg2Tile& t, const Mg2Cols& c, bool face,
                                                   float inv_hsq, float inv_adiag) {
@@ -365,16 +441,16 @@ static __device__ __forceinline__ void mg2_colour(Mg2Pair<R>& u, const Mg2Pair<R
     const bool lo = gi == 0, hi = gi == t.n - 1, in = c.in && mg_in(gi, t.n);
     if ((i & 1) == P) {
       const float x = u.x0[i], lf = mg2_from_left(u.x1[i]);
-      const float v = mg2_relax<MG_RBGS>(
+      const float v = mg2_relax<MG_RBGS, T>(
           x, f.at(i).x,
-          mg2_nbr<kEdge>(x, u.x0[i - 1], u.x0[i + 1], lf, u.x1[i], face, lo, hi, c.lo0),
+          mg2_nbr<kEdge, T>(x, u.x0[i - 1], u.x0[i + 1], lf, u.x1[i], face, lo, hi, c.lo0),
           inv_hsq, inv_adiag);
       u.x0[i] = (!kEdge || in) ? v : x;
     } else {
       const float x = u.x1[i], rt = mg2_from_right(u.x0[i]);
-      const float v = mg2_relax<MG_RBGS>(
+      const float v = mg2_relax<MG_RBGS, T>(
           x, f.at(i).y,
-          mg2_nbr<kEdge>(x, u.x1[i - 1], u.x1[i + 1], u.x0[i], rt, face, lo, hi, c.hi1),
+          mg2_nbr<kEdge, T>(x, u.x1[i - 1], u.x1[i + 1], u.x0[i], rt, face, lo, hi, c.hi1),
           inv_hsq, inv_adiag);
       u.x1[i] = (!kEdge || in) ? v : x;
     }
@@ -385,18 +461,19 @@ static __device__ __forceinline__ void mg2_colour(Mg2Pair<R>& u, const Mg2Pair<R
 // neighbour sum is +0 under both bcs, so a Jacobi update is f/adiag and a
 // damped one 0 + 0.8 (f/adiag), the same roundings as the full update on
 // zeros; red-black GS so updates its first colour.
-template <int kSm, int R, bool kEdge>
+template <int kSm, int R, bool kEdge, class T = float>
 static __device__ __forceinline__ void mg2_first_from_zero(Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                            const Mg2Tile& t, const Mg2Cols& c,
                                                            float inv_adiag) {
+  using E = Mg2Elem<T>;
 #pragma unroll
   for (int i = 1; i < R - 1; ++i) {
     const bool in = !kEdge || (c.in && mg_in(t.gi0 + i, t.n));
     const float2 fi = f.at(i);
-    float v0 = __fmul_rn(fi.x, inv_adiag), v1 = __fmul_rn(fi.y, inv_adiag);
+    float v0 = E::rd(__fmul_rn(fi.x, inv_adiag)), v1 = E::rd(__fmul_rn(fi.y, inv_adiag));
     if (kSm == MG_WJACOBI) {
-      v0 = __fadd_rn(0.f, __fmul_rn(0.8f, v0));
-      v1 = __fadd_rn(0.f, __fmul_rn(0.8f, v1));
+      v0 = E::rd(__fadd_rn(0.f, E::rd(__fmul_rn(E::omega, v0))));
+      v1 = E::rd(__fadd_rn(0.f, E::rd(__fmul_rn(E::omega, v1))));
     }
     if (kSm != MG_RBGS || (i & 1) == 0) u.x0[i] = in ? v0 : 0.f;
     if (kSm != MG_RBGS || (i & 1) == 1) u.x1[i] = in ? v1 : 0.f;
@@ -406,7 +483,7 @@ static __device__ __forceinline__ void mg2_first_from_zero(Mg2Pair<R>& u, const 
 // nu smoother sweeps on the warp's registers (see the head of this file);
 // `zero`: u is identically zero before them.  Jacobi variants update out of
 // place: each row keeps the old value of the row above it.
-template <int kSm, int R, bool kEdge>
+template <int kSm, int R, bool kEdge, class T = float>
 static __device__ __forceinline__ void mg2_sweeps(Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                   const Mg2Tile& t, int nu, int bc,
                                                   float inv_hsq, float inv_adiag,
@@ -415,8 +492,8 @@ static __device__ __forceinline__ void mg2_sweeps(Mg2Pair<R>& u, const Mg2Pair<R
   const bool face = bc == MG_FACE;
   int s = 0;
   if (zero && nu > 0) {
-    mg2_first_from_zero<kSm, R, kEdge>(u, f, t, c, inv_adiag);
-    if (kSm == MG_RBGS) mg2_colour<1, R, kEdge>(u, f, t, c, face, inv_hsq, inv_adiag);
+    mg2_first_from_zero<kSm, R, kEdge, T>(u, f, t, c, inv_adiag);
+    if (kSm == MG_RBGS) mg2_colour<1, R, kEdge, T>(u, f, t, c, face, inv_hsq, inv_adiag);
     s = 1;
   }
 #pragma unroll 1
@@ -426,8 +503,8 @@ static __device__ __forceinline__ void mg2_sweeps(Mg2Pair<R>& u, const Mg2Pair<R
     Mg2Tile ts = t;
     if (kEdge) asm volatile("" : "+r"(ts.gi0));
     if (kSm == MG_RBGS) {
-      mg2_colour<0, R, kEdge>(u, f, ts, c, face, inv_hsq, inv_adiag);
-      mg2_colour<1, R, kEdge>(u, f, ts, c, face, inv_hsq, inv_adiag);
+      mg2_colour<0, R, kEdge, T>(u, f, ts, c, face, inv_hsq, inv_adiag);
+      mg2_colour<1, R, kEdge, T>(u, f, ts, c, face, inv_hsq, inv_adiag);
       continue;
     }
     float p0 = u.x0[0], p1 = u.x1[0];
@@ -438,12 +515,12 @@ static __device__ __forceinline__ void mg2_sweeps(Mg2Pair<R>& u, const Mg2Pair<R
       const float x0 = u.x0[i], x1 = u.x1[i];
       const float lf = mg2_from_left(x1), rt = mg2_from_right(x0);
       const float2 fi = f.at(i);
-      float v0 = mg2_relax<kSm>(
-          x0, fi.x, mg2_nbr<kEdge>(x0, p0, u.x0[i + 1], lf, x1, face, lo, hi, c.lo0), inv_hsq,
-          inv_adiag);
-      float v1 = mg2_relax<kSm>(
-          x1, fi.y, mg2_nbr<kEdge>(x1, p1, u.x1[i + 1], x0, rt, face, lo, hi, c.hi1), inv_hsq,
-          inv_adiag);
+      float v0 = mg2_relax<kSm, T>(
+          x0, fi.x, mg2_nbr<kEdge, T>(x0, p0, u.x0[i + 1], lf, x1, face, lo, hi, c.lo0),
+          inv_hsq, inv_adiag);
+      float v1 = mg2_relax<kSm, T>(
+          x1, fi.y, mg2_nbr<kEdge, T>(x1, p1, u.x1[i + 1], x0, rt, face, lo, hi, c.hi1),
+          inv_hsq, inv_adiag);
       if (kEdge && !in) {
         v0 = x0;
         v1 = x1;
@@ -466,8 +543,8 @@ static __device__ __forceinline__ bool mg2_lane_owns(const Mg2Tile& t) {
 
 // Writes the warp's interior back to the block's (nl x ml) array, by the
 // block index.
-template <int R, bool kEdge>
-static __device__ __forceinline__ void mg2_store(float* __restrict__ out, const Mg2Pair<R>& u,
+template <int R, bool kEdge, class T>
+static __device__ __forceinline__ void mg2_store(T* __restrict__ out, const Mg2Pair<R>& u,
                                                  const Mg2Tile& t) {
   if (!mg2_lane_owns<kEdge>(t)) return;
   const int lj = t.lj0 + 2 * t.lane;
@@ -475,13 +552,13 @@ static __device__ __forceinline__ void mg2_store(float* __restrict__ out, const 
   for (int i = 0; i < R; ++i) {
     const int li = t.li0 + i;
     if (i >= t.hr && i < R - t.hr && (!kEdge || mg_in(li, t.nl)))
-      *reinterpret_cast<float2*>(out + (size_t)li * t.ml + lj) = u.at(i);
+      Mg2Elem<T>::st2(out + (size_t)li * t.ml + lj, u.at(i));
   }
 }
 
 // The residual of row i's two cells with the level's bc (face) or the
 // zero ghosts.
-template <int R, bool kEdge>
+template <int R, bool kEdge, class T = float>
 static __device__ __forceinline__ float2 mg2_resid2(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                     const Mg2Tile& t, const Mg2Cols& c, int i,
                                                     bool face, float inv_hsq, float adiag) {
@@ -491,19 +568,20 @@ static __device__ __forceinline__ float2 mg2_resid2(const Mg2Pair<R>& u, const M
   const float lf = mg2_from_left(x1), rt = mg2_from_right(x0);
   const float2 fi = f.at(i);
   return make_float2(
-      mg2_resid(x0, fi.x,
-                mg2_nbr<kEdge>(x0, u.x0[i - 1], u.x0[i + 1], lf, x1, face, lo, hi, c.lo0),
-                inv_hsq, adiag),
-      mg2_resid(x1, fi.y,
-                mg2_nbr<kEdge>(x1, u.x1[i - 1], u.x1[i + 1], x0, rt, face, lo, hi, c.hi1),
-                inv_hsq, adiag));
+      mg2_resid<T>(x0, fi.x,
+                   mg2_nbr<kEdge, T>(x0, u.x0[i - 1], u.x0[i + 1], lf, x1, face, lo, hi, c.lo0),
+                   inv_hsq, adiag),
+      mg2_resid<T>(x1, fi.y,
+                   mg2_nbr<kEdge, T>(x1, u.x1[i - 1], u.x1[i + 1], x0, rt, face, lo, hi, c.hi1),
+                   inv_hsq, adiag));
 }
 
 // The residual of the warp's interior with the level's bc, restricted by
 // 2x2 means ((r00 + r10) + (r01 + r11)) / 4 into the block's coarse
 // (nl/2 x ml/2) array: each lane's pair and two rows are one coarse cell.
-template <int R, bool kEdge>
-static __device__ __forceinline__ void mg2_restrict(float* __restrict__ Rout,
+// In bf16 the sum of the four is rounded once, then the quarter (exact).
+template <int R, bool kEdge, class T>
+static __device__ __forceinline__ void mg2_restrict(T* __restrict__ Rout,
                                                     const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                     const Mg2Tile& t, int bc, float inv_hsq,
                                                     float adiag) {
@@ -514,19 +592,20 @@ static __device__ __forceinline__ void mg2_restrict(float* __restrict__ Rout,
 #pragma unroll
   for (int i = 2; i < R - 2; i += 2) {
     if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
-    const float2 r0 = mg2_resid2<R, kEdge>(u, f, t, c, i, face, inv_hsq, adiag);
-    const float2 r1 = mg2_resid2<R, kEdge>(u, f, t, c, i + 1, face, inv_hsq, adiag);
+    const float2 r0 = mg2_resid2<R, kEdge, T>(u, f, t, c, i, face, inv_hsq, adiag);
+    const float2 r1 = mg2_resid2<R, kEdge, T>(u, f, t, c, i + 1, face, inv_hsq, adiag);
     const int I = (t.li0 + i) / 2;
+    using E = Mg2Elem<T>;
     if (owns && (!kEdge || mg_in(I, t.nl / 2)))
-      Rout[(size_t)I * mcl + J] =
-          __fmul_rn(__fadd_rn(__fadd_rn(r0.x, r1.x), __fadd_rn(r0.y, r1.y)), 0.25f);
+      Rout[(size_t)I * mcl + J] = E::cvt(E::rd(
+          __fmul_rn(E::rd(__fadd_rn(__fadd_rn(r0.x, r1.x), __fadd_rn(r0.y, r1.y))), 0.25f)));
   }
 }
 
 // sum(r^2) over the warp's owned cells of the ZERO-GHOST residual, whatever
 // the level's bc (the solver's stopping metric); cells outside the grid
 // hold 0, so no test is needed for the ghosts.
-template <int R, bool kEdge>
+template <int R, bool kEdge, class T = float>
 static __device__ __forceinline__ float mg2_rsq(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                 const Mg2Tile& t, float inv_hsq, float adiag) {
   const Mg2Cols c = mg2_cols_of(t);
@@ -535,7 +614,7 @@ static __device__ __forceinline__ float mg2_rsq(const Mg2Pair<R>& u, const Mg2Pa
 #pragma unroll
   for (int i = 1; i < R - 1; ++i) {
     if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
-    const float2 r = mg2_resid2<R, false>(u, f, t, c, i, false, inv_hsq, adiag);
+    const float2 r = mg2_resid2<R, false, T>(u, f, t, c, i, false, inv_hsq, adiag);
     if (owns && (!kEdge || mg_in(t.li0 + i, t.nl))) {
       acc = __fmaf_rn(r.x, r.x, acc);
       acc = __fmaf_rn(r.y, r.y, acc);
@@ -564,9 +643,8 @@ static __device__ __forceinline__ void mg2_partial(float acc, float* __restrict_
 // Launches L::go<smoother, R> (one kernel's instances) for a smoother
 // known at run time and the tile table's R; returns the launch's error, or
 // cudaErrorInvalidValue for an unknown smoother.
-template <class L, int kSm>
-static __host__ void mg2_go(int R, dim3 grid, dim3 block, cudaStream_t stream,
-                            const Mg2Args& a) {
+template <class L, int kSm, class A>
+static __host__ void mg2_go(int R, dim3 grid, dim3 block, cudaStream_t stream, const A& a) {
   if (R == MG2_ROWS_DEEP)
     L::template go<kSm, MG2_ROWS_DEEP>(grid, block, stream, a);
   else if (R == MG2_ROWS_SHALLOW)
@@ -575,9 +653,9 @@ static __host__ void mg2_go(int R, dim3 grid, dim3 block, cudaStream_t stream,
     L::template go<kSm, MG2_ROWS_SMALL>(grid, block, stream, a);
 }
 
-template <class L>
+template <class L, class A>
 static __host__ int mg2_launch(int smoother, int R, dim3 grid, cudaStream_t stream,
-                               const Mg2Args& a) {
+                               const A& a) {
   const dim3 block(32, MG2_WARPS);
   switch (smoother) {
     case MG_JACOBI:

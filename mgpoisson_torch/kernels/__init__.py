@@ -25,8 +25,9 @@ from mgpoisson_torch.kernels import cuda, ops
 
 def use_kernels(spec, level_size: int, device) -> bool:
     """The dispatch rule: a level runs the CUDA kernels iff its tensors are
-    on a CUDA device, the backend is not 'torch', the level is float32
-    with side >= spec.kernel_min_size, and both of its sweep counts are
+    on a CUDA device, the backend is not 'torch', the level has side >=
+    spec.kernel_min_size, its dtype has kernels at its rank (f32, or bf16
+    in 2D: the bf16 forms of K1-K3), and both of its sweep counts are
     within the kernels' cap for its rank (``cuda.supports``: 2D nu <= 8,
     <= 4 for rbgs; 3D a halo of radius*nu + 1 <= 8).  Every other level
     runs the plain ops; this is the only way a CUDA tensor reaches the
@@ -91,7 +92,11 @@ def use_packed(spec, device) -> bool:
     - the fine side above coarse_size and >= kernel_min_size;
     - the JAX plan's own conditions: n >= 256, n % 256 == 0 and
       1 <= nu_pre, nu_post <= 3;
-    - float32;
+    - float32 (the bf16 forms of K7/K8 are ROADMAP Queue 2 A3: the Spec
+      refuses a bf16 solve that the JAX package would pack);
+    - no other sweep_dtype: the JAX solver never packs a mixed-precision
+      solve (its refinement branch comes before the packed one), whose
+      inner bf16 cycle runs unpacked;
     - a CUDA device, or MGPOISSON_PACKED=1 on the CPU, which runs the
       plain packed ops as the JAX flag does."""
     flag = _packed_flag()
@@ -103,7 +108,7 @@ def use_packed(spec, device) -> bool:
             or n < 256 or n % 256
             or not all(1 <= nu <= cuda.PACKED_MAX_NU
                        for nu in (spec.nu_pre, spec.nu_post))
-            or spec.dtype != "float32"):
+            or spec.dtype != "float32" or spec.sweep_dtype not in (None, spec.dtype)):
         return False
     return torch.device(device).type == "cuda" or flag == "1"
 

@@ -53,6 +53,9 @@ SIGNATURES = {
     "mg_sharded_packed_pc": ((_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
+# the bf16 forms of K1-K3 take what their f32 forms take
+SIGNATURES.update({name + "_bf16": SIGNATURES[name] for name in
+                   ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth")})
 
 
 def sources(csrc: Path = CSRC):
@@ -120,10 +123,13 @@ def build(csrc: Path = CSRC, build_dir: Path = BUILD_DIR) -> Path:
 
 def load_library(path) -> ctypes.CDLL:
     """Loads a built library with the argument and result types of every
-    entry point declared."""
+    entry point it holds declared (a build of an older tree, e.g. for
+    bench/ab.py, lacks the newer entries: calling one raises)."""
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = restype
     return lib

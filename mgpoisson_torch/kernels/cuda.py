@@ -42,11 +42,18 @@ register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
 
+K1-K3 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
+``mg_prolong_correct_smooth_bf16``: the same sources and tile, bf16
+arrays, each op rounded to bf16 as plain torch rounds it), which the
+wrappers launch for a bf16 square 2D array; every other kernel is f32
+only (ROADMAP Queue 2 A2-A4).
+
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
-not take it (``supports``, ``packed_supports``): f32, square 2D or cubic
-3D, contiguous, and the sweep count within the kernel's cap.  Which levels
+not take it (``supports``, ``packed_supports``): f32 (or bf16 in 2D),
+square 2D or cubic 3D, contiguous, and the sweep count within the
+kernel's cap.  Which levels
 reach these wrappers at all is decided by the rules of
 ``mgpoisson_torch.kernels``: ``use_kernels``, ``use_packed``,
 ``use_sharded_kernels`` and ``use_packed_sharded``.  Outputs are fresh
@@ -108,6 +115,8 @@ PACKED_MAX_NU = 3
 launches = dict.fromkeys((
     "mg_smooth", "mg_smooth_rr", "mg_smooth_rr.zero",
     "mg_prolong_correct_smooth", "mg_prolong_correct_smooth.rnorm",
+    "mg_smooth_bf16", "mg_smooth_rr_bf16", "mg_smooth_rr_bf16.zero",
+    "mg_prolong_correct_smooth_bf16", "mg_prolong_correct_smooth_bf16.rnorm",
     "mg_smooth3d", "mg_smooth_rr3d", "mg_smooth_rr3d.zero",
     "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm",
     "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
@@ -231,18 +240,24 @@ def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False) -> int:
 def supports(n: int, dtype: torch.dtype, nu: int, smoother: str, ndim: int = 2,
              residual: bool = True) -> bool:
     """Whether the kernels take an n^ndim level of this dtype with nu
-    sweeps of this smoother.  2D: nu <= MAX_NU[smoother] for K1-K3.  3D:
+    sweeps of this smoother.  2D, f32 or bf16: nu <= MAX_NU[smoother] for
+    K1-K3.  3D, f32 only (the bf16 forms of K4-K6 are ROADMAP Queue 2 A2):
     the halo, radius * nu plus one ring where a residual follows the
     sweeps (`residual`: K5, K6 with rnorm), is at most MAX_HALO_3D."""
-    if dtype != torch.float32 or n < 2 or smoother not in SMOOTHERS or nu < 0:
+    if n < 2 or smoother not in SMOOTHERS or nu < 0:
         return False
     if ndim == 2:
-        return nu <= MAX_NU[smoother]
-    return ndim == 3 and _steps(nu, smoother) + residual <= MAX_HALO_3D
+        return dtype in (torch.float32, torch.bfloat16) and nu <= MAX_NU[smoother]
+    return (ndim == 3 and dtype == torch.float32
+            and _steps(nu, smoother) + residual <= MAX_HALO_3D)
 
 
 def _name(base, u):
-    return base + "3d" if u.ndim == 3 else base
+    """The C entry of a leg for u: the 3D one, or in 2D the f32 or the
+    bf16 form."""
+    if u.ndim == 3:
+        return base + "3d"
+    return base + "_bf16" if u.dtype == torch.bfloat16 else base
 
 
 def _check(name, u, nu, smoother, bc, residual, *others):
@@ -253,8 +268,9 @@ def _check(name, u, nu, smoother, bc, residual, *others):
                          f"{tuple(u.shape)}")
     if (not supports(u.shape[0], u.dtype, nu, smoother, u.ndim, residual)
             or bc not in BCS):
+        why = _f32_only(u.dtype, "A2, the bf16 forms of K4-K6") if u.ndim == 3 else ""
         raise ValueError(f"{name}: no kernel for n={u.shape[0]} ndim={u.ndim} "
-                         f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}")
+                         f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}{why}")
     _check_operands(name, u, *others)
 
 
@@ -431,8 +447,17 @@ def _check_packed(name, up, nu, *others):
     if up.ndim != 2 or up.shape[0] != up.shape[1]:
         raise ValueError(f"{name}: needs a square packed 2D array, got {tuple(up.shape)}")
     if not packed_supports(up.shape[0], up.dtype, nu):
-        raise ValueError(f"{name}: no kernel for n={up.shape[0]} {up.dtype} nu={nu}")
+        raise ValueError(f"{name}: no kernel for n={up.shape[0]} {up.dtype} nu={nu}"
+                         f"{_f32_only(up.dtype, 'A3, the bf16 forms of K7/K8')}")
     _check_operands(name, up, *others)
+
+
+def _f32_only(dtype, item):
+    """Why an f32-only kernel refuses a bf16 operand: the ROADMAP item
+    that brings its bf16 form."""
+    if dtype != torch.bfloat16:
+        return ""
+    return f" (f32 only: the bf16 form is ROADMAP Queue 2 {item})"
 
 
 def _packed_scalars(h):
@@ -501,10 +526,12 @@ def _check_sharded(name, f, origin, n_global, nu, smoother, bc, residual, *other
     if f.ndim not in (2, 3) or (f.ndim == 3 and f.shape[2] != n_global):
         raise ValueError(f"{name}: needs a 2D block or a 3D block of whole rows, got "
                          f"{tuple(f.shape)} of a grid of side {n_global}")
-    if (not supports(n_global, f.dtype, nu, smoother, f.ndim, residual)
+    if (f.dtype != torch.float32
+            or not supports(n_global, f.dtype, nu, smoother, f.ndim, residual)
             or bc not in BCS):
         raise ValueError(f"{name}: no kernel for n={n_global} ndim={f.ndim} {f.dtype} "
-                         f"nu={nu} smoother={smoother!r} bc={bc!r}")
+                         f"nu={nu} smoother={smoother!r} bc={bc!r}"
+                         f"{_f32_only(f.dtype, 'A4, the bf16 forms of K9-K12')}")
     (nl, ml), (r0, c0) = f.shape[:2], origin
     if (min(nl, ml) < 2 or (nl | ml | r0 | c0) & 1 or min(r0, c0) < 0
             or r0 + nl > n_global or c0 + ml > n_global):
@@ -619,7 +646,9 @@ def _check_packed_sharded(name, up, origin, n_global, nu, *others):
         raise ValueError(f"{name}: needs a packed block of whole rows (nl, {n_global}) "
                          f"at column 0, got {tuple(up.shape)} at {tuple(origin)}")
     if not packed_supports(n_global, up.dtype, nu):
-        raise ValueError(f"{name}: no kernel for n={n_global} {up.dtype} nu={nu}")
+        raise ValueError(f"{name}: no kernel for n={n_global} {up.dtype} nu={nu}"
+                         + _f32_only(up.dtype, "A3 (K7/K8); the JAX package's packed "
+                                     "strip kernels are f32 only"))
     nl, r0 = up.shape[0], origin[0]
     if nl < 2 or (nl | r0) & 1 or r0 < 0 or r0 + nl > n_global:
         raise ValueError(f"{name}: block {tuple(up.shape)} at {tuple(origin)} is not an "

@@ -15,6 +15,7 @@ All stencil ops take `bc`:
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
@@ -60,10 +61,17 @@ def jacobi_sweep(u, f, h, bc: str = "ghost0"):
     return (f - askew) / adiag
 
 
+@functools.cache
+def _omega(ndim: int, dtype: torch.dtype) -> float:
+    """The damped-Jacobi weight 2d/(2d+1) rounded to `dtype`, as the JAX
+    package's weak-typed Python scalar is: in bf16 0.80078125 (2D), the
+    value torch then takes in f32; in f32 and f64 the value it had."""
+    return float(torch.tensor(2.0 * ndim / (2.0 * ndim + 1.0), dtype=dtype))
+
+
 def wjacobi_sweep(u, f, h, bc: str = "ghost0"):
-    """Damped Jacobi, omega = 2d/(2d+1)."""
-    omega = 2.0 * u.ndim / (2.0 * u.ndim + 1.0)
-    return u + omega * (jacobi_sweep(u, f, h, bc) - u)
+    """Damped Jacobi, omega = 2d/(2d+1) in u's dtype."""
+    return u + _omega(u.ndim, u.dtype) * (jacobi_sweep(u, f, h, bc) - u)
 
 
 def _parity_mask(shape, device):
@@ -223,10 +231,22 @@ def smooth_residual_restrict_zero(f, h, nu, smoother="jacobi", bc="ghost0"):
                                     smoother, bc)
 
 
+def _up_leg_correct(u, V, kind):
+    """u + P(V) of the fused up-leg.  In a sub-f32 dtype P(V) is blended in
+    f32 and rounded once, as the Pallas up-leg blends
+    (mgpoisson/kernels/pallas.py _bilinear_blend_2d) and the bf16 form of
+    K3 does; ``prolong``, the traced cycle's transfer op, blends in the
+    dtype, as the JAX package's xla.prolong does."""
+    acc = _acc_dtype(u.dtype)
+    if acc == u.dtype:
+        return prolong_correct(u, V, kind)
+    return u + prolong(V.to(acc), kind).to(u.dtype)
+
+
 def prolong_correct_smooth(u, f, V, h, nu, smoother="jacobi", bc="ghost0",
                            kind="inject"):
     """u += P(V), then post-smooth x nu."""
-    u = prolong_correct(u, V, kind)
+    u = _up_leg_correct(u, V, kind)
     return smooth(u, f, h, nu, smoother, bc)
 
 

@@ -11,6 +11,13 @@ The JAX package runs the solve loop on the device in a
 per cycle, under the same stop rule (continue while it == 0, or err >= tol
 and err is finite) and with the same error history.
 
+With a sweep_dtype other than dtype, ``step()`` is the JAX package's
+mixed-precision refinement step: the residual of psi in dtype, one cycle
+in sweep_dtype on the error equation A e = r from e = 0, psi += e, and the
+stopping metric of the INCOMING iterate (||r||/||r0||) or the update RMS;
+the first reported residual error is therefore 1.0.  The error history is
+f32 for a bf16 solve, as in the JAX package.
+
 Where ``kernels.use_packed`` holds (the fast scheme's rbgs fine level),
 ``solve()`` packs psi and f once, carries the packed state through the
 loop (``cycle.packed``) and unpacks psi at the end, unless a callback asks
@@ -120,10 +127,21 @@ class MultigridPoisson:
         if mesh is not None and self.device == torch.device("cuda"):
             self.device = multihost.device_for(mesh.rank)
         self._dtype = getattr(torch, spec.dtype)
+        # the error history: the solve's dtype, at least f32
+        self._err_dtype = ops._acc_dtype(self._dtype)
         use_kernels(spec, spec.size, self.device)   # rejects backend='cuda' on CPU
         self._want_rnorm = spec.stop == "residual"
         self._spmd = None if mesh is None else spmd.SpmdCycle(spec, mesh)
-        self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
+        self._sweep_dtype = None
+        if spec.sweep_dtype not in (None, spec.dtype):
+            # mixed-precision refinement: the cycle runs in sweep_dtype on
+            # the error equation, never packed (the JAX solver's refinement
+            # branch comes before its packed one)
+            self._sweep_dtype = getattr(torch, spec.sweep_dtype)
+            self._cycle = make_cycle(spec.with_(dtype=spec.sweep_dtype), rnorm=False)
+        else:
+            spec.check_packs_bf16()
+            self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
         if mesh is None:
             self._packed = use_packed(spec, self.device)
         else:
@@ -162,12 +180,32 @@ class MultigridPoisson:
             step = self._spmd.step_packed if packed_state else self._spmd.step
             psi_new, err_upd, rn = step(psi, f)
             return psi_new, (rn / r0 if self._want_rnorm else err_upd)
+        if self._sweep_dtype is not None:
+            return self._refine(psi, f, r0)
         cycle = self._packed_cycle if packed_state else self._cycle
         h = self.spec.fine_h
         if self._want_rnorm:
             psi_new, r2 = cycle(psi, f, h)
             return psi_new, torch.sqrt(r2).to(r0.dtype) / r0
         psi_new = cycle(psi, f, h)
+        return psi_new, ops.rms_update(psi_new, psi)
+
+    def _refine(self, psi, f, r0):
+        """One mixed-precision refinement step (the JAX package's, from
+        mgpoisson/solver/multigrid.py): r = f - A psi in dtype (the plain
+        op: no kernel has it), e from one sweep_dtype cycle on A e = r
+        starting at e = 0 (a zeros array, so the fine level runs the down-leg
+        from u, as the JAX package's does), psi + e.  err is ||r||/||r0||
+        of the INCOMING iterate, accumulated in at least f32, or the
+        update RMS."""
+        h = self.spec.fine_h
+        r = ops.residual(psi, f, h, "ghost0")
+        e = self._cycle(torch.zeros_like(r, dtype=self._sweep_dtype),
+                        r.to(self._sweep_dtype), h)
+        psi_new = psi + e.to(psi.dtype)
+        if self._want_rnorm:
+            ra = r.to(ops._acc_dtype(r.dtype))
+            return psi_new, torch.sqrt(torch.sum(ra * ra)).to(r0.dtype) / r0
         return psi_new, ops.rms_update(psi_new, psi)
 
     def _r0(self, psi, f):
@@ -234,7 +272,7 @@ class MultigridPoisson:
         if packed_state:
             psi = packed.unpack(psi)
         return SolveResult(psi=psi, iterations=it,
-                           errs=torch.tensor(errs, dtype=self._dtype),
+                           errs=torch.tensor(errs, dtype=self._err_dtype),
                            converged=converged,
                            final_err=errs[-1] if errs else float("inf"),
                            n_metric_evals=it)

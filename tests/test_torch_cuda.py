@@ -607,3 +607,143 @@ def test_solver_takes_any_strided_input(card, scheme):
         got = mg.step(a, b)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------- the bf16 forms of K1-K3
+# Each op rounded to bf16 as plain torch rounds it: every output bit-equal
+# (the restriction's four values summed in f32 in torch's order, rounded
+# once; P(V) blended in f32, rounded once), sum(r^2) within 1e-5.  Sides
+# below one warp's tile up to several tiles; each smoother at the tuned
+# scheme's setting and at its cap.
+BF16_CASES = [(n, s, nu) for n in (2, 8, 64, 256, 1024)
+              for s, nu in (("wjacobi", 3), ("jacobi", 8), ("rbgs", 1), ("rbgs", 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,smoother,nu", BF16_CASES)
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_bf16_kernels_equal_plain(card, n, smoother, nu, bc):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card))
+    a = (1.0 / n, nu, smoother, bc)
+    got, want = cuda.smooth(u, f, *a), ops.smooth(u, f, *a)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    for fk, fp, args in ((cuda.smooth_residual_restrict, ops.smooth_residual_restrict, (u, f)),
+                         (cuda.smooth_residual_restrict_zero,
+                          ops.smooth_residual_restrict_zero, (f,))):
+        for g, w in zip(fk(*args, *a), fp(*args, *a)):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    for kind in ("inject", "bilinear"):
+        pa = (u, f, V, *a, kind)
+        assert torch.equal(cuda.prolong_correct_smooth(*pa), ops.prolong_correct_smooth(*pa))
+        (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
+                              ops.prolong_correct_smooth_rnorm(*pa))
+        assert torch.equal(gu, wu) and g2.dtype == torch.float32
+        assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(64, 0, card))
+    with pytest.raises(ValueError, match="A2"):
+        c = torch.zeros((16,) * 3, dtype=torch.bfloat16, device=card)
+        cuda.smooth(c, c, 1 / 16, 1, "jacobi", "ghost0")
+    with pytest.raises(ValueError, match="A3"):
+        cuda.packed_smooth_residual_restrict(u, f, 1 / 64, 1)
+    with pytest.raises(ValueError, match="does not match"):
+        cuda.smooth(u, f.float(), 1 / 64, 1, "jacobi", "ghost0")
+    # a bf16 pair is 4 bytes: an operand at an odd 2-byte offset is refused
+    odd = torch.empty(64 * 64 + 1, dtype=torch.bfloat16, device=card)[1:].view(64, 64)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.smooth(odd, f, 1 / 64, 1, "jacobi", "ghost0")
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.prolong_correct_smooth(u, odd, V, 1 / 64, 1, "jacobi", "ghost0")
+    # 4-byte aligned but not 8: taken (a float2 would need 8)
+    four = torch.empty(64 * 64 + 2, dtype=torch.bfloat16, device=card)[2:].view(64, 64)
+    four.copy_(u)
+    assert torch.equal(cuda.smooth(four, f, 1 / 64, 2, "rbgs", "face"),
+                       ops.smooth(u, f, 1 / 64, 2, "rbgs", "face"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
+    f = torch.zeros((32, 32), dtype=torch.bfloat16, device=card)
+    strips = (torch.zeros((4, 32), dtype=torch.bfloat16, device=card),) * 2 + (None, None)
+    with pytest.raises(ValueError, match="A4"):
+        cuda.smooth_rr_sharded(None, f, None, strips, (0, 0), 64, 1 / 64, 3, "wjacobi",
+                               "ghost0", zero=True)
+
+
+@pytest.mark.cuda
+def test_bf16_launch_counters(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(64, 1, card))
+    cuda.reset_launches()
+    a = (1 / 64, 3, "wjacobi", "face")
+    cuda.smooth(u, f, *a)
+    cuda.smooth_residual_restrict(u, f, *a)
+    cuda.smooth_residual_restrict_zero(f, *a)
+    cuda.prolong_correct_smooth(u, f, V, *a, "bilinear")
+    cuda.prolong_correct_smooth_rnorm(u, f, V, *a, "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_smooth_bf16": 1, "mg_smooth_rr_bf16": 2, "mg_smooth_rr_bf16.zero": 1,
+                 "mg_prolong_correct_smooth_bf16": 2,
+                 "mg_prolong_correct_smooth_bf16.rnorm": 1})
+    assert cuda.launches == want
+
+
+BF16_SPECS = {"mixed": dict(dtype="float32", sweep_dtype="bfloat16", tol=1e-10),
+              "bf16": dict(dtype="bfloat16", tol=1e-30, maxiter=6)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(BF16_SPECS))
+def test_bf16_solves_equal_their_plain_twins(card, which):
+    """The mixed and the pure bf16 512^2 solves on the kernels give the psi
+    of the same solves on plain ops (backend 'torch') bit for bit, in the
+    same count; the mixed one its history too."""
+    spec = Spec(size=512, scheme="tuned", stop="residual", **BF16_SPECS[which])
+    cuda.reset_launches()
+    got = MultigridPoisson(spec, device="cuda").solve()
+    assert cuda.launches["mg_smooth_rr_bf16"] == 2 * got.iterations
+    want = MultigridPoisson(spec.with_(backend="torch"), device="cuda").solve()
+    assert got.iterations == want.iterations and torch.equal(got.psi, want.psi)
+    assert got.errs.dtype == torch.float32
+    if which == "mixed":
+        assert got.converged and got.errs[0].item() == 1.0
+        assert got.errs.tolist() == want.errs.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(BF16_SPECS))
+def test_bf16_solver_takes_any_strided_input(card, which):
+    """A transposed f and a view at an odd offset give the psi and the
+    count of their dense copies, bit for bit, in the mixed and the pure bf16
+    solves (the kernels take 4-byte-aligned bf16 operands; the solver hands
+    them dense 8-byte-aligned ones)."""
+    spec = Spec(size=256, scheme="tuned", stop="residual", **BF16_SPECS[which])
+    mg = MultigridPoisson(spec, device="cuda")
+    f = mg.rhs()
+    f[40, 200] = 3.0e5
+    ft = f.t().contiguous()
+    want = mg.solve(ft)
+    odd = torch.empty(ft.numel() + 1, dtype=ft.dtype, device=card)[1:].view(ft.shape)
+    odd.copy_(ft)
+    assert odd.data_ptr() % 8 != 0
+    for f_in in (f.t(), odd):
+        got = mg.solve(f_in)
+        assert got.iterations == want.iterations and torch.equal(got.psi, want.psi)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(BF16_SPECS))
+def test_bf16_solves_stop_on_a_nan(card, which):
+    """A NaN in f: the first err is NaN, the loop stops after one cycle,
+    not converged."""
+    spec = Spec(size=256, scheme="tuned", stop="residual", **BF16_SPECS[which])
+    mg = MultigridPoisson(spec, device="cuda")
+    f = mg.rhs()
+    f[7, 9] = float("nan")
+    res = mg.solve(f)
+    assert res.iterations == 1 and not res.converged and np.isnan(res.final_err)

@@ -1,0 +1,163 @@
+"""Mixed-precision refinement and the pure bf16 solve against the JAX package.
+
+The same Spec goes through mgpoisson (backend 'xla', on the CPU) and
+mgpoisson_torch (on the CPU: the plain ops, which the bf16 forms of K1-K3
+equal bit for bit on the card).  A refinement step computes r = f - A psi
+in dtype, runs one bf16 V-cycle on A e = r from e = 0, adds e, and reports
+||r||/||r0|| of the INCOMING iterate, so the first err is 1.0 on both sides.
+
+The cycle counts are equal in every case below.  The per-step relres agree
+to bf16 rounding noise, not more: the bf16 V-cycles differ in the
+restriction's sum (XLA on the CPU adds in bf16, torch in f32) and in the
+bilinear blend (bf16 in xla.prolong, f32 in the port's up-leg, as in the
+Pallas kernel).  The two histories (the JAX package's, then the port's):
+
+  tuned 64^2, residual, tol 1e-10, 14 steps each:
+    1, 1.352e-2, 6.27e-4, 4.83e-5, 5.29e-6, 9.05e-7, 2.19e-7, 5.77e-8,
+       1.56e-8, 4.28e-9, 1.17e-9, 3.27e-10, 1.25e-10, 9.06e-11
+    1, 1.361e-2, 6.90e-4, 5.58e-5, 6.41e-6, 1.19e-6, 2.69e-7, 6.88e-8,
+       1.83e-8, 5.07e-9, 1.45e-9, 4.04e-10, 1.33e-10, 8.83e-11
+  tuned 128^2, residual, tol 1e-10, 13 steps each:
+    1, 1.315e-2, 6.89e-4, 6.79e-5, 8.34e-6, 1.37e-6, 2.68e-7, 6.13e-8,
+       1.58e-8, 4.21e-9, 1.15e-9, 3.13e-10, 9.04e-11
+    1, 1.295e-2, 7.16e-4, 7.74e-5, 1.14e-5, 1.99e-6, 3.55e-7, 7.71e-8,
+       1.82e-8, 4.66e-9, 1.23e-9, 3.31e-10, 9.16e-11
+  fast 128^2 (rbgs, unpacked on both sides), residual, 9 steps each:
+    1, 5.638e-4, 2.17e-6, 1.23e-7, 2.14e-8, 4.79e-9, 1.18e-9, 2.89e-10, 7.57e-11
+    1, 5.638e-4, 2.14e-6, 1.29e-7, 2.21e-8, 4.84e-9, 1.17e-9, 2.92e-10, 7.70e-11
+  tuned 64^2, update, tol 1e-4, 13 steps each:
+    15458, 932.6, 115.7, 17.41, 3.042, 0.666, 0.162, 4.22e-2, 1.13e-2,
+       3.06e-3, 8.04e-4, 2.26e-4, 7.48e-5
+    15458, 911.0, 143.0, 19.69, 3.731, 0.762, 0.185, 4.82e-2, 1.29e-2,
+       3.50e-3, 9.59e-4, 2.47e-4, 8.85e-5
+
+so each step is held within half of the JAX package's value.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import mgpoisson
+import mgpoisson_torch
+from mgpoisson_torch.kernels import cuda, use_packed
+
+CASES = {
+    "tuned64": dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
+                    stop="residual", tol=1e-10),
+    "tuned128": dict(size=128, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
+                     stop="residual", tol=1e-10),
+    "fast128": dict(size=128, dtype="float32", sweep_dtype="bfloat16", scheme="fast",
+                    stop="residual", tol=1e-10),
+    "update64": dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
+                     stop="update", tol=1e-4),
+    # the JAX package's own bf16 solve test (tests/test_pallas_bf16.py)
+    "bf16_128": dict(size=128, dtype="bfloat16", scheme="tuned", stop="residual",
+                     tol=5e-2, maxiter=30),
+}
+STEP_RTOL = 0.5
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    """Each case's JAX solve, built and run once per module (a solve
+    compiles for 15-30 s on the CPU): (iterations, converged, errs)."""
+    cache = {}
+
+    def run(name):
+        if name not in cache:
+            errs = []
+            res = mgpoisson.MultigridPoisson(mgpoisson.Spec(backend="xla", **CASES[name])).solve(
+                error_callback=lambda it, err: errs.append(float(err)) and False)
+            cache[name] = (int(res.iterations), bool(res.converged), errs)
+        return cache[name]
+    return run
+
+
+def _port(name, **kw):
+    spec = mgpoisson_torch.Spec(**{**CASES[name], **kw})
+    return mgpoisson_torch.MultigridPoisson(spec, device="cpu")
+
+
+@pytest.mark.parametrize("name", ["tuned64", "tuned128", "fast128", "update64"])
+def test_mixed_solve_matches_jax(name, jax_runs):
+    it_j, conv_j, errs_j = jax_runs(name)
+    cuda.reset_launches()
+    res = _port(name).solve()
+    assert conv_j and res.converged
+    assert res.iterations == it_j
+    assert res.errs.dtype == torch.float32 and res.psi.dtype == torch.float32
+    errs = res.errs.tolist()
+    if CASES[name]["stop"] == "residual":
+        assert errs[0] == errs_j[0] == 1.0          # ||r|| of the incoming psi0
+    for e, ej in zip(errs, errs_j):
+        assert abs(e - ej) <= STEP_RTOL * ej, (errs, errs_j)
+    assert all(v == 0 for v in cuda.launches.values())      # CPU: the plain ops
+
+
+def test_pure_bf16_solve_to_the_jax_bar(jax_runs):
+    it_j, conv_j, errs_j = jax_runs("bf16_128")
+    res = _port("bf16_128").solve()
+    assert conv_j and res.converged and res.iterations == it_j
+    assert res.psi.dtype == torch.bfloat16
+    assert res.errs.dtype == torch.float32                # L1: the history in f32
+    assert abs(res.errs[0].item() - errs_j[0]) <= 5e-2 * errs_j[0]
+
+
+def test_refinement_step_is_the_jax_step():
+    """One step() by hand: the residual in f32, one bf16 cycle on it from
+    zero, psi + e, err = ||r||/||r0|| of the incoming psi; and a callback
+    with psi sees the same iterates as the loop."""
+    mg = _port("tuned64")
+    f = mg.rhs()
+    psi0 = mg.init_state(f)
+    psi1, err = mg.step(psi0, f)
+    assert float(err) == 1.0 and psi1.dtype == torch.float32
+    h = mg.spec.fine_h
+    r = mgpoisson_torch.kernels.ops.residual(psi0, f, h, "ghost0")
+    e = mg._cycle(torch.zeros_like(r, dtype=torch.bfloat16), r.to(torch.bfloat16), h)
+    assert e.dtype == torch.bfloat16
+    assert torch.equal(psi1, psi0 + e.float())
+    seen = []
+    res = mg.solve(error_callback=lambda it, err, psi: seen.append(psi.clone()) and False)
+    assert torch.equal(seen[0], psi1) and len(seen) == res.iterations
+    assert torch.equal(seen[-1], res.psi)
+    errs2 = []
+    res2 = mg.solve(error_callback=lambda it, err: errs2.append(err) and False)
+    assert errs2 == res.errs.tolist() == res2.errs.tolist()
+
+
+def test_mixed_solve_in_f64_with_bf16_sweeps():
+    """dtype f64 with a bf16 V-cycle refines past f32's floor (17 steps to
+    1e-12 at 64^2); the history stays f64."""
+    res = _port("tuned64", dtype="float64", tol=1e-12).solve()
+    assert res.converged and res.errs.dtype == torch.float64
+    assert res.psi.dtype == torch.float64 and res.final_err < 1e-12
+
+
+def test_mixed_fast_solve_runs_unpacked(monkeypatch):
+    """The JAX solver never packs a mixed solve (its refinement branch comes
+    before the packed one): use_packed is False under another sweep_dtype,
+    on the card and with MGPOISSON_PACKED=1 on the CPU alike."""
+    monkeypatch.setenv("MGPOISSON_PACKED", "1")
+    f32 = mgpoisson_torch.Spec(size=256, scheme="fast", stop="residual")
+    mixed = f32.with_(sweep_dtype="bfloat16")
+    assert use_packed(f32, "cuda") and use_packed(f32, "cpu")
+    assert not use_packed(mixed, "cuda") and not use_packed(mixed, "cpu")
+    assert use_packed(f32.with_(sweep_dtype="float32"), "cpu")    # == dtype: the plain solve
+    mg = mgpoisson_torch.MultigridPoisson(mixed.with_(tol=1e-6), device="cpu")
+    assert mg._packed is False
+    res = mg.solve()
+    assert res.converged and math.isfinite(res.final_err)
+
+
+def test_nan_rhs_stops_the_mixed_solve():
+    """A non-finite err stops the loop after one step, not converged."""
+    mg = _port("tuned64")
+    f = mg.rhs().clone()
+    f[3, 5] = float("nan")
+    res = mg.solve(f)
+    assert res.iterations == 1 and not res.converged and math.isnan(res.final_err)
+    assert np.isnan(res.errs.numpy()).all()

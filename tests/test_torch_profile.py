@@ -112,3 +112,41 @@ def test_sass_diff_tells_a_register_renaming():
     rows = sass_diff.compare({"f": old, "g": old}, {"f": renamed, "g": changed})
     assert [(r["identical"], r["registers_only"]) for r in rows] == [(False, True),
                                                                      (False, False)]
+
+
+@pytest.mark.parametrize("flags,dtype,sweep", [
+    (["--sweep-dtype", "bfloat16"], "float32", "bfloat16"),
+    (["--dtype", "bfloat16", "--tol", "1e-30", "--maxiter", "3"], "bfloat16", None)])
+def test_profile_reads_the_bf16_solves(flags, dtype, sweep, tmp_path):
+    """--sweep-dtype: the mixed-precision refinement solve (one row per
+    kernel_min_size, a refinement step per cycle); --dtype bfloat16 with
+    --maxiter: the pure bf16 solve, which levels off."""
+    args = ["--size", "32", "--device", "cpu", "--tol", "1e-6", "--out", str(tmp_path)]
+    row = profile.main(args + flags)[0]
+    spec = Spec(size=32, dtype=dtype, sweep_dtype=sweep, scheme="tuned", stop="residual",
+                tol=1e-30 if sweep is None else 1e-6, maxiter=3 if sweep is None else 1000)
+    res = MultigridPoisson(spec, device="cpu").solve()
+    assert (row["dtype"], row["sweep_dtype"]) == (dtype, sweep)
+    assert row["cycles"] == row["profiled_cycles"] == res.iterations
+    assert row["final_err"] == res.final_err
+    assert row["converged"] is (sweep is not None)
+    tag = "_sweep_bfloat16" if sweep else "_bfloat16"
+    assert (tmp_path / f"solve_32{tag}_kms256.json").stat().st_size > 0
+
+
+def test_ab_takes_the_bf16_forms_only():
+    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K3 at the 2D
+    sides and clears every f32-only part."""
+    import torch
+    from mgpoisson_torch.bench import ab
+    args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024",
+                          "--packed", "4096", "--sharded3d", "256"])
+    assert args.dtype == torch.bfloat16 and args.sides == [4096, 1024]
+    assert (args.sharded, args.sides3d, args.sharded3d, args.packed,
+            args.sharded_packed) == (0, [], 0, [], 0)
+    args = ab.parse_args(["--old", "x", "--packed", "4096"])
+    assert args.dtype == torch.float32 and args.sharded == 16384 and args.packed == [4096]
+    assert args.sides3d == [256, 512]
+    cases, inputs = ab._cases_whole(8, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in inputs["K3"])
+    assert set(cases) == {"K1", "K2", "K2.zero", "K3", "K3.rnorm"}

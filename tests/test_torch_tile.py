@@ -79,4 +79,6 @@ def test_supports_admits_what_it_admitted(smoother):
             want = n >= 2 and nu <= CAPS[smoother]
             assert cuda.supports(n, torch.float32, nu, smoother) is want
             assert not cuda.supports(n, torch.float64, nu, smoother)
-            assert not cuda.supports(n, torch.bfloat16, nu, smoother)
+            # the bf16 forms of K1-K3: 2D only
+            assert cuda.supports(n, torch.bfloat16, nu, smoother) is want
+            assert not cuda.supports(n, torch.bfloat16, nu, smoother, ndim=3)
