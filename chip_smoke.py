@@ -62,6 +62,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. solve512 — the same spec at 512^3, where two levels run the kernels and
               K5's from-zero flag is on the solve's path: cycles, relres,
               launches of the solve and of a traced V-cycle.
+7b. parity_bf16_3d — the bf16 forms of K4-K6 against their plain torch
+              versions in bf16: first a probe of the order in which torch
+              sums a bf16 2x2x2 restriction on the card (values of spread
+              magnitudes at every side 512 ... 2, against mg3_sum8's f32
+              order rounded once), then 256^3 and 128 ... 2 x bc x (wjacobi
+              nu = 3, rbgs nu = 1 and 2, jacobi nu = 4: both tiles) and
+              512^3 with wjacobi nu = 3, both prolongation kinds, from zero
+              and with rnorm: every output bit-equal, sum(r^2) within 1e-5;
+              then (timing_bf16) each form at 256^3 beside its f32 form.
+7c. slice_mixed3d — the mixed-precision refinement solve at 256^3 (tuned,
+              f32 with bf16 sweeps) as in phase 4c: steps against the JAX
+              package's CPU count (within one), the first err 1.0, an f64
+              re-check, the bf16 forms' launches, the plain-ops twin bit
+              for bit, profiler rows beside the f32 256^3 cycle's; the same
+              spec at 512^3 (its launches and the f64 re-check); then
+              (slice_bf16_3d) the pure bf16 256^3 solve (12 cycles, tol
+              1e-30): cycle 1 against the JAX package's, its launches, the
+              plain-ops twin, a traced bf16 V-cycle (K4's bf16 form).
 8. parity_packed — the packed fine level of the fast scheme: pack/unpack
               exact on the card; K7 and K8 (both prolongation kinds, rnorm)
               against their plain packed versions at 16384 ... 256 x nu in
@@ -125,11 +143,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
               single-device kernel).  With 4 or more cards, the tuned and the
               packed 4096^2 solves again over NCCL.
 
-The last lines are a JSON object of the off-path kernels (K1, K4 and K1's
-bf16 form, with their launches in the traced cycles), a JSON object of the
+The last lines are a JSON object of the off-path kernels (K1, K4 and their
+bf16 forms, with their launches in the traced cycles), a JSON object of the
 main paths' kernels (K2, K3 with their launches in the 4096^2 tuned solve;
 the bf16 forms of K2 and K3 with theirs in the mixed 4096^2 solve; K5, K6 with
-theirs in the 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
+theirs in the 256^3 solve and their bf16 forms with theirs in the mixed
+256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
 K9, K10 with one rank's in the sharded 16384^2 solve, K11, K12 in the
 sharded 256^3 solve and K13, K14 in the sharded fast 16384^2 solve), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
@@ -209,6 +228,17 @@ JAX_ERRS_MIXED = [1.0, 0.01529780589044094, 0.006269084755331278, 0.001039739814
 JAX_ERRS_BF16 = [0.01336669921875, 0.001251220703125, 0.002716064453125, 0.0037994384765625,
                  0.00799560546875, 0.01153564453125, 0.01031494140625, 0.029052734375,
                  0.0167236328125, 0.026611328125, 0.042236328125, 0.0712890625]
+# the same package and backend on a CPU for Spec(size=256, ndim=3,
+# dtype='float32', sweep_dtype='bfloat16', scheme='tuned', stop='residual',
+# tol=1e-10): 13 refinement steps, converged, with this relres per step
+JAX_ITERATIONS_MIXED_3D = 13
+JAX_ERRS_MIXED_3D = [1.0, 0.019899588078260422, 0.0016835599672049284, 0.0001845023944042623,
+                     2.267056879645679e-05, 3.2478490084031364e-06, 5.399007818596147e-07,
+                     9.590227989519917e-08, 1.8399351375819606e-08, 3.579897045469238e-09,
+                     7.538972779386199e-10, 1.60050153685809e-10, 3.554027558361206e-11]
+# ... and the first two cycles of Spec(size=256, ndim=3, dtype='bfloat16',
+# scheme='tuned', stop='residual', tol=1e-30, maxiter=2)
+JAX_ERRS_BF16_3D = [0.018860479816794395, 0.0015980113530531526]
 BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_pallas_bf16.py)
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
@@ -238,6 +268,9 @@ MIXED_SPEC = MAIN_SPEC.with_(sweep_dtype="bfloat16")
 BF16_SPEC = MAIN_SPEC.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
 BF16_SETTINGS = tuple([(sm, nu) for sm in ("jacobi", "wjacobi") for nu in (1, 2, 3)]
                       + [("rbgs", 1), ("rbgs", 2)])
+# ... in 3D: the mixed 256^3 and 512^3 solves and the pure bf16 256^3 one
+MIXED_SPEC_3D = SPEC_3D.with_(sweep_dtype="bfloat16")
+BF16_SPEC_3D = SPEC_3D.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
 PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves, and 256
 CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
 # the sharded solve: its meshes and the sweep settings of its schemes; its
@@ -273,10 +306,10 @@ TIMING_REPS = 25
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
-# kernel -> (source, the Pallas kernel it replaces); K1 and K4 (and K1's
-# bf16 form) run only on the traced cycles, K2, K3, K5, K6, K7 and K8 (and
-# the bf16 forms of K2 and K3) carry the solves
-OFF_PATH = ("mg_smooth", "mg_smooth3d", "mg_smooth_bf16")
+# kernel -> (source, the Pallas kernel it replaces); K1 and K4 (and their
+# bf16 forms) run only on the traced cycles, K2, K3, K5, K6, K7 and K8 (and
+# the bf16 forms of K2, K3, K5 and K6) carry the solves
+OFF_PATH = ("mg_smooth", "mg_smooth3d", "mg_smooth_bf16", "mg_smooth3d_bf16")
 KERNELS = {
     "mg_smooth": ("mgpoisson_torch/csrc/mg_smooth.cu",
                   "mgpoisson/kernels/pallas.py:587"),
@@ -296,6 +329,13 @@ KERNELS = {
                        "mgpoisson/kernels/pallas.py:1693"),
     "mg_prolong_correct_smooth3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
                                     "mgpoisson/kernels/pallas.py:1821"),
+    "mg_smooth3d_bf16": ("mgpoisson_torch/csrc/mg_smooth3d.cu",
+                         "mgpoisson/kernels/pallas.py:1558"),
+    "mg_smooth_rr3d_bf16": ("mgpoisson_torch/csrc/mg_smooth_rr3d_bf16.cu",
+                            "mgpoisson/kernels/pallas.py:1693"),
+    "mg_prolong_correct_smooth3d_bf16": (
+        "mgpoisson_torch/csrc/mg_prolong_correct_smooth3d_bf16.cu",
+        "mgpoisson/kernels/pallas.py:1821"),
     "mg_packed_rr": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
                      "mgpoisson/kernels/pallas.py:3079"),
     "mg_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
@@ -389,14 +429,19 @@ def phase_build():
         print(f"[build] {fn}: {r['registers']} registers, {r['spill_stores']} / "
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
-    # the bf16 forms of K1-K3 (one instance per smoother and tile row count)
-    bf16 = {fn: r for fn, r in report.items() if BF16 in fn}
-    check(len(bf16) == 27, f"{len(bf16)} bf16 kernel instances in the ptxas report, not 27")
-    regs = sorted(r["registers"] for r in bf16.values())
-    spilled = [fn for fn, r in bf16.items() if r["spill_stores"] or r["spill_loads"]]
-    print(f"[build] bf16 forms of K1-K3: {len(bf16)} instances, {regs[0]}-{regs[-1]} registers, "
-          f"{len(spilled)} with spills")
-    check(not spilled, f"bf16 instances spill: {spilled}")
+    # the bf16 forms of K1-K3 (one instance per smoother and tile row
+    # count) and of K4-K6 (the cube tile's three kernels, and one z-marching
+    # instance per step count, smoother and bc: 16 of K5, 22 of K6)
+    for what, want, rank in (("K1-K3", 27, lambda fn: "3d" not in fn),
+                             ("K4-K6", 41, lambda fn: "3d" in fn)):
+        bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
+        check(len(bf16) == want,
+              f"{len(bf16)} bf16 instances of {what} in the ptxas report, not {want}")
+        regs = sorted(r["registers"] for r in bf16.values())
+        spilled = [fn for fn, r in bf16.items() if r["spill_stores"] or r["spill_loads"]]
+        print(f"[build] bf16 forms of {what}: {len(bf16)} instances, {regs[0]}-{regs[-1]} "
+              f"registers, {len(spilled)} with spills")
+        check(not spilled, f"bf16 instances spill: {spilled}")
     # ptxas reports static shared memory only; the 3D kernels' is dynamic.
     # K4 runs the cube tile; K5/K6 and K11/K12 the z-marching tile at halos
     # <= 4
@@ -793,19 +838,56 @@ def compare_solve(label, what, spec, dev, it, launches, warm_up=True):
     return res
 
 
-def phase_parity_bf16(dev, worst):
-    """The bf16 forms of K1-K3 against their plain torch versions in bf16
-    at every level side the two bf16 solves give the kernels (4096 ...
-    256) and at 128 ... 2, x bc x BF16_SETTINGS, both prolongation kinds,
-    from zero and with rnorm: every output bit-equal (each op rounded to
-    bf16 as torch rounds it), sum(r^2) within RNORM_TOL."""
-    (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[2]
+def probe_restrict_order_3d(dev):
+    """Whether torch's sum of a bf16 2x2x2 restriction on the card
+    (ops.restrict) equals the eight values added in f32 in mg3_sum8's
+    order and rounded once, as the bf16 form of K5 adds them: values of
+    spread magnitudes (2^-40 ... 2^40), where another order rounds
+    otherwise, at every side 512 ... 2."""
+    for n in (512,) + SIDES_3D[1:] + SMALL_SIDES:
+        g = torch.Generator(device=dev).manual_seed(n + 11)
+        e = torch.randint(-40, 41, (n,) * 3, generator=g, device=dev).float()
+        r = (torch.randn((n,) * 3, generator=g, device=dev) * torch.exp2(e)).to(torch.bfloat16)
+        x = r.float()
+
+        def s(dz, dy, dx):
+            return x[dz::2, dy::2, dx::2]
+
+        want = ((s(0, 0, 0) + s(1, 0, 0)) + (s(0, 1, 0) + s(1, 1, 0))) + (
+            (s(0, 0, 1) + s(1, 0, 1)) + (s(0, 1, 1) + s(1, 1, 1)))
+        got = ops.restrict(r)
+        check(torch.equal(got, want.to(torch.bfloat16) * 0.125),
+              f"n={n}: torch's bf16 2x2x2 sum is not mg3_sum8's f32 order rounded once")
+    print("[parity_bf16_3d] torch's bf16 2x2x2 restriction on the card: the eight values "
+          "summed in f32 in mg3_sum8's order ((z pairs, then y, then x), the f32 form's), "
+          "rounded once, at every side 512 ... 2 (spread magnitudes)")
+
+
+def _bf16_parity_cases(ndim):
+    """(side, settings) of the bf16 parity: in 2D every level side the two
+    bf16 solves give the kernels and 128 ... 2, x BF16_SETTINGS; in 3D
+    512^3 with the main path's wjacobi 3, and 256^3 and 128 ... 2 with
+    SMALL_SETTINGS_3D (both tiles)."""
+    if ndim == 2:
+        return [(n, BF16_SETTINGS) for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES)]
+    return [(512, (("wjacobi", 3),))] + [(n, SMALL_SETTINGS_3D)
+                                        for n in (256,) + SMALL_SIDES]
+
+
+def phase_parity_bf16(dev, worst, ndim=2):
+    """The bf16 forms of the legs of rank `ndim` (K1-K3, K4-K6) against
+    their plain torch versions in bf16 at the sides and settings of
+    _bf16_parity_cases x bc, both prolongation kinds, from zero and with
+    rnorm: every output bit-equal (each op rounded to bf16 as torch rounds
+    it), sum(r^2) within RNORM_TOL."""
+    (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     k_smooth, k_rr, k_pc = k_smooth + BF16, k_rr + BF16, k_pc + BF16
-    for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES):
-        u, f, V = (t.to(torch.bfloat16) for t in _data(n, 2, seed=n + 2, dev=dev))
+    label = "parity_bf16" if ndim == 2 else "parity_bf16_3d"
+    for n, settings in _bf16_parity_cases(ndim):
+        u, f, V = (t.to(torch.bfloat16) for t in _data(n, ndim, seed=n + 2, dev=dev))
         h = 1.0 / n
         for bc in ("ghost0", "face"):
-            for smoother, nu in BF16_SETTINGS:
+            for smoother, nu in settings:
                 row = [f"n={n} {bc} {smoother} nu={nu}"]
                 a = (h, nu, smoother, bc)
                 note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a), ops.smooth(u, f, *a),
@@ -830,7 +912,7 @@ def phase_parity_bf16(dev, worst):
                 check(gu.dtype == torch.bfloat16 and g2.dtype == torch.float32,
                       f"bf16 up-leg dtypes {gu.dtype}, {g2.dtype}")
                 torch.cuda.synchronize()
-                print("[parity_bf16] " + " ".join(row) + "; bit-equal")
+                print(f"[{label}] " + " ".join(row) + "; bit-equal")
         del u, f, V
         torch.cuda.empty_cache()
 
@@ -846,100 +928,112 @@ def _per_cycle_profile(label, spec, dev):
     solve of `spec`, beside its wall (bench/profile.py)."""
     row = profile_solve(spec, dev)
     print(f"[{label}] {spec.dtype}{'/' + spec.sweep_dtype if spec.sweep_dtype else ''} "
-          f"{spec.size}^2 per cycle: device {row['device_ms_per_cycle']:.4f} ms, mg_* "
+          f"{spec.size}^{spec.ndim} per cycle: device {row['device_ms_per_cycle']:.4f} ms, mg_* "
           f"{row['mg_kernel_ms_per_cycle']:.4f} ms, {row['launches_per_cycle']:.1f} launches, "
           f"wall {row['wall_ms_per_cycle']:.3f} ms (busy share "
           f"{row['device_busy_share']:.3f}); {row['cycles']} cycles")
     return row
 
 
-def phase_slice_mixed(dev):
-    """The mixed-precision refinement solve of MIXED_SPEC: steps against the
-    JAX package's count, each step's relres beside the JAX package's, the
-    first one 1.0 (the incoming iterate's), an f64 re-check, the bf16
-    forms' launches (per step K2 from u at 4096, from zero below, K3 without
-    rnorm at every kernel level: the JAX step hands the cycle a zeros array
-    and stops on the residual it computes itself), the plain-ops twin (the
-    same history, bit for bit) and the per-step device time beside the f32
-    solve's.  Returns the solve's launches."""
-    label, spec = "slice_mixed", MIXED_SPEC
+def _bf16_legs(spec):
+    """The bf16 forms of the down- and up-leg of `spec`'s rank, and the
+    shape of its grid as printed."""
+    _, k_rr, k_pc = RANK[spec.ndim][0]
+    return k_rr + BF16, k_pc + BF16, f"{spec.size}^{spec.ndim}"
+
+
+def phase_slice_mixed(dev, spec=MIXED_SPEC, f32_spec=MAIN_SPEC, jax_iterations=JAX_ITERATIONS_MIXED,
+                      jax_errs=JAX_ERRS_MIXED, label="slice_mixed"):
+    """The mixed-precision refinement solve of `spec`: its steps, the first
+    one's relres 1.0 (the incoming iterate's), an f64 re-check, the bf16
+    forms' launches (per step K2/K5 from u at the fine level, from zero
+    below, K3/K6 without rnorm at every kernel level: the JAX step hands
+    the cycle a zeros array and stops on the residual it computes itself).
+    With the JAX package's count (`jax_iterations`): the steps against it
+    (equal or within one), each step's relres beside the JAX package's,
+    the plain-ops twin (the same history, bit for bit) and the per-step
+    device time beside the f32 solve's (`f32_spec`).  Returns the solve's
+    launches."""
+    k_rr, k_pc, shape = _bf16_legs(spec)
     _solve(spec, dev)
     cuda.reset_launches()
     mg, res, cycle_ms = _solve(spec, dev)
     launches = dict(cuda.launches)
     it, errs = res.iterations, res.errs.tolist()
-    print(f"[{label}] f32 with bf16 sweeps, tuned {spec.size}^2 on {dev}: {it} steps, "
-          f"converged={res.converged}, final relres {res.final_err:.6e}; the JAX package "
-          f"takes {JAX_ITERATIONS_MIXED}")
-    _steps_beside(label, errs, JAX_ERRS_MIXED)
-    check(res.converged, "the mixed 4096^2 solve did not converge")
+    print(f"[{label}] f32 with bf16 sweeps, tuned {shape} on {dev}: {it} steps, "
+          f"converged={res.converged}, final relres {res.final_err:.6e}"
+          + (f"; the JAX package takes {jax_iterations}" if jax_iterations else ""))
+    _steps_beside(label, errs, jax_errs or [])
+    check(res.converged, f"the mixed {shape} solve did not converge")
     check(errs[0] == 1.0, f"the first step's relres is {errs[0]}, not 1.0 (the incoming psi0)")
     check(res.errs.dtype == torch.float32, f"the history is {res.errs.dtype}")
-    check(abs(it - JAX_ITERATIONS_MIXED) <= 1,
-          f"{it} steps, the JAX package takes {JAX_ITERATIONS_MIXED}")
-    if it != JAX_ITERATIONS_MIXED:
-        print(f"[{label}] {it} steps against {JAX_ITERATIONS_MIXED}: the bf16 V-cycles differ "
-              "in the restriction's sum (bf16 adds under XLA on the CPU, f32 in torch) and "
-              "the bilinear blend (bf16 in xla.prolong, f32 here as in the Pallas up-leg)")
+    if jax_iterations:
+        check(abs(it - jax_iterations) <= 1,
+              f"{it} steps, the JAX package takes {jax_iterations}")
+        if it != jax_iterations:
+            print(f"[{label}] {it} steps against {jax_iterations}: the bf16 V-cycles differ "
+                  "in the restriction's sum (bf16 adds under XLA on the CPU, f32 in torch) "
+                  "and the blend (bf16 in xla.prolong, f32 here as in the Pallas up-leg)")
     f = mg.rhs()
     f64, psi64 = f.double(), res.psi.double()
     rel64 = float(ops.residual_norm(psi64, f64, spec.fine_h)
                   / ops.residual_norm(-f64, f64, spec.fine_h))
     del f64, psi64
     print(f"[{label}] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
-    check(rel64 < spec.tol, f"mixed 4096^2: f64 relres of the returned psi {rel64:.3e} >= tol")
+    check(rel64 < spec.tol, f"mixed {shape}: f64 relres of the returned psi {rel64:.3e} >= tol")
     L = len(kernel_levels(spec))
-    check_launches("4096^2 mixed solve", launches, _expected({
-        "mg_smooth_rr_bf16": it * L, "mg_smooth_rr_bf16.zero": it * (L - 1),
-        "mg_prolong_correct_smooth_bf16": it * L}),
-        f"per step the bf16 K2 from u at {spec.size} and from zero below, and the bf16 K3 "
+    check_launches(f"{shape} mixed solve", launches, _expected({
+        k_rr: it * L, k_rr + ".zero": it * (L - 1), k_pc: it * L}),
+        f"per step {k_rr} from u at {spec.size} and from zero below, and {k_pc} "
         f"without rnorm, at each of the {L} kernel levels; no f32 kernel")
     print(f"[{label}] per-step wall ms, median (all): kernels {statistics.median(cycle_ms):.3f} "
           f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
+    if not jax_iterations:
+        return launches
     plain = compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
     check(torch.equal(plain.psi, res.psi) and plain.errs.tolist() == errs,
           f"the plain-ops mixed solve differs: {plain.errs.tolist()} vs {errs}")
     print(f"[{label}] plain-ops twin: the same psi and {it} relres values, bit for bit")
     mixed_row = _per_cycle_profile(label, spec, dev)
-    f32_row = _per_cycle_profile(label, MAIN_SPEC, dev)
-    print(f"[{label}] mixed step / f32 tuned cycle: device "
+    f32_row = _per_cycle_profile(label, f32_spec, dev)
+    print(f"[{label}] mixed step / f32 tuned {shape} cycle: device "
           f"{mixed_row['device_ms_per_cycle'] / f32_row['device_ms_per_cycle']:.3f}x, mg_* "
           f"{mixed_row['mg_kernel_ms_per_cycle'] / f32_row['mg_kernel_ms_per_cycle']:.3f}x, "
           f"wall {mixed_row['wall_ms_per_cycle'] / f32_row['wall_ms_per_cycle']:.3f}x")
     return launches
 
 
-def phase_slice_bf16(dev):
-    """The pure bf16 solve of BF16_SPEC (12 cycles at tol 1e-30): its
-    history beside the JAX package's and equal to its plain-ops twin's,
-    its launches, and a traced bf16 V-cycle (the one caller of K1's bf16
-    form).  Returns the traced cycle's launches."""
-    label, spec = "slice_bf16", BF16_SPEC
+def phase_slice_bf16(dev, spec=BF16_SPEC, jax_errs=JAX_ERRS_BF16, label="slice_bf16"):
+    """The pure bf16 solve of `spec` (12 cycles at tol 1e-30): its history
+    beside the JAX package's (cycle 1 within BF16_TOL of it) and equal to
+    its plain-ops twin's, its launches, and a traced bf16 V-cycle (the one
+    caller of the bf16 form of K1 / K4).  Returns the traced cycle's
+    launches."""
+    k_rr, k_pc, shape = _bf16_legs(spec)
+    k_smooth = RANK[spec.ndim][0][0] + BF16
     _solve(spec, dev)
     cuda.reset_launches()
     mg, res, cycle_ms = _solve(spec, dev)
     launches = dict(cuda.launches)
     it, errs = res.iterations, res.errs.tolist()
-    print(f"[{label}] bf16 tuned {spec.size}^2 on {dev}: {it} cycles (maxiter "
+    print(f"[{label}] bf16 tuned {shape} on {dev}: {it} cycles (maxiter "
           f"{spec.maxiter}), final relres {res.final_err:.6e}; the JAX package's beside")
-    _steps_beside(label, errs, JAX_ERRS_BF16)
+    _steps_beside(label, errs, jax_errs)
     check(res.psi.dtype == torch.bfloat16 and res.errs.dtype == torch.float32,
           f"psi {res.psi.dtype}, history {res.errs.dtype}")
     # the first cycle, from psi0 = -f, before bf16's cancellation sets in
-    check(abs(errs[0] - JAX_ERRS_BF16[0]) <= BF16_TOL * JAX_ERRS_BF16[0],
-          f"bf16 4096^2 cycle 1: relres {errs[0]:.6e} vs the JAX package's "
-          f"{JAX_ERRS_BF16[0]:.6e}")
+    check(abs(errs[0] - jax_errs[0]) <= BF16_TOL * jax_errs[0],
+          f"bf16 {shape} cycle 1: relres {errs[0]:.6e} vs the JAX package's "
+          f"{jax_errs[0]:.6e}")
     L = len(kernel_levels(spec))
-    check_launches("4096^2 bf16 solve", launches, _expected({
-        "mg_smooth_rr_bf16": it * L, "mg_smooth_rr_bf16.zero": it * (L - 1),
-        "mg_prolong_correct_smooth_bf16": it * L,
-        "mg_prolong_correct_smooth_bf16.rnorm": it}),
-        f"one bf16 K2 and K3 per cycle at each of the {L} kernel levels, K2 from zero "
-        "below the fine level, K3 with rnorm at it")
+    check_launches(f"{shape} bf16 solve", launches, _expected({
+        k_rr: it * L, k_rr + ".zero": it * (L - 1), k_pc: it * L, k_pc + ".rnorm": it}),
+        f"one {k_rr} and {k_pc} per cycle at each of the {L} kernel levels, {k_rr} from "
+        f"zero below the fine level, {k_pc} with rnorm at it")
     # the same psi bit for bit; the relres from Sigma r^2 summed in another
     # order (the kernel's partials), so within one bf16 ulp after rounding
     plain = compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
-    check(torch.equal(plain.psi, res.psi), "the plain-ops bf16 solve's psi differs")
+    check(torch.equal(plain.psi, res.psi), f"the plain-ops bf16 {shape} solve's psi differs")
     check(all(abs(a - b) <= 2 ** -7 * abs(b) for a, b in zip(errs, plain.errs.tolist())),
           f"the plain-ops bf16 solve's history differs: {plain.errs.tolist()} vs {errs}")
     print(f"[{label}] plain-ops twin: the same psi bit for bit, relres "
@@ -948,8 +1042,8 @@ def phase_slice_bf16(dev):
     v_cycle(res.psi, mg.rhs(), spec.fine_h, spec, trace=[])
     torch.cuda.synchronize()
     trace = dict(cuda.launches)
-    check_launches("4096^2 traced bf16 V-cycle", trace, _expected({"mg_smooth_bf16": 2 * L}),
-                   f"K1's bf16 form twice at each of the {L} kernel levels")
+    check_launches(f"{shape} traced bf16 V-cycle", trace, _expected({k_smooth: 2 * L}),
+                   f"{k_smooth} twice at each of the {L} kernel levels")
     return trace
 
 
@@ -1599,6 +1693,20 @@ def main():
     check_launches("512^3 traced V-cycle", trace5, _expected({"mg_smooth3d": 4}),
                    "K4 twice at each of the two kernel levels")
 
+    # the bf16 forms of K4-K6: the mixed-precision 256^3 and 512^3 solves
+    # and the pure bf16 256^3 one
+    probe_restrict_order_3d(dev)
+    phase_parity_bf16(dev, worst, 3)
+    times_bf16 = phase_timing(dev, SPEC_3D.size, 3, torch.bfloat16)
+    for name, t in times_bf16.items():
+        print(f"[timing_bf16] {name} against its f32 form: "
+              + _beside(times[name.replace(BF16, "")], t))
+    times.update(times_bf16)
+    solve_mixed3 = phase_slice_mixed(dev, MIXED_SPEC_3D, SPEC_3D, JAX_ITERATIONS_MIXED_3D,
+                                     JAX_ERRS_MIXED_3D, "slice_mixed3d")
+    phase_slice_mixed(dev, MIXED_SPEC_3D.with_(size=512), None, None, None, "solve512_mixed")
+    trace_bf16_3 = phase_slice_bf16(dev, BF16_SPEC_3D, JAX_ERRS_BF16_3D, "slice_bf16_3d")
+
     # the fast scheme's packed fine level: the 4096^2 solve, then 1024^2
     # and 16384^2
     phase_parity_packed(dev, worst)
@@ -1625,7 +1733,8 @@ def main():
                **times[name], "library_ms": None}
         solve, trace = (solve3, trace3) if name.endswith("3d") else (solve2, trace2)
         if name.endswith(BF16):
-            solve, trace = solve_mixed, trace_bf16
+            solve, trace = ((solve_mixed3, trace_bf16_3) if "3d" in name
+                            else (solve_mixed, trace_bf16))
         if name.startswith("mg_packed"):
             solve = solve_fast
         if name.startswith("mg_sharded"):

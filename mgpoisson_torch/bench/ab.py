@@ -45,10 +45,11 @@ packed lanes, before the register tile).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 
-With --dtype bfloat16 it times the bf16 forms of K1-K3 (the 2D legs at
-every --sides side, as above) and nothing else: every other kernel is f32
-only.  The other build must have them (this checkout's tree or a later
-one).
+With --dtype bfloat16 it times the bf16 forms of K1-K6 (the 2D legs at
+every --sides side and the 3D legs at every --sides3d side, as above) and
+nothing else: the packed and strip kernels are f32 only.  The other build
+must have the forms it times (an empty --sides3d times K1-K3 alone, for a
+build whose 3D legs are f32 only).
 """
 
 from __future__ import annotations
@@ -151,9 +152,10 @@ def _cases_whole(n, smoother, nu, dev, dtype=torch.float32):
     return cases, inputs
 
 
-def _cases_whole3d(n, smoother, nu, dev):
+def _cases_whole3d(n, smoother, nu, dev, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(n + nu)
-    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev) for s in (n, n, n // 2))
+    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev).to(dtype)
+               for s in (n, n, n // 2))
     h = 1.0 / n
     cases = {
         "K5": lambda: cuda.smooth_residual_restrict(u, f, h, nu, smoother, "ghost0"),
@@ -288,8 +290,8 @@ def _run(builds, label, cases, inputs, reps):
 
 
 def parse_args(argv=None):
-    """The command line; with --dtype bfloat16 only the 2D whole-grid legs
-    run (--sharded, --sides3d, --sharded3d, --packed and --sharded-packed
+    """The command line; with --dtype bfloat16 only the whole-grid legs
+    run, 2D and 3D (--sharded, --sharded3d, --packed and --sharded-packed
     are cleared: their kernels are f32 only)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the other build's csrc")
@@ -322,12 +324,12 @@ def parse_args(argv=None):
                     help="the other build's packed tile side (its K8/K14 rnorm partials, one "
                     "per T x T packed tile), 32 before the register tile; 0: the register tile")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="bfloat16: the bf16 forms of K1-K3 only")
+                    help="bfloat16: the bf16 forms of K1-K6 only")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     args.dtype = getattr(torch, args.dtype)
     if args.dtype == torch.bfloat16:
-        args.sharded, args.sides3d, args.sharded3d = 0, [], 0
+        args.sharded, args.sharded3d = 0, 0
         args.packed, args.sharded_packed = [], 0
     return args
 
@@ -360,8 +362,9 @@ def main(argv=None):
         del cases, inputs
         torch.cuda.empty_cache()
     for n, (smoother, nu) in itertools.product(args.sides3d, (("wjacobi", 3), ("rbgs", 1))):
-        cases, inputs = _cases_whole3d(n, smoother, nu, dev)
-        _run(builds, f"{n}^3 {smoother} nu={nu}", cases, inputs, args.reps)
+        cases, inputs = _cases_whole3d(n, smoother, nu, dev, args.dtype)
+        dt = " bf16" if args.dtype == torch.bfloat16 else ""
+        _run(builds, f"{n}^3{dt} {smoother} nu={nu}", cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()
     for smoother, nu in (("wjacobi", 3), ("rbgs", 1)) if args.sharded3d else ():

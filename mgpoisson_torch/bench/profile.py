@@ -14,7 +14,8 @@ For each kernel_min_size it runs the residual-stop solve of the scheme
 bf16 solve, which levels off: give it --tol 1e-30 --maxiter 12) and, with
 a --sweep-dtype other than it, as mixed-precision refinement (e.g.
 --sweep-dtype bfloat16: an f32 solve whose V-cycle runs in bf16 on the
-bf16 forms of K1-K3, one refinement step per "cycle" below), three times
+bf16 forms of K1-K3, or of K4-K6 with --ndim 3, one refinement step per
+"cycle" below), three times
 on the device: a warm-up, one timed solve (wall ms per cycle from
 the error callback, each cycle ending in a scalar readback) and one solve
 under torch.profiler.  From the profiled solve it prints, per cycle, the

@@ -51,13 +51,13 @@ class Spec:
         on torch.distributed (``mgpoisson_torch.shard``); 'gspmd' has no
         torch counterpart and raises.
 
-    bf16 runs on one device in 2D: dtype='bfloat16' (the pure bf16 solve)
-    and a sweep_dtype other than dtype (mixed-precision refinement, e.g.
-    the bf16 V-cycle of an f32 solve); sweep_dtype == dtype is the plain
-    solve, as in the JAX package.  bf16 in 3D or under a mesh, and a bf16
-    solve whose fine level the JAX package would run packed
-    (``check_packs_bf16``), raise NotImplementedError naming the ROADMAP
-    item.
+    bf16 runs on one device, in 2D and 3D: dtype='bfloat16' (the pure
+    bf16 solve) and a sweep_dtype other than dtype (mixed-precision
+    refinement, e.g. the bf16 V-cycle of an f32 solve); sweep_dtype ==
+    dtype is the plain solve, as in the JAX package.  bf16 or mixed
+    precision under a mesh, and a bf16 solve whose fine level the JAX
+    package would run packed (``check_packs_bf16``), raise
+    NotImplementedError naming the ROADMAP item.
     """
 
     size: int
@@ -134,7 +134,6 @@ class Spec:
                 "no torch counterpart; mgpoisson_torch runs the explicit "
                 "partition, 'spmd' (ROADMAP slice 7, Queue 1 item 12)")
         mixed = self.sweep_dtype not in (None, self.dtype)
-        bf16 = "bfloat16" in (self.dtype, self.sweep_dtype)
         if self.stop_check == "adaptive" and mixed:
             # the JAX solver's message (mgpoisson/solver/multigrid.py:88-94)
             raise ValueError("stop_check='adaptive' buys nothing under "
@@ -149,9 +148,6 @@ class Spec:
         if self.mesh_shape is not None and self.dtype == "bfloat16":
             later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
                   "precision): Queue 2 A4, the bf16 forms of K9-K12")
-        if self.ndim == 3 and bf16:
-            later("bf16 in 3D", "5 (bf16 and mixed precision): Queue 2 A2, "
-                  "the bf16 forms of K4-K6")
         if self.sweep_dtype is None:
             self.check_packs_bf16()
         if self.stop_check == "adaptive":

@@ -31,6 +31,13 @@
 // mg_sharded_pc3d_kernel), which reads each array once per block tile and
 // costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
 // H = 5.
+//
+// The bf16 form of K6 (mg_prolong_correct_smooth3d_bf16, with the rnorm
+// flag) runs both tiles on bf16 u, f, V and out, rounding as plain torch
+// does in bf16 (stencil3d.cuh, Mg3Elem): P(V) blended in f32 and rounded
+// once, sum(r^2) in f32 partials; bound 1.5625 arrays of f32 bytes.  Its
+// z-marching instances are in mg_prolong_correct_smooth3d_bf16.cu.  K12
+// has no bf16 form.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -73,26 +80,28 @@ static __device__ __forceinline__ float mg3_prolong(const float* sv, int SV, int
   return out;
 }
 
-// The leg on the block `blk`; each entry point below instantiates it once.
-template <bool kStrips>
+// The leg on the block `blk`, its arrays of element type T (bf16 only
+// without kStrips); each entry point below instantiates it once.
+template <bool kStrips, class T>
 static __device__ __forceinline__ void mg_pc3d_body(
-    const float* __restrict__ U, const float* __restrict__ F, const float* __restrict__ V,
-    float* __restrict__ Uout, float* __restrict__ partials, const Mg3Block& blk,
-    const Mg3Strips& us, const Mg3Strips& fs, const Mg3Strips& vs, int T, int H, int nu,
+    const T* __restrict__ U, const T* __restrict__ F, const T* __restrict__ V,
+    T* __restrict__ Uout, float* __restrict__ partials, const Mg3Block& blk,
+    const Mg3Strips& us, const Mg3Strips& fs, const Mg3Strips& vs, int side, int H, int nu,
     int smoother, int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
+  using E = Mg3Elem<T>;
   extern __shared__ float smem[];
-  const Mg3Tile t = mg3_tile(blk, T, H);
+  const Mg3Tile t = mg3_tile(blk, side, H);
   const int S = t.S, S3 = S * S * S, n = t.n;
   float* a = smem;
   float* b = a + S3;
   float* sf = b + S3;
   float* sv = sf + S3;
-  const int nc = n / 2, CH = mg3_coarse_halo(H), SV = mg3_coarse_side(T, H);
+  const int nc = n / 2, CH = mg3_coarse_halo(H), SV = mg3_coarse_side(side, H);
   // the fine tile origin is even, so its coarse origin is blockIdx * T/2 in
   // the block's coarse index; the block origin is even too
-  const int lz0 = (int)blockIdx.z * (T / 2) - CH, ly0 = (int)blockIdx.y * (T / 2) - CH;
+  const int lz0 = (int)blockIdx.z * (side / 2) - CH, ly0 = (int)blockIdx.y * (side / 2) - CH;
   const int cz0 = blk.z0 / 2 + lz0, cy0 = blk.y0 / 2 + ly0,
-            cx0 = (int)blockIdx.x * (T / 2) - CH;
+            cx0 = (int)blockIdx.x * (side / 2) - CH;
   for (int k = threadIdx.x; k < SV * SV * SV; k += blockDim.x) {
     const int gK = cx0 + k % SV, q = k / SV, gJ = cy0 + q % SV, gI = cz0 + q / SV;
     if constexpr (kStrips)
@@ -101,7 +110,7 @@ static __device__ __forceinline__ void mg_pc3d_body(
                   : 0.f;
     else
       sv[k] = mg_in(gI, nc) && mg_in(gJ, nc) && mg_in(gK, nc)
-                  ? V[((size_t)gI * nc + gJ) * nc + gK]
+                  ? E::ld(V + ((size_t)gI * nc + gJ) * nc + gK)
                   : 0.f;
   }
   if constexpr (kStrips)
@@ -111,20 +120,20 @@ static __device__ __forceinline__ void mg_pc3d_body(
   __syncthreads();
   for (int k = threadIdx.x; k < S3; k += blockDim.x) {
     const int l = k % S, q = k / S, j = q % S, i = q / S;
-    if (mg3_in(t, i, j, l))
-      a[k] = __fadd_rn(a[k], mg3_prolong(sv, SV, cz0, cy0, cx0, t.gz0 + i, t.gy0 + j,
-                                         t.gx0 + l, n, kind));
+    if (mg3_in(t, i, j, l))   // P(V) blended in f32, rounded once
+      a[k] = E::rd(__fadd_rn(a[k], E::rd(mg3_prolong(sv, SV, cz0, cy0, cx0, t.gz0 + i,
+                                                     t.gy0 + j, t.gx0 + l, n, kind))));
   }
   __syncthreads();
-  const float* u = mg3_sweeps(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
+  const float* u = mg3_sweeps<T>(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
   mg3_store(Uout, u, t);
   if (partials == nullptr) return;
 
   float acc = 0.f;
-  for (int k = threadIdx.x; k < T * T * T; k += blockDim.x) {
-    const int l = H + k % T, q = k / T, j = H + q % T, i = H + q / T;
+  for (int k = threadIdx.x; k < side * side * side; k += blockDim.x) {
+    const int l = H + k % side, q = k / side, j = H + q % side, i = H + q / side;
     if (kStrips ? !mg3_owned(t, i, j, l) : !mg3_in(t, i, j, l)) continue;
-    const float r = mg3_residual(u, sf, t, i, j, l, MG_GHOST0, inv_hsq, adiag);
+    const float r = mg3_residual<T>(u, sf, t, i, j, l, MG_GHOST0, inv_hsq, adiag);
     acc += r * r;
   }
   float* red = sv + SV * SV * SV;   // fixed-order tree: the same sum every run
@@ -145,6 +154,17 @@ mg_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                const float* __restrict__ V, float* __restrict__ Uout,
                float* __restrict__ partials, int n, int T, int H, int nu, int smoother,
                int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
+  mg_pc3d_body<false>(U, F, V, Uout, partials, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
+                      Mg3Strips{}, Mg3Strips{}, T, H, nu, smoother, bc, kind, inv_hsq,
+                      inv_adiag, adiag);
+}
+
+// The bf16 form of the above.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_pc3d_bf16_kernel(const __nv_bfloat16* __restrict__ U, const __nv_bfloat16* __restrict__ F,
+                    const __nv_bfloat16* __restrict__ V, __nv_bfloat16* __restrict__ Uout,
+                    float* __restrict__ partials, int n, int T, int H, int nu, int smoother,
+                    int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
   mg_pc3d_body<false>(U, F, V, Uout, partials, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
                       Mg3Strips{}, Mg3Strips{}, T, H, nu, smoother, bc, kind, inv_hsq,
                       inv_adiag, adiag);
@@ -179,29 +199,54 @@ struct MgPc3dZm {
   static __host__ Mg3zKernel fn() { return mg_pc3d_zm_kernel<STEPS, kSm, kFace>; }
 };
 
-// The whole n^3 grid: the z-marching tile where it takes the halo (with
-// rnorm one partial per block of mg3z_grid), else the cube tile of side
-// `tile` (kernels/cuda.py tile3d; one partial per T^3 block).
+// The whole n^3 grid in element type T (A its z-marching arguments): the
+// z-marching instance `zm` (null: none for the step count and smoother)
+// where the tile takes the halo (with rnorm one partial per block of
+// mg3z_grid), else the cube kernel `cube` of side `tile` (kernels/cuda.py
+// tile3d; one partial per T^3 block).
+template <class A, class T, class Zm>
+static int mg_pc3d_grid(Zm zm,
+                        void (*cube)(const T*, const T*, const T*, T*, float*, int, int, int,
+                                     int, int, int, int, float, float, float),
+                        const T* u, const T* f, const T* V, T* out, float* partials, int n,
+                        int tile, int nu, int smoother, int bc, int kind, float inv_hsq,
+                        float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
+  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
+  if (mg3z_takes(H)) {
+    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, mg3z_chunk(n, n, n, H),
+              kind, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(zm, Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, false, true),
+                       stream);
+  }
+  const size_t bytes = mg_pc3d_bytes(tile, H);
+  const Mg3Block grid{n, n, n, 0, 0};
+  const int rc = mg3_prepare((const void*)cube, grid, tile, bytes);
+  if (rc != 0) return rc;
+  cube<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
+      u, f, V, out, rnorm ? partials : nullptr, n, tile, H, nu, smoother, bc, kind, inv_hsq,
+      inv_adiag, adiag);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const float* V,
                                            float* out, float* partials, int n, int tile,
                                            int nu, int smoother, int bc, int kind,
                                            float inv_hsq, float inv_adiag, float adiag,
                                            int rnorm, cudaStream_t stream) {
-  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
-  if (mg3z_takes(H)) {
-    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
-                     mg3z_chunk(n, n, n, H), kind, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(steps, smoother, bc),
-                       Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, false, true), stream);
-  }
-  const size_t bytes = mg_pc3d_bytes(tile, H);
-  const Mg3Block grid{n, n, n, 0, 0};
-  const int rc = mg3_prepare((const void*)mg_pc3d_kernel, grid, tile, bytes);
-  if (rc != 0) return rc;
-  mg_pc3d_kernel<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
-      u, f, V, out, rnorm ? partials : nullptr, n, tile, H, nu, smoother, bc, kind, inv_hsq,
-      inv_adiag, adiag);
-  return (int)cudaGetLastError();
+  return mg_pc3d_grid<Mg3zArgs>(
+      mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(mg_steps(nu, smoother), smoother, bc),
+      mg_pc3d_kernel, u, f, V, out, partials, n, tile, nu, smoother, bc, kind, inv_hsq,
+      inv_adiag, adiag, rnorm, stream);
+}
+
+extern "C" int mg_prolong_correct_smooth3d_bf16(
+    const __nv_bfloat16* u, const __nv_bfloat16* f, const __nv_bfloat16* V, __nv_bfloat16* out,
+    float* partials, int n, int tile, int nu, int smoother, int bc, int kind, float inv_hsq,
+    float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
+  return mg_pc3d_grid<Mg3zArgsBf16>(mg_pc3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
+                                    mg_pc3d_bf16_kernel, u, f, V, out, partials, n, tile, nu,
+                                    smoother, bc, kind, inv_hsq, inv_adiag, adiag, rnorm,
+                                    stream);
 }
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and

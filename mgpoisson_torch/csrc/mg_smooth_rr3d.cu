@@ -30,17 +30,25 @@
 // mg_sharded_rr3d_kernel), which reads each array once per block tile and
 // costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
 // H = 5.
+//
+// The bf16 form of K5 (mg_smooth_rr3d_bf16, with the from-zero flag) runs
+// both tiles on bf16 u, f and R, rounding as plain torch does in bf16
+// (stencil3d.cuh, Mg3Elem): bound 1.5625 arrays of f32 bytes, 1.0625 from
+// zero.  Its z-marching instances are in mg_smooth_rr3d_bf16.cu.  K11 has
+// no bf16 form.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
-// The leg on the block `blk`; each entry point below instantiates it once.
-template <bool kStrips>
+// The leg on the block `blk`, its arrays of element type T (bf16 only
+// without kStrips); each entry point below instantiates it once.
+template <bool kStrips, class T>
 static __device__ __forceinline__ void mg_smooth_rr3d_body(
-    const float* __restrict__ U, const float* __restrict__ F, float* __restrict__ Uout,
-    float* __restrict__ Rout, const Mg3Block& blk, const Mg3Strips& us, const Mg3Strips& fs,
-    int T, int H, int nu, int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
+    const T* __restrict__ U, const T* __restrict__ F, T* __restrict__ Uout,
+    T* __restrict__ Rout, const Mg3Block& blk, const Mg3Strips& us, const Mg3Strips& fs,
+    int side, int H, int nu, int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
+  using E = Mg3Elem<T>;
   extern __shared__ float smem[];
-  const Mg3Tile t = mg3_tile(blk, T, H);
+  const Mg3Tile t = mg3_tile(blk, side, H);
   const int S3 = t.S * t.S * t.S;
   float* a = smem;
   float* b = a + S3;
@@ -50,13 +58,13 @@ static __device__ __forceinline__ void mg_smooth_rr3d_body(
   else
     mg3_load(a, sf, U, F, t);
   __syncthreads();
-  const float* u = mg3_sweeps(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
+  const float* u = mg3_sweeps<T>(a, b, sf, t, nu, smoother, bc, inv_hsq, inv_adiag);
   mg3_store(Uout, u, t);
 
   // the tile origin is even on all three axes, so each coarse cell's
   // 2x2x2 fine cells lie in this tile; the halo keeps the ring the
   // residual reads exact
-  const int ncz = t.nzl / 2, ncy = t.nyl / 2, ncx = t.n / 2, T2 = T / 2;
+  const int ncz = t.nzl / 2, ncy = t.nyl / 2, ncx = t.n / 2, T2 = side / 2;
   for (int k = threadIdx.x; k < T2 * T2 * T2; k += blockDim.x) {
     const int cl = k % T2, q = k / T2, cj = q % T2, ci = q / T2;
     const int gI = (int)blockIdx.z * T2 + ci, gJ = (int)blockIdx.y * T2 + cj,
@@ -66,9 +74,10 @@ static __device__ __forceinline__ void mg_smooth_rr3d_body(
     float r[8];
 #pragma unroll
     for (int d = 0; d < 8; ++d)
-      r[d] = mg3_residual(u, sf, t, i + (d >> 2), j + ((d >> 1) & 1), l + (d & 1), bc,
-                          inv_hsq, adiag);
-    Rout[((size_t)gI * ncy + gJ) * ncx + gK] = __fmul_rn(mg3_sum8(r), 0.125f);
+      r[d] = mg3_residual<T>(u, sf, t, i + (d >> 2), j + ((d >> 1) & 1), l + (d & 1), bc,
+                             inv_hsq, adiag);
+    Rout[((size_t)gI * ncy + gJ) * ncx + gK] =
+        E::cvt(E::rd(__fmul_rn(E::rd(mg3_sum8(r)), 0.125f)));
   }
 }
 
@@ -79,6 +88,16 @@ mg_smooth_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                       float* __restrict__ Uout, float* __restrict__ Rout, int n, int T,
                       int H, int nu, int smoother, int bc, float inv_hsq,
                       float inv_adiag, float adiag) {
+  mg_smooth_rr3d_body<false>(U, F, Uout, Rout, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
+                             Mg3Strips{}, T, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
+}
+
+// The bf16 form of the above.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_smooth_rr3d_bf16_kernel(const __nv_bfloat16* __restrict__ U,
+                           const __nv_bfloat16* __restrict__ F, __nv_bfloat16* __restrict__ Uout,
+                           __nv_bfloat16* __restrict__ Rout, int n, int T, int H, int nu,
+                           int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
   mg_smooth_rr3d_body<false>(U, F, Uout, Rout, Mg3Block{n, n, n, 0, 0}, Mg3Strips{},
                              Mg3Strips{}, T, H, nu, smoother, bc, inv_hsq, inv_adiag, adiag);
 }
@@ -105,26 +124,51 @@ struct MgRr3dZm {
   static __host__ Mg3zKernel fn() { return mg_rr3d_zm_kernel<STEPS, kSm, kFace>; }
 };
 
-// The whole n^3 grid: the z-marching tile where it takes the halo, else
-// the cube tile of side `tile` (kernels/cuda.py tile3d).
-extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float* R, int n,
-                              int tile, int nu, int smoother, int bc, float inv_hsq,
-                              float inv_adiag, float adiag, int zero, cudaStream_t stream) {
+// The whole n^3 grid in element type T (A its z-marching arguments): the
+// z-marching instance `zm` (null: none for the step count and smoother)
+// where the tile takes the halo, else the cube kernel `cube` of side
+// `tile` (kernels/cuda.py tile3d).
+template <class A, class T, class Zm>
+static int mg_smooth_rr3d_grid(Zm zm,
+                               void (*cube)(const T*, const T*, T*, T*, int, int, int, int, int,
+                                            int, float, float, float),
+                               const T* u, const T* f, T* out, T* R, int n, int tile, int nu,
+                               int smoother, int bc, float inv_hsq, float inv_adiag,
+                               float adiag, int zero, cudaStream_t stream) {
   const int steps = mg_steps(nu, smoother), H = steps + 1;
   if (mg3z_takes(H)) {
-    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
-                     mg3z_chunk(n, n, n, H), 0, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc),
-                       Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, true, false), stream);
+    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, mg3z_chunk(n, n, n, H),
+              0, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(zm, Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, true, false),
+                       stream);
   }
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
   const Mg3Block grid{n, n, n, 0, 0};
-  const int rc = mg3_prepare((const void*)mg_smooth_rr3d_kernel, grid, tile, bytes);
+  const int rc = mg3_prepare((const void*)cube, grid, tile, bytes);
   if (rc != 0) return rc;
-  mg_smooth_rr3d_kernel<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
+  cube<<<mg3_grid(grid, tile), MG3_THREADS, bytes, stream>>>(
       zero ? nullptr : u, f, out, R, n, tile, H, nu, smoother, bc, inv_hsq, inv_adiag,
       adiag);
   return (int)cudaGetLastError();
+}
+
+extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float* R, int n,
+                              int tile, int nu, int smoother, int bc, float inv_hsq,
+                              float inv_adiag, float adiag, int zero, cudaStream_t stream) {
+  return mg_smooth_rr3d_grid<Mg3zArgs>(
+      mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(mg_steps(nu, smoother), smoother, bc),
+      mg_smooth_rr3d_kernel, u, f, out, R, n, tile, nu, smoother, bc, inv_hsq, inv_adiag,
+      adiag, zero, stream);
+}
+
+extern "C" int mg_smooth_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
+                                   __nv_bfloat16* out, __nv_bfloat16* R, int n, int tile,
+                                   int nu, int smoother, int bc, float inv_hsq,
+                                   float inv_adiag, float adiag, int zero,
+                                   cudaStream_t stream) {
+  return mg_smooth_rr3d_grid<Mg3zArgsBf16>(
+      mg_rr3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc), mg_smooth_rr3d_bf16_kernel,
+      u, f, out, R, n, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero, stream);
 }
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and

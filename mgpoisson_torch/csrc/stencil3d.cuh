@@ -54,6 +54,22 @@
 // decides inside/outside, the edges, the colour and the trilinear weights;
 // the block index addresses the arrays, and a strip-fed launch reads its
 // halo from the neighbours' strips (Mg3Strips).
+//
+// The bf16 forms of K4-K6 run both tiles on bf16 arrays, as the 2D
+// register tile does (stencil.cuh, Mg2Elem): the element type T of the
+// loads, the stores and the arithmetic below, the values in f32 (the
+// cube tile's shared memory, the z-marching tile's registers and planes
+// stay f32: every value is bf16 already, so no byte budget changes), a
+// round to bf16 (Mg3Elem<T>::rd, nothing for f32) after every add and
+// multiply as plain torch rounds each op of a bf16 tensor, and the
+// damped-Jacobi weight 6/7 rounded to bf16 (0.85546875) as
+// ops._omega(3, torch.bfloat16) and the JAX package's weak-typed scalar
+// round it.  The up-leg's trilinear blend runs in f32 and is rounded once
+// (ops._up_leg_correct; the Pallas blend), the restriction's eight values
+// are summed in f32 (mg3_sum8) and rounded once, as torch's sum of a bf16
+// tensor, and sum(r^2) squares the bf16 residual in f32.  The strip
+// entries K11/K12 are f32 only; the f32 instances are those of the
+// f32-only tiles, instruction for instruction.
 #pragma once
 
 #include "stencil.cuh"
@@ -61,6 +77,22 @@
 #define MG3_THREADS 1024
 #define MG3_SMEM_MAX 232448   // the most dynamic shared memory a block may opt in to
 #define MG3_OMEGA (6.0f / 7.0f)   // wjacobi omega = 2d/(2d+1), d = 3, as ops.wjacobi_sweep
+
+// Per element type, Mg2Elem's loads, `cvt` and `rd` with the 3D
+// damped-Jacobi weight: 6/7 in f32, and rounded to bf16 as
+// ops._omega(3, torch.bfloat16) rounds it.
+template <class T>
+struct Mg3Elem;
+
+template <>
+struct Mg3Elem<float> : Mg2Elem<float> {
+  static constexpr float omega = MG3_OMEGA;
+};
+
+template <>
+struct Mg3Elem<__nv_bfloat16> : Mg2Elem<__nv_bfloat16> {
+  static constexpr float omega = 0.85546875f;   // 6/7 rounded to bf16 (0x3f5b)
+};
 
 // The grid's side n, the block's extents in z and y (x is whole: n) and
 // the global index (z0, y0) of its first cell; {n, n, n, 0, 0} is the grid.
@@ -145,52 +177,65 @@ static __device__ __forceinline__ float mg3_fetch(const float* body, const Mg3St
 // Neighbour sum of local cell (i, j, l) = (z, y, x), in ops.neighbor_sum's
 // order.  A neighbour across the global edge is 0 (ghost0) or -u of the
 // cell itself as it is in this sweep (face), decided from the global
-// index, never from the tile's.
+// index, never from the tile's.  Each op's result rounded to T (rd),
+// here and below.
+template <class T = float>
 static __device__ __forceinline__ float mg3_nbr(const float* s, const Mg3Tile& t, int i,
                                                 int j, int l, int bc) {
+  using E = Mg3Elem<T>;
   const int S = t.S, SS = S * S, k = (i * S + j) * S + l, last = t.n - 1;
   const int gz = t.gz0 + i, gy = t.gy0 + j, gx = t.gx0 + l;
   const float c = s[k];
-  float acc = __fadd_rn(gz > 0 ? s[k - SS] : 0.f, gz < last ? s[k + SS] : 0.f);
+  float acc = E::rd(__fadd_rn(gz > 0 ? s[k - SS] : 0.f, gz < last ? s[k + SS] : 0.f));
   if (bc == MG_FACE) {
-    if (gz == 0) acc = __fsub_rn(acc, c);
-    if (gz == last) acc = __fsub_rn(acc, c);
+    if (gz == 0) acc = E::rd(__fsub_rn(acc, c));
+    if (gz == last) acc = E::rd(__fsub_rn(acc, c));
   }
-  acc = __fadd_rn(acc, __fadd_rn(gy > 0 ? s[k - S] : 0.f, gy < last ? s[k + S] : 0.f));
+  acc = E::rd(__fadd_rn(
+      acc, E::rd(__fadd_rn(gy > 0 ? s[k - S] : 0.f, gy < last ? s[k + S] : 0.f))));
   if (bc == MG_FACE) {
-    if (gy == 0) acc = __fsub_rn(acc, c);
-    if (gy == last) acc = __fsub_rn(acc, c);
+    if (gy == 0) acc = E::rd(__fsub_rn(acc, c));
+    if (gy == last) acc = E::rd(__fsub_rn(acc, c));
   }
-  acc = __fadd_rn(acc, __fadd_rn(gx > 0 ? s[k - 1] : 0.f, gx < last ? s[k + 1] : 0.f));
+  acc = E::rd(__fadd_rn(
+      acc, E::rd(__fadd_rn(gx > 0 ? s[k - 1] : 0.f, gx < last ? s[k + 1] : 0.f))));
   if (bc == MG_FACE) {
-    if (gx == 0) acc = __fsub_rn(acc, c);
-    if (gx == last) acc = __fsub_rn(acc, c);
+    if (gx == 0) acc = E::rd(__fsub_rn(acc, c));
+    if (gx == last) acc = E::rd(__fsub_rn(acc, c));
   }
   return acc;
 }
 
 // r = f - (nbr/h^2 + adiag*u) at local (i, j, l), as ops.residual.
+template <class T = float>
 static __device__ __forceinline__ float mg3_residual(const float* su, const float* sf,
                                                      const Mg3Tile& t, int i, int j, int l,
                                                      int bc, float inv_hsq, float adiag) {
+  using E = Mg3Elem<T>;
   const int k = (i * t.S + j) * t.S + l;
-  return __fsub_rn(sf[k], __fadd_rn(__fmul_rn(mg3_nbr(su, t, i, j, l, bc), inv_hsq),
-                                    __fmul_rn(adiag, su[k])));
+  return E::rd(__fsub_rn(
+      sf[k], E::rd(__fadd_rn(E::rd(__fmul_rn(mg3_nbr<T>(su, t, i, j, l, bc), inv_hsq)),
+                             E::rd(__fmul_rn(adiag, su[k]))))));
 }
 
 // The Jacobi value (f - nbr/h^2) / adiag at local (i, j, l), tile index c,
 // as ops.jacobi_sweep.
+template <class T = float>
 static __device__ __forceinline__ float mg3_jacobi(const float* su, const float* sf,
                                                    const Mg3Tile& t, int i, int j, int l,
                                                    int c, int bc, float inv_hsq,
                                                    float inv_adiag) {
-  return __fmul_rn(__fsub_rn(sf[c], __fmul_rn(mg3_nbr(su, t, i, j, l, bc), inv_hsq)),
-                   inv_adiag);
+  using E = Mg3Elem<T>;
+  return E::rd(__fmul_rn(
+      E::rd(__fsub_rn(sf[c], E::rd(__fmul_rn(mg3_nbr<T>(su, t, i, j, l, bc), inv_hsq)))),
+      inv_adiag));
 }
 
 // The 2x2x2 sum of the restriction, r[(dz << 2) | (dy << 1) | dx], in the
 // order torch's reduction of ops.restrict takes on the card: z pairs, then
 // y, then x ((r000 + r100) + (r010 + r110)) + ((r001 + r101) + (r011 + r111)).
+// In bf16 the caller rounds this f32 sum once, as torch's sum of a bf16
+// tensor accumulates in f32.
 static __device__ __forceinline__ float mg3_sum8(const float (&r)[8]) {
   return __fadd_rn(__fadd_rn(__fadd_rn(r[0], r[4]), __fadd_rn(r[2], r[6])),
                    __fadd_rn(__fadd_rn(r[1], r[5]), __fadd_rn(r[3], r[7])));
@@ -198,7 +243,8 @@ static __device__ __forceinline__ float mg3_sum8(const float (&r)[8]) {
 
 // Loads the S^3 tile of u and f; cells outside the domain read 0.
 // U == nullptr means u is identically zero and is not read.
-static __device__ void mg3_load(float* su, float* sf, const float* U, const float* F,
+template <class T>
+static __device__ void mg3_load(float* su, float* sf, const T* U, const T* F,
                                 const Mg3Tile& t) {
   const int S = t.S;
   for (int k = threadIdx.x; k < S * S * S; k += blockDim.x) {
@@ -206,8 +252,8 @@ static __device__ void mg3_load(float* su, float* sf, const float* U, const floa
     float u = 0.f, f = 0.f;
     if (mg3_in(t, i, j, l)) {
       const size_t g = ((size_t)(t.gz0 + i) * t.n + (t.gy0 + j)) * t.n + (t.gx0 + l);
-      f = F[g];
-      if (U) u = U[g];
+      f = Mg3Elem<T>::ld(F + g);
+      if (U) u = Mg3Elem<T>::ld(U + g);
     }
     su[k] = u;
     sf[k] = f;
@@ -240,9 +286,11 @@ static __device__ void mg3_load_strips(float* su, float* sf, const float* U, con
 // exact.  Jacobi variants ping-pong between a and b; red-black GS updates
 // one colour in place per step, the colour being the GLOBAL (z + y + x) % 2,
 // colour 0 first.
+template <class T = float>
 static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const Mg3Tile& t,
                                     int nu, int smoother, int bc, float inv_hsq,
                                     float inv_adiag) {
+  using E = Mg3Elem<T>;
   const int S = t.S, steps = mg_steps(nu, smoother);
   for (int s = 0; s < steps; ++s) {
     const int lo = s + 1, w = S - 2 - 2 * s, colour = s & 1;
@@ -252,11 +300,12 @@ static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const M
       const int c = (i * S + j) * S + l;
       if (smoother == MG_RBGS) {
         if (((t.gz0 + i + t.gy0 + j + t.gx0 + l) & 1) != colour) continue;
-        a[c] = mg3_jacobi(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
+        a[c] = mg3_jacobi<T>(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
       } else {
-        const float jac = mg3_jacobi(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
+        const float jac = mg3_jacobi<T>(a, sf, t, i, j, l, c, bc, inv_hsq, inv_adiag);
         b[c] = smoother == MG_WJACOBI
-                   ? __fadd_rn(a[c], __fmul_rn(MG3_OMEGA, __fsub_rn(jac, a[c])))
+                   ? E::rd(__fadd_rn(a[c], E::rd(__fmul_rn(E::omega,
+                                                           E::rd(__fsub_rn(jac, a[c]))))))
                    : jac;
       }
     }
@@ -271,13 +320,14 @@ static __device__ float* mg3_sweeps(float* a, float* b, const float* sf, const M
 }
 
 // Writes the tile's interior back to the block's (nzl, nyl, n) array.
-static __device__ void mg3_store(float* U, const float* su, const Mg3Tile& t) {
-  const int T = t.T;
-  for (int k = threadIdx.x; k < T * T * T; k += blockDim.x) {
-    const int l = t.H + k % T, r = k / T, j = t.H + r % T, i = t.H + r / T;
+template <class T>
+static __device__ void mg3_store(T* U, const float* su, const Mg3Tile& t) {
+  const int side = t.T;
+  for (int k = threadIdx.x; k < side * side * side; k += blockDim.x) {
+    const int l = t.H + k % side, r = k / side, j = t.H + r % side, i = t.H + r / side;
     if (!mg3_owned(t, i, j, l)) continue;
     U[((size_t)(t.lz0 + i) * t.nyl + (t.ly0 + j)) * t.n + (t.gx0 + l)] =
-        su[(i * t.S + j) * t.S + l];
+        Mg3Elem<T>::cvt(su[(i * t.S + j) * t.S + l]);
   }
 }
 

@@ -53,6 +53,16 @@
 // adiag u); prolong's 2^3 taps, x fastest, weights multiplied in axis
 // order), so u, R and the corrected u equal the plain ops bit for bit.
 // Only sum(r^2) is summed in another order (one partial per block).
+//
+// The bf16 forms of K5 and K6 (the element type of Mg3zArgsOf) run this
+// tile on bf16 arrays with every add and multiply rounded to bf16 as plain
+// torch rounds it (stencil3d.cuh, Mg3Elem): the registers, the stage
+// planes and the rings stay f32 (their values are bf16), so the shared
+// memory is the f32 forms'; the rounds add two instructions per op to an
+// issue-bound tile.  Their instances have sources of their own
+// (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu), so nvcc
+// builds them beside the f32 ones.  The strip entries (kStrips) are f32
+// only.
 #pragma once
 
 #include "stencil3d.cuh"
@@ -118,10 +128,28 @@ static __host__ inline size_t mg3z_bytes(int steps, bool rr, bool pc) {
 }
 
 // Everything a z-marching leg takes besides its template arguments (step
-// count, smoother, bc).  U == nullptr: u identically zero (K5's from-zero
-// flag); V and kind only for K6, Rout only for K5; partials (K6's rnorm)
-// null or one f32 per block.
+// count, smoother, bc), its arrays of element type Elem.  U == nullptr: u
+// identically zero (K5's from-zero flag); V and kind only for K6, Rout
+// only for K5; partials (K6's rnorm) null or one f32 per block.
+template <class T>
+struct Mg3zArgsOf {
+  using Elem = T;
+  const T* U;
+  const T* F;
+  const T* V;
+  T* Uout;
+  T* Rout;
+  float* partials;
+  int n, H, chunk, kind;
+  float inv_hsq, inv_adiag, adiag;
+};
+using Mg3zArgsBf16 = Mg3zArgsOf<__nv_bfloat16>;
+// The f32 legs' arguments, the same fields in a struct of their own: a
+// kernel parameter derived from Mg3zArgsOf<float> reorders the f32
+// instances' machine code (bench/sass_diff.py), and this name keeps their
+// symbols.
 struct Mg3zArgs {
+  using Elem = float;
   const float* U;
   const float* F;
   const float* V;
@@ -141,18 +169,20 @@ struct Mg3zWin {
 // value is subtracted after each axis pair on the grid's edge planes of
 // that axis: mz, my, mx are -1 there and 0 elsewhere (n >= 2, so a cell
 // lies on at most one edge per axis), and fma(c, -1, acc) rounds acc - c
-// as the plain op's subtraction does.
-template <bool kFace>
+// as the plain op's subtraction does.  Each op's result rounded to T (rd),
+// here and in the leg below.
+template <bool kFace, class T = float>
 static __device__ __forceinline__ float mg3z_nbr(const Mg3zWin& w, float ylo, float yhi,
                                                  float xlo, float xhi, float mz, float my,
                                                  float mx) {
+  using E = Mg3Elem<T>;
   const float c = w.c;
-  float acc = __fadd_rn(w.lo, w.hi);
-  if (kFace) acc = __fmaf_rn(c, mz, acc);
-  acc = __fadd_rn(acc, __fadd_rn(ylo, yhi));
-  if (kFace) acc = __fmaf_rn(c, my, acc);
-  acc = __fadd_rn(acc, __fadd_rn(xlo, xhi));
-  if (kFace) acc = __fmaf_rn(c, mx, acc);
+  float acc = E::rd(__fadd_rn(w.lo, w.hi));
+  if (kFace) acc = E::rd(__fmaf_rn(c, mz, acc));
+  acc = E::rd(__fadd_rn(acc, E::rd(__fadd_rn(ylo, yhi))));
+  if (kFace) acc = E::rd(__fmaf_rn(c, my, acc));
+  acc = E::rd(__fadd_rn(acc, E::rd(__fadd_rn(xlo, xhi))));
+  if (kFace) acc = E::rd(__fmaf_rn(c, mx, acc));
   return acc;
 }
 
@@ -206,9 +236,12 @@ static __device__ __forceinline__ float mg3z_coarse(const float* V, const Mg3zSt
 // edges, the colour and the trilinear weights, the BLOCK index addresses
 // the arrays, the stores and K11's R, and the halo comes from the strips.
 // Without it every block-index term below is the global one, and the code
-// is the whole-grid leg's.
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips>
-static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStrips& b) {
+// is the whole-grid leg's.  A: Mg3zArgs or Mg3zArgsBf16, whose Elem is
+// the arrays' element type (bf16 only without kStrips).
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class A>
+static __device__ __forceinline__ void mg3z_leg(const A& a, const Mg3zStrips& b) {
+  using Elem = typename A::Elem;
+  using E = Mg3Elem<Elem>;
   extern __shared__ float smem[];
   constexpr int W = MG3Z_COLS, R = MG3Z_ROWS, P = MG3Z_PLANE, CS = MG3Z_CSIDE;
   const int l = (int)threadIdx.x, j = (int)threadIdx.y, me = j * W + l;
@@ -234,8 +267,8 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
   asm volatile("" : "+f"(my), "+f"(mx));   // kept, not rebuilt per stage
   const bool res = kRR || a.partials != nullptr;
   const size_t nn = (size_t)n * n, col = in_xy ? (size_t)gy * n + gx : 0;
-  const float* __restrict__ U = a.U;
-  const float* __restrict__ F = a.F;
+  const Elem* __restrict__ U = a.U;
+  const Elem* __restrict__ F = a.F;
 
   float* sh = smem;                               // [STEPS + 1][2][P]
   float* rsh = sh + (STEPS + 1) * 2 * P;          // K5: [4][P]
@@ -262,7 +295,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
   const size_t ccol = c_in ? (size_t)(cy0 + ly) * nc + (cx0 + lx) : 0;
   const auto slot = [](int Z) { return (Z + 6) % 3; };
   const auto coarse = [&](int Z) {
-    return c_in && mg_in(Z, nc) ? __ldg(a.V + (size_t)Z * nc * nc + ccol) : 0.f;
+    return c_in && mg_in(Z, nc) ? E::ldg(a.V + (size_t)Z * nc * nc + ccol) : 0.f;
   };
   if (loads_c) {
     const int Zf = gz0 >> 1;
@@ -300,9 +333,9 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
   // running pointers: u and f of the next plane to load, the output
   // plane, and their plane strides (kStrips: the loads' is the source's)
   const long long nnl = (long long)nn;
-  const float* pU;
-  const float* pF;
-  float* pO;
+  const Elem* pU;
+  const Elem* pF;
+  Elem* pO;
   long long pl, plo;
   if constexpr (kStrips) {
     pl = yb >= 0 && yb < nyl ? (long long)nyl * n : (long long)D * n;
@@ -317,8 +350,8 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
     pF = F + off0;
     pO = a.Uout + (off0 - STEPS * nnl);
   }
-  float pu = has_u && in_xy && src && mg_in(gz0, n) ? __ldg(pU) : 0.f;
-  float pf = in_xy && src && mg_in(gz0, n) ? __ldg(pF) : 0.f;
+  float pu = has_u && in_xy && src && mg_in(gz0, n) ? E::ldg(pU) : 0.f;
+  float pf = in_xy && src && mg_in(gz0, n) ? E::ldg(pF) : 0.f;
 
   Mg3zWin w[STEPS + 1];
   float fq[STEPS + 2];   // fq[i]: f at march plane k - i
@@ -347,8 +380,8 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
       }
     }
     const bool zn = (act & 1u) && mg_in(gz + 1, n) && (!kStrips || zb0 + k + 1 < nzl + D);
-    pu = has_u && zn ? __ldg(pU) : 0.f;
-    pf = zn ? __ldg(pF) : 0.f;
+    pu = has_u && zn ? E::ldg(pU) : 0.f;
+    pf = zn ? E::ldg(pF) : 0.f;
     float cnext = 0.f;
     const bool c_step = !kRR && (gz & 1);   // odd fine plane: the next coarse plane
     if (c_step && loads_c) {
@@ -376,7 +409,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
           p = __fadd_rn(p, __fmul_rn(__fmul_rn(b0, qba), cc[dz + dyo]));
           p = __fadd_rn(p, __fmul_rn(__fmul_rn(b0, qbb), cc[dz + dyo + dxo]));
         }
-        v0 = __fadd_rn(v0, p);
+        v0 = E::rd(__fadd_rn(v0, E::rd(p)));   // P(V) blended in f32, rounded once
       } else {
         v0 = 0.f;
       }
@@ -399,10 +432,12 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
       if (((act >> s) & 1u) && mg_in(gzs, n)) {
         const float* prev = rd + (s - 1) * 2 * P;
         const float mz = gzs == 0 || gzs == n - 1 ? -1.f : 0.f;
-        const float nbr = mg3z_nbr<kFace>(w[s - 1], prev[-W], prev[W], xlo, xhi, mz, my, mx);
-        const float jac = __fmul_rn(__fsub_rn(fq[s], __fmul_rn(nbr, a.inv_hsq)), a.inv_adiag);
+        const float nbr =
+            mg3z_nbr<kFace, Elem>(w[s - 1], prev[-W], prev[W], xlo, xhi, mz, my, mx);
+        const float jac = E::rd(__fmul_rn(
+            E::rd(__fsub_rn(fq[s], E::rd(__fmul_rn(nbr, a.inv_hsq)))), a.inv_adiag));
         if (kSm == MG_WJACOBI)
-          v = __fadd_rn(c, __fmul_rn(MG3_OMEGA, __fsub_rn(jac, c)));
+          v = E::rd(__fadd_rn(c, E::rd(__fmul_rn(E::omega, E::rd(__fsub_rn(jac, c))))));
         else if (kSm == MG_RBGS)
           v = ((gzs & 1) ^ pxy) == ((s - 1) & 1) ? jac : c;
         else
@@ -415,7 +450,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
     // the smoothed u of plane k - STEPS
     {
       const int p = k - STEPS;
-      if (((act >> (STEPS + 1)) & 1u) && p >= H && p < H + zl) *pO = w[STEPS].hi;
+      if (((act >> (STEPS + 1)) & 1u) && p >= H && p < H + zl) *pO = E::cvt(w[STEPS].hi);
       pO += plo;
     }
 
@@ -431,8 +466,9 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
         const float* prev = rd + STEPS * 2 * P;
         const float mz = gzr == 0 || gzr == n - 1 ? -1.f : 0.f;
         const float nbr =
-            mg3z_nbr<kRR && kFace>(w[STEPS], prev[-W], prev[W], xlo, xhi, mz, my, mx);
-        r = __fsub_rn(fq[STEPS + 1], __fadd_rn(__fmul_rn(nbr, a.inv_hsq), __fmul_rn(a.adiag, c)));
+            mg3z_nbr<kRR && kFace, Elem>(w[STEPS], prev[-W], prev[W], xlo, xhi, mz, my, mx);
+        r = E::rd(__fsub_rn(fq[STEPS + 1], E::rd(__fadd_rn(E::rd(__fmul_rn(nbr, a.inv_hsq)),
+                                                          E::rd(__fmul_rn(a.adiag, c))))));
         if (!kRR && p >= H && p < H + zl) acc = __fmaf_rn(r, r, acc);
       }
       if (kRR) rsh[(p & 3) * P + me] = r;
@@ -448,7 +484,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
         const float* r1 = rsh + (q & 3) * P + c_at;
         float r8[8] = {r0[0], r0[1], r0[W], r0[W + 1], r1[0], r1[1], r1[W], r1[W + 1]};
         a.Rout[(size_t)((kStrips ? gq - oz : gq) >> 1) * ncy * nc + c_out] =
-            __fmul_rn(mg3_sum8(r8), 0.125f);
+            E::cvt(E::rd(__fmul_rn(E::rd(mg3_sum8(r8)), 0.125f)));
       }
     }
     if (c_step && loads_c) cv[slot((gz >> 1) + 2) * CS * CS + me] = cnext;
@@ -472,6 +508,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
 }
 
 using Mg3zKernel = void (*)(Mg3zArgs);                // the whole grid
+using Mg3zKernelBf16 = void (*)(Mg3zArgsBf16);        // the whole grid, bf16
 using Mg3zStripKernel = void (*)(Mg3zArgs, Mg3zStrips);  // a rank's block
 
 // The instance of a leg's kernel template K<STEPS, kSm, kFace> for a step
@@ -510,8 +547,8 @@ static __host__ Mg3zFn<K> mg3z_pick_from(int steps, int smoother, int bc) {
 // its dynamic shared memory and launches it on the block `blk` (the whole
 // grid: {n, n, n, 0, 0}) at halo a.H, which the caller has checked with
 // mg3z_takes, with the arguments `args`; returns a cudaError_t.
-template <class Kernel, class... Args>
-static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const Mg3zArgs& a,
+template <class Kernel, class A, class... Args>
+static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const A& a,
                                        size_t bytes, cudaStream_t stream, Args... args) {
   if (kernel == nullptr || blk.n < 2 || (blk.n & 1) || blk.nzl < 2 || blk.nyl < 2 ||
       (blk.nzl | blk.nyl | blk.z0 | blk.y0) & 1 || a.chunk < 1 || blk.nzl % a.chunk)
@@ -531,3 +568,10 @@ static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const
 // smoother.
 Mg3zStripKernel mg_sharded_rr3d_zm_pick(int steps, int smoother, int bc);
 Mg3zStripKernel mg_sharded_pc3d_zm_pick(int steps, int smoother, int bc);
+
+// The bf16 instances of K5 and K6 on this tile, each in a source of its
+// own (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu) for
+// the same reason; null where no instance takes the step count and
+// smoother.
+Mg3zKernelBf16 mg_rr3d_zm_bf16_pick(int steps, int smoother, int bc);
+Mg3zKernelBf16 mg_pc3d_zm_bf16_pick(int steps, int smoother, int bc);

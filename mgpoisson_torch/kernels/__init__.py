@@ -26,8 +26,8 @@ from mgpoisson_torch.kernels import cuda, ops
 def use_kernels(spec, level_size: int, device) -> bool:
     """The dispatch rule: a level runs the CUDA kernels iff its tensors are
     on a CUDA device, the backend is not 'torch', the level has side >=
-    spec.kernel_min_size, its dtype has kernels at its rank (f32, or bf16
-    in 2D: the bf16 forms of K1-K3), and both of its sweep counts are
+    spec.kernel_min_size, its dtype has kernels (f32, or bf16: the bf16
+    forms of K1-K6, in 2D and 3D), and both of its sweep counts are
     within the kernels' cap for its rank (``cuda.supports``: 2D nu <= 8,
     <= 4 for rbgs; 3D a halo of radius*nu + 1 <= 8).  Every other level
     runs the plain ops; this is the only way a CUDA tensor reaches the
@@ -36,10 +36,11 @@ def use_kernels(spec, level_size: int, device) -> bool:
     are plain on every device.)  backend='cuda' with CPU tensors is an
     error.
 
-    For f32 cubes at the default kernel_min_size of 256 this picks the
-    levels the JAX package's byte gate picks for its 3D kernels
-    (pallas.py ``_supported3``: arrays of >= 32 MiB, so 256^3 runs the
-    kernels and 128^3 does not)."""
+    For cubes at the default kernel_min_size of 256 this picks the levels
+    the JAX package's byte gate picks for its 3D kernels (pallas.py
+    ``_supported3``: arrays of >= 32 MiB): 256^3 runs the kernels and
+    128^3 does not, in f32 (64 and 8 MiB) and in bf16 (32 MiB, exactly the
+    gate, and 4 MiB)."""
     device = torch.device(device)
     if spec.backend == "torch":
         return False

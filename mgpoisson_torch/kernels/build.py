@@ -53,9 +53,10 @@ SIGNATURES = {
     "mg_sharded_packed_pc": ((_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
-# the bf16 forms of K1-K3 take what their f32 forms take
+# the bf16 forms of K1-K6 take what their f32 forms take
 SIGNATURES.update({name + "_bf16": SIGNATURES[name] for name in
-                   ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth")})
+                   ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth", "mg_smooth3d",
+                    "mg_smooth_rr3d", "mg_prolong_correct_smooth3d")})
 
 
 def sources(csrc: Path = CSRC):

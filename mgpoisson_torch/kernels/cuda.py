@@ -42,18 +42,20 @@ register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
 
-K1-K3 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
-``mg_prolong_correct_smooth_bf16``: the same sources and tile, bf16
-arrays, each op rounded to bf16 as plain torch rounds it), which the
-wrappers launch for a bf16 square 2D array; every other kernel is f32
-only (ROADMAP Queue 2 A2-A4).
+K1-K6 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
+``mg_prolong_correct_smooth_bf16``, ``mg_smooth3d_bf16``,
+``mg_smooth_rr3d_bf16``, ``mg_prolong_correct_smooth3d_bf16``: the same
+sources and tiles, bf16 arrays, each op rounded to bf16 as plain torch
+rounds it), which the wrappers launch for a bf16 square 2D or cubic 3D
+array; the packed and strip kernels K7-K14 are f32 only (ROADMAP Queue 2
+A3, A4).
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
 version.  A CUDA tensor launches the kernel, or raises if the kernel does
-not take it (``supports``, ``packed_supports``): f32 (or bf16 in 2D),
-square 2D or cubic 3D, contiguous, and the sweep count within the
-kernel's cap.  Which levels
+not take it (``supports``, ``packed_supports``): f32 or bf16, square 2D
+or cubic 3D, contiguous, and the sweep count within the kernel's cap.
+Which levels
 reach these wrappers at all is decided by the rules of
 ``mgpoisson_torch.kernels``: ``use_kernels``, ``use_packed``,
 ``use_sharded_kernels`` and ``use_packed_sharded``.  Outputs are fresh
@@ -119,6 +121,8 @@ launches = dict.fromkeys((
     "mg_prolong_correct_smooth_bf16", "mg_prolong_correct_smooth_bf16.rnorm",
     "mg_smooth3d", "mg_smooth_rr3d", "mg_smooth_rr3d.zero",
     "mg_prolong_correct_smooth3d", "mg_prolong_correct_smooth3d.rnorm",
+    "mg_smooth3d_bf16", "mg_smooth_rr3d_bf16", "mg_smooth_rr3d_bf16.zero",
+    "mg_prolong_correct_smooth3d_bf16", "mg_prolong_correct_smooth3d_bf16.rnorm",
     "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
     "mg_sharded_rr", "mg_sharded_rr.zero", "mg_sharded_pc", "mg_sharded_pc.rnorm",
     "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
@@ -240,24 +244,23 @@ def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False) -> int:
 def supports(n: int, dtype: torch.dtype, nu: int, smoother: str, ndim: int = 2,
              residual: bool = True) -> bool:
     """Whether the kernels take an n^ndim level of this dtype with nu
-    sweeps of this smoother.  2D, f32 or bf16: nu <= MAX_NU[smoother] for
-    K1-K3.  3D, f32 only (the bf16 forms of K4-K6 are ROADMAP Queue 2 A2):
-    the halo, radius * nu plus one ring where a residual follows the
-    sweeps (`residual`: K5, K6 with rnorm), is at most MAX_HALO_3D."""
-    if n < 2 or smoother not in SMOOTHERS or nu < 0:
+    sweeps of this smoother: f32 or bf16 (each kernel's bf16 form).  2D:
+    nu <= MAX_NU[smoother] for K1-K3.  3D: the halo, radius * nu plus one
+    ring where a residual follows the sweeps (`residual`: K5, K6 with
+    rnorm), is at most MAX_HALO_3D."""
+    if (n < 2 or smoother not in SMOOTHERS or nu < 0
+            or dtype not in (torch.float32, torch.bfloat16)):
         return False
     if ndim == 2:
-        return dtype in (torch.float32, torch.bfloat16) and nu <= MAX_NU[smoother]
-    return (ndim == 3 and dtype == torch.float32
-            and _steps(nu, smoother) + residual <= MAX_HALO_3D)
+        return nu <= MAX_NU[smoother]
+    return ndim == 3 and _steps(nu, smoother) + residual <= MAX_HALO_3D
 
 
 def _name(base, u):
-    """The C entry of a leg for u: the 3D one, or in 2D the f32 or the
+    """The C entry of a leg for u: the 2D or the 3D one, its f32 or its
     bf16 form."""
-    if u.ndim == 3:
-        return base + "3d"
-    return base + "_bf16" if u.dtype == torch.bfloat16 else base
+    name = base + "3d" if u.ndim == 3 else base
+    return name + "_bf16" if u.dtype == torch.bfloat16 else name
 
 
 def _check(name, u, nu, smoother, bc, residual, *others):
@@ -268,9 +271,8 @@ def _check(name, u, nu, smoother, bc, residual, *others):
                          f"{tuple(u.shape)}")
     if (not supports(u.shape[0], u.dtype, nu, smoother, u.ndim, residual)
             or bc not in BCS):
-        why = _f32_only(u.dtype, "A2, the bf16 forms of K4-K6") if u.ndim == 3 else ""
         raise ValueError(f"{name}: no kernel for n={u.shape[0]} ndim={u.ndim} "
-                         f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}{why}")
+                         f"{u.dtype} nu={nu} smoother={smoother!r} bc={bc!r}")
     _check_operands(name, u, *others)
 
 

@@ -139,10 +139,10 @@ ADMITTED = [dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
             dict(sweep_dtype="bfloat16", scheme="fast", size=256),
             dict(dtype="bfloat16", scheme="fast"),                   # below the packed plan
             dict(dtype="bfloat16", scheme="fast", size=256, backend="xla"),
-            dict(dtype="bfloat16", scheme="fast", size=512, post_smooth=4)]
-NOT_PORTED = [(dict(dtype="bfloat16", ndim=3), "A2"),
-              (dict(sweep_dtype="bfloat16", ndim=3), "A2"),
-              (dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4"),
+            dict(dtype="bfloat16", scheme="fast", size=512, post_smooth=4),
+            dict(dtype="bfloat16", ndim=3),            # the bf16 forms of K4-K6
+            dict(sweep_dtype="bfloat16", ndim=3)]
+NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4"),
               (dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)), "step_mixed_local"),
               (dict(sweep_dtype="float32", dtype="float64", mesh_shape=(4, 1)),
                "step_mixed_local"),
@@ -190,11 +190,15 @@ def test_solver_refuses_a_packed_bf16_solve_spelled_with_sweep_dtype():
 
 @pytest.mark.parametrize("smoother", sorted(cuda.MAX_NU))
 def test_supports_bf16_in_2d_only(smoother):
+    """bf16 levels run the kernels' bf16 forms in 2D and, since the bf16
+    forms of K4-K6, in 3D at the f32 halo cap; the packed kernels stay f32
+    only."""
     for n in (1, 2, 64, 4096):
         for nu in range(0, 10):
             want = n >= 2 and nu <= cuda.MAX_NU[smoother]
             assert cuda.supports(n, torch.bfloat16, nu, smoother) is want
-            assert cuda.supports(n, torch.bfloat16, nu, smoother, ndim=3) is False
+            assert (cuda.supports(n, torch.bfloat16, nu, smoother, ndim=3)
+                    is cuda.supports(n, torch.float32, nu, smoother, ndim=3))
             assert cuda.supports(n, torch.float16, nu, smoother) is False
     assert not cuda.packed_supports(256, torch.bfloat16, 1)
     assert cuda.packed_supports(256, torch.float32, 1)
@@ -205,7 +209,9 @@ def test_bf16_names_of_the_2d_legs():
     assert cuda._name("mg_smooth_rr", u2) == "mg_smooth_rr_bf16"
     assert cuda._name("mg_smooth_rr", u2.float()) == "mg_smooth_rr"
     assert cuda._name("mg_smooth_rr", u3) == "mg_smooth_rr3d"
-    for name in ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth"):
+    assert cuda._name("mg_smooth_rr", u3.bfloat16()) == "mg_smooth_rr3d_bf16"
+    for name in ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth", "mg_smooth3d",
+                 "mg_smooth_rr3d", "mg_prolong_correct_smooth3d"):
         assert name + "_bf16" in cuda.launches
         assert SIGNATURES[name + "_bf16"] == SIGNATURES[name]
 

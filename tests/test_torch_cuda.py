@@ -609,7 +609,7 @@ def test_solver_takes_any_strided_input(card, scheme):
     torch.cuda.synchronize()
 
 
-# ------------------------------------------------- the bf16 forms of K1-K3
+# ------------------------------------------------- the bf16 forms of K1-K6
 # Each op rounded to bf16 as plain torch rounds it: every output bit-equal
 # (the restriction's four values summed in f32 in torch's order, rounded
 # once; P(V) blended in f32, rounded once), sum(r^2) within 1e-5.  Sides
@@ -645,9 +645,13 @@ def test_bf16_kernels_equal_plain(card, n, smoother, nu, bc):
 @pytest.mark.cuda
 def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
     u, f, V = (t.to(torch.bfloat16) for t in _data(64, 0, card))
-    with pytest.raises(ValueError, match="A2"):
-        c = torch.zeros((16,) * 3, dtype=torch.bfloat16, device=card)
-        cuda.smooth(c, c, 1 / 16, 1, "jacobi", "ghost0")
+    c = torch.zeros((16,) * 3, dtype=torch.bfloat16, device=card)
+    with pytest.raises(ValueError, match="does not match"):   # a bf16 cube, an f32 operand
+        cuda.smooth(c, c.float(), 1 / 16, 1, "jacobi", "ghost0")
+    with pytest.raises(ValueError, match="does not match"):
+        cuda.prolong_correct_smooth(c, c, torch.zeros((8,) * 3, device=card), 1 / 16, 1)
+    with pytest.raises(ValueError, match="no kernel"):        # beyond the 3D halo cap
+        cuda.smooth_residual_restrict(c, c, 1 / 16, 8, "jacobi", "ghost0")
     with pytest.raises(ValueError, match="A3"):
         cuda.packed_smooth_residual_restrict(u, f, 1 / 64, 1)
     with pytest.raises(ValueError, match="does not match"):
@@ -692,6 +696,54 @@ def test_bf16_launch_counters(card):
     assert cuda.launches == want
 
 
+# The bf16 forms of K4-K6, bit-equal to plain torch in bf16 as their f32
+# forms are: sides below one z-marching column or cube tile up to the
+# solves' 256^3, the main path's wjacobi 3 and rbgs 1 (the z-marching tile)
+# and rbgs 2 and jacobi 4 (halo 5 with a residual: the cube tile).
+BF16_CASES_3D = [(n, s, nu) for n in (2, 4, 8, 16, 32, 128, 256)
+                 for s, nu in (("wjacobi", 3), ("rbgs", 1), ("rbgs", 2), ("jacobi", 4))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,smoother,nu", BF16_CASES_3D)
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_bf16_kernels3d_equal_plain(card, n, smoother, nu, bc):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 3, card, ndim=3))
+    a = (1.0 / n, nu, smoother, bc)
+    got, want = cuda.smooth(u, f, *a), ops.smooth(u, f, *a)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    for fk, fp, args in ((cuda.smooth_residual_restrict, ops.smooth_residual_restrict, (u, f)),
+                         (cuda.smooth_residual_restrict_zero,
+                          ops.smooth_residual_restrict_zero, (f,))):
+        for g, w in zip(fk(*args, *a), fp(*args, *a)):
+            assert g.dtype == torch.bfloat16 and torch.equal(g, w)
+    for kind in ("inject", "bilinear"):
+        pa = (u, f, V, *a, kind)
+        assert torch.equal(cuda.prolong_correct_smooth(*pa), ops.prolong_correct_smooth(*pa))
+        (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
+                              ops.prolong_correct_smooth_rnorm(*pa))
+        assert torch.equal(gu, wu) and g2.dtype == torch.float32
+        assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_3d_launch_counters(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(32, 2, card, ndim=3))
+    cuda.reset_launches()
+    a = (1 / 32, 3, "wjacobi", "face")
+    cuda.smooth(u, f, *a)
+    cuda.smooth_residual_restrict(u, f, *a)
+    cuda.smooth_residual_restrict_zero(f, *a)
+    cuda.prolong_correct_smooth(u, f, V, *a, "bilinear")
+    cuda.prolong_correct_smooth_rnorm(u, f, V, *a, "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_smooth3d_bf16": 1, "mg_smooth_rr3d_bf16": 2,
+                 "mg_smooth_rr3d_bf16.zero": 1, "mg_prolong_correct_smooth3d_bf16": 2,
+                 "mg_prolong_correct_smooth3d_bf16.rnorm": 1})
+    assert cuda.launches == want
+
+
 BF16_SPECS = {"mixed": dict(dtype="float32", sweep_dtype="bfloat16", tol=1e-10),
               "bf16": dict(dtype="bfloat16", tol=1e-30, maxiter=6)}
 
@@ -709,6 +761,24 @@ def test_bf16_solves_equal_their_plain_twins(card, which):
     want = MultigridPoisson(spec.with_(backend="torch"), device="cuda").solve()
     assert got.iterations == want.iterations and torch.equal(got.psi, want.psi)
     assert got.errs.dtype == torch.float32
+    if which == "mixed":
+        assert got.converged and got.errs[0].item() == 1.0
+        assert got.errs.tolist() == want.errs.tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", sorted(BF16_SPECS))
+def test_bf16_3d_solves_equal_their_plain_twins(card, which):
+    """The mixed and the pure bf16 256^3 solves on K5/K6's bf16 forms give
+    the psi of the same solves on plain ops bit for bit, in the same
+    count; the mixed one its history too."""
+    spec = Spec(size=256, ndim=3, scheme="tuned", stop="residual", **BF16_SPECS[which])
+    cuda.reset_launches()
+    got = MultigridPoisson(spec, device="cuda").solve()
+    assert cuda.launches["mg_smooth_rr3d_bf16"] == got.iterations
+    assert cuda.launches["mg_prolong_correct_smooth3d_bf16"] == got.iterations
+    want = MultigridPoisson(spec.with_(backend="torch"), device="cuda").solve()
+    assert got.iterations == want.iterations and torch.equal(got.psi, want.psi)
     if which == "mixed":
         assert got.converged and got.errs[0].item() == 1.0
         assert got.errs.tolist() == want.errs.tolist()

@@ -134,19 +134,41 @@ def test_profile_reads_the_bf16_solves(flags, dtype, sweep, tmp_path):
     assert (tmp_path / f"solve_32{tag}_kms256.json").stat().st_size > 0
 
 
+@pytest.mark.parametrize("flags,tag", [
+    (["--sweep-dtype", "bfloat16", "--tol", "1e-6"], "_3d_sweep_bfloat16"),
+    (["--dtype", "bfloat16", "--tol", "1e-30", "--maxiter", "2"], "_3d_bfloat16")])
+def test_profile_reads_the_3d_bf16_solves(flags, tag, tmp_path):
+    """The mixed and the pure bf16 solves of a cube: rows of a 3D cell,
+    traces named as one."""
+    row = profile.main(["--size", "16", "--ndim", "3", "--device", "cpu", "--out",
+                        str(tmp_path)] + flags)[0]
+    mixed = "--sweep-dtype" in flags
+    spec = Spec(size=16, ndim=3, dtype="float32" if mixed else "bfloat16",
+                sweep_dtype="bfloat16" if mixed else None, scheme="tuned", stop="residual",
+                tol=1e-6 if mixed else 1e-30, maxiter=1000 if mixed else 2)
+    res = MultigridPoisson(spec, device="cpu").solve()
+    assert (row["size"], row["ndim"], row["dtype"]) == (16, 3, spec.dtype)
+    assert row["cycles"] == res.iterations and row["final_err"] == res.final_err
+    assert all(v == 0 for v in row["kernel_calls"].values())
+    assert (tmp_path / f"solve_16{tag}_kms256.json").stat().st_size > 0
+
+
 def test_ab_takes_the_bf16_forms_only():
-    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K3 at the 2D
-    sides and clears every f32-only part."""
+    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K6 at the 2D
+    and 3D sides and clears every f32-only part."""
     import torch
     from mgpoisson_torch.bench import ab
     args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024",
                           "--packed", "4096", "--sharded3d", "256"])
     assert args.dtype == torch.bfloat16 and args.sides == [4096, 1024]
-    assert (args.sharded, args.sides3d, args.sharded3d, args.packed,
-            args.sharded_packed) == (0, [], 0, [], 0)
+    assert args.sides3d == [256, 512]
+    assert (args.sharded, args.sharded3d, args.packed, args.sharded_packed) == (0, 0, [], 0)
     args = ab.parse_args(["--old", "x", "--packed", "4096"])
     assert args.dtype == torch.float32 and args.sharded == 16384 and args.packed == [4096]
     assert args.sides3d == [256, 512]
     cases, inputs = ab._cases_whole(8, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in inputs["K3"])
     assert set(cases) == {"K1", "K2", "K2.zero", "K3", "K3.rnorm"}
+    cases, inputs = ab._cases_whole3d(8, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in inputs["K6"])
+    assert set(cases) == {"K4", "K5", "K5.zero", "K6", "K6.rnorm"}

@@ -275,11 +275,12 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="gs_lex"),
            dict(smoother="gs_lex", scheme="reference", mesh_shape=(2, 2))]
 # valid in the JAX package but not ported yet: NotImplementedError, never
-# silently ignored.  bf16 runs on one 2D device since the bf16 forms of
-# K1-K3 (tests/test_torch_bf16.py); the two bf16 cases keep their names and
-# hold what of bf16 is still not ported: 3D, a mesh
+# silently ignored.  bf16 runs on one device, 2D and 3D, since the bf16
+# forms of K1-K6 (tests/test_torch_bf16.py, tests/test_torch_bf16_3d.py);
+# the two bf16 cases keep their names and hold what of bf16 is still not
+# ported: bf16 and mixed precision under a mesh
 LATER = [dict(partition="gspmd"),
-         pytest.param(dict(sweep_dtype="bfloat16", ndim=3),
+         pytest.param(dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)),
                       id=repr(dict(sweep_dtype="bfloat16"))),
          pytest.param(dict(dtype="bfloat16", mesh_shape=(2, 2)),
                       id=repr(dict(dtype="bfloat16"))),
