@@ -96,7 +96,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
               (cycles, relres, f64 re-check, launches), then the same spec
               with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
               plain ops, each with its per-cycle wall; then 1024^2 and
-              16384^2 with the same checks.  Then (strided) the tuned and
+              16384^2 with the same checks.  Then (parity_packed_bf16) the
+              bf16 forms of K7 and K8 against their plain packed versions in
+              bf16 at 4096, 1024, 256 x nu in {1, 2, 3} and 128 ... 2 with nu =
+              1 and 3, every output bit-equal, after a probe that torch sums a
+              bf16 row pair of the packed restriction in f32 and rounds once;
+              (timing_packed_bf16) their times at 4096^2 beside their f32
+              forms' and the bf16 K2/K3 at rbgs nu = 1 unpacked; and
+              (slice_fast_bf16) the pure bf16 fast solve, packed, at 4096^2
+              (beside its MGPOISSON_PACKED=0 twin on the unpacked bf16
+              kernels) and 1024^2: 12 cycles at tol 1e-30, each history beside
+              the JAX package's, cycle 1's psi against the twin's and the f32
+              solve's, the launches.  Then (strided) the tuned and
               the fast 256^2 solves of an f or psi0 that is transposed,
               Fortran-order NumPy or a view at an odd 4-byte offset: each
               gives the psi and the cycle count of its dense copy, bit for
@@ -148,7 +159,8 @@ bf16 forms, with their launches in the traced cycles), a JSON object of the
 main paths' kernels (K2, K3 with their launches in the 4096^2 tuned solve;
 the bf16 forms of K2 and K3 with theirs in the mixed 4096^2 solve; K5, K6 with
 theirs in the 256^3 solve and their bf16 forms with theirs in the mixed
-256^3 solve; K7, K8 with theirs in the 4096^2 fast solve;
+256^3 solve; K7, K8 with theirs in the 4096^2 fast solve and their bf16
+forms with theirs in the bf16 4096^2 fast solve;
 K9, K10 with one rank's in the sharded 16384^2 solve, K11, K12 in the
 sharded 256^3 solve and K13, K14 in the sharded fast 16384^2 solve), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
@@ -228,6 +240,29 @@ JAX_ERRS_MIXED = [1.0, 0.01529780589044094, 0.006269084755331278, 0.001039739814
 JAX_ERRS_BF16 = [0.01336669921875, 0.001251220703125, 0.002716064453125, 0.0037994384765625,
                  0.00799560546875, 0.01153564453125, 0.01031494140625, 0.029052734375,
                  0.0167236328125, 0.026611328125, 0.042236328125, 0.0712890625]
+# ... and for Spec(size=n, dtype='bfloat16', scheme='fast', stop='residual',
+# tol=1e-30, maxiter=12) at n = 4096 and 1024: 12 cycles each, finite, with
+# this relres per cycle.  The xla backend does not pack (its packed path,
+# the Pallas kernels in interpret mode, is too slow at 4096^2 on a CPU), and
+# XLA on the CPU computes a fused bf16 expression in f32 and rounds it once
+# where torch and the kernels round every op.  After cycle 1 the relres is
+# the bf16 residual's rounding noise (the f32 solve's is 6.2e-10 at 4096^2):
+# it depends on the residual's formula, not on the iterate (the port's
+# packed and unpacked cycles give the same psi, and relres 2.70e-8 and
+# 2.71e-9 in a CPU run of the plain ops), so it is printed beside, not held
+# to a bar.  What is held: the relres of cycle 1's psi recomputed in f64,
+# against the JAX package's cycle-1 psi's recomputed the same way on the CPU.
+JAX_ERRS_FAST_BF16 = {
+    4096: [2.17535198743235e-08, 9.397520983611685e-08, 5.464484047479345e-07,
+           3.5919413221563445e-06, 2.0159421183052473e-05, 0.00018265996186528355,
+           0.00157533073797822, 0.0025233805645257235, 0.002181227086111903,
+           0.0033502508886158466, 0.0025946623645722866, 0.0040773265063762665],
+    1024: [7.918281141883199e-08, 8.962449982163889e-08, 1.1833915181114207e-07,
+           1.0224154323168477e-07, 9.789084032263418e-08, 1.018064708091515e-07,
+           8.918943450453298e-08, 9.223492725141114e-08, 7.700746351702037e-08,
+           7.309182592507568e-08, 7.04814056007308e-08, 5.7429293320865327e-08],
+}
+JAX_F64_FAST_BF16 = {4096: 3.210807475524961e-08, 1024: 1.9839039433498228e-07}
 # the same package and backend on a CPU for Spec(size=256, ndim=3,
 # dtype='float32', sweep_dtype='bfloat16', scheme='tuned', stop='residual',
 # tol=1e-10): 13 refinement steps, converged, with this relres per step
@@ -272,6 +307,11 @@ BF16_SETTINGS = tuple([(sm, nu) for sm in ("jacobi", "wjacobi") for nu in (1, 2,
 MIXED_SPEC_3D = SPEC_3D.with_(sweep_dtype="bfloat16")
 BF16_SPEC_3D = SPEC_3D.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
 PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves, and 256
+# the pure bf16 fast solve, its fine level packed on the bf16 forms of K7/K8:
+# the companion of BF16_SPEC, at 4096^2 and 1024^2; the bf16 packed parity's
+# sides (every fine side of those solves, and 256)
+FAST_BF16_SPEC = FAST_SPEC.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
+PACKED_BF16_SIDES = (4096, 1024, 256)
 CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
 # the sharded solve: its meshes and the sweep settings of its schemes; its
 # parity sides are those of the solves of phase_spmd (sharded_sides)
@@ -340,6 +380,10 @@ KERNELS = {
                      "mgpoisson/kernels/pallas.py:3079"),
     "mg_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
                      "mgpoisson/kernels/pallas.py:3243"),
+    "mg_packed_rr_bf16": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
+                          "mgpoisson/kernels/pallas.py:3079"),
+    "mg_packed_pc_bf16": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
+                          "mgpoisson/kernels/pallas.py:3243"),
     "mg_sharded_rr": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
                       "mgpoisson/kernels/pallas.py:4080"),
     "mg_sharded_pc": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
@@ -430,10 +474,12 @@ def phase_build():
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
     # the bf16 forms of K1-K3 (one instance per smoother and tile row
-    # count) and of K4-K6 (the cube tile's three kernels, and one z-marching
-    # instance per step count, smoother and bc: 16 of K5, 22 of K6)
-    for what, want, rank in (("K1-K3", 27, lambda fn: "3d" not in fn),
-                             ("K4-K6", 41, lambda fn: "3d" in fn)):
+    # count), of K4-K6 (the cube tile's three kernels, and one z-marching
+    # instance per step count, smoother and bc: 16 of K5, 22 of K6) and of
+    # K7/K8 (one per tile row count)
+    for what, want, rank in (("K1-K3", 27, lambda fn: "3d" not in fn and "packed" not in fn),
+                             ("K4-K6", 41, lambda fn: "3d" in fn),
+                             ("K7/K8", 6, lambda fn: "packed" in fn)):
         bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
         check(len(bf16) == want,
               f"{len(bf16)} bf16 instances of {what} in the ptxas report, not {want}")
@@ -708,44 +754,47 @@ def phase_parity_packed(dev, worst):
         torch.cuda.empty_cache()
 
 
-def phase_timing_packed(dev, n):
+def phase_timing_packed(dev, n, dtype=torch.float32):
     """At the fast scheme's fine settings (rbgs nu = 1, bilinear, ghost0):
     K7, K8 and K8 with rnorm on packed state, and beside them K2 and K3 on
-    the unpacked grid, each with its plain version and its bound."""
-    u, f, V = _data(n, 2, seed=11, dev=dev)
+    the unpacked grid, each with its plain version and its bound.  With
+    dtype bf16, the bf16 forms (timing_packed_bf16)."""
+    u, f, V = (t.to(dtype) for t in _data(n, 2, seed=11, dev=dev))
     up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
     h, nu = 1.0 / n, 1
     unpacked = (h, nu, "rbgs", "ghost0")
     w_rr, w_pc = _work(2, nu, "rbgs", "rr"), _work(2, nu, "rbgs", "pc", "bilinear")
     w_pcr = _work(2, nu, "rbgs", "pc", "bilinear", rnorm=True)
+    sfx = BF16 if dtype == torch.bfloat16 else ""
+    rr, pc = "mg_smooth_rr" + sfx, "mg_prolong_correct_smooth" + sfx
     cases = {
-        "mg_packed_rr": (lambda m: m.packed_smooth_residual_restrict(up, fp, h, nu),
-                         (up, fp), w_rr),
-        "mg_smooth_rr@rbgs": (lambda m: m.smooth_residual_restrict(u, f, *unpacked),
-                              (u, f), w_rr),
-        "mg_packed_pc": (lambda m: m.packed_prolong_correct_smooth(up, fp, V, h, nu,
-                                                                   "bilinear"),
-                         (up, fp, V), w_pc),
-        "mg_prolong_correct_smooth@rbgs": (
-            lambda m: m.prolong_correct_smooth(u, f, V, *unpacked, "bilinear"),
-            (u, f, V), w_pc),
-        "mg_packed_pc.rnorm": (
+        "mg_packed_rr" + sfx: (lambda m: m.packed_smooth_residual_restrict(up, fp, h, nu),
+                               (up, fp), w_rr),
+        rr + "@rbgs": (lambda m: m.smooth_residual_restrict(u, f, *unpacked), (u, f), w_rr),
+        "mg_packed_pc" + sfx: (lambda m: m.packed_prolong_correct_smooth(up, fp, V, h, nu,
+                                                                         "bilinear"),
+                               (up, fp, V), w_pc),
+        pc + "@rbgs": (lambda m: m.prolong_correct_smooth(u, f, V, *unpacked, "bilinear"),
+                       (u, f, V), w_pc),
+        f"mg_packed_pc{sfx}.rnorm": (
             lambda m: m.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, "bilinear"),
             (up, fp, V), w_pcr),
-        "mg_prolong_correct_smooth.rnorm@rbgs": (
+        pc + ".rnorm@rbgs": (
             lambda m: m.prolong_correct_smooth_rnorm(u, f, V, *unpacked, "bilinear"),
             (u, f, V), w_pcr),
     }
-    out = _time_cases("timing_packed", cases, f"{n}^2", n * n)
-    for packed_name, name in (("mg_packed_rr", "mg_smooth_rr@rbgs"),
-                              ("mg_packed_pc", "mg_prolong_correct_smooth@rbgs"),
-                              ("mg_packed_pc.rnorm", "mg_prolong_correct_smooth.rnorm@rbgs")):
-        print(f"[timing_packed] packed {packed_name} against unpacked {name}: "
+    label, what = "timing_packed" + sfx, "bf16" if sfx else "f32"
+    out = _time_cases(label, cases, f"{n}^2", n * n, what)
+    for packed_name, name in ((f"mg_packed_rr{sfx}", rr + "@rbgs"),
+                              (f"mg_packed_pc{sfx}", pc + "@rbgs"),
+                              (f"mg_packed_pc{sfx}.rnorm", pc + ".rnorm@rbgs")):
+        print(f"[{label}] packed {packed_name} against unpacked {name}: "
               + _beside(out[packed_name], out[name]))
     # the solver's pack of psi and f and unpack of psi, once per solve
     # (plain torch: exact data movement)
-    print(f"[timing_packed] pack_grid {event_ms(lambda: cuda.pack_grid(u), TIMING_REPS):.4f} ms, "
-          f"unpack_grid {event_ms(lambda: cuda.unpack_grid(up), TIMING_REPS):.4f} ms at {n}^2 f32")
+    print(f"[{label}] pack_grid {event_ms(lambda: cuda.pack_grid(u), TIMING_REPS):.4f} ms, "
+          f"unpack_grid {event_ms(lambda: cuda.unpack_grid(up), TIMING_REPS):.4f} ms at {n}^2 "
+          f"{what}")
     del u, f, V, up, fp
     torch.cuda.empty_cache()
     return out
@@ -1052,17 +1101,36 @@ def check_launches(label, got, want, what):
 
 
 def fast_launches(spec, it, packed=True):
-    """The launch counts of an `it`-cycle fast V-cycle solve: packed, K7 and
-    K8 (with rnorm) once per cycle at the fine level and K2 (from zero) and
-    K3 once per cycle at each coarse kernel level; unpacked, K2 and K3 at
-    every kernel level, K3 with rnorm at the fine one."""
+    """The launch counts of an `it`-cycle fast V-cycle solve of `spec` (the
+    bf16 forms' for a bf16 spec): packed, K7 and K8 (with rnorm) once per
+    cycle at the fine level and K2 (from zero) and K3 once per cycle at each
+    coarse kernel level; unpacked, K2 and K3 at every kernel level, K3 with
+    rnorm at the fine one."""
     L = len(kernel_levels(spec))
+    sfx = BF16 if spec.dtype == "bfloat16" else ""
+    rr, pc = "mg_smooth_rr" + sfx, "mg_prolong_correct_smooth" + sfx
     if packed:
-        return {"mg_packed_rr": it, "mg_packed_pc": it, "mg_packed_pc.rnorm": it,
-                "mg_smooth_rr": it * (L - 1), "mg_smooth_rr.zero": it * (L - 1),
-                "mg_prolong_correct_smooth": it * (L - 1)}
-    return {"mg_smooth_rr": it * L, "mg_smooth_rr.zero": it * (L - 1),
-            "mg_prolong_correct_smooth": it * L, "mg_prolong_correct_smooth.rnorm": it}
+        return {"mg_packed_rr" + sfx: it, "mg_packed_pc" + sfx: it,
+                f"mg_packed_pc{sfx}.rnorm": it, rr: it * (L - 1), rr + ".zero": it * (L - 1),
+                pc: it * (L - 1)}
+    return {rr: it * L, rr + ".zero": it * (L - 1), pc: it * L, pc + ".rnorm": it}
+
+
+class _packed_flag:
+    """MGPOISSON_PACKED set to `value` inside the block, then restored."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self.old = os.environ.get("MGPOISSON_PACKED")
+        os.environ["MGPOISSON_PACKED"] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ["MGPOISSON_PACKED"]
+        else:
+            os.environ["MGPOISSON_PACKED"] = self.old
 
 
 def phase_slice_fast(dev, n, compare):
@@ -1079,18 +1147,141 @@ def phase_slice_fast(dev, n, compare):
                    "K7 and K8 (rnorm) once per cycle, K2 (zero) and K3 once per cycle "
                    "at each coarse level >= kernel_min_size")
     if compare:
-        old = os.environ.get("MGPOISSON_PACKED")
-        os.environ["MGPOISSON_PACKED"] = "0"
-        try:
+        with _packed_flag("0"):
             compare_solve(label, "unpacked", spec, dev, it,
                           fast_launches(spec, it, packed=False))
-        finally:
-            if old is None:
-                del os.environ["MGPOISSON_PACKED"]
-            else:
-                os.environ["MGPOISSON_PACKED"] = old
         compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {})
     return launches
+
+
+def probe_restrict_order_packed(dev):
+    """Whether torch's sum of a bf16 row pair of the packed restriction on
+    the card (the .sum(dim=1) of ops.packed_smooth_residual_restrict) equals
+    the two values added in f32 and rounded once, as the bf16 form of K7
+    adds them: values of spread magnitudes (2^-40 ... 2^40) at every side
+    16384 ... 2."""
+    for n in (16384,) + PACKED_BF16_SIDES + SMALL_SIDES:
+        w = max(n // 2, 1)
+        g = torch.Generator(device=dev).manual_seed(n + 13)
+        e = torch.randint(-40, 41, (n, w), generator=g, device=dev).float()
+        x = (torch.randn((n, w), generator=g, device=dev) * torch.exp2(e)).to(torch.bfloat16)
+        want = (x[0::2].float() + x[1::2].float()).to(torch.bfloat16)
+        check(torch.equal(x.reshape(n // 2, 2, w).sum(dim=1), want),
+              f"n={n}: torch's bf16 row-pair sum is not the f32 sum rounded once")
+    print("[parity_packed_bf16] torch's bf16 row-pair sum of the packed restriction on the "
+          "card: the two values summed in f32, rounded once (mg2p_restrict's order), at every "
+          "side 16384 ... 2 (spread magnitudes)")
+
+
+def phase_parity_packed_bf16(dev, worst):
+    """The bf16 forms of K7 and K8 (both prolongation kinds, rnorm) against
+    their plain packed versions in bf16 at every fine side of the bf16 fast
+    solves and 256 with nu in {1, 2, 3}, and at 128 ... 2 with nu = 1 and 3:
+    every output bit-equal, sum(r^2) within RNORM_TOL."""
+    probe_restrict_order_packed(dev)
+    for n in PACKED_BF16_SIDES + SMALL_SIDES:
+        u, f, V = (t.to(torch.bfloat16) for t in _data(n, 2, seed=n + 3, dev=dev))
+        up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+        check(torch.equal(cuda.unpack_grid(up), u), f"unpack(pack(u)) != u at {n}^2 bf16")
+        h = 1.0 / n
+        for nu in (1, 2, 3) if n in PACKED_BF16_SIDES else (1, 3):
+            row = [f"n={n} nu={nu}"]
+            (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, h, nu),
+                                  ops.packed_smooth_residual_restrict(up, fp, h, nu))
+            note(worst, "mg_packed_rr_bf16", "K7.u", gu, wu, row, exact=True)
+            note(worst, "mg_packed_rr_bf16", "K7.R", gR, wR, row, exact=True)
+            for kind in ("inject", "bilinear"):
+                pa = (up, fp, V, h, nu, kind)
+                tag = "K8" + kind[0]
+                note(worst, "mg_packed_pc_bf16", tag, cuda.packed_prolong_correct_smooth(*pa),
+                     ops.packed_prolong_correct_smooth(*pa), row, exact=True)
+                (gru, g2), (wru, w2) = (cuda.packed_prolong_correct_smooth_rnorm(*pa),
+                                        ops.packed_prolong_correct_smooth_rnorm(*pa))
+                note(worst, "mg_packed_pc_bf16", tag + "r.u", gru, wru, row, exact=True)
+                note_r2(tag + "r.r2", g2, w2, row)
+            check(gu.dtype == gR.dtype == gru.dtype == torch.bfloat16
+                  and g2.dtype == torch.float32,
+                  f"bf16 packed dtypes {gu.dtype}, {gR.dtype}, {gru.dtype}, {g2.dtype}")
+            torch.cuda.synchronize()
+            print("[parity_packed_bf16] " + " ".join(row) + "; K7.bf16, K8.bf16 bit-equal")
+        del u, f, V, up, fp
+        torch.cuda.empty_cache()
+
+
+def check_cycle1(label, spec, dev, psi1):
+    """Cycle 1 of a bf16 fast solve: the relres of its psi recomputed in f64
+    within BF16_TOL of the JAX package's (JAX_F64_FAST_BF16), and its psi
+    within BF16_TOL of the f32 fast solve's cycle-1 psi (normalized by the
+    largest magnitude, the JAX package's bf16 bar)."""
+    f = MultigridPoisson(spec, device=dev).rhs().double()
+    h = spec.fine_h
+    rel64 = float(ops.residual_norm(psi1.double(), f, h) / ops.residual_norm(-f, f, h))
+    want = JAX_F64_FAST_BF16[spec.size]
+    psi32 = _first_cycle_psi(spec.with_(dtype="float32"), dev)
+    rel32, _ = nmax(psi1, psi32)
+    print(f"[{label}] cycle 1's psi: f64 relres {rel64:.6e}, the JAX package's {want:.6e} "
+          f"(rel diff {abs(rel64 - want) / want:.2e}); against the f32 fast solve's cycle-1 "
+          f"psi: normalized max |diff| {rel32:.3e}")
+    check(abs(rel64 - want) <= BF16_TOL * want,
+          f"{spec.size}^2 bf16 fast cycle 1: f64 relres {rel64:.6e} vs the JAX package's "
+          f"{want:.6e}")
+    check(rel32 <= BF16_TOL, f"{spec.size}^2 bf16 fast cycle 1: psi differs from the f32 "
+          f"solve's by {rel32:.3e} > {BF16_TOL}")
+
+
+def _first_cycle_psi(spec, dev):
+    """psi after one cycle of a solve of `spec` (its own solve, maxiter 1:
+    a callback that takes psi would run the unpacked step)."""
+    return MultigridPoisson(spec.with_(maxiter=1), device=dev).solve().psi
+
+
+def phase_slice_fast_bf16(dev, n, compare):
+    """The pure bf16 fast solve of FAST_BF16_SPEC at n^2, its fine level
+    packed on the bf16 forms of K7/K8: 12 cycles at tol 1e-30, psi bf16
+    and the history f32, each cycle's relres beside the JAX package's, and
+    the launches.  Cycle 1's psi against the f32 fast solve's and (with
+    `compare`) against the MGPOISSON_PACKED=0 twin's on the unpacked bf16
+    kernels, which must take as many cycles.  Returns the launches."""
+    spec = FAST_BF16_SPEC.with_(size=n)
+    label = f"slice_fast_bf16_{n}"
+    jax_errs = JAX_ERRS_FAST_BF16[n]
+    _solve(spec, dev)
+    cuda.reset_launches()
+    mg, res, cycle_ms = _solve(spec, dev)
+    launches = dict(cuda.launches)
+    it, errs = res.iterations, res.errs.tolist()
+    check(mg._packed, f"the bf16 fast {n}^2 solve does not pack its fine level")
+    print(f"[{label}] bf16 fast packed {n}^2 on {dev}: {it} cycles (maxiter {spec.maxiter}), "
+          f"final relres {res.final_err:.6e}; the JAX package's (xla, unpacked) beside")
+    _steps_beside(label, errs, jax_errs)
+    check(res.psi.dtype == torch.bfloat16 and res.errs.dtype == torch.float32,
+          f"psi {res.psi.dtype}, history {res.errs.dtype}")
+    check(it == spec.maxiter and bool(torch.isfinite(res.psi).all()),
+          f"bf16 fast {n}^2: {it} cycles, psi finite {bool(torch.isfinite(res.psi).all())}")
+    check_launches(f"{n}^2 bf16 fast solve", launches, _expected(fast_launches(spec, it)),
+                   "K7.bf16 and K8.bf16 (rnorm) once per cycle, K2.bf16 (zero) and "
+                   "K3.bf16 once per cycle at each coarse level >= kernel_min_size")
+    print(f"[{label}] per-cycle wall ms, median (all): kernels {statistics.median(cycle_ms):.3f} "
+          f"({' '.join(f'{c:.3f}' for c in cycle_ms)})")
+    psi1 = _first_cycle_psi(spec, dev)
+    check_cycle1(label, spec, dev, psi1)
+    if compare:
+        with _packed_flag("0"):
+            twin = compare_solve(label, "unpacked", spec, dev, it,
+                                 fast_launches(spec, it, packed=False))
+            twin1 = _first_cycle_psi(spec, dev)
+        rel, _ = nmax(psi1, twin1)
+        print(f"[{label}] unpacked twin: relres {' '.join(f'{e:.6e}' for e in twin.errs.tolist())}; "
+              f"cycle 1's psi against the packed solve's: normalized max |diff| {rel:.3e}")
+        check(rel <= BF16_TOL, f"bf16 fast {n}^2: cycle 1's psi packed and unpacked differ by "
+              f"{rel:.3e} > {BF16_TOL}")
+    return launches
+    """x's values in a dense row-major view at an odd 4-byte offset."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    check(out.is_contiguous() and out.data_ptr() % 8 == 4, "no odd-offset view")
+    return out
 
 
 def _misaligned(x):
@@ -1714,6 +1905,16 @@ def main():
     solve_fast = phase_slice_fast(dev, MAIN_N, compare=True)
     phase_slice_fast(dev, 1024, compare=False)
     phase_slice_fast(dev, 16384, compare=False)
+    # ... and in bf16: the bf16 forms of K7/K8, the bf16 4096^2 and 1024^2
+    # fast solves
+    phase_parity_packed_bf16(dev, worst)
+    times_bf16 = phase_timing_packed(dev, MAIN_N, torch.bfloat16)
+    for name in ("mg_packed_rr_bf16", "mg_packed_pc_bf16", "mg_packed_pc_bf16.rnorm"):
+        print(f"[timing_packed_bf16] {name} against its f32 form: "
+              + _beside(times[name.replace(BF16, "")], times_bf16[name]))
+    times.update(times_bf16)
+    solve_fast_bf16 = phase_slice_fast_bf16(dev, MAIN_N, compare=True)
+    phase_slice_fast_bf16(dev, 1024, compare=False)
     phase_strided(dev)
 
     # the sharded solves (explicit partition): the strip kernels, the
@@ -1736,7 +1937,7 @@ def main():
             solve, trace = ((solve_mixed3, trace_bf16_3) if "3d" in name
                             else (solve_mixed, trace_bf16))
         if name.startswith("mg_packed"):
-            solve = solve_fast
+            solve = solve_fast_bf16 if name.endswith(BF16) else solve_fast
         if name.startswith("mg_sharded"):
             solve = solve_spmd["3d" if name.endswith("3d") else
                                "packed" if name.startswith("mg_sharded_packed") else "2d"]

@@ -45,11 +45,13 @@ packed lanes, before the register tile).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 
-With --dtype bfloat16 it times the bf16 forms of K1-K6 (the 2D legs at
-every --sides side and the 3D legs at every --sides3d side, as above) and
-nothing else: the packed and strip kernels are f32 only.  The other build
-must have the forms it times (an empty --sides3d times K1-K3 alone, for a
-build whose 3D legs are f32 only).
+With --dtype bfloat16 it times the bf16 forms of K1-K8 (the 2D legs at
+every --sides side, the 3D legs at every --sides3d side and the packed
+legs K7/K8 at every --packed side, by default the --sides, as above) and
+nothing else: the strip kernels are f32 only.  The other build must have
+the forms it times (an empty --sides3d times K1-K3 alone, for a build whose
+3D legs are f32 only; an empty --packed skips K7/K8, for a build whose
+packed legs are f32 only).
 """
 
 from __future__ import annotations
@@ -221,9 +223,10 @@ def _cases_sharded3d(n, smoother, nu, dev):
     return cases, inputs
 
 
-def _cases_packed(n, nu, dev):
+def _cases_packed(n, nu, dev, dtype=torch.float32):
     g = torch.Generator(device=dev).manual_seed(n + nu + 2)
-    u, f, V = (torch.randn((s, s), generator=g, device=dev) for s in (n, n, n // 2))
+    u, f, V = (torch.randn((s, s), generator=g, device=dev).to(dtype)
+               for s in (n, n, n // 2))
     up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
     del u, f
     h = 1.0 / n
@@ -291,8 +294,9 @@ def _run(builds, label, cases, inputs, reps):
 
 def parse_args(argv=None):
     """The command line; with --dtype bfloat16 only the whole-grid legs
-    run, 2D and 3D (--sharded, --sharded3d, --packed and --sharded-packed
-    are cleared: their kernels are f32 only)."""
+    run, 2D, 3D and packed (--packed by default the --sides; --sharded,
+    --sharded3d and --sharded-packed are cleared: their kernels are f32
+    only)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the other build's csrc")
     ap.add_argument("--old-tile", type=int, default=0,
@@ -315,8 +319,9 @@ def parse_args(argv=None):
     ap.add_argument("--old-strip3d", action="store_true",
                     help="the other build's K12 runs the cube tile at every halo (before "
                     "the strip-fed z-marching tile)")
-    ap.add_argument("--packed", type=int, nargs="*", default=[],
-                    help="sides of the packed legs K7/K8 at rbgs nu = 1, 2, 3")
+    ap.add_argument("--packed", type=int, nargs="*", default=None,
+                    help="sides of the packed legs K7/K8 at rbgs nu = 1, 2, 3 (by default "
+                    "none, in bf16 the --sides)")
     ap.add_argument("--sharded-packed", type=int, default=0,
                     help="global side of the (4, 1) mesh for K13/K14 (16384: the sharded "
                     "fast solve's block); 0, the default, skips")
@@ -324,13 +329,14 @@ def parse_args(argv=None):
                     help="the other build's packed tile side (its K8/K14 rnorm partials, one "
                     "per T x T packed tile), 32 before the register tile; 0: the register tile")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="bfloat16: the bf16 forms of K1-K6 only")
+                    help="bfloat16: the bf16 forms of K1-K8 only")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     args.dtype = getattr(torch, args.dtype)
+    if args.packed is None:
+        args.packed = args.sides if args.dtype == torch.bfloat16 else []
     if args.dtype == torch.bfloat16:
-        args.sharded, args.sharded3d = 0, 0
-        args.packed, args.sharded_packed = [], 0
+        args.sharded, args.sharded3d, args.sharded_packed = 0, 0, 0
     return args
 
 
@@ -374,8 +380,9 @@ def main(argv=None):
         del cases, inputs
         torch.cuda.empty_cache()
     for n, nu in itertools.product(args.packed, (1, 2, 3)):
-        cases, inputs = _cases_packed(n, nu, dev)
-        _run(builds, f"{n}^2 packed rbgs nu={nu}", cases, inputs, args.reps)
+        cases, inputs = _cases_packed(n, nu, dev, args.dtype)
+        dt = " bf16" if args.dtype == torch.bfloat16 else ""
+        _run(builds, f"{n}^2{dt} packed rbgs nu={nu}", cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()
     if args.sharded_packed:

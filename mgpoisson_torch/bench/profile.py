@@ -9,7 +9,8 @@
 
 For each kernel_min_size it runs the residual-stop solve of the scheme
 (tuned by default; fast runs the packed fine level on the card, see
-``mgpoisson_torch.kernels.use_packed``) in 2D, or 3D with --ndim 3 (e.g.
+``mgpoisson_torch.kernels.use_packed``, on K7/K8 or, with --dtype
+bfloat16, on their bf16 forms) in 2D, or 3D with --ndim 3 (e.g.
 --size 256 --ndim 3), in --dtype (f32 by default; bfloat16 is the pure
 bf16 solve, which levels off: give it --tol 1e-30 --maxiter 12) and, with
 a --sweep-dtype other than it, as mixed-precision refinement (e.g.

@@ -11,7 +11,6 @@ ROADMAP slice that brings them; none is silently ignored.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Optional, Tuple
 
 # scheme -> (coarse-level bc, prolongation kind, default smoother,
@@ -52,12 +51,11 @@ class Spec:
         torch counterpart and raises.
 
     bf16 runs on one device, in 2D and 3D: dtype='bfloat16' (the pure
-    bf16 solve) and a sweep_dtype other than dtype (mixed-precision
-    refinement, e.g. the bf16 V-cycle of an f32 solve); sweep_dtype ==
-    dtype is the plain solve, as in the JAX package.  bf16 or mixed
-    precision under a mesh, and a bf16 solve whose fine level the JAX
-    package would run packed (``check_packs_bf16``), raise
-    NotImplementedError naming the ROADMAP item.
+    bf16 solve, its fine level packed where the JAX package packs it) and
+    a sweep_dtype other than dtype (mixed-precision refinement, e.g. the
+    bf16 V-cycle of an f32 solve); sweep_dtype == dtype is the plain
+    solve, as in the JAX package.  bf16 or mixed precision under a mesh
+    raise NotImplementedError naming the ROADMAP item.
     """
 
     size: int
@@ -148,8 +146,6 @@ class Spec:
         if self.mesh_shape is not None and self.dtype == "bfloat16":
             later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
                   "precision): Queue 2 A4, the bf16 forms of K9-K12")
-        if self.sweep_dtype is None:
-            self.check_packs_bf16()
         if self.stop_check == "adaptive":
             later("stop_check='adaptive'", "6 (the rest of the solver "
                   "surface)")
@@ -157,32 +153,6 @@ class Spec:
             later("cycle='fmg'", "6 (the rest of the solver surface)")
         if self.smoother == "gs_lex":
             later("smoother='gs_lex'", "6 (the rest of the solver surface)")
-
-    def check_packs_bf16(self) -> None:
-        """Raises NotImplementedError for a bf16 solve whose fine level the
-        JAX package runs packed (``mgpoisson.cycle.packed.supported`` on its
-        accelerator: 2D, no mesh, rbgs, a V, W or FMG cycle, a backend
-        other than the plain ops, the fine side above coarse_size and >=
-        kernel_min_size, and its plan's n >= 256, n % 256 == 0 and 1 <= nu
-        <= 3 for both sweep counts; not with MGPOISSON_PACKED=0, which
-        turns the packed level off there too): the port has no bf16 packed
-        legs, and running it unpacked would quietly differ from the
-        reference's layout.  The Spec checks it unless sweep_dtype is set
-        (the inner cycle of a mixed solve is never packed, there or here);
-        the solver checks it for sweep_dtype == dtype."""
-        if (self.dtype == "bfloat16"
-                and os.environ.get("MGPOISSON_PACKED") != "0"
-                and self.ndim == 2 and self.mesh_shape is None
-                and self.smoother_resolved == "rbgs"
-                and self.cycle in ("v", "w", "fmg") and self.backend != "torch"
-                and self.coarse_size < self.size
-                and self.size >= max(self.kernel_min_size, 256)
-                and self.size % 256 == 0
-                and all(1 <= nu <= 3 for nu in (self.nu_pre, self.nu_post))):
-            raise NotImplementedError(
-                "a bf16 solve with a packed fine level is not in mgpoisson_torch "
-                "yet: ROADMAP slice 5 (bf16 and mixed precision): Queue 2 A3, "
-                "the bf16 forms of K7/K8")
 
     # ------------------------------------------------- resolved parameters
 

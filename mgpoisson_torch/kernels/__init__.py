@@ -84,8 +84,8 @@ def use_sharded_kernels(spec, global_side: int, local_shape, device) -> bool:
 
 def use_packed(spec, device) -> bool:
     """Whether a solve keeps its fine level checkerboard-packed and runs it
-    on K7/K8 (``mgpoisson_torch.cycle.packed``); the rule of the JAX
-    package's ``mgpoisson.cycle.packed.supported``:
+    on K7/K8, or their bf16 forms (``mgpoisson_torch.cycle.packed``); the
+    rule of the JAX package's ``mgpoisson.cycle.packed.supported``:
 
     - MGPOISSON_PACKED is not "0";
     - 2D, no mesh, the rbgs smoother, a V or W cycle;
@@ -93,8 +93,7 @@ def use_packed(spec, device) -> bool:
     - the fine side above coarse_size and >= kernel_min_size;
     - the JAX plan's own conditions: n >= 256, n % 256 == 0 and
       1 <= nu_pre, nu_post <= 3;
-    - float32 (the bf16 forms of K7/K8 are ROADMAP Queue 2 A3: the Spec
-      refuses a bf16 solve that the JAX package would pack);
+    - float32 or bfloat16;
     - no other sweep_dtype: the JAX solver never packs a mixed-precision
       solve (its refinement branch comes before the packed one), whose
       inner bf16 cycle runs unpacked;
@@ -109,7 +108,8 @@ def use_packed(spec, device) -> bool:
             or n < 256 or n % 256
             or not all(1 <= nu <= cuda.PACKED_MAX_NU
                        for nu in (spec.nu_pre, spec.nu_post))
-            or spec.dtype != "float32" or spec.sweep_dtype not in (None, spec.dtype)):
+            or spec.dtype not in ("float32", "bfloat16")
+            or spec.sweep_dtype not in (None, spec.dtype)):
         return False
     return torch.device(device).type == "cuda" or flag == "1"
 

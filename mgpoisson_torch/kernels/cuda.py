@@ -42,13 +42,15 @@ register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
 
-K1-K6 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
+K1-K8 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
 ``mg_prolong_correct_smooth_bf16``, ``mg_smooth3d_bf16``,
-``mg_smooth_rr3d_bf16``, ``mg_prolong_correct_smooth3d_bf16``: the same
-sources and tiles, bf16 arrays, each op rounded to bf16 as plain torch
-rounds it), which the wrappers launch for a bf16 square 2D or cubic 3D
-array; the packed and strip kernels K7-K14 are f32 only (ROADMAP Queue 2
-A3, A4).
+``mg_smooth_rr3d_bf16``, ``mg_prolong_correct_smooth3d_bf16``,
+``mg_packed_rr_bf16``, ``mg_packed_pc_bf16``: the same sources and tiles,
+bf16 arrays, each op rounded to bf16 as plain torch rounds it), which the
+wrappers launch for a bf16 square 2D or cubic 3D array and a bf16 packed
+one.  The strip kernels K9-K12 are f32 only for now (ROADMAP Queue 2 A4);
+the packed strip kernels K13/K14 are f32 only, as the JAX package's
+packed strip kernels are.
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
@@ -124,6 +126,7 @@ launches = dict.fromkeys((
     "mg_smooth3d_bf16", "mg_smooth_rr3d_bf16", "mg_smooth_rr3d_bf16.zero",
     "mg_prolong_correct_smooth3d_bf16", "mg_prolong_correct_smooth3d_bf16.rnorm",
     "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
+    "mg_packed_rr_bf16", "mg_packed_pc_bf16", "mg_packed_pc_bf16.rnorm",
     "mg_sharded_rr", "mg_sharded_rr.zero", "mg_sharded_pc", "mg_sharded_pc.rnorm",
     "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
     "mg_sharded_pc3d.rnorm", "mg_sharded_packed_rr", "mg_sharded_packed_pc",
@@ -257,8 +260,8 @@ def supports(n: int, dtype: torch.dtype, nu: int, smoother: str, ndim: int = 2,
 
 
 def _name(base, u):
-    """The C entry of a leg for u: the 2D or the 3D one, its f32 or its
-    bf16 form."""
+    """The C entry of a leg for u: the 2D or the 3D one (for the packed
+    legs the 2D one), its f32 or its bf16 form."""
     name = base + "3d" if u.ndim == 3 else base
     return name + "_bf16" if u.dtype == torch.bfloat16 else name
 
@@ -431,8 +434,10 @@ def prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother="jacobi",
 
 def packed_supports(n: int, dtype: torch.dtype, nu: int) -> bool:
     """Whether K7/K8 take a packed n x n level of this dtype with nu rbgs
-    sweeps: f32, even n, 1 <= nu <= PACKED_MAX_NU."""
-    return dtype == torch.float32 and n >= 2 and n % 2 == 0 and 1 <= nu <= PACKED_MAX_NU
+    sweeps: f32 or bf16 (each kernel's bf16 form), even n, 1 <= nu <=
+    PACKED_MAX_NU."""
+    return (dtype in (torch.float32, torch.bfloat16) and n >= 2 and n % 2 == 0
+            and 1 <= nu <= PACKED_MAX_NU)
 
 
 def packed_rnorm_partials(nl: int, n: int, nu: int) -> int:
@@ -449,8 +454,7 @@ def _check_packed(name, up, nu, *others):
     if up.ndim != 2 or up.shape[0] != up.shape[1]:
         raise ValueError(f"{name}: needs a square packed 2D array, got {tuple(up.shape)}")
     if not packed_supports(up.shape[0], up.dtype, nu):
-        raise ValueError(f"{name}: no kernel for n={up.shape[0]} {up.dtype} nu={nu}"
-                         f"{_f32_only(up.dtype, 'A3, the bf16 forms of K7/K8')}")
+        raise ValueError(f"{name}: no kernel for n={up.shape[0]} {up.dtype} nu={nu}")
     _check_operands(name, up, *others)
 
 
@@ -473,16 +477,17 @@ def packed_smooth_residual_restrict(up, fp, h, nu):
     (up', Rc), Rc the unpacked (n/2, n/2) coarse rhs (K7)."""
     if up.device.type == "cpu":
         return ops.packed_smooth_residual_restrict(up, fp, h, nu)
-    _check_packed("mg_packed_rr", up, nu, (fp, up.shape))
+    name = _name("mg_packed_rr", up)
+    _check_packed(name, up, nu, (fp, up.shape))
     out = torch.empty_like(up)
     Rc = torch.empty(_half(up.shape), dtype=up.dtype, device=up.device)
-    _launch("mg_packed_rr", up, up.data_ptr(), fp.data_ptr(), out.data_ptr(),
-            Rc.data_ptr(), up.shape[0], nu, *_packed_scalars(h))
+    _launch(name, up, up.data_ptr(), fp.data_ptr(), out.data_ptr(), Rc.data_ptr(),
+            up.shape[0], nu, *_packed_scalars(h))
     return out, Rc
 
 
 def _packed_pc(up, fp, V, h, nu, kind, rnorm):
-    name = "mg_packed_pc"
+    name = _name("mg_packed_pc", up)
     if kind not in PROLONG_KINDS:
         raise ValueError(f"{name}: unknown prolongation {kind!r}")
     _check_packed(name, up, nu, (fp, up.shape), (V, _half(up.shape)))
@@ -639,18 +644,20 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
 
 def _check_packed_sharded(name, up, origin, n_global, nu, *others):
     """A rank's packed block up of a grid of side n_global at `origin`: on
-    the card, f32, whole rows (nl, n_global) from column 0, nl and the first
-    row even and the block inside the grid, 1 <= nu <= PACKED_MAX_NU, and
-    the other operands matching (``_check_operands``)."""
+    the card, f32 (the JAX package's packed strip kernels are f32 only:
+    mgpoisson/cycle/packed.py supported_spmd), whole rows (nl, n_global)
+    from column 0, nl and the first row even and the block inside the grid,
+    1 <= nu <= PACKED_MAX_NU, and the other operands matching
+    (``_check_operands``)."""
     if up.device.type != "cuda":
         raise ValueError(f"{name}: needs CUDA tensors, got {up.device}")
     if up.ndim != 2 or up.shape[1] != n_global or origin[1] != 0:
         raise ValueError(f"{name}: needs a packed block of whole rows (nl, {n_global}) "
                          f"at column 0, got {tuple(up.shape)} at {tuple(origin)}")
-    if not packed_supports(n_global, up.dtype, nu):
+    if up.dtype != torch.float32 or not packed_supports(n_global, up.dtype, nu):
         raise ValueError(f"{name}: no kernel for n={n_global} {up.dtype} nu={nu}"
-                         + _f32_only(up.dtype, "A3 (K7/K8); the JAX package's packed "
-                                     "strip kernels are f32 only"))
+                         + (" (f32 only, as the JAX package's packed strip kernels are)"
+                            if up.dtype == torch.bfloat16 else ""))
     nl, r0 = up.shape[0], origin[0]
     if nl < 2 or (nl | r0) & 1 or r0 < 0 or r0 + nl > n_global:
         raise ValueError(f"{name}: block {tuple(up.shape)} at {tuple(origin)} is not an "

@@ -582,10 +582,21 @@ def packed_smooth_residual_restrict(up, fp, h, nu):
     return torch.cat([xr, xb], dim=1), Rc
 
 
+def _packed_correction(V, kind):
+    """The packed planes of P(V) that the packed up-leg adds.  In a sub-f32
+    dtype they are blended in f32 and rounded once, as the Pallas packed
+    up-leg blends (mgpoisson/kernels/pallas.py _packed_prolong_stripe) and
+    the bf16 form of K8 does; inject, a row double, is exact either way."""
+    acc = _acc_dtype(V.dtype)
+    if acc == V.dtype or kind == "inject":
+        return _packed_prolong(V, kind)
+    return tuple(p.to(V.dtype) for p in _packed_prolong(V.to(acc), kind))
+
+
 def packed_prolong_correct_smooth(up, fp, V, h, nu, kind="inject"):
     """Packed up-leg: up += P(V) with V the unpacked coarse correction,
     then nu rbgs sweeps."""
-    pr, pb = _packed_prolong(V, kind)
+    pr, pb = _packed_correction(V, kind)
     xr, xb = _planes(up)
     fr, fb = _planes(fp)
     mhq = -(h * h) * 0.25

@@ -140,7 +140,6 @@ class MultigridPoisson:
             self._sweep_dtype = getattr(torch, spec.sweep_dtype)
             self._cycle = make_cycle(spec.with_(dtype=spec.sweep_dtype), rnorm=False)
         else:
-            spec.check_packs_bf16()
             self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
         if mesh is None:
             self._packed = use_packed(spec, self.device)

@@ -141,13 +141,13 @@ ADMITTED = [dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
             dict(dtype="bfloat16", scheme="fast", size=256, backend="xla"),
             dict(dtype="bfloat16", scheme="fast", size=512, post_smooth=4),
             dict(dtype="bfloat16", ndim=3),            # the bf16 forms of K4-K6
-            dict(sweep_dtype="bfloat16", ndim=3)]
+            dict(sweep_dtype="bfloat16", ndim=3),
+            dict(dtype="bfloat16", scheme="fast", size=256),   # packed: the bf16 forms of K7/K8
+            dict(dtype="bfloat16", smoother="rbgs", cycle="w", size=1024)]
 NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4"),
               (dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)), "step_mixed_local"),
               (dict(sweep_dtype="float32", dtype="float64", mesh_shape=(4, 1)),
-               "step_mixed_local"),
-              (dict(dtype="bfloat16", scheme="fast", size=256), "A3"),
-              (dict(dtype="bfloat16", smoother="rbgs", cycle="w", size=1024), "A3")]
+               "step_mixed_local")]
 
 
 @pytest.mark.parametrize("kw", ADMITTED, ids=repr)
@@ -176,14 +176,19 @@ def test_spec_rejects_adaptive_mixed_with_the_jax_message():
     assert str(port_err.value) == str(jax_err.value)
 
 
-def test_solver_refuses_a_packed_bf16_solve_spelled_with_sweep_dtype():
-    """sweep_dtype == dtype is the plain solve: the JAX package would pack
-    this one, so the solver refuses it as the Spec refuses it without a
-    sweep_dtype."""
+def test_solver_refuses_a_packed_bf16_solve_spelled_with_sweep_dtype(monkeypatch):
+    """sweep_dtype == dtype is the plain solve: the JAX package packs this
+    one, and since the bf16 forms of K7/K8 the solver no longer refuses it
+    but packs it as it packs the same solve without a sweep_dtype (on the
+    CPU under MGPOISSON_PACKED=1), with the same result."""
+    monkeypatch.setenv("MGPOISSON_PACKED", "1")
     spec = mgpoisson_torch.Spec(size=256, dtype="bfloat16", sweep_dtype="bfloat16",
-                                scheme="fast")
-    with pytest.raises(NotImplementedError, match="A3"):
-        mgpoisson_torch.MultigridPoisson(spec, device="cpu")
+                                scheme="fast", stop="residual", tol=1e-30, maxiter=2)
+    mg = mgpoisson_torch.MultigridPoisson(spec, device="cpu")
+    plain = mgpoisson_torch.MultigridPoisson(spec.with_(sweep_dtype=None), device="cpu")
+    assert mg._packed and plain._packed and mg._sweep_dtype is None
+    got, want = mg.solve(), plain.solve()
+    assert got.psi.dtype == torch.bfloat16 and torch.equal(got.psi, want.psi)
 
 
 # ----------------------------------------------------------- which kernels
@@ -191,8 +196,8 @@ def test_solver_refuses_a_packed_bf16_solve_spelled_with_sweep_dtype():
 @pytest.mark.parametrize("smoother", sorted(cuda.MAX_NU))
 def test_supports_bf16_in_2d_only(smoother):
     """bf16 levels run the kernels' bf16 forms in 2D and, since the bf16
-    forms of K4-K6, in 3D at the f32 halo cap; the packed kernels stay f32
-    only."""
+    forms of K4-K6, in 3D at the f32 halo cap; the packed kernels K7/K8
+    have bf16 forms too."""
     for n in (1, 2, 64, 4096):
         for nu in range(0, 10):
             want = n >= 2 and nu <= cuda.MAX_NU[smoother]
@@ -200,8 +205,9 @@ def test_supports_bf16_in_2d_only(smoother):
             assert (cuda.supports(n, torch.bfloat16, nu, smoother, ndim=3)
                     is cuda.supports(n, torch.float32, nu, smoother, ndim=3))
             assert cuda.supports(n, torch.float16, nu, smoother) is False
-    assert not cuda.packed_supports(256, torch.bfloat16, 1)
+    assert cuda.packed_supports(256, torch.bfloat16, 1)   # the bf16 forms of K7/K8
     assert cuda.packed_supports(256, torch.float32, 1)
+    assert not cuda.packed_supports(256, torch.float16, 1)
 
 
 def test_bf16_names_of_the_2d_legs():
@@ -210,8 +216,10 @@ def test_bf16_names_of_the_2d_legs():
     assert cuda._name("mg_smooth_rr", u2.float()) == "mg_smooth_rr"
     assert cuda._name("mg_smooth_rr", u3) == "mg_smooth_rr3d"
     assert cuda._name("mg_smooth_rr", u3.bfloat16()) == "mg_smooth_rr3d_bf16"
+    assert cuda._name("mg_packed_pc", u2) == "mg_packed_pc_bf16"
     for name in ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth", "mg_smooth3d",
-                 "mg_smooth_rr3d", "mg_prolong_correct_smooth3d"):
+                 "mg_smooth_rr3d", "mg_prolong_correct_smooth3d", "mg_packed_rr",
+                 "mg_packed_pc"):
         assert name + "_bf16" in cuda.launches
         assert SIGNATURES[name + "_bf16"] == SIGNATURES[name]
 

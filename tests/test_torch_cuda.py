@@ -652,8 +652,14 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
         cuda.prolong_correct_smooth(c, c, torch.zeros((8,) * 3, device=card), 1 / 16, 1)
     with pytest.raises(ValueError, match="no kernel"):        # beyond the 3D halo cap
         cuda.smooth_residual_restrict(c, c, 1 / 16, 8, "jacobi", "ghost0")
-    with pytest.raises(ValueError, match="A3"):
-        cuda.packed_smooth_residual_restrict(u, f, 1 / 64, 1)
+    # the packed legs take bf16 (K7/K8's bf16 forms); the packed strip
+    # kernels K13/K14 refuse it, as the JAX package's packed strip kernels
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    got = cuda.packed_smooth_residual_restrict(up, fp, 1 / 64, 1)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    ub, us = block_from_grid(up, (32, 0), (32, 64), 3, cols=False)
+    with pytest.raises(ValueError, match="f32 only"):
+        cuda.packed_rr_sharded(ub, ub, us, us, (32, 0), 64, 1 / 64, 1)
     with pytest.raises(ValueError, match="does not match"):
         cuda.smooth(u, f.float(), 1 / 64, 1, "jacobi", "ghost0")
     # a bf16 pair is 4 bytes: an operand at an odd 2-byte offset is refused
@@ -817,3 +823,81 @@ def test_bf16_solves_stop_on_a_nan(card, which):
     f[7, 9] = float("nan")
     res = mg.solve(f)
     assert res.iterations == 1 and not res.converged and np.isnan(res.final_err)
+
+
+# ------------------------------------------------- the bf16 forms of K7/K8
+# Each op rounded to bf16 as the plain packed ops round it (the bilinear
+# P(V) blended in f32 and rounded once, the row pair of the restriction
+# summed in f32 and rounded once): every output bit-equal, sum(r^2) within
+# 1e-5.  Sides below one warp's tile up to the fast solve's 4096^2.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 8, 16, 64, 256, 1024, 4096])
+@pytest.mark.parametrize("nu", [1, 2, 3])
+def test_packed_bf16_kernels_equal_plain(card, n, nu):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 5, card))
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    h = 1.0 / n
+    for got, want in zip(cuda.packed_smooth_residual_restrict(up, fp, h, nu),
+                         ops.packed_smooth_residual_restrict(up, fp, h, nu)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    for kind in ("inject", "bilinear"):
+        pa = (up, fp, V, h, nu, kind)
+        assert torch.equal(cuda.packed_prolong_correct_smooth(*pa),
+                           ops.packed_prolong_correct_smooth(*pa))
+        (gu, g2), (wu, w2) = (cuda.packed_prolong_correct_smooth_rnorm(*pa),
+                              ops.packed_prolong_correct_smooth_rnorm(*pa))
+        assert torch.equal(gu, wu) and g2.dtype == torch.float32
+        assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_packed_bf16_launch_counters(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(256, 3, card))
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    cuda.reset_launches()
+    cuda.packed_smooth_residual_restrict(up, fp, 1 / 256, 1)
+    cuda.packed_prolong_correct_smooth(up, fp, V, 1 / 256, 1, "bilinear")
+    cuda.packed_prolong_correct_smooth_rnorm(up, fp, V, 1 / 256, 1, "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_packed_rr_bf16": 1, "mg_packed_pc_bf16": 2,
+                 "mg_packed_pc_bf16.rnorm": 1})
+    assert cuda.launches == want
+
+
+@pytest.mark.cuda
+def test_packed_bf16_solve_matches_its_unpacked_twin(card, monkeypatch):
+    """The pure bf16 fast 1024^2 solve, its fine level packed on the bf16
+    forms of K7/K8, against the same solve with MGPOISSON_PACKED=0 on the
+    unpacked bf16 kernels, with the JAX package's spec and bar for packed
+    against unpacked (tests/test_packed_persistent.py, there at 256^2: tol
+    1e-2, maxiter 8): the counts within one, psi within 5e-2 of the largest
+    magnitude.  (Past cycle 1 both wander at bf16's floor: PERF.md, Findings.)"""
+    spec = Spec(size=1024, scheme="fast", dtype="bfloat16", stop="residual", tol=1e-2,
+                maxiter=8)
+    monkeypatch.delenv("MGPOISSON_PACKED", raising=False)
+    cuda.reset_launches()
+    mg = MultigridPoisson(spec, device="cuda")
+    got = mg.solve()
+    assert mg._packed and cuda.launches["mg_packed_rr_bf16"] == got.iterations
+    assert cuda.launches["mg_packed_pc_bf16.rnorm"] == got.iterations
+    monkeypatch.setenv("MGPOISSON_PACKED", "0")
+    twin = MultigridPoisson(spec, device="cuda")
+    want = twin.solve()
+    assert not twin._packed
+    assert got.psi.dtype == want.psi.dtype == torch.bfloat16
+    assert abs(got.iterations - want.iterations) <= 1
+    assert _nmax(got.psi, want.psi) <= 5e-2
+
+
+@pytest.mark.cuda
+def test_packed_strip_kernels_refuse_bf16(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(64, 4, card))
+    up = cuda.pack_grid(u)
+    ub, us = block_from_grid(up, (32, 0), (32, 64), 3, cols=False)
+    vb, vs = block_from_grid(V, (16, 0), (16, 32), 3, cols=False)
+    b = ((32, 0), 64, 1 / 64, 1)
+    with pytest.raises(ValueError, match="f32 only"):
+        cuda.packed_rr_sharded(ub, ub, us, us, *b)
+    with pytest.raises(ValueError, match="f32 only"):
+        cuda.packed_pc_sharded(ub, ub, vb, us, us, vs, *b, "bilinear", rnorm=True)

@@ -41,6 +41,25 @@ def test_profile_reads_a_packed_fast_solve(tmp_path, monkeypatch):
     assert (tmp_path / "solve_256_fast_kms256.json").stat().st_size > 0
 
 
+def test_profile_reads_a_packed_bf16_fast_solve(tmp_path, monkeypatch):
+    """--scheme fast --dtype bfloat16: the pure bf16 solve with its fine
+    level packed (forced on for CPU tensors), one row per kernel_min_size."""
+    monkeypatch.setenv("MGPOISSON_PACKED", "1")
+    rows = profile.main(["--size", "256", "--scheme", "fast", "--dtype", "bfloat16",
+                         "--device", "cpu", "--tol", "1e-30", "--maxiter", "2",
+                         "--kernel-min-size", "256", "2", "--out", str(tmp_path)])
+    spec = Spec(size=256, dtype="bfloat16", scheme="fast", stop="residual", tol=1e-30,
+                maxiter=2)
+    res = MultigridPoisson(spec, device="cpu").solve()
+    assert [row["kernel_min_size"] for row in rows] == [256, 2]
+    for row in rows:
+        assert row["packed"] is True and row["dtype"] == "bfloat16"
+        assert row["cycles"] == row["profiled_cycles"] == res.iterations == 2
+        assert all(v == 0 for v in row["kernel_calls"].values())
+    assert rows[0]["final_err"] == res.final_err
+    assert (tmp_path / "solve_256_fast_bfloat16_kms2.json").stat().st_size > 0
+
+
 def test_profile_reads_a_3d_solve(tmp_path):
     rows = profile.main(["--size", "16", "--ndim", "3", "--device", "cpu",
                          "--tol", "1e-6", "--out", str(tmp_path)])
@@ -154,21 +173,45 @@ def test_profile_reads_the_3d_bf16_solves(flags, tag, tmp_path):
 
 
 def test_ab_takes_the_bf16_forms_only():
-    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K6 at the 2D
-    and 3D sides and clears every f32-only part."""
+    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K8 at the 2D,
+    3D and packed sides (the packed ones by default the 2D ones) and clears
+    every f32-only part."""
     import torch
     from mgpoisson_torch.bench import ab
     args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024",
                           "--packed", "4096", "--sharded3d", "256"])
     assert args.dtype == torch.bfloat16 and args.sides == [4096, 1024]
     assert args.sides3d == [256, 512]
-    assert (args.sharded, args.sharded3d, args.packed, args.sharded_packed) == (0, 0, [], 0)
+    assert (args.sharded, args.sharded3d, args.packed, args.sharded_packed) == (0, 0, [4096], 0)
+    args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024"])
+    assert args.packed == [4096, 1024]
+    assert ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--packed"]).packed == []
     args = ab.parse_args(["--old", "x", "--packed", "4096"])
     assert args.dtype == torch.float32 and args.sharded == 16384 and args.packed == [4096]
+    assert ab.parse_args(["--old", "x"]).packed == []
     assert args.sides3d == [256, 512]
+    cases, inputs = ab._cases_packed(8, 1, torch.device("cpu"), torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in inputs["K8.rnorm"])
+    assert set(cases) == {"K7", "K8", "K8.rnorm", "K8 inject", "K8.rnorm inject"}
     cases, inputs = ab._cases_whole(8, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in inputs["K3"])
     assert set(cases) == {"K1", "K2", "K2.zero", "K3", "K3.rnorm"}
     cases, inputs = ab._cases_whole3d(8, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in inputs["K6"])
     assert set(cases) == {"K4", "K5", "K5.zero", "K6", "K6.rnorm"}
+
+
+def test_packed_order_compares_the_residual_orders():
+    """bench/packed_order.py on the CPU: the packed bf16 fast solve with
+    the reference's and the pairwise neighbour sum, and unpacked, one row
+    each; after one cycle the three iterates' f64 relres agree within the
+    bf16 bar, while the bf16 relres, which reads the residual in each
+    order, does not."""
+    from mgpoisson_torch.bench import packed_order
+    rows = packed_order.main(["--size", "256", "--maxiter", "1", "--device", "cpu"])
+    assert [(r["packed"], r["order"]) for r in rows] == [(True, "reference"),
+                                                         (True, "pairwise"), (False, None)]
+    assert all(r["cycles"] == 1 and len(r["relres"]) == 1 for r in rows)
+    f64 = [r["f64_relres"] for r in rows]
+    assert max(f64) <= 1.05 * min(f64)
+    assert rows[0]["relres"] != rows[1]["relres"]
