@@ -126,7 +126,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
               plain version.  Then (timing_sharded) K9/K10 on one (2, 2)
               block of 16384^2 beside K2/K3 on a whole 8192^2 array, and
               K11/K12 on one (2, 2) block of 256^3 beside K5/K6 on the whole
-              256^3 per cell, each with its plain version and bound.
+              256^3 per cell, each with its plain version and bound.  Then
+              (parity_sharded_bf16) the bf16 forms of K9/K10 the same way
+              at the 2D sides, every output bit-equal to the plain sharded
+              op in bf16 and, stitched, to the bf16 forms of K2/K3, Σr²
+              within 1e-5; (timing_sharded_bf16) their times on the same
+              block beside their f32 forms and the bf16 K2/K3 on the whole
+              8192^2 array.
 11. parity_sharded_packed — the packed strip kernels K13/K14 of the fast
               scheme's fine level on a mesh of one column against their plain
               versions at every block of (4, 1), at every fine side of the
@@ -147,12 +153,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
               (2, 2) against the single-device 16384^2 solve, and the fast
               scheme on (4, 1), its fine level packed on K13/K14: 4096^2
               against the JAX package and 16384^2 against the single-device
-              packed 16384^2 solve; the single-device references run in this
-              phase too.  An f64 re-check of each gathered iterate, and every
-              rank's launches (K9/K10 at every sharded level >= 256, K11/K12
-              at the 3D fine level, K13/K14 at a packed fine level, no
-              single-device kernel).  With 4 or more cards, the tuned and the
-              packed 4096^2 solves again over NCCL.
+              packed 16384^2 solve, and the mixed-precision solve (f32, bf16
+              sweeps) at 4096^2 on (2, 2) and (4, 1), its step count against
+              the JAX package's (within one) and its history against the
+              single-device mixed solve's, and at 16384^2 on (2, 2) against
+              the single-device mixed 16384^2 solve; the single-device
+              references run in this phase too.  An f64 re-check of each
+              gathered iterate, and every rank's launches (K9/K10 at every
+              sharded level >= 256, their bf16 forms in a mixed solve,
+              K11/K12 at the 3D fine level, K13/K14 at a packed fine level,
+              no single-device kernel).  With 4 or more cards, the tuned,
+              the packed and the mixed 4096^2 solves again over NCCL.
 
 The last lines are a JSON object of the off-path kernels (K1, K4 and their
 bf16 forms, with their launches in the traced cycles), a JSON object of the
@@ -161,8 +172,9 @@ the bf16 forms of K2 and K3 with theirs in the mixed 4096^2 solve; K5, K6 with
 theirs in the 256^3 solve and their bf16 forms with theirs in the mixed
 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve and their bf16
 forms with theirs in the bf16 4096^2 fast solve;
-K9, K10 with one rank's in the sharded 16384^2 solve, K11, K12 in the
-sharded 256^3 solve and K13, K14 in the sharded fast 16384^2 solve), the
+K9, K10 with one rank's in the sharded 16384^2 solve, their bf16 forms
+in the sharded mixed 16384^2 solve, K11, K12 in the sharded 256^3 solve
+and K13, K14 in the sharded fast 16384^2 solve), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -323,13 +335,20 @@ TIMING_SHARDED = {2: 16384, 3: 256}
 SPMD_WORLD = 4
 SPEC_16K = MAIN_SPEC.with_(size=16384)
 FAST_16K = FAST_SPEC.with_(size=16384)
+# the mixed-precision solve under a mesh (SpmdCycle.step_mixed, the bf16
+# forms of K9/K10): MIXED_SPEC, and at BASELINE's scale-out size
+MIXED_16K = MIXED_SPEC.with_(size=16384)
 SPMD_DIR = build.BUILD_DIR.parent / "spmd"
 # the solves of phase_spmd: (label, spec, mesh, warm-up solve first); the
-# fast scheme on (4, 1) runs its fine level packed on K13/K14
+# fast scheme on (4, 1) runs its fine level packed on K13/K14, the mixed
+# solves their bf16 V-cycle on the bf16 forms of K9/K10
 SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4, 1), True),
               ("spmd256^3", SPEC_3D, (2, 2), True), ("spmd16384", SPEC_16K, (2, 2), False),
               ("spmd4096fast", FAST_SPEC, (4, 1), True),
-              ("spmd16384fast", FAST_16K, (4, 1), False))
+              ("spmd16384fast", FAST_16K, (4, 1), False),
+              ("spmd4096mixed", MIXED_SPEC, (2, 2), True),
+              ("spmd4096mixed", MIXED_SPEC, (4, 1), True),
+              ("spmd16384mixed", MIXED_16K, (2, 2), False))
 # timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
 # 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
 TIMING_SHARDED_PACKED = (16384, 4, 8192)
@@ -388,6 +407,10 @@ KERNELS = {
                       "mgpoisson/kernels/pallas.py:4080"),
     "mg_sharded_pc": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
                       "mgpoisson/kernels/pallas.py:4228"),
+    "mg_sharded_rr_bf16": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
+                           "mgpoisson/kernels/pallas.py:4080"),
+    "mg_sharded_pc_bf16": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
+                           "mgpoisson/kernels/pallas.py:4228"),
     "mg_sharded_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
                         "mgpoisson/kernels/pallas.py:4908"),
     "mg_sharded_pc3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
@@ -473,11 +496,14 @@ def phase_build():
         print(f"[build] {fn}: {r['registers']} registers, {r['spill_stores']} / "
               f"{r['spill_loads']} bytes of spill stores / loads, {r['smem']} bytes of static "
               "shared memory")
-    # the bf16 forms of K1-K3 (one instance per smoother and tile row
-    # count), of K4-K6 (the cube tile's three kernels, and one z-marching
-    # instance per step count, smoother and bc: 16 of K5, 22 of K6) and of
-    # K7/K8 (one per tile row count)
-    for what, want, rank in (("K1-K3", 27, lambda fn: "3d" not in fn and "packed" not in fn),
+    # the bf16 forms of K1-K3 and of K9/K10 (one instance per smoother and
+    # tile row count; K9's without the deep tile's 40 rows), of K4-K6 (the
+    # cube tile's three kernels, and one z-marching instance per step count,
+    # smoother and bc: 16 of K5, 22 of K6) and of K7/K8 (one per tile row
+    # count)
+    flat2d = lambda fn: "3d" not in fn and "packed" not in fn
+    for what, want, rank in (("K1-K3", 27, lambda fn: flat2d(fn) and "sharded" not in fn),
+                             ("K9/K10", 15, lambda fn: flat2d(fn) and "sharded" in fn),
                              ("K4-K6", 41, lambda fn: "3d" in fn),
                              ("K7/K8", 6, lambda fn: "packed" in fn)):
         bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
@@ -1324,11 +1350,13 @@ def phase_strided(dev):
 
 # ------------------------------------------------------------ the sharded solve
 
-def _sharded_names(ndim):
-    """(rr kernel, pc kernel, their tags, the single-device kernels' tags)."""
+def _sharded_names(ndim, dtype=torch.float32):
+    """(rr kernel, pc kernel, their tags, the single-device kernels' tags),
+    the kernels' bf16 forms for a bf16 dtype."""
+    sfx = BF16 if dtype == torch.bfloat16 else ""
     if ndim == 2:
-        return "mg_sharded_rr", "mg_sharded_pc", ("K9", "K10"), ("K2", "K3")
-    return "mg_sharded_rr3d", "mg_sharded_pc3d", ("K11", "K12"), ("K5", "K6")
+        return "mg_sharded_rr" + sfx, "mg_sharded_pc" + sfx, ("K9", "K10"), ("K2", "K3")
+    return "mg_sharded_rr3d" + sfx, "mg_sharded_pc3d" + sfx, ("K11", "K12"), ("K5", "K6")
 
 
 def _mesh_blocks(n, ndim, mesh):
@@ -1377,23 +1405,31 @@ def sharded_sides():
     return {ndim: sorted(s, reverse=True) for ndim, s in sides.items()}
 
 
-def phase_parity_sharded(dev, worst):
+def phase_parity_sharded(dev, worst, dtype=torch.float32):
     """K9-K12 against their plain versions at every block position of the
     (2, 2) and (4, 1) meshes and every side of sharded_sides, and their
     outputs stitched over the blocks against the single-device kernels on
     the whole grid.  Bit-equal: the stitched outputs (K9/K10 to K2/K3,
-    K11/K12 to K5/K6) and every K11/K12 output to its plain version."""
+    K11/K12 to K5/K6) and every K11/K12 output to its plain version.  With
+    dtype bf16 (parity_sharded_bf16), the bf16 forms of K9/K10 on the 2D
+    sides, every output bit-equal to the plain sharded op in bf16 and,
+    stitched, to the bf16 forms of K2/K3."""
+    bf16 = dtype == torch.bfloat16
+    label = "parity_sharded_bf16" if bf16 else "parity_sharded"
     sides_of = sharded_sides()
-    print(f"[parity_sharded] global sides {sides_of} on the meshes {SHARDED_MESHES}")
+    if bf16:
+        sides_of = {2: sides_of[2]}   # the bf16 forms of K11/K12: ROADMAP A4c
+    print(f"[{label}] global sides {sides_of} on the meshes {SHARDED_MESHES}")
     for ndim, sides in sides_of.items():
-        k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim)
+        k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim, dtype)
         for n in sides:
-            u, f, V = _data(n, ndim, seed=n + 5, dev=dev)
+            u, f, V = (t.to(dtype) for t in _data(n, ndim, seed=n + 5, dev=dev))
             h = 1.0 / n
             for bc, (smoother, nu) in itertools.product(("ghost0", "face"), SHARDED_SETTINGS):
                 row = [f"n={n}^{ndim} {bc} {smoother} nu={nu}"]
                 w = _Worst(worst)
-                exact = ndim == 3   # the blocks' outputs against the plain block ops
+                # the blocks' outputs against the plain block ops
+                exact = ndim == 3 or bf16
                 a = (h, nu, smoother, bc)
                 whole = {"rr": cuda.smooth_residual_restrict(u, f, *a),
                          "rrz": cuda.smooth_residual_restrict_zero(f, *a)}
@@ -1448,25 +1484,31 @@ def phase_parity_sharded(dev, worst):
                 row.append(what if not w.unequal else
                            f"NOT bit-equal ({what}): " + "; ".join(w.unequal))
                 torch.cuda.synchronize()
-                print("[parity_sharded] " + " ".join(row))
-                check(not w.unequal, f"{row[0]}: {t_rr}/{t_pc} not bit-equal where they "
-                      f"must be: {'; '.join(w.unequal)}")
+                print(f"[{label}] " + " ".join(row))
+                check(not w.unequal, f"{label} {row[0]}: {t_rr}/{t_pc} not bit-equal where "
+                      f"they must be: {'; '.join(w.unequal)}")
             del u, f, V, whole
             torch.cuda.empty_cache()
 
 
-def phase_timing_sharded(dev, whole3d):
+def phase_timing_sharded(dev, times, dtype=torch.float32):
     """K9/K10 on the (0, 0) block of a (2, 2) mesh at 16384^2 (8192^2) with
     the main path's settings, beside K2/K3 on a whole 8192^2 array; K11/K12
     on the (0, 0) block of 256^3 beside K5/K6 on the whole 256^3 per cell
-    (`whole3d`: phase_timing's 3D times); each with its plain version and
-    bound."""
+    (`times`: phase_timing's 3D times); each with its plain version and
+    bound.  With dtype bf16 (timing_sharded_bf16), the bf16 forms of
+    K9/K10 on the same block beside their f32 forms' times in `times` and
+    beside the bf16 forms of K2/K3 on the whole 8192^2 array."""
+    bf16 = dtype == torch.bfloat16
+    label, sfx = ("timing_sharded_bf16", BF16) if bf16 else ("timing_sharded", "")
     out = {}
     d = exchange_depth(MAIN_SPEC)
     dv = ops.coarse_depth(d)
     for ndim, n in TIMING_SHARDED.items():
-        k_rr, k_pc, _, _ = _sharded_names(ndim)
-        u, f, V = _data(n, ndim, seed=17, dev=dev)
+        if bf16 and ndim == 3:
+            continue   # the bf16 forms of K11/K12: ROADMAP A4c
+        k_rr, k_pc, _, _ = _sharded_names(ndim, dtype)
+        u, f, V = (t.to(dtype) for t in _data(n, ndim, seed=17, dev=dev))
         shape = (n // 2, n // 2) + (n,) * (ndim - 2)
         ub, us = spmd.block_from_grid(u, (0, 0), shape, d)
         fb, fs = spmd.block_from_grid(f, (0, 0), shape, d)
@@ -1490,8 +1532,8 @@ def phase_timing_sharded(dev, whole3d):
         cells = 1
         for x in shape:
             cells *= x
-        out.update(_time_cases("timing_sharded", cases,
-                               f"the (0, 0) block {shape} of {n}^{ndim}", cells))
+        out.update(_time_cases(label, cases, f"the (0, 0) block {shape} of {n}^{ndim}", cells,
+                               "bf16" if bf16 else "f32"))
         del ub, fb, vb, us, fs, vs
         torch.cuda.empty_cache()
         if ndim == 3:
@@ -1499,25 +1541,29 @@ def phase_timing_sharded(dev, whole3d):
             for sharded, whole in ((k_rr, single[1]), (k_rr + ".zero", single[1] + ".zero"),
                                    (k_pc, single[2]), (k_pc + ".rnorm", single[2] + ".rnorm")):
                 per, per_whole = (out[sharded]["kernel_ms"] / cells,
-                                  whole3d[whole]["kernel_ms"] / n ** 3)
+                                  times[whole]["kernel_ms"] / n ** 3)
                 print(f"[timing_sharded] {sharded} on the block {shape}: {1e6 * per:.4f} ns of "
                       f"device time per cell against {whole} on {n}^3: {1e6 * per_whole:.4f} "
                       f"ns ({per / per_whole:.3f}x)")
     # beside K9/K10: K2/K3 on a whole array of the block's side
     n = TIMING_SHARDED[2] // 2
-    u, f, V = _data(n, 2, seed=19, dev=dev)
+    u, f, V = (t.to(dtype) for t in _data(n, 2, seed=19, dev=dev))
     h = 1.0 / n
-    rr, pc = f"mg_smooth_rr@{n}", f"mg_prolong_correct_smooth@{n}"
+    rr, pc = f"mg_smooth_rr{sfx}@{n}", f"mg_prolong_correct_smooth{sfx}@{n}"
     whole = {
         rr: (lambda m: m.smooth_residual_restrict(u, f, h, 3, "wjacobi", "ghost0"),
              (u, f), _work(2, 3, "wjacobi", "rr")),
         pc: (lambda m: m.prolong_correct_smooth(u, f, V, h, 3, "wjacobi", "face", "bilinear"),
              (u, f, V), _work(2, 3, "wjacobi", "pc", "bilinear")),
     }
-    t = _time_cases("timing_sharded", whole, f"{n}^2", n * n)
-    for sharded, single in (("mg_sharded_rr", rr), ("mg_sharded_pc", pc)):
-        print(f"[timing_sharded] {sharded} on a {n}^2 block against {single}: "
-              f"{out[sharded]['ms'] / t[single]['ms']:.3f}x")
+    t = _time_cases(label, whole, f"{n}^2", n * n, "bf16" if bf16 else "f32")
+    for sharded, single in (("mg_sharded_rr" + sfx, rr), ("mg_sharded_pc" + sfx, pc)):
+        print(f"[{label}] {sharded} on a {n}^2 block against {single}: "
+              + _beside(t[single], out[sharded]))
+    if bf16:
+        for name, row in out.items():
+            print(f"[{label}] {name} against its f32 form: "
+                  + _beside(times[name.replace(BF16, "")], row))
     del u, f, V
     torch.cuda.empty_cache()
     return out
@@ -1681,18 +1727,32 @@ def sharded_kernel_levels(spec, mesh_shape):
             and use_sharded_kernels(spec, g, spmd.block_shape(g, spec.ndim, mesh), "cuda")]
 
 
+def _cycle_spec(spec):
+    """The spec of the V-cycle a solve of `spec` runs: its own, or under
+    mixed precision that of SpmdCycle.inner (sweep_dtype, no mesh_shape)."""
+    if spec.sweep_dtype in (None, spec.dtype):
+        return spec
+    return spec.with_(dtype=spec.sweep_dtype, mesh_shape=None)
+
+
 def sharded_launches(spec, mesh_shape, it):
-    """One rank's launches in an `it`-cycle sharded solve: the down-leg
-    (from zero below the fine level) and the up-leg at every sharded kernel
-    level, the up-leg with rnorm once per cycle; with a packed fine level,
-    K13 and K14 (rnorm) there, once per cycle."""
-    L = len(sharded_kernel_levels(spec, mesh_shape))
-    k_rr, k_pc, _, _ = _sharded_names(spec.ndim)
+    """One rank's launches in an `it`-cycle (or step) sharded solve, the
+    kernels of its cycle's dtype (the bf16 forms of K9/K10 for bf16
+    sweeps): the down-leg (from zero below the fine level) and the up-leg
+    at every sharded kernel level, the up-leg with rnorm once per cycle
+    (never in a mixed step, which measures the residual it computes
+    itself; its fine down-leg starts from a zeros array, not the zero
+    flag); with a packed fine level, K13 and K14 (rnorm) there, once per
+    cycle."""
+    cyc = _cycle_spec(spec)
+    L = len(sharded_kernel_levels(cyc, mesh_shape))
+    k_rr, k_pc, _, _ = _sharded_names(spec.ndim, getattr(torch, cyc.dtype))
     if packed_sharded(spec, mesh_shape):
         return {"mg_sharded_packed_rr": it, "mg_sharded_packed_pc": it,
                 "mg_sharded_packed_pc.rnorm": it, k_rr: (L - 1) * it,
                 k_rr + ".zero": (L - 1) * it, k_pc: (L - 1) * it}
-    return {k_rr: L * it, k_rr + ".zero": (L - 1) * it, k_pc: L * it, k_pc + ".rnorm": it}
+    return {k_rr: L * it, k_rr + ".zero": (L - 1) * it, k_pc: L * it,
+            k_pc + ".rnorm": it if cyc is spec else 0}
 
 
 def _spmd_rank(rank, backend, store, cases, out_dir):
@@ -1722,7 +1782,8 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
                               / ops.residual_norm(-f64, f64, spec.fine_h))
                 del f64
             results.append({"label": label, "iterations": res.iterations,
-                            "errs": res.errs.tolist(), "converged": res.converged,
+                            "errs": res.errs.tolist(), "errs_dtype": str(res.errs.dtype),
+                            "converged": res.converged,
                             "launches": launches, "cycle_ms": cycle_ms, "rel64": rel64,
                             "packed": mg._packed,
                             "block": list(res.psi.shape), "device": str(mg.device),
@@ -1747,14 +1808,19 @@ def _spawn_ranks(backend, cases):
     return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
 
 
-def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
+def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
     """Every rank's result of one sharded solve: identical histories, the
     reference's cycle count and per-cycle relres (within RELRES_TOL), the
-    f64 re-check of the gathered iterate, exact launches."""
+    f64 re-check of the gathered iterate, exact launches.  A mixed solve
+    (bf16 sweeps) takes the reference's step count (`ref_count`, by default
+    that of `ref_errs`) or one more or fewer (the bars of
+    phase_slice_mixed), its first err is 1.0 and its history f32."""
     r0 = ranks[0]
     it, errs = r0["iterations"], r0["errs"]
+    mixed = _cycle_spec(spec) is not spec
     shape = f"{spec.size}^{spec.ndim} on {mesh_shape}"
-    what = f"{spec.scheme}{', fine level packed' if r0['packed'] else ''}"
+    what = (f"{spec.scheme}{', fine level packed' if r0['packed'] else ''}"
+            f"{', f32 with ' + spec.sweep_dtype + ' sweeps' if mixed else ''}")
     print(f"[{label}] {shape} {what}, {SPMD_WORLD} ranks ({how}): {it} cycles, converged="
           f"{r0['converged']}, blocks {r0['block']} on {r0['device']}")
     check(all(r["packed"] == packed_sharded(spec, mesh_shape) for r in ranks),
@@ -1764,9 +1830,13 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
               f"rel diff {abs(e - ej) / ej:.2e}")
     check(all(r["errs"] == errs and r["iterations"] == it for r in ranks),
           f"{shape}: the ranks' error histories differ")
-    check(r0["converged"] and it == len(ref_errs),
-          f"{shape}: {it} cycles (converged={r0['converged']}), the reference takes "
-          f"{len(ref_errs)}")
+    count = len(ref_errs) if ref_count is None else ref_count
+    check(r0["converged"] and abs(it - count) <= (1 if mixed else 0),
+          f"{shape}: {it} cycles (converged={r0['converged']}), the reference takes {count}")
+    if mixed:
+        check(errs[0] == 1.0 and r0["errs_dtype"] == "torch.float32",
+              f"{shape}: the first step's relres {errs[0]} (not 1.0, the incoming psi0's) "
+              f"or the history {r0['errs_dtype']}")
     for k, (e, ej) in enumerate(zip(errs, ref_errs), 1):
         check(abs(e - ej) <= RELRES_TOL * ej, f"{shape} cycle {k}: relres {e:.6e} vs {ej:.6e}")
     check(r0["finite"] and r0["shape"] == list(spec.shape),
@@ -1790,23 +1860,26 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how):
 
 def phase_spmd(dev):
     """The sharded solves on 4 ranks sharing the card over gloo; the
-    single-device 16384^2 solves (tuned, and fast with its packed fine
-    level) as the references of the sharded ones."""
-    refs16k = {}
-    for spec in (SPEC_16K, FAST_16K):
+    single-device 16384^2 solves (tuned, fast with its packed fine level,
+    and mixed) and the single-device mixed 4096^2 solve as the references
+    of the sharded ones (the mixed 4096^2 step count against the JAX
+    package's too)."""
+    refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
+            "spmd4096fast": JAX_ERRS_FAST[MAIN_N]}
+    for label, spec in (("spmd16384", SPEC_16K), ("spmd16384fast", FAST_16K),
+                        ("spmd4096mixed", MIXED_SPEC), ("spmd16384mixed", MIXED_16K)):
         mg, res, cycle_ms = _solve(spec, dev)
-        what = f"{spec.scheme}{' packed' if mg._packed else ''}"
-        check(res.converged, f"the single-device 16384^2 {what} solve did not converge")
-        check(mg._packed == (spec.scheme == "fast"), f"the single-device 16384^2 {what} solve")
-        refs16k[spec.scheme] = res.errs.tolist()
-        print(f"[spmd] single-device 16384^2 {what} f32: {res.iterations} cycles, per-cycle "
+        what = (f"{spec.scheme}{' packed' if mg._packed else ''} "
+                f"{spec.dtype}{' with ' + spec.sweep_dtype + ' sweeps' if spec.sweep_dtype else ''}")
+        shape = f"{spec.size}^{spec.ndim}"
+        check(res.converged, f"the single-device {shape} {what} solve did not converge")
+        check(mg._packed == (spec.scheme == "fast"), f"the single-device {shape} {what} solve")
+        refs[label] = res.errs.tolist()
+        print(f"[spmd] single-device {shape} {what}: {res.iterations} cycles, per-cycle "
               f"wall ms median {statistics.median(cycle_ms):.3f}")
         del mg, res
         torch.cuda.empty_cache()
-
-    refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
-            "spmd16384": refs16k["tuned"], "spmd4096fast": JAX_ERRS_FAST[MAIN_N],
-            "spmd16384fast": refs16k["fast"]}
+    counts = {"spmd4096mixed": JAX_ITERATIONS_MIXED}
     t0 = time.perf_counter()
     ranks = _spawn_ranks("gloo", SPMD_CASES)
     print(f"[spmd] {SPMD_WORLD} ranks over gloo on {torch.cuda.device_count()} card(s): "
@@ -1815,19 +1888,19 @@ def phase_spmd(dev):
     how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
     for i, (label, spec, mesh_shape, _) in enumerate(SPMD_CASES):
         launches[label] = _check_spmd(label, spec, mesh_shape, [r[i] for r in ranks],
-                                      refs[label], how)
+                                      refs[label], how, counts.get(label))
     if torch.cuda.device_count() >= SPMD_WORLD:
-        cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast")
-                 and c[2] == ((2, 2) if c[0] == "spmd4096" else (4, 1))]
+        cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast", "spmd4096mixed")
+                 and c[2] == ((4, 1) if c[0] == "spmd4096fast" else (2, 2))]
         nccl = _spawn_ranks("nccl", cases)
         for i, (label, spec, mesh_shape, _) in enumerate(cases):
             _check_spmd(label, spec, mesh_shape, [r[i] for r in nccl], refs[label],
-                        "4 ranks, 4 cards, nccl")
+                        "4 ranks, 4 cards, nccl", counts.get(label))
     else:
         print(f"[spmd] NCCL: not run: {torch.cuda.device_count()} card(s), and NCCL refuses "
               f"two ranks on one GPU; the {SPMD_WORLD} ranks above ran over gloo")
     return {"2d": launches["spmd16384"], "3d": launches["spmd256^3"],
-            "packed": launches["spmd16384fast"]}
+            "packed": launches["spmd16384fast"], "mixed": launches["spmd16384mixed"]}
 
 
 def main():
@@ -1923,6 +1996,9 @@ def main():
     # 16384^2 (fast, packed)
     phase_parity_sharded(dev, worst)
     times.update(phase_timing_sharded(dev, times))
+    # ... and the bf16 forms of K9/K10, which the mixed solves under a mesh run
+    phase_parity_sharded(dev, worst, torch.bfloat16)
+    times.update(phase_timing_sharded(dev, times, torch.bfloat16))
     phase_parity_sharded_packed(dev, worst)
     times.update(phase_timing_sharded_packed(dev))
     solve_spmd = phase_spmd(dev)
@@ -1940,7 +2016,8 @@ def main():
             solve = solve_fast_bf16 if name.endswith(BF16) else solve_fast
         if name.startswith("mg_sharded"):
             solve = solve_spmd["3d" if name.endswith("3d") else
-                               "packed" if name.startswith("mg_sharded_packed") else "2d"]
+                               "packed" if name.startswith("mg_sharded_packed") else
+                               "mixed" if name.endswith(BF16) else "2d"]
         if name in OFF_PATH:
             off_path.append({**row, "trace_launches": trace[name]})
         else:

@@ -28,38 +28,13 @@
 // the registers: each lane's pair of columns and two rows are one coarse
 // cell.
 //
-// The bf16 form of K2 (mg_smooth_rr_bf16, with the from-zero flag) runs the
-// same tile on bf16 u, f and R, rounding as plain torch does in bf16
-// (stencil.cuh, Mg2Elem): bound 1.625 arrays of f32 bytes, 1.125 from zero.
-// K9 has no bf16 form.
-#include "stencil.cuh"
-
-template <int kSm, int R, bool kStrips, bool kEdge, class T>
-static __device__ __forceinline__ void mg2_rr_tile(const Mg2ArgsOf<T>& a, const Mg2Tile& t) {
-  Mg2Pair<R> u;
-  Mg2Pair<R> f;
-  if (a.U) {
-    mg2_load<R, kStrips, kEdge>(u, a.U, a.us, t);
-  } else {
-#pragma unroll
-    for (int i = 0; i < R; ++i) u.put(i, make_float2(0.f, 0.f));
-  }
-  mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
-  mg2_store<R, kEdge>(a.Uout, u, t);
-  mg2_restrict<R, kEdge>(a.Rout, u, f, t, a.bc, a.inv_hsq, a.adiag);
-}
-
-// The leg on the block a.blk; each entry point below instantiates it.
-template <int kSm, int R, bool kStrips, class T>
-static __device__ __forceinline__ void mg2_rr_body(const Mg2ArgsOf<T>& a) {
-  const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
-  if (!mg2_owns(t)) return;
-  if (mg2_inside<R>(t))
-    mg2_rr_tile<kSm, R, kStrips, false>(a, t);
-  else
-    mg2_rr_tile<kSm, R, kStrips, true>(a, t);
-}
+// The bf16 forms of K2 (mg_smooth_rr_bf16, here) and K9
+// (mg_sharded_rr_bf16, in mg_sharded_rr_bf16.cu), with the from-zero flag,
+// run the same tile on bf16 u, f and R (and bf16 strips, MgStripsBf16),
+// rounding as plain torch does in bf16 (stencil.cuh, Mg2Elem): bound 1.625
+// arrays of f32 bytes, 1.125 from zero.  The leg itself is in
+// stencil_rr.cuh.
+#include "stencil_rr.cuh"
 
 // K2: the whole n x n grid.
 template <int kSm, int R>
@@ -83,6 +58,7 @@ mg_sharded_rr_kernel(const Mg2Args a) {
 }
 
 struct MgShardedRrLaunch {
+  static constexpr int rows(int R) { return R; }
   template <int kSm, int R>
   static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2Args& a) {
     mg_sharded_rr_kernel<kSm, R><<<grid, block, 0, stream>>>(a);
@@ -150,26 +126,7 @@ extern "C" int mg_sharded_rr(const float* u, const float* f, float* out, float* 
                              const float* fl, const float* fr, int n, int nl, int ml, int r0,
                              int c0, int D, int nu, int smoother, int bc, float inv_hsq,
                              float inv_adiag, float adiag, int zero, cudaStream_t stream) {
-  const int H = mg_steps(nu, smoother) + 1;
-  if (nl < 2 || ml < 2 || (nl | ml | r0 | c0) & 1 || nu < 0 || D < H ||
-      mg2_halo(H) > MG2_MAX_HALO)
-    return (int)cudaErrorInvalidValue;
-  if (!mg2_aligned(f, ft, fb, out) || (!zero && !mg2_aligned(u, ut, ub)))
-    return (int)cudaErrorMisalignedAddress;
-  Mg2Args a{};
-  a.U = zero ? nullptr : u;
-  a.F = f;
-  a.Uout = out;
-  a.Rout = R;
-  a.blk = MgBlock{n, nl, ml, r0, c0};
-  a.us = zero ? MgStrips{nullptr, nullptr, nullptr, nullptr, D} : MgStrips{ut, ub, ul, ur, D};
-  a.fs = MgStrips{ft, fb, fl, fr, D};
-  a.H = H;
-  a.nu = nu;
-  a.bc = bc;
-  a.inv_hsq = inv_hsq;
-  a.inv_adiag = inv_adiag;
-  a.adiag = adiag;
-  return mg2_launch<MgShardedRrLaunch>(smoother, mg2_rows(nl, ml, H),
-                                                 mg2_grid(nl, ml, H), stream, a);
+  return mg_sharded_rr_entry<MgShardedRrLaunch, Mg2Args>(
+      u, f, out, R, ut, ub, ul, ur, ft, fb, fl, fr, n, nl, ml, r0, c0, D, nu, smoother, bc,
+      inv_hsq, inv_adiag, adiag, zero, stream);
 }

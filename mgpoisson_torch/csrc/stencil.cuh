@@ -127,6 +127,28 @@ struct MgStrips {
   int D;
 };
 
+// The same on bf16 arrays (the bf16 forms of K9/K10): a struct of its own,
+// so MgStrips, and every f32 instance's kernel parameter, stay as they were.
+struct MgStripsBf16 {
+  const __nv_bfloat16* top;
+  const __nv_bfloat16* bot;
+  const __nv_bfloat16* left;
+  const __nv_bfloat16* right;
+  int D;
+};
+
+// The strips of element type T: MgStripsOf<float> is MgStrips.
+template <class T>
+struct MgStripsFor {
+  using type = MgStrips;
+};
+template <>
+struct MgStripsFor<__nv_bfloat16> {
+  using type = MgStripsBf16;
+};
+template <class T>
+using MgStripsOf = typename MgStripsFor<T>::type;
+
 #define MG2_COLS 64             // loaded columns per warp: two per lane
 #define MG2_WARPS 2             // warps per block, stacked in row bands
 #define MG2_THREADS (32 * MG2_WARPS)
@@ -158,22 +180,27 @@ static __host__ inline int mg2_rows(int nl, int ml, int H) {
   return warps >= MG2_FILL_WARPS ? MG2_ROWS_SHALLOW : MG2_ROWS_SMALL;
 }
 
-// The launch's blocks on an (nl x ml) block at halo H.
+// The launch's blocks on an (nl x ml) block at halo H, for warps of R
+// loaded rows (by default the tile table's).
+static __host__ inline dim3 mg2_grid_rows(int nl, int ml, int H, int R) {
+  return dim3(mg2_ceil(ml, mg2_cols(H)), mg2_ceil(nl, MG2_WARPS * (R - 2 * mg2_halo(H))));
+}
+
 static __host__ inline dim3 mg2_grid(int nl, int ml, int H) {
-  return dim3(mg2_ceil(ml, mg2_cols(H)),
-              mg2_ceil(nl, MG2_WARPS * (mg2_rows(nl, ml, H) - 2 * mg2_halo(H))));
+  return mg2_grid_rows(nl, ml, H, mg2_rows(nl, ml, H));
 }
 
 // Whether every pointer is aligned for a lane's pair of T (null is): 8
-// bytes for a float2, 4 for a __nv_bfloat162.
+// bytes for a float2, 4 for a __nv_bfloat162 (the body and the top/bottom
+// strips of a strip-fed launch too: their pairs load as one).
 template <class T = float, class... P>
 static __host__ inline bool mg2_aligned(const P*... p) {
   return ((((uintptr_t)p & (2 * sizeof(T) - 1)) == 0) && ...);
 }
 
-// Everything a 2D leg kernel takes, its arrays of element type T.  V/vs
-// and partials only for K3/K10, Rout for K2/K9; U == nullptr means u is
-// identically zero (not read).  The strips (K9/K10) are f32 only.
+// Everything a 2D leg kernel takes, its arrays and strips (K9/K10) of
+// element type T.  V/vs and partials only for K3/K10, Rout for K2/K9;
+// U == nullptr means u is identically zero (not read).
 template <class T>
 struct Mg2ArgsOf {
   const T* U;
@@ -183,7 +210,7 @@ struct Mg2ArgsOf {
   T* Rout;
   float* partials;
   MgBlock blk;
-  MgStrips us, fs, vs;
+  MgStripsOf<T> us, fs, vs;
   int H, nu, bc, kind;
   float inv_hsq, inv_adiag, adiag;
 };
@@ -295,50 +322,55 @@ static __device__ __forceinline__ float mg2_from_right(float x) {
   return __shfl_down_sync(0xffffffffu, x, 1);
 }
 
-// Block cell (li, lj) of an array fed by strips: the body, or the strip
-// that holds it.  The caller has checked that the cell lies in the grid.
-// A cell beyond the strips gives 0; only the halo of a tile that overhangs
-// the strips reads one, and with D >= the sweeps' reach the shrinking
-// exact region never lets it reach the block or the ring a residual reads.
-static __device__ __forceinline__ float mg_fetch(const float* body, const MgStrips& s,
+// Block cell (li, lj) of an array of T fed by strips: the body, or the
+// strip that holds it, as an f32 value.  The caller has checked that the
+// cell lies in the grid.  A cell beyond the strips gives 0; only the halo
+// of a tile that overhangs the strips reads one, and with D >= the sweeps'
+// reach the shrinking exact region never lets it reach the block or the
+// ring a residual reads.
+template <class T>
+static __device__ __forceinline__ float mg_fetch(const T* body, const MgStripsOf<T>& s,
                                                  int li, int lj, int nl, int ml) {
+  using E = Mg2Elem<T>;
   const int D = s.D;
   if (lj >= 0 && lj < ml) {
-    if (li >= 0 && li < nl) return body[(size_t)li * ml + lj];
-    if (li < 0 && li >= -D) return s.top[(size_t)(li + D) * ml + lj];
-    if (li >= nl && li < nl + D) return s.bot[(size_t)(li - nl) * ml + lj];
+    if (li >= 0 && li < nl) return E::ld(body + (size_t)li * ml + lj);
+    if (li < 0 && li >= -D) return E::ld(s.top + (size_t)(li + D) * ml + lj);
+    if (li >= nl && li < nl + D) return E::ld(s.bot + (size_t)(li - nl) * ml + lj);
     return 0.f;
   }
   if (li < -D || li >= nl + D || s.left == nullptr) return 0.f;
-  if (lj < 0 && lj >= -D) return s.left[(size_t)(li + D) * D + (lj + D)];
-  if (lj >= ml && lj < ml + D) return s.right[(size_t)(li + D) * D + (lj - ml)];
+  if (lj < 0 && lj >= -D) return E::ld(s.left + (size_t)(li + D) * D + (lj + D));
+  if (lj >= ml && lj < ml + D) return E::ld(s.right + (size_t)(li + D) * D + (lj - ml));
   return 0.f;
 }
 
 // A lane's two cells (li, lj), (li, lj + 1) of an array fed by strips, lj
-// even: one 8-byte load from the body or the top/bottom strip, picked once
-// for the pair; cells left or right of the block one by one (mg_fetch).
-static __device__ __forceinline__ float2 mg2_fetch2(const float* body, const MgStrips& s,
+// even: one load of the pair (8 bytes in f32, one __nv_bfloat162 in bf16)
+// from the body or the top/bottom strip, picked once for the pair; cells
+// left or right of the block one by one (mg_fetch).
+template <class T>
+static __device__ __forceinline__ float2 mg2_fetch2(const T* body, const MgStripsOf<T>& s,
                                                     int li, int lj, int nl, int ml) {
   if (lj >= 0 && lj < ml) {
-    const float* p = nullptr;
+    const T* p = nullptr;
     if (li >= 0 && li < nl)
       p = body + (size_t)li * ml + lj;
     else if (li < 0 && li >= -s.D)
       p = s.top + (size_t)(li + s.D) * ml + lj;
     else if (li >= nl && li < nl + s.D)
       p = s.bot + (size_t)(li - nl) * ml + lj;
-    return p ? *reinterpret_cast<const float2*>(p) : make_float2(0.f, 0.f);
+    return p ? Mg2Elem<T>::ld2(p) : make_float2(0.f, 0.f);
   }
   return make_float2(mg_fetch(body, s, li, lj, nl, ml), mg_fetch(body, s, li, lj + 1, nl, ml));
 }
 
 // Coarse cell (lI, lJ) of the block's V (global (gI, gJ)) of an up-leg
 // (K3/K10, K8/K14), 0 outside the coarse grid: from the array or, fed by
-// strips, from the one that holds it.
-template <bool kStrips, class T>
+// strips (vs, of V's element type), from the one that holds it.
+template <bool kStrips, class T, class S>
 static __device__ __forceinline__ float mg2_coarse(const T* __restrict__ V,
-                                                   const MgStrips& vs, const Mg2Tile& t, int lI,
+                                                   const S& vs, const Mg2Tile& t, int lI,
                                                    int lJ, int gI, int gJ) {
   const int nc = t.n / 2;
   if (!mg_in(gI, nc) || !mg_in(gJ, nc)) return 0.f;
@@ -347,10 +379,10 @@ static __device__ __forceinline__ float mg2_coarse(const T* __restrict__ V,
 }
 
 // Loads the warp's R rows of X into x, the lane's even and odd column;
-// cells outside the grid read 0.
-template <int R, bool kStrips, bool kEdge, class T>
+// cells outside the grid read 0 (s: X's strips, MgStripsOf<T>).
+template <int R, bool kStrips, bool kEdge, class T, class S>
 static __device__ __forceinline__ void mg2_load(Mg2Pair<R>& x, const T* __restrict__ X,
-                                                const MgStrips& s, const Mg2Tile& t) {
+                                                const S& s, const Mg2Tile& t) {
   const int lj = t.lj0 + 2 * t.lane;
   if (!kEdge) {
     const T* p = X + (size_t)t.li0 * t.ml + lj;

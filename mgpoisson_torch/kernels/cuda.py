@@ -42,15 +42,16 @@ register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
 
-K1-K8 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
+K1-K10 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
 ``mg_prolong_correct_smooth_bf16``, ``mg_smooth3d_bf16``,
 ``mg_smooth_rr3d_bf16``, ``mg_prolong_correct_smooth3d_bf16``,
-``mg_packed_rr_bf16``, ``mg_packed_pc_bf16``: the same sources and tiles,
-bf16 arrays, each op rounded to bf16 as plain torch rounds it), which the
-wrappers launch for a bf16 square 2D or cubic 3D array and a bf16 packed
-one.  The strip kernels K9-K12 are f32 only for now (ROADMAP Queue 2 A4);
-the packed strip kernels K13/K14 are f32 only, as the JAX package's
-packed strip kernels are.
+``mg_packed_rr_bf16``, ``mg_packed_pc_bf16``, ``mg_sharded_rr_bf16``,
+``mg_sharded_pc_bf16``: the same sources and tiles, bf16 arrays and
+strips, each op rounded to bf16 as plain torch rounds it), which the
+wrappers launch for a bf16 square 2D or cubic 3D array, a bf16 packed one
+and a bf16 2D block.  The 3D strip kernels K11/K12 are f32 only for now
+(ROADMAP Queue 2 A4c); the packed strip kernels K13/K14 are f32 only, as
+the JAX package's packed strip kernels are.
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
@@ -128,6 +129,8 @@ launches = dict.fromkeys((
     "mg_packed_rr", "mg_packed_pc", "mg_packed_pc.rnorm",
     "mg_packed_rr_bf16", "mg_packed_pc_bf16", "mg_packed_pc_bf16.rnorm",
     "mg_sharded_rr", "mg_sharded_rr.zero", "mg_sharded_pc", "mg_sharded_pc.rnorm",
+    "mg_sharded_rr_bf16", "mg_sharded_rr_bf16.zero", "mg_sharded_pc_bf16",
+    "mg_sharded_pc_bf16.rnorm",
     "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
     "mg_sharded_pc3d.rnorm", "mg_sharded_packed_rr", "mg_sharded_packed_pc",
     "mg_sharded_packed_pc.rnorm"), 0)
@@ -523,27 +526,36 @@ def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
 
 # ------------------------------------------------ one block of a sharded level
 
+def sharded_supports(ndim: int, dtype: torch.dtype) -> bool:
+    """Whether a strip kernel takes a block of this rank and dtype: f32 in
+    2D and 3D (K9-K12), bf16 in 2D (the bf16 forms of K9/K10; those of
+    K11/K12 are ROADMAP Queue 2 A4c)."""
+    return dtype == torch.float32 or (dtype == torch.bfloat16 and ndim == 2)
+
+
 def _check_sharded(name, f, origin, n_global, nu, smoother, bc, residual, *others):
     """A rank's block f of a grid of side n_global at `origin`: on the
-    card, f32, 2D or 3D with whole x rows, even extents and origin inside
-    the grid, the sweep count within the cap, and the other operands
-    matching (``_check_operands``)."""
-    if f.device.type != "cuda":
-        raise ValueError(f"{name}: needs CUDA tensors, got {f.device}")
+    card, 2D or 3D with whole x rows, of a dtype with a strip kernel
+    (``sharded_supports``), even extents and origin inside the grid, the
+    sweep count within the cap, and the other operands matching
+    (``_check_operands``)."""
     if f.ndim not in (2, 3) or (f.ndim == 3 and f.shape[2] != n_global):
         raise ValueError(f"{name}: needs a 2D block or a 3D block of whole rows, got "
                          f"{tuple(f.shape)} of a grid of side {n_global}")
-    if (f.dtype != torch.float32
+    if (not sharded_supports(f.ndim, f.dtype)
             or not supports(n_global, f.dtype, nu, smoother, f.ndim, residual)
             or bc not in BCS):
+        why = (_f32_only(f.dtype, "A4c, the bf16 forms of K11/K12")
+               if f.ndim == 3 else "")
         raise ValueError(f"{name}: no kernel for n={n_global} ndim={f.ndim} {f.dtype} "
-                         f"nu={nu} smoother={smoother!r} bc={bc!r}"
-                         f"{_f32_only(f.dtype, 'A4, the bf16 forms of K9-K12')}")
+                         f"nu={nu} smoother={smoother!r} bc={bc!r}{why}")
     (nl, ml), (r0, c0) = f.shape[:2], origin
     if (min(nl, ml) < 2 or (nl | ml | r0 | c0) & 1 or min(r0, c0) < 0
             or r0 + nl > n_global or c0 + ml > n_global):
         raise ValueError(f"{name}: block {tuple(f.shape)} at {tuple(origin)} is not an "
                          f"even block of a grid of side {n_global}")
+    if f.device.type != "cuda":
+        raise ValueError(f"{name}: needs CUDA tensors, got {f.device}")
     _check_operands(name, f, *others)
 
 

@@ -341,8 +341,9 @@ def _geometry(shape, origin, n, device):
 
 def _block_sweeps(ue, fe, geo, h, nu, smoother, bc):
     """nu sweeps of an extended block, in the plain sweeps' operation
-    order; cells outside the grid stay 0 (before each red-black colour
-    too: the second colour reads what the first wrote)."""
+    order (the damped-Jacobi weight rounded to the dtype, as
+    wjacobi_sweep's); cells outside the grid stay 0 (before each red-black
+    colour too: the second colour reads what the first wrote)."""
     inside, edges, parity = geo
     hsq = h * h
     adiag = -2.0 * ue.ndim / hsq
@@ -352,7 +353,7 @@ def _block_sweeps(ue, fe, geo, h, nu, smoother, bc):
                 upd = (fe - neighbor_sum(ue, bc, edges) / hsq) / adiag
                 ue = torch.where(inside & (parity == p), upd, ue)
         return ue
-    omega = 2.0 * ue.ndim / (2.0 * ue.ndim + 1.0)
+    omega = _omega(ue.ndim, ue.dtype)
     for _ in range(nu):
         jac = (fe - neighbor_sum(ue, bc, edges) / hsq) / adiag
         ue = torch.where(inside, jac if smoother == "jacobi" else ue + omega * (jac - ue),
@@ -405,10 +406,12 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h,
     ue, fe = extend(u, ustrips), extend(f, fstrips)
     geo = _geometry(ue.shape, _ext_origin(origin, d), n_global, ue.device)
     # the prolonged extended coarse block covers 2*dv fine halo lines per side
-    Ve = extend(V, vstrips)
+    # P(V) blended in at least f32 and rounded once, as _up_leg_correct
+    Ve = extend(V, vstrips).to(_acc_dtype(V.dtype))
     _, p_edges, _ = _geometry([2 * s for s in Ve.shape], _ext_origin(origin, 2 * dv),
                               n_global, Ve.device)
-    ue = torch.where(geo[0], ue + _trim(prolong(Ve, kind, p_edges), 2 * dv - d), 0.0)
+    PV = _trim(prolong(Ve, kind, p_edges), 2 * dv - d).to(u.dtype)
+    ue = torch.where(geo[0], ue + PV, 0.0)
     ue = _block_sweeps(ue, fe, geo, h, nu, smoother, bc)
     out = _trim(ue, d)
     if not rnorm:

@@ -22,6 +22,11 @@ its communication explicit:
   communicating.  (The JAX package sweeps such thin blocks with one
   exchange per sweep until replicate_below; the values are the same.)
 - sums are local sums, then ``all_reduce_sum``.
+- mixed-precision refinement (a spec's sweep_dtype other than its dtype:
+  ``step_mixed``, the JAX package's step_mixed_local): the residual in
+  dtype after a one-cell exchange, one cycle in sweep_dtype on A e = r from
+  a zeros array (in 2D bf16 the bf16 forms of K9/K10, its strips exchanged
+  in bf16), psi += e in dtype.
 - the fast scheme on a mesh of one column (``kernels.use_packed_sharded``)
   keeps each rank's fine block checkerboard-packed for the whole solve
   (``cycle_packed``, ``step_packed``): a block of whole rows packs to the
@@ -35,8 +40,8 @@ for every collective (gloo's point-to-point is host-only); under NCCL they
 go as they are.  The backend is the caller's choice
 (``multihost.initialize``): nothing here switches it.
 
-Not ported here (ROADMAP.md Queue 1 item 12): the mixed-precision step, the
-adaptive cycles and FMG.
+Not ported here (ROADMAP.md Queue 1 items 7 and 12): the pure bf16 step
+(A4b), bf16 sweeps in 3D (A4c), the adaptive cycles and FMG.
 """
 
 from __future__ import annotations
@@ -214,14 +219,26 @@ def slice_local(full: torch.Tensor, mesh: ProcessMesh) -> torch.Tensor:
 
 # --------------------------------------------------------------- the cycle
 
-def residual_sq_sum(u, f, h, mesh: ProcessMesh):
-    """This rank's share of sum(r^2) of the zero-ghost residual, accumulated
-    in at least f32: one one-cell exchange, then the plain residual."""
+def residual(u, f, h, mesh: ProcessMesh):
+    """This rank's block of the zero-ghost residual r = f - A u, in u's
+    dtype: one one-cell exchange, then the plain residual (ops.residual's
+    operations, so the blocks tile the whole grid's r bit for bit)."""
     ue = ops.extend(u, strips(u, 1, mesh))
     nbr = ops.neighbor_sum(ue, "ghost0")[1:-1, 1:-1]
     hsq = h * h
-    r = (f - (nbr / hsq + (-2.0 * u.ndim / hsq) * u)).to(ops._acc_dtype(u.dtype))
-    return torch.sum(r * r)
+    return f - (nbr / hsq + (-2.0 * u.ndim / hsq) * u)
+
+
+def _sq_sum(x):
+    """sum(x^2) accumulated in at least f32 (never below x's dtype)."""
+    x = x.to(ops._acc_dtype(x.dtype))
+    return torch.sum(x * x)
+
+
+def residual_sq_sum(u, f, h, mesh: ProcessMesh):
+    """This rank's share of sum(r^2) of the zero-ghost residual, accumulated
+    in at least f32."""
+    return _sq_sum(residual(u, f, h, mesh))
 
 
 class SpmdCycle:
@@ -235,6 +252,13 @@ class SpmdCycle:
         self.gamma = 2 if spec.cycle == "w" else 1
         self.depth = exchange_depth(spec)
         self.cdepth = ops.coarse_depth(self.depth)
+        # mixed-precision refinement: the error equation's cycle, on this
+        # mesh in sweep_dtype.  Its spec carries no mesh_shape (the mesh is
+        # this one): the Spec refuses dtype='bfloat16' under a mesh, which is
+        # the pure bf16 solve (ROADMAP A4b), not this inner cycle.
+        self.inner = None
+        if spec.sweep_dtype not in (None, spec.dtype):
+            self.inner = SpmdCycle(spec.with_(dtype=spec.sweep_dtype, mesh_shape=None), mesh)
 
     def cycle(self, u, f, h, g, fine_level, want_r2=False):
         """One cycle of the level of global side g on this rank's block f
@@ -302,19 +326,41 @@ class SpmdCycle:
         leaves as it is."""
         return self._step(pp, fp, lambda want_r2: self.cycle_packed(pp, fp, want_r2))
 
+    def step_mixed(self, psi, f):
+        """One mixed-precision refinement step on this rank's block (the
+        JAX package's step_mixed_local, mgpoisson/shard/spmd.py; the
+        single-device MultigridPoisson._refine is its twin): r = f - A psi
+        in dtype, e from one cycle of ``inner`` on A e = r from a zeros
+        array (so the fine level runs the down-leg from u, as the JAX
+        package's does), psi + e in dtype.  Returns (psi_new, rms_update,
+        residual norm) as ``step``; the residual norm is ||r|| of the
+        INCOMING iterate, accumulated in at least f32."""
+        spec, mesh, h = self.spec, self.mesh, self.spec.fine_h
+        r = residual(psi, f, h, mesh)
+        sd = getattr(torch, self.inner.spec.dtype)
+        e = self.inner.cycle(torch.zeros_like(r, dtype=sd), r.to(sd), h, spec.size, True)[0]
+        psi_new = psi + e.to(psi.dtype)
+        zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
+        if spec.stop == "update":
+            return psi_new, self._update_rms(psi_new, psi), zero
+        return psi_new, zero, torch.sqrt(all_reduce_sum(_sq_sum(r), mesh)).to(psi.dtype)
+
+    def _update_rms(self, psi_new, psi):
+        """The RMS of the update over the whole grid, all-reduced."""
+        spec = self.spec
+        sq = all_reduce_sum(_sq_sum(psi_new - psi), self.mesh)
+        return torch.sqrt(sq / spec.size ** spec.ndim)
+
     def _step(self, psi, f, cycle):
         spec, mesh = self.spec, self.mesh
         zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
-        acc = ops._acc_dtype(psi.dtype)
         if spec.stop == "update":
             psi_new = cycle(False)[0]
-            d = (psi_new - psi).to(acc)
-            sq = all_reduce_sum(torch.sum(d * d), mesh)
-            return psi_new, torch.sqrt(sq / spec.size ** spec.ndim), zero
+            return psi_new, self._update_rms(psi_new, psi), zero
         psi_new, r2 = cycle(True)
         if r2 is None:
             r2 = residual_sq_sum(psi_new, f, spec.fine_h, mesh)
-        rn = torch.sqrt(all_reduce_sum(r2.to(acc), mesh)).to(psi.dtype)
+        rn = torch.sqrt(all_reduce_sum(r2.to(ops._acc_dtype(psi.dtype)), mesh)).to(psi.dtype)
         return psi_new, zero, rn
 
     def residual_norm(self, psi, f):

@@ -27,10 +27,11 @@ With a mesh (``spec.mesh_shape``, or a ``shard.mesh.ProcessMesh``) the
 solver is one rank of the explicit partition (``shard.spmd``): ``rhs()``,
 ``init_state()``, ``step()`` and ``solve()`` take and give this rank's
 block, and the error history is the all-reduced one, the same on every
-rank.  Where ``kernels.use_packed_sharded`` holds (the fast scheme on a
-mesh of one column), ``solve()`` packs the rank's psi and f blocks once and
-carries them through ``SpmdCycle.step_packed`` under the same callback
-rule.
+rank; with a sweep_dtype, ``step()`` is the partition's mixed-precision
+refinement step (``SpmdCycle.step_mixed``).  Where
+``kernels.use_packed_sharded`` holds (the fast scheme on a mesh of one
+column), ``solve()`` packs the rank's psi and f blocks once and carries
+them through ``SpmdCycle.step_packed`` under the same callback rule.
 
 Every entry (``solve``, ``step``, ``init_state``) takes f and psi as
 tensors of any strides and offset, as the JAX package takes any array: it
@@ -136,9 +137,11 @@ class MultigridPoisson:
         if spec.sweep_dtype not in (None, spec.dtype):
             # mixed-precision refinement: the cycle runs in sweep_dtype on
             # the error equation, never packed (the JAX solver's refinement
-            # branch comes before its packed one)
+            # branch comes before its packed one); under a mesh it is the
+            # partition's (SpmdCycle.step_mixed)
             self._sweep_dtype = getattr(torch, spec.sweep_dtype)
-            self._cycle = make_cycle(spec.with_(dtype=spec.sweep_dtype), rnorm=False)
+            if mesh is None:
+                self._cycle = make_cycle(spec.with_(dtype=spec.sweep_dtype), rnorm=False)
         else:
             self._cycle = make_cycle(spec, rnorm=self._want_rnorm)
         if mesh is None:
@@ -176,7 +179,9 @@ class MultigridPoisson:
         ||r||/||r0||, with ||r||^2 fused into the cycle's fine up-leg.
         packed_state: psi and f are packed (the packed fine level)."""
         if self._spmd is not None:
-            step = self._spmd.step_packed if packed_state else self._spmd.step
+            step = (self._spmd.step_packed if packed_state
+                    else self._spmd.step_mixed if self._sweep_dtype is not None
+                    else self._spmd.step)
             psi_new, err_upd, rn = step(psi, f)
             return psi_new, (rn / r0 if self._want_rnorm else err_upd)
         if self._sweep_dtype is not None:

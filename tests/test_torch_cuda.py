@@ -678,11 +678,105 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
 
 @pytest.mark.cuda
 def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
+    """A bf16 2D block runs the bf16 form of K9; a bf16 3D block is
+    refused, naming the ROADMAP item of K11/K12's bf16 forms (A4c)."""
     f = torch.zeros((32, 32), dtype=torch.bfloat16, device=card)
     strips = (torch.zeros((4, 32), dtype=torch.bfloat16, device=card),) * 2 + (None, None)
-    with pytest.raises(ValueError, match="A4"):
-        cuda.smooth_rr_sharded(None, f, None, strips, (0, 0), 64, 1 / 64, 3, "wjacobi",
+    u, R = cuda.smooth_rr_sharded(None, f, None, strips, (0, 0), 32, 1 / 32, 3, "wjacobi",
+                                  "ghost0", zero=True)
+    assert u.dtype == R.dtype == torch.bfloat16
+    f3 = torch.zeros((16, 16, 32), dtype=torch.bfloat16, device=card)
+    s3 = (torch.zeros((4, 16, 32), dtype=torch.bfloat16, device=card),) * 2 + (
+        torch.zeros((24, 4, 32), dtype=torch.bfloat16, device=card),) * 2
+    with pytest.raises(ValueError, match="A4c"):
+        cuda.smooth_rr_sharded(None, f3, None, s3, (0, 0), 32, 1 / 32, 3, "wjacobi",
                                "ghost0", zero=True)
+
+
+# The bf16 forms of K9/K10 on every block of the meshes (blocks below one
+# tile, of one and of several): each output bit-equal to the plain sharded
+# op in bf16 and, stitched, to the bf16 forms of K2/K3 on the whole grid.
+SHARDED_BF16 = [(64, (2, 2)), (64, (4, 1)), (256, (2, 2)), (256, (4, 1)), (4096, (2, 2))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,mesh", SHARDED_BF16)
+@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 1), ("rbgs", 2),
+                                         ("jacobi", 1)])
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_bf16_sharded_kernels_equal_plain(card, n, mesh, smoother, nu, bc):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card))
+    d = ops.sweep_radius(smoother) * nu + 1
+    cols = mesh[1] > 1
+    h = 1.0 / n
+    whole = {"rr": cuda.smooth_residual_restrict(u, f, h, nu, smoother, bc),
+             "rrz": cuda.smooth_residual_restrict_zero(f, h, nu, smoother, bc)}
+    for kind in ("inject", "bilinear"):
+        whole[kind] = (cuda.prolong_correct_smooth(u, f, V, h, nu, smoother, bc, kind),
+                       *cuda.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother, bc, kind))
+    st = {k: [torch.empty_like(x) for x in v[:2]] for k, v in whole.items()}
+    r2 = dict.fromkeys(("inject", "bilinear"), 0.0)
+    for origin, shape in _blocks(n, mesh, 2):
+        ub, us = block_from_grid(u, origin, shape, d, cols)
+        fb, fs = block_from_grid(f, origin, shape, d, cols)
+        vb, vs = block_from_grid(V, [o // 2 for o in origin], [s // 2 for s in shape],
+                                 ops.coarse_depth(d), cols)
+        fine = tuple(slice(o, o + s) for o, s in zip(origin, shape))
+        coarse = tuple(slice(o // 2, (o + s) // 2) for o, s in zip(origin, shape))
+        a = (origin, n, h, nu, smoother, bc)
+        for key, args, zero in (("rr", (ub, fb, us, fs), False),
+                                ("rrz", (None, fb, None, fs), True)):
+            got = cuda.smooth_rr_sharded(*args, *a, zero=zero)
+            for g, w in zip(got, ops.smooth_rr_sharded(*args, *a, zero=zero)):
+                assert g.dtype == torch.bfloat16 and torch.equal(g, w), key
+            st[key][0][fine], st[key][1][coarse] = got
+        for kind in ("inject", "bilinear"):
+            pa = (ub, fb, vb, us, fs, vs, origin, n, h, nu, smoother, bc, kind)
+            got = cuda.pc_smooth_sharded(*pa)
+            assert torch.equal(got, ops.pc_smooth_sharded(*pa)), kind
+            (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
+                                  ops.pc_smooth_sharded(*pa, rnorm=True))
+            assert torch.equal(gu, wu) and g2.dtype == torch.float32
+            assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+            st[kind][0][fine], st[kind][1][fine] = got, gu
+            r2[kind] += float(g2)
+    for key, outs in st.items():
+        for got, want in zip(outs, whole[key]):
+            assert torch.equal(got, want), key
+    for kind, total in r2.items():
+        assert abs(total / float(whole[kind][2]) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_sharded_wrappers_reject_what_the_kernels_do_not_take(card):
+    u = torch.zeros((64, 64), dtype=torch.bfloat16, device=card)
+    ub, us = block_from_grid(u, (0, 32), (32, 32), 4)
+    a = ((0, 32), 64, 1 / 64, 3, "wjacobi", "ghost0")
+    with pytest.raises(ValueError, match="does not match"):   # f32 strips of a bf16 block
+        cuda.smooth_rr_sharded(ub, ub, [s.float() for s in us], us, *a)
+    # a bf16 pair is 4 bytes: a strip at an odd 2-byte offset is refused
+    top = torch.zeros(4 * 32 + 1, dtype=torch.bfloat16, device=card)[1:].view(4, 32)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.smooth_rr_sharded(ub, ub, us, (top,) + us[1:], *a)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_sharded_launch_counters(card):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(64, 4, card))
+    ub, us = block_from_grid(u, (0, 0), (32, 32), 4)
+    vb, vs = block_from_grid(V, (0, 0), (16, 16), 3)
+    cuda.reset_launches()
+    a = ((0, 0), 64, 1 / 64, 3, "wjacobi", "face")
+    cuda.smooth_rr_sharded(ub, ub, us, us, *a)
+    cuda.smooth_rr_sharded(None, ub, None, us, *a, zero=True)
+    cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear", rnorm=True)
+    cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear")
+    want = dict.fromkeys(cuda.launches, 0)
+    want.update({"mg_sharded_rr_bf16": 2, "mg_sharded_rr_bf16.zero": 1,
+                 "mg_sharded_pc_bf16": 2, "mg_sharded_pc_bf16.rnorm": 1})
+    assert cuda.launches == want
 
 
 @pytest.mark.cuda

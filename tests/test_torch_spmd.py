@@ -131,6 +131,8 @@ def test_plain_sharded_ops_reject_shallow_strips():
 
 # ----------------------------------------------------- the 4-rank spawn
 
+MIXED = dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned", maxiter=60,
+             replicate_below=8)
 # id -> (port Spec fields, mesh, what the ranks run)
 RANK_CASES = {
     "step-tuned-2x2": (dict(size=64, dtype="float64", scheme="tuned", replicate_below=8),
@@ -147,6 +149,14 @@ RANK_CASES = {
                              tol=1e-10, replicate_below=8), (2, 2), "solve"),
     "w-step-tuned-2x2": (dict(size=64, dtype="float64", scheme="tuned", cycle="w",
                               stop="residual", replicate_below=8), (2, 2), "step"),
+    # mixed-precision refinement under the partition (SpmdCycle.step_mixed):
+    # the JAX package's tests/test_mixed_precision.py specs
+    "mixed-solve-2x2": (dict(MIXED, stop="residual", tol=1e-8), (2, 2), "solve"),
+    "mixed-solve-4x1": (dict(MIXED, stop="residual", tol=1e-8), (4, 1), "solve"),
+    "mixed-update-2x2": (dict(MIXED, stop="update", tol=2e-5), (2, 2), "solve"),
+    "f64-f32-sweeps-4x1": (dict(size=64, dtype="float64", sweep_dtype="float32",
+                                scheme="tuned", stop="residual", tol=1e-10,
+                                replicate_below=8), (4, 1), "solve"),
 }
 # held against the port's own single-device step only: the JAX package's
 # spmd W-cycle takes about a minute to compile on the CPU
@@ -248,6 +258,60 @@ def test_sharded_solve_matches_jax(spmd_results):
     assert got["psi_shape"] == (32, 32)
     np.testing.assert_allclose(got["errs"], np.asarray(rN.errs), rtol=1e-10)
     np.testing.assert_allclose(got["psi"], np.asarray(rN.psi), rtol=1e-10, atol=1e-8)
+
+
+def _single_device_solve(kw):
+    """The port's single-device solve of the same spec, on the CPU."""
+    return mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(**kw), device="cpu").solve()
+
+
+@pytest.mark.parametrize("cid", ["mixed-solve-2x2", "mixed-solve-4x1"])
+def test_sharded_mixed_solve_matches_jax(spmd_results, cid):
+    """The mixed residual-stop solve (f32, bf16 sweeps) on 4 ranks: the
+    JAX package's spmd mixed solve's step count within one and its psi
+    within 1e-5 normalized (tests/test_mixed_precision.py's bar), the
+    first err 1.0 (the incoming iterate's), and the port's single-device
+    mixed solve's psi within 1e-6."""
+    import mgpoisson
+    kw, mesh_shape, _ = RANK_CASES[cid]
+    got = spmd_results[cid]
+    assert got["converged"] and got["errs"][0] == 1.0 and got["errs"].dtype == np.float32
+    rN = mgpoisson.MultigridPoisson(mgpoisson.Spec(backend="xla", mesh_shape=mesh_shape,
+                                                   partition="spmd", **kw)).solve()
+    assert rN.converged and abs(got["iterations"] - rN.iterations) <= 1
+    assert _nmax(got["psi"], np.asarray(rN.psi)) < 1e-5
+    r1 = _single_device_solve(kw)
+    assert _nmax(got["psi"], r1.psi.numpy()) < 1e-6
+
+
+def test_sharded_mixed_update_stop(spmd_results):
+    """The update-RMS metric of the mixed step on (2, 2): it converges,
+    the relative residual of the result is < 1e-3 (the JAX package's bar,
+    tests/test_mixed_precision.py), and it takes the port's single-device
+    mixed update-stop solve's steps to its psi within 1e-6."""
+    kw, _, _ = RANK_CASES["mixed-update-2x2"]
+    got = spmd_results["mixed-update-2x2"]
+    assert got["converged"]
+    spec = mgpoisson_torch.Spec(**kw)
+    f = point_charge_rhs(spec.size, spec.ndim, torch.float64, "cpu")
+    psi = torch.tensor(got["psi"], dtype=torch.float64)
+    assert float(ops.residual_norm(psi, f, spec.fine_h)
+                 / ops.residual_norm(torch.zeros_like(f), f, spec.fine_h)) < 1e-3
+    r1 = _single_device_solve(kw)
+    assert got["iterations"] == r1.iterations
+    assert _nmax(got["psi"], r1.psi.numpy()) < 1e-6
+
+
+def test_sharded_f64_solve_with_f32_sweeps(spmd_results):
+    """An f64 solve with f32 sweeps on (4, 1) (the f32 strip legs under
+    the refinement step): the port's single-device solve of the same spec,
+    psi within 1e-10 normalized."""
+    kw, _, _ = RANK_CASES["f64-f32-sweeps-4x1"]
+    got = spmd_results["f64-f32-sweeps-4x1"]
+    r1 = _single_device_solve(kw)
+    assert got["converged"] and got["iterations"] == r1.iterations
+    assert got["psi"].dtype == np.float64
+    assert _nmax(got["psi"], r1.psi.numpy()) < 1e-10
 
 
 def test_mesh_must_cover_the_group(spmd_results):
