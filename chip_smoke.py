@@ -127,12 +127,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
               block of 16384^2 beside K2/K3 on a whole 8192^2 array, and
               K11/K12 on one (2, 2) block of 256^3 beside K5/K6 on the whole
               256^3 per cell, each with its plain version and bound.  Then
-              (parity_sharded_bf16) the bf16 forms of K9/K10 the same way
-              at the 2D sides, every output bit-equal to the plain sharded
-              op in bf16 and, stitched, to the bf16 forms of K2/K3, Σr²
-              within 1e-5; (timing_sharded_bf16) their times on the same
-              block beside their f32 forms and the bf16 K2/K3 on the whole
-              8192^2 array.
+              (parity_sharded_bf16) the bf16 forms of K9-K12 the same way
+              at the 2D and 3D sides, every output bit-equal to the plain
+              sharded op in bf16 and, stitched, to the bf16 forms of K2/K3
+              (K5/K6), Σr² within 1e-5, each 3D row naming the tile each
+              leg ran (z-marching, or the cube tile at rbgs nu = 2's
+              deeper halo); (timing_sharded_bf16) their times on the same
+              blocks beside their f32 forms, the bf16 K2/K3 on the whole
+              8192^2 array and the bf16 K5/K6 on the whole 256^3 per cell.
 11. parity_sharded_packed — the packed strip kernels K13/K14 of the fast
               scheme's fine level on a mesh of one column against their plain
               versions at every block of (4, 1), at every fine side of the
@@ -157,12 +159,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
               sweeps) at 4096^2 on (2, 2) and (4, 1), its step count against
               the JAX package's (within one) and its history against the
               single-device mixed solve's, and at 16384^2 on (2, 2) against
-              the single-device mixed 16384^2 solve; the single-device
-              references run in this phase too.  An f64 re-check of each
-              gathered iterate, and every rank's launches (K9/K10 at every
-              sharded level >= 256, their bf16 forms in a mixed solve,
-              K11/K12 at the 3D fine level, K13/K14 at a packed fine level,
-              no single-device kernel).  With 4 or more cards, the tuned,
+              the single-device mixed 16384^2 solve (its step count), and
+              the mixed solve at 256^3 on (2, 2) and (4, 1), its step count
+              against the JAX package's (within one) and its history
+              against the single-device mixed 256^3 solve's, and at 512^3
+              on (2, 2) against the single-device mixed 512^3 solve (its
+              step count); the
+              single-device references run in this phase too.  An f64
+              re-check of each gathered iterate, and every rank's launches
+              (K9/K10 at every sharded level >= 256, K11/K12 at every 3D
+              one, their bf16 forms in a mixed solve, K13/K14 at a packed
+              fine level, no single-device kernel).  With 4 or more cards, the tuned,
               the packed and the mixed 4096^2 solves again over NCCL.
 
 The last lines are a JSON object of the off-path kernels (K1, K4 and their
@@ -173,8 +180,9 @@ theirs in the 256^3 solve and their bf16 forms with theirs in the mixed
 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve and their bf16
 forms with theirs in the bf16 4096^2 fast solve;
 K9, K10 with one rank's in the sharded 16384^2 solve, their bf16 forms
-in the sharded mixed 16384^2 solve, K11, K12 in the sharded 256^3 solve
-and K13, K14 in the sharded fast 16384^2 solve), the
+in the sharded mixed 16384^2 solve, K11, K12 in the sharded 256^3 solve,
+their bf16 forms in the sharded mixed 256^3 solve on (2, 2), and K13, K14
+in the sharded fast 16384^2 solve), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -336,19 +344,25 @@ SPMD_WORLD = 4
 SPEC_16K = MAIN_SPEC.with_(size=16384)
 FAST_16K = FAST_SPEC.with_(size=16384)
 # the mixed-precision solve under a mesh (SpmdCycle.step_mixed, the bf16
-# forms of K9/K10): MIXED_SPEC, and at BASELINE's scale-out size
+# forms of K9/K10): MIXED_SPEC, and at BASELINE's scale-out size; in 3D
+# (the bf16 forms of K11/K12) MIXED_SPEC_3D, and at 512^3, where two levels
+# are sharded and K11.bf16's from-zero flag is on the path
 MIXED_16K = MIXED_SPEC.with_(size=16384)
+MIXED_512 = MIXED_SPEC_3D.with_(size=512)
 SPMD_DIR = build.BUILD_DIR.parent / "spmd"
 # the solves of phase_spmd: (label, spec, mesh, warm-up solve first); the
 # fast scheme on (4, 1) runs its fine level packed on K13/K14, the mixed
-# solves their bf16 V-cycle on the bf16 forms of K9/K10
+# solves their bf16 V-cycle on the bf16 forms of K9/K10 (K11/K12 in 3D)
 SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4, 1), True),
               ("spmd256^3", SPEC_3D, (2, 2), True), ("spmd16384", SPEC_16K, (2, 2), False),
               ("spmd4096fast", FAST_SPEC, (4, 1), True),
               ("spmd16384fast", FAST_16K, (4, 1), False),
               ("spmd4096mixed", MIXED_SPEC, (2, 2), True),
               ("spmd4096mixed", MIXED_SPEC, (4, 1), True),
-              ("spmd16384mixed", MIXED_16K, (2, 2), False))
+              ("spmd16384mixed", MIXED_16K, (2, 2), False),
+              ("spmd256^3mixed", MIXED_SPEC_3D, (2, 2), True),
+              ("spmd256^3mixed", MIXED_SPEC_3D, (4, 1), True),
+              ("spmd512^3mixed", MIXED_512, (2, 2), False))
 # timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
 # 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
 TIMING_SHARDED_PACKED = (16384, 4, 8192)
@@ -415,6 +429,10 @@ KERNELS = {
                         "mgpoisson/kernels/pallas.py:4908"),
     "mg_sharded_pc3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
                         "mgpoisson/kernels/pallas.py:5060"),
+    "mg_sharded_rr3d_bf16": ("mgpoisson_torch/csrc/mg_sharded_rr3d_zm_bf16.cu",
+                             "mgpoisson/kernels/pallas.py:4908"),
+    "mg_sharded_pc3d_bf16": ("mgpoisson_torch/csrc/mg_sharded_pc3d_zm_bf16.cu",
+                             "mgpoisson/kernels/pallas.py:5060"),
     "mg_sharded_packed_rr": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
                              "mgpoisson/kernels/pallas.py:4499"),
     "mg_sharded_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
@@ -499,12 +517,14 @@ def phase_build():
     # the bf16 forms of K1-K3 and of K9/K10 (one instance per smoother and
     # tile row count; K9's without the deep tile's 40 rows), of K4-K6 (the
     # cube tile's three kernels, and one z-marching instance per step count,
-    # smoother and bc: 16 of K5, 22 of K6) and of K7/K8 (one per tile row
-    # count)
+    # smoother and bc: 16 of K5, 22 of K6), of K11/K12 (the same: two cube
+    # kernels, 16 + 22 strip-fed z-marching instances) and of K7/K8 (one
+    # per tile row count)
     flat2d = lambda fn: "3d" not in fn and "packed" not in fn
     for what, want, rank in (("K1-K3", 27, lambda fn: flat2d(fn) and "sharded" not in fn),
                              ("K9/K10", 15, lambda fn: flat2d(fn) and "sharded" in fn),
-                             ("K4-K6", 41, lambda fn: "3d" in fn),
+                             ("K4-K6", 41, lambda fn: "3d" in fn and "sharded" not in fn),
+                             ("K11/K12", 40, lambda fn: "3d" in fn and "sharded" in fn),
                              ("K7/K8", 6, lambda fn: "packed" in fn)):
         bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
         check(len(bf16) == want,
@@ -1411,14 +1431,13 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
     outputs stitched over the blocks against the single-device kernels on
     the whole grid.  Bit-equal: the stitched outputs (K9/K10 to K2/K3,
     K11/K12 to K5/K6) and every K11/K12 output to its plain version.  With
-    dtype bf16 (parity_sharded_bf16), the bf16 forms of K9/K10 on the 2D
+    dtype bf16 (parity_sharded_bf16), the bf16 forms of K9-K12 at the same
     sides, every output bit-equal to the plain sharded op in bf16 and,
-    stitched, to the bf16 forms of K2/K3."""
+    stitched, to the bf16 forms of K2/K3 (K5/K6).  A 3D row names the tile
+    each leg ran at its halo (csrc/stencil3d_zm.cuh mg3z_takes)."""
     bf16 = dtype == torch.bfloat16
     label = "parity_sharded_bf16" if bf16 else "parity_sharded"
     sides_of = sharded_sides()
-    if bf16:
-        sides_of = {2: sides_of[2]}   # the bf16 forms of K11/K12: ROADMAP A4c
     print(f"[{label}] global sides {sides_of} on the meshes {SHARDED_MESHES}")
     for ndim, sides in sides_of.items():
         k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim, dtype)
@@ -1481,6 +1500,10 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
                 w.check(row)
                 what = f"{t_rr}/{t_pc}: stitched bit-equal to {s_rr}/{s_pc}" + (
                     ", blocks bit-equal to plain" if exact else "")
+                if ndim == 3:
+                    tile = lambda halo: "z-marching" if cuda.zmarch3d(halo) else "cube"
+                    what += (f"; tiles {t_rr} {tile(d)} (halo {d}), {t_pc} {tile(d - 1)} "
+                             f"(halo {d - 1}), {t_pc} rnorm {tile(d)} (halo {d})")
                 row.append(what if not w.unequal else
                            f"NOT bit-equal ({what}): " + "; ".join(w.unequal))
                 torch.cuda.synchronize()
@@ -1497,16 +1520,15 @@ def phase_timing_sharded(dev, times, dtype=torch.float32):
     on the (0, 0) block of 256^3 beside K5/K6 on the whole 256^3 per cell
     (`times`: phase_timing's 3D times); each with its plain version and
     bound.  With dtype bf16 (timing_sharded_bf16), the bf16 forms of
-    K9/K10 on the same block beside their f32 forms' times in `times` and
-    beside the bf16 forms of K2/K3 on the whole 8192^2 array."""
+    K9-K12 on the same blocks beside their f32 forms' times in `times`, the
+    bf16 forms of K2/K3 on the whole 8192^2 array and those of K5/K6 on the
+    whole 256^3 per cell."""
     bf16 = dtype == torch.bfloat16
     label, sfx = ("timing_sharded_bf16", BF16) if bf16 else ("timing_sharded", "")
     out = {}
     d = exchange_depth(MAIN_SPEC)
     dv = ops.coarse_depth(d)
     for ndim, n in TIMING_SHARDED.items():
-        if bf16 and ndim == 3:
-            continue   # the bf16 forms of K11/K12: ROADMAP A4c
         k_rr, k_pc, _, _ = _sharded_names(ndim, dtype)
         u, f, V = (t.to(dtype) for t in _data(n, ndim, seed=17, dev=dev))
         shape = (n // 2, n // 2) + (n,) * (ndim - 2)
@@ -1537,12 +1559,12 @@ def phase_timing_sharded(dev, times, dtype=torch.float32):
         del ub, fb, vb, us, fs, vs
         torch.cuda.empty_cache()
         if ndim == 3:
-            single = RANK[3][0]
-            for sharded, whole in ((k_rr, single[1]), (k_rr + ".zero", single[1] + ".zero"),
-                                   (k_pc, single[2]), (k_pc + ".rnorm", single[2] + ".rnorm")):
+            rr, pc = (name + sfx for name in RANK[3][0][1:])
+            for sharded, whole in ((k_rr, rr), (k_rr + ".zero", rr + ".zero"),
+                                   (k_pc, pc), (k_pc + ".rnorm", pc + ".rnorm")):
                 per, per_whole = (out[sharded]["kernel_ms"] / cells,
                                   times[whole]["kernel_ms"] / n ** 3)
-                print(f"[timing_sharded] {sharded} on the block {shape}: {1e6 * per:.4f} ns of "
+                print(f"[{label}] {sharded} on the block {shape}: {1e6 * per:.4f} ns of "
                       f"device time per cell against {whole} on {n}^3: {1e6 * per_whole:.4f} "
                       f"ns ({per / per_whole:.3f}x)")
     # beside K9/K10: K2/K3 on a whole array of the block's side
@@ -1812,9 +1834,10 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
     """Every rank's result of one sharded solve: identical histories, the
     reference's cycle count and per-cycle relres (within RELRES_TOL), the
     f64 re-check of the gathered iterate, exact launches.  A mixed solve
-    (bf16 sweeps) takes the reference's step count (`ref_count`, by default
-    that of `ref_errs`) or one more or fewer (the bars of
-    phase_slice_mixed), its first err is 1.0 and its history f32."""
+    (bf16 sweeps) takes the JAX package's step count (`ref_count`) or one
+    more or fewer (the bars of phase_slice_mixed), or without `ref_count`
+    the port's single-device mixed solve's (that of `ref_errs`) exactly;
+    its first err is 1.0 and its history f32."""
     r0 = ranks[0]
     it, errs = r0["iterations"], r0["errs"]
     mixed = _cycle_spec(spec) is not spec
@@ -1831,7 +1854,7 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
     check(all(r["errs"] == errs and r["iterations"] == it for r in ranks),
           f"{shape}: the ranks' error histories differ")
     count = len(ref_errs) if ref_count is None else ref_count
-    check(r0["converged"] and abs(it - count) <= (1 if mixed else 0),
+    check(r0["converged"] and abs(it - count) <= (1 if mixed and ref_count else 0),
           f"{shape}: {it} cycles (converged={r0['converged']}), the reference takes {count}")
     if mixed:
         check(errs[0] == 1.0 and r0["errs_dtype"] == "torch.float32",
@@ -1861,13 +1884,14 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
 def phase_spmd(dev):
     """The sharded solves on 4 ranks sharing the card over gloo; the
     single-device 16384^2 solves (tuned, fast with its packed fine level,
-    and mixed) and the single-device mixed 4096^2 solve as the references
-    of the sharded ones (the mixed 4096^2 step count against the JAX
-    package's too)."""
+    and mixed) and the single-device mixed 4096^2, 256^3 and 512^3 solves
+    as the references of the sharded ones (the mixed 4096^2 and 256^3 step
+    counts against the JAX package's, within one)."""
     refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
             "spmd4096fast": JAX_ERRS_FAST[MAIN_N]}
     for label, spec in (("spmd16384", SPEC_16K), ("spmd16384fast", FAST_16K),
-                        ("spmd4096mixed", MIXED_SPEC), ("spmd16384mixed", MIXED_16K)):
+                        ("spmd4096mixed", MIXED_SPEC), ("spmd16384mixed", MIXED_16K),
+                        ("spmd256^3mixed", MIXED_SPEC_3D), ("spmd512^3mixed", MIXED_512)):
         mg, res, cycle_ms = _solve(spec, dev)
         what = (f"{spec.scheme}{' packed' if mg._packed else ''} "
                 f"{spec.dtype}{' with ' + spec.sweep_dtype + ' sweeps' if spec.sweep_dtype else ''}")
@@ -1877,9 +1901,15 @@ def phase_spmd(dev):
         refs[label] = res.errs.tolist()
         print(f"[spmd] single-device {shape} {what}: {res.iterations} cycles, per-cycle "
               f"wall ms median {statistics.median(cycle_ms):.3f}")
+        if spec is MIXED_SPEC_3D:   # its steps beside the JAX package's (CPU, xla)
+            gap = max(abs(e - ej) / ej for e, ej in zip(refs[label], JAX_ERRS_MIXED_3D))
+            print(f"[spmd] single-device {shape} {what} against the JAX package's "
+                  f"{JAX_ITERATIONS_MIXED_3D} steps: {res.iterations} steps, relres per step "
+                  f"within {gap:.3e} relative (the bf16 V-cycle rounds as torch does, not "
+                  "as XLA on the CPU: phase slice_mixed3d)")
         del mg, res
         torch.cuda.empty_cache()
-    counts = {"spmd4096mixed": JAX_ITERATIONS_MIXED}
+    counts = {"spmd4096mixed": JAX_ITERATIONS_MIXED, "spmd256^3mixed": JAX_ITERATIONS_MIXED_3D}
     t0 = time.perf_counter()
     ranks = _spawn_ranks("gloo", SPMD_CASES)
     print(f"[spmd] {SPMD_WORLD} ranks over gloo on {torch.cuda.device_count()} card(s): "
@@ -1887,8 +1917,9 @@ def phase_spmd(dev):
     launches = {}
     how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
     for i, (label, spec, mesh_shape, _) in enumerate(SPMD_CASES):
-        launches[label] = _check_spmd(label, spec, mesh_shape, [r[i] for r in ranks],
-                                      refs[label], how, counts.get(label))
+        launches[label, mesh_shape] = _check_spmd(label, spec, mesh_shape,
+                                                  [r[i] for r in ranks], refs[label], how,
+                                                  counts.get(label))
     if torch.cuda.device_count() >= SPMD_WORLD:
         cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast", "spmd4096mixed")
                  and c[2] == ((4, 1) if c[0] == "spmd4096fast" else (2, 2))]
@@ -1899,8 +1930,10 @@ def phase_spmd(dev):
     else:
         print(f"[spmd] NCCL: not run: {torch.cuda.device_count()} card(s), and NCCL refuses "
               f"two ranks on one GPU; the {SPMD_WORLD} ranks above ran over gloo")
-    return {"2d": launches["spmd16384"], "3d": launches["spmd256^3"],
-            "packed": launches["spmd16384fast"], "mixed": launches["spmd16384mixed"]}
+    return {"2d": launches["spmd16384", (2, 2)], "3d": launches["spmd256^3", (2, 2)],
+            "packed": launches["spmd16384fast", (4, 1)],
+            "mixed": launches["spmd16384mixed", (2, 2)],
+            "mixed3d": launches["spmd256^3mixed", (2, 2)]}
 
 
 def main():
@@ -1996,7 +2029,7 @@ def main():
     # 16384^2 (fast, packed)
     phase_parity_sharded(dev, worst)
     times.update(phase_timing_sharded(dev, times))
-    # ... and the bf16 forms of K9/K10, which the mixed solves under a mesh run
+    # ... and the bf16 forms of K9-K12, which the mixed solves under a mesh run
     phase_parity_sharded(dev, worst, torch.bfloat16)
     times.update(phase_timing_sharded(dev, times, torch.bfloat16))
     phase_parity_sharded_packed(dev, worst)
@@ -2015,7 +2048,8 @@ def main():
         if name.startswith("mg_packed"):
             solve = solve_fast_bf16 if name.endswith(BF16) else solve_fast
         if name.startswith("mg_sharded"):
-            solve = solve_spmd["3d" if name.endswith("3d") else
+            solve = solve_spmd["mixed3d" if name.endswith("3d" + BF16) else
+                               "3d" if name.endswith("3d") else
                                "packed" if name.startswith("mg_sharded_packed") else
                                "mixed" if name.endswith(BF16) else "2d"]
         if name in OFF_PATH:

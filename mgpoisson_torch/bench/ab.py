@@ -45,15 +45,16 @@ packed lanes, before the register tile).  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 
-With --dtype bfloat16 it times the bf16 forms of K1-K10 (the 2D legs at
+With --dtype bfloat16 it times the bf16 forms of K1-K12 (the 2D legs at
 every --sides side, the 3D legs at every --sides3d side, the packed legs
-K7/K8 at every --packed side, by default the --sides, and K9/K10 on the
-(0, 0) block of --sharded^2, as above) and nothing else: the other strip
-kernels are f32 only.  The other build must have the forms it times (an
-empty --sides3d times K1-K3 alone, for a build whose 3D legs are f32
-only; an empty --packed skips K7/K8, for a build whose packed legs are
-f32 only; --sharded 0 skips K9/K10, for a build whose strip kernels are
-f32 only).
+K7/K8 at every --packed side, by default the --sides, K9/K10 on the
+(0, 0) block of --sharded^2 and K11/K12 on that of --sharded3d^3, as
+above) and nothing else: the packed strip kernels K13/K14 are f32 only.
+The other build must have the forms it times (an empty --sides3d times
+K1-K3 alone, for a build whose 3D legs are f32 only; an empty --packed
+skips K7/K8, for a build whose packed legs are f32 only; --sharded 0
+skips K9/K10 and --sharded3d 0, the default, K11/K12, for a build whose
+strip kernels are f32 only).
 """
 
 from __future__ import annotations
@@ -201,11 +202,12 @@ def _cases_sharded(n, dev, dtype=torch.float32):
     return cases, inputs
 
 
-def _cases_sharded3d(n, smoother, nu, dev):
+def _cases_sharded3d(n, smoother, nu, dev, dtype=torch.float32):
     spec = Spec(size=n, ndim=3, dtype="float32", scheme="tuned")
     d = exchange_depth(spec)
     g = torch.Generator(device=dev).manual_seed(n + nu + 1)
-    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev) for s in (n, n, n // 2))
+    u, f, V = (torch.randn((s,) * 3, generator=g, device=dev).to(dtype)
+               for s in (n, n, n // 2))
     shape = (n // 2, n // 2, n)
     ub, us = block_from_grid(u, (0, 0), shape, d)
     fb, fs = block_from_grid(f, (0, 0), shape, d)
@@ -297,9 +299,8 @@ def _run(builds, label, cases, inputs, reps):
 
 def parse_args(argv=None):
     """The command line; with --dtype bfloat16 only the whole-grid legs
-    (2D, 3D and packed; --packed by default the --sides) and K9/K10 run
-    (--sharded3d and --sharded-packed are cleared: their kernels are f32
-    only)."""
+    (2D, 3D and packed; --packed by default the --sides) and K9-K12 run
+    (--sharded-packed is cleared: K13/K14 are f32 only)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--old", type=Path, required=True, help="the other build's csrc")
     ap.add_argument("--old-tile", type=int, default=0,
@@ -332,14 +333,14 @@ def parse_args(argv=None):
                     help="the other build's packed tile side (its K8/K14 rnorm partials, one "
                     "per T x T packed tile), 32 before the register tile; 0: the register tile")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="bfloat16: the bf16 forms of K1-K10 only")
+                    help="bfloat16: the bf16 forms of K1-K12 only")
     ap.add_argument("--reps", type=int, default=25)
     args = ap.parse_args(argv)
     args.dtype = getattr(torch, args.dtype)
     if args.packed is None:
         args.packed = args.sides if args.dtype == torch.bfloat16 else []
     if args.dtype == torch.bfloat16:
-        args.sharded3d, args.sharded_packed = 0, 0
+        args.sharded_packed = 0
     return args
 
 
@@ -378,8 +379,9 @@ def main(argv=None):
         del cases, inputs
         torch.cuda.empty_cache()
     for smoother, nu in (("wjacobi", 3), ("rbgs", 1)) if args.sharded3d else ():
-        cases, inputs = _cases_sharded3d(args.sharded3d, smoother, nu, dev)
-        _run(builds, f"(0, 0) block of {args.sharded3d}^3 on (2, 2) {smoother} nu={nu}",
+        cases, inputs = _cases_sharded3d(args.sharded3d, smoother, nu, dev, args.dtype)
+        dt = " bf16" if args.dtype == torch.bfloat16 else ""
+        _run(builds, f"(0, 0) block of {args.sharded3d}^3{dt} on (2, 2) {smoother} nu={nu}",
              cases, inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()

@@ -38,8 +38,8 @@ sharded solve (``kernels.use_packed_sharded``: the fine level on the
 packed strip kernels K13/K14, whose names start with mg_ like the others');
 ``--sweep-dtype bfloat16 --mesh MX MY`` the mixed-precision step under the
 partition (``shard.spmd.SpmdCycle.step_mixed``: the one-cell exchange of
-the residual, then the bf16 V-cycle on the bf16 forms of K9/K10, its
-strips exchanged in bf16).
+the residual, then the bf16 V-cycle on the bf16 forms of K9/K10, with
+--ndim 3 of K11/K12, its strips exchanged in bf16).
 """
 
 from __future__ import annotations

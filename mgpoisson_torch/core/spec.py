@@ -55,9 +55,8 @@ class Spec:
     a sweep_dtype other than dtype (mixed-precision refinement, e.g. the
     bf16 V-cycle of an f32 solve); sweep_dtype == dtype is the plain
     solve, as in the JAX package.  Under a mesh, mixed precision runs in 2D
-    (bf16 sweeps on the bf16 strip kernels) and, with f32 sweeps, in 3D;
-    bf16 sweeps in 3D and dtype='bfloat16' under a mesh raise
-    NotImplementedError naming the ROADMAP item.
+    and 3D (bf16 sweeps on the bf16 strip kernels); dtype='bfloat16' under
+    a mesh raises NotImplementedError naming the ROADMAP item.
     """
 
     size: int
@@ -141,15 +140,10 @@ class Spec:
                              "refinement step computes the "
                              "full-precision residual every cycle "
                              "anyway; use stop_check='every'")
-        if (self.mesh_shape is not None and mixed and self.ndim == 3
-                and self.sweep_dtype == "bfloat16"):
-            later("bf16 sweeps (sweep_dtype='bfloat16') in 3D under a mesh",
-                  "5 (bf16 and mixed precision): Queue 2 A4c, the bf16 forms of "
-                  "K11/K12")
         if self.mesh_shape is not None and self.dtype == "bfloat16":
             later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
-                  "precision): Queue 2 A4b, the pure bf16 solve under a mesh, "
-                  "with Queue 3 L2")
+                  "precision): Queue 1 item 7, A4b, the pure bf16 solve under a "
+                  "mesh, with Queue 3 L2")
         if self.stop_check == "adaptive":
             later("stop_check='adaptive'", "6 (the rest of the solver "
                   "surface)")

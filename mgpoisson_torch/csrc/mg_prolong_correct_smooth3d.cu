@@ -32,12 +32,13 @@
 // costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
 // H = 5.
 //
-// The bf16 form of K6 (mg_prolong_correct_smooth3d_bf16, with the rnorm
-// flag) runs both tiles on bf16 u, f, V and out, rounding as plain torch
-// does in bf16 (stencil3d.cuh, Mg3Elem): P(V) blended in f32 and rounded
-// once, sum(r^2) in f32 partials; bound 1.5625 arrays of f32 bytes.  Its
-// z-marching instances are in mg_prolong_correct_smooth3d_bf16.cu.  K12
-// has no bf16 form.
+// The bf16 forms of K6 (mg_prolong_correct_smooth3d_bf16) and K12
+// (mg_sharded_pc3d_bf16), with the rnorm flag, run both tiles on bf16 u,
+// f, V, out and strips (Mg3StripsBf16), rounding as plain torch does in
+// bf16 (stencil3d.cuh, Mg3Elem): P(V) blended in f32 and rounded once,
+// sum(r^2) in f32 partials; bound 1.5625 arrays of f32 bytes (K12.bf16
+// replaces _pc_sharded_3d in bf16).  Their z-marching instances are in
+// mg_prolong_correct_smooth3d_bf16.cu and mg_sharded_pc3d_zm_bf16.cu.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -80,13 +81,14 @@ static __device__ __forceinline__ float mg3_prolong(const float* sv, int SV, int
   return out;
 }
 
-// The leg on the block `blk`, its arrays of element type T (bf16 only
-// without kStrips); each entry point below instantiates it once.
-template <bool kStrips, class T>
+// The leg on the block `blk`, its arrays of element type T and its
+// strips of type Strips (Mg3StripsOf<T>, unread without kStrips); each
+// entry point below instantiates it once.
+template <bool kStrips, class T, class Strips>
 static __device__ __forceinline__ void mg_pc3d_body(
     const T* __restrict__ U, const T* __restrict__ F, const T* __restrict__ V,
     T* __restrict__ Uout, float* __restrict__ partials, const Mg3Block& blk,
-    const Mg3Strips& us, const Mg3Strips& fs, const Mg3Strips& vs, int side, int H, int nu,
+    const Strips& us, const Strips& fs, const Strips& vs, int side, int H, int nu,
     int smoother, int bc, int kind, float inv_hsq, float inv_adiag, float adiag) {
   using E = Mg3Elem<T>;
   extern __shared__ float smem[];
@@ -182,6 +184,19 @@ mg_sharded_pc3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                      inv_hsq, inv_adiag, adiag);
 }
 
+// The bf16 form of the above: bf16 arrays and strips, f32 partials.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_sharded_pc3d_bf16_kernel(const __nv_bfloat16* __restrict__ U,
+                            const __nv_bfloat16* __restrict__ F,
+                            const __nv_bfloat16* __restrict__ V,
+                            __nv_bfloat16* __restrict__ Uout, float* __restrict__ partials,
+                            Mg3Block blk, Mg3StripsBf16 us, Mg3StripsBf16 fs,
+                            Mg3StripsBf16 vs, int T, int H, int nu, int smoother, int bc,
+                            int kind, float inv_hsq, float inv_adiag, float adiag) {
+  mg_pc3d_body<true>(U, F, V, Uout, partials, blk, us, fs, vs, T, H, nu, smoother, bc, kind,
+                     inv_hsq, inv_adiag, adiag);
+}
+
 static size_t mg_pc3d_bytes(int tile, int H) {
   const size_t SV = (size_t)mg3_coarse_side(tile, H);
   return (mg3_tile_floats(tile, H) + SV * SV * SV + MG3_THREADS) * sizeof(float);
@@ -249,12 +264,43 @@ extern "C" int mg_prolong_correct_smooth3d_bf16(
                                     stream);
 }
 
-// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
-// f strips D >= H deep, V's coarse strips DV >= ceil(H/2) + 1 deep (the
-// left/right ones null on a mesh of one column).  The z-marching tile
-// where it takes the halo (with rnorm one partial per block of mg3z_grid
-// over the block), else the cube tile of side `tile` (one partial per
-// block of the (ceil(n/T), ceil(nyl/T), ceil(nzl/T)) grid).
+// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level in
+// element type T (A its z-marching arguments); u and f strips D >= H deep,
+// V's coarse strips DV >= ceil(H/2) + 1 deep (the left/right ones null on
+// a mesh of one column).  The z-marching instance `zm` (null: none for the
+// step count and smoother) where the tile takes the halo (with rnorm one
+// partial per block of mg3z_grid over the block), else the cube kernel
+// `cube` of side `tile` (one partial per block of the (ceil(n/T),
+// ceil(nyl/T), ceil(nzl/T)) grid).
+template <class A, class T, class Zm, class Cube>
+static int mg_sharded_pc3d_block(Zm zm, Cube cube, const T* u, const T* f, const T* V, T* out,
+                                 float* partials, const T* ut, const T* ub, const T* ul,
+                                 const T* ur, const T* ft, const T* fb, const T* fl,
+                                 const T* fr, const T* vt, const T* vb, const T* vl,
+                                 const T* vr, int n, int nzl, int nyl, int z0, int y0, int D,
+                                 int DV, int tile, int nu, int smoother, int bc, int kind,
+                                 float inv_hsq, float inv_adiag, float adiag, int rnorm,
+                                 cudaStream_t stream) {
+  using S = Mg3StripsOf<T>;
+  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
+  const Mg3Block blk{n, nzl, nyl, z0, y0};
+  if (D < H || DV < mg3_coarse_halo(H)) return (int)cudaErrorInvalidValue;
+  const S us{ut, ub, ul, ur, D}, fs{ft, fb, fl, fr, D}, vs{vt, vb, vl, vr, DV};
+  if (mg3z_takes(H)) {
+    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
+              mg3z_chunk(n, nyl, nzl, H), kind, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(zm, blk, a, mg3z_bytes(steps, false, true), stream,
+                       Mg3zStripsOf<T>{blk, us, fs, vs});
+  }
+  const size_t bytes = mg_pc3d_bytes(tile, H);
+  const int rc = mg3_prepare((const void*)cube, blk, tile, bytes);
+  if (rc != 0) return rc;
+  cube<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
+      u, f, V, out, rnorm ? partials : nullptr, blk, us, fs, vs, tile, H, nu, smoother, bc,
+      kind, inv_hsq, inv_adiag, adiag);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, float* out,
                                float* partials, const float* ut, const float* ub,
                                const float* ul, const float* ur, const float* ft,
@@ -264,23 +310,23 @@ extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, f
                                int D, int DV, int tile, int nu, int smoother, int bc,
                                int kind, float inv_hsq, float inv_adiag, float adiag,
                                int rnorm, cudaStream_t stream) {
-  const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
-  const Mg3Block blk{n, nzl, nyl, z0, y0};
-  if (D < H || DV < mg3_coarse_halo(H)) return (int)cudaErrorInvalidValue;
-  if (mg3z_takes(H)) {
-    const Mg3zArgs a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
-                     mg3z_chunk(n, nyl, nzl, H), kind, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg_sharded_pc3d_zm_pick(steps, smoother, bc), blk, a,
-                       mg3z_bytes(steps, false, true), stream,
-                       Mg3zStrips{blk, Mg3Strips{ut, ub, ul, ur, D},
-                                  Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{vt, vb, vl, vr, DV}});
-  }
-  const size_t bytes = mg_pc3d_bytes(tile, H);
-  const int rc = mg3_prepare((const void*)mg_sharded_pc3d_kernel, blk, tile, bytes);
-  if (rc != 0) return rc;
-  mg_sharded_pc3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
-      u, f, V, out, rnorm ? partials : nullptr, blk, Mg3Strips{ut, ub, ul, ur, D},
-      Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{vt, vb, vl, vr, DV}, tile, H, nu, smoother, bc,
-      kind, inv_hsq, inv_adiag, adiag);
-  return (int)cudaGetLastError();
+  return mg_sharded_pc3d_block<Mg3zArgs>(
+      mg_sharded_pc3d_zm_pick(mg_steps(nu, smoother), smoother, bc), mg_sharded_pc3d_kernel,
+      u, f, V, out, partials, ut, ub, ul, ur, ft, fb, fl, fr, vt, vb, vl, vr, n, nzl, nyl, z0,
+      y0, D, DV, tile, nu, smoother, bc, kind, inv_hsq, inv_adiag, adiag, rnorm, stream);
+}
+
+extern "C" int mg_sharded_pc3d_bf16(
+    const __nv_bfloat16* u, const __nv_bfloat16* f, const __nv_bfloat16* V, __nv_bfloat16* out,
+    float* partials, const __nv_bfloat16* ut, const __nv_bfloat16* ub, const __nv_bfloat16* ul,
+    const __nv_bfloat16* ur, const __nv_bfloat16* ft, const __nv_bfloat16* fb,
+    const __nv_bfloat16* fl, const __nv_bfloat16* fr, const __nv_bfloat16* vt,
+    const __nv_bfloat16* vb, const __nv_bfloat16* vl, const __nv_bfloat16* vr, int n, int nzl,
+    int nyl, int z0, int y0, int D, int DV, int tile, int nu, int smoother, int bc, int kind,
+    float inv_hsq, float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
+  return mg_sharded_pc3d_block<Mg3zArgsBf16>(
+      mg_sharded_pc3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
+      mg_sharded_pc3d_bf16_kernel, u, f, V, out, partials, ut, ub, ul, ur, ft, fb, fl, fr, vt,
+      vb, vl, vr, n, nzl, nyl, z0, y0, D, DV, tile, nu, smoother, bc, kind, inv_hsq, inv_adiag,
+      adiag, rnorm, stream);
 }

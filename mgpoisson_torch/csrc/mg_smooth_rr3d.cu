@@ -31,20 +31,23 @@
 // costs (T + 2H)^3 / T^3 = 11.4 cells loaded per interior cell at T = 8,
 // H = 5.
 //
-// The bf16 form of K5 (mg_smooth_rr3d_bf16, with the from-zero flag) runs
-// both tiles on bf16 u, f and R, rounding as plain torch does in bf16
+// The bf16 forms of K5 (mg_smooth_rr3d_bf16) and K11
+// (mg_sharded_rr3d_bf16), with the from-zero flag, run both tiles on bf16
+// u, f, R and strips (Mg3StripsBf16), rounding as plain torch does in bf16
 // (stencil3d.cuh, Mg3Elem): bound 1.5625 arrays of f32 bytes, 1.0625 from
-// zero.  Its z-marching instances are in mg_smooth_rr3d_bf16.cu.  K11 has
-// no bf16 form.
+// zero (K11.bf16 replaces _rr_sharded_3d in bf16: the JAX package's
+// sharded_plan3 admits bf16).  Their z-marching instances are in
+// mg_smooth_rr3d_bf16.cu and mg_sharded_rr3d_zm_bf16.cu.
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
-// The leg on the block `blk`, its arrays of element type T (bf16 only
-// without kStrips); each entry point below instantiates it once.
-template <bool kStrips, class T>
+// The leg on the block `blk`, its arrays of element type T and its
+// strips of type Strips (Mg3StripsOf<T>, unread without kStrips); each
+// entry point below instantiates it once.
+template <bool kStrips, class T, class Strips>
 static __device__ __forceinline__ void mg_smooth_rr3d_body(
     const T* __restrict__ U, const T* __restrict__ F, T* __restrict__ Uout,
-    T* __restrict__ Rout, const Mg3Block& blk, const Mg3Strips& us, const Mg3Strips& fs,
+    T* __restrict__ Rout, const Mg3Block& blk, const Strips& us, const Strips& fs,
     int side, int H, int nu, int smoother, int bc, float inv_hsq, float inv_adiag, float adiag) {
   using E = Mg3Elem<T>;
   extern __shared__ float smem[];
@@ -112,6 +115,18 @@ mg_sharded_rr3d_kernel(const float* __restrict__ U, const float* __restrict__ F,
                             inv_adiag, adiag);
 }
 
+// The bf16 form of the above: bf16 arrays and strips.
+__global__ void __launch_bounds__(MG3_THREADS)
+mg_sharded_rr3d_bf16_kernel(const __nv_bfloat16* __restrict__ U,
+                            const __nv_bfloat16* __restrict__ F,
+                            __nv_bfloat16* __restrict__ Uout, __nv_bfloat16* __restrict__ Rout,
+                            Mg3Block blk, Mg3StripsBf16 us, Mg3StripsBf16 fs, int T, int H,
+                            int nu, int smoother, int bc, float inv_hsq, float inv_adiag,
+                            float adiag) {
+  mg_smooth_rr3d_body<true>(U, F, Uout, Rout, blk, us, fs, T, H, nu, smoother, bc, inv_hsq,
+                            inv_adiag, adiag);
+}
+
 // K5 at halos up to MG3Z_MAX_HALO: the z-marching tile, one instance per
 // step count, smoother and bc (mg3z_pick_from).
 template <int STEPS, int kSm, bool kFace>
@@ -171,11 +186,39 @@ extern "C" int mg_smooth_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* 
       u, f, out, R, n, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero, stream);
 }
 
-// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level; u and
-// f strips D >= H deep (ut..ur unused from zero; ul/ur and fl/fr null on a
-// mesh of one column).  The z-marching tile where it takes the halo (its
-// chunk from the chunk table over the block), else the cube tile of side
-// `tile`.
+// One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level in
+// element type T (A its z-marching arguments); u and f strips D >= H deep
+// (ut..ur unused from zero; ul/ur and fl/fr null on a mesh of one column).
+// The z-marching instance `zm` (null: none for the step count and
+// smoother) where the tile takes the halo (its chunk from the chunk table
+// over the block), else the cube kernel `cube` of side `tile`.
+template <class A, class T, class Zm, class Cube>
+static int mg_sharded_rr3d_block(Zm zm, Cube cube, const T* u, const T* f, T* out, T* R,
+                                 const T* ut, const T* ub, const T* ul, const T* ur,
+                                 const T* ft, const T* fb, const T* fl, const T* fr, int n,
+                                 int nzl, int nyl, int z0, int y0, int D, int tile, int nu,
+                                 int smoother, int bc, float inv_hsq, float inv_adiag,
+                                 float adiag, int zero, cudaStream_t stream) {
+  using S = Mg3StripsOf<T>;
+  const int steps = mg_steps(nu, smoother), H = steps + 1;
+  const Mg3Block blk{n, nzl, nyl, z0, y0};
+  if (D < H) return (int)cudaErrorInvalidValue;
+  const S us = zero ? S{nullptr, nullptr, nullptr, nullptr, D} : S{ut, ub, ul, ur, D};
+  if (mg3z_takes(H)) {
+    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
+              mg3z_chunk(n, nyl, nzl, H), 0, inv_hsq, inv_adiag, adiag};
+    return mg3z_launch(zm, blk, a, mg3z_bytes(steps, true, false), stream,
+                       Mg3zStripsOf<T>{blk, us, S{ft, fb, fl, fr, D}, S{}});
+  }
+  const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
+  const int rc = mg3_prepare((const void*)cube, blk, tile, bytes);
+  if (rc != 0) return rc;
+  cube<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
+      zero ? nullptr : u, f, out, R, blk, us, S{ft, fb, fl, fr, D}, tile, H, nu, smoother, bc,
+      inv_hsq, inv_adiag, adiag);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float* R,
                                const float* ut, const float* ub, const float* ul,
                                const float* ur, const float* ft, const float* fb,
@@ -183,23 +226,23 @@ extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float
                                int z0, int y0, int D, int tile, int nu, int smoother, int bc,
                                float inv_hsq, float inv_adiag, float adiag, int zero,
                                cudaStream_t stream) {
-  const int steps = mg_steps(nu, smoother), H = steps + 1;
-  const Mg3Block blk{n, nzl, nyl, z0, y0};
-  if (D < H) return (int)cudaErrorInvalidValue;
-  const Mg3Strips us = zero ? Mg3Strips{nullptr, nullptr, nullptr, nullptr, D}
-                            : Mg3Strips{ut, ub, ul, ur, D};
-  if (mg3z_takes(H)) {
-    const Mg3zArgs a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
-                     mg3z_chunk(n, nyl, nzl, H), 0, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(mg_sharded_rr3d_zm_pick(steps, smoother, bc), blk, a,
-                       mg3z_bytes(steps, true, false), stream,
-                       Mg3zStrips{blk, us, Mg3Strips{ft, fb, fl, fr, D}, Mg3Strips{}});
-  }
-  const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
-  const int rc = mg3_prepare((const void*)mg_sharded_rr3d_kernel, blk, tile, bytes);
-  if (rc != 0) return rc;
-  mg_sharded_rr3d_kernel<<<mg3_grid(blk, tile), MG3_THREADS, bytes, stream>>>(
-      zero ? nullptr : u, f, out, R, blk, us, Mg3Strips{ft, fb, fl, fr, D}, tile, H, nu,
-      smoother, bc, inv_hsq, inv_adiag, adiag);
-  return (int)cudaGetLastError();
+  return mg_sharded_rr3d_block<Mg3zArgs>(
+      mg_sharded_rr3d_zm_pick(mg_steps(nu, smoother), smoother, bc), mg_sharded_rr3d_kernel,
+      u, f, out, R, ut, ub, ul, ur, ft, fb, fl, fr, n, nzl, nyl, z0, y0, D, tile, nu, smoother,
+      bc, inv_hsq, inv_adiag, adiag, zero, stream);
+}
+
+extern "C" int mg_sharded_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
+                                    __nv_bfloat16* out, __nv_bfloat16* R,
+                                    const __nv_bfloat16* ut, const __nv_bfloat16* ub,
+                                    const __nv_bfloat16* ul, const __nv_bfloat16* ur,
+                                    const __nv_bfloat16* ft, const __nv_bfloat16* fb,
+                                    const __nv_bfloat16* fl, const __nv_bfloat16* fr, int n,
+                                    int nzl, int nyl, int z0, int y0, int D, int tile, int nu,
+                                    int smoother, int bc, float inv_hsq, float inv_adiag,
+                                    float adiag, int zero, cudaStream_t stream) {
+  return mg_sharded_rr3d_block<Mg3zArgsBf16>(
+      mg_sharded_rr3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
+      mg_sharded_rr3d_bf16_kernel, u, f, out, R, ut, ub, ul, ur, ft, fb, fl, fr, n, nzl, nyl,
+      z0, y0, D, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero, stream);
 }

@@ -55,9 +55,9 @@
 // the block index addresses the arrays, and a strip-fed launch reads its
 // halo from the neighbours' strips (Mg3Strips).
 //
-// The bf16 forms of K4-K6 run both tiles on bf16 arrays, as the 2D
-// register tile does (stencil.cuh, Mg2Elem): the element type T of the
-// loads, the stores and the arithmetic below, the values in f32 (the
+// The bf16 forms of K4-K6 and K11/K12 run both tiles on bf16 arrays, as
+// the 2D register tile does (stencil.cuh, Mg2Elem): the element type T of
+// the loads, the stores and the arithmetic below, the values in f32 (the
 // cube tile's shared memory, the z-marching tile's registers and planes
 // stay f32: every value is bf16 already, so no byte budget changes), a
 // round to bf16 (Mg3Elem<T>::rd, nothing for f32) after every add and
@@ -68,8 +68,9 @@
 // (ops._up_leg_correct; the Pallas blend), the restriction's eight values
 // are summed in f32 (mg3_sum8) and rounded once, as torch's sum of a bf16
 // tensor, and sum(r^2) squares the bf16 residual in f32.  The strip
-// entries K11/K12 are f32 only; the f32 instances are those of the
-// f32-only tiles, instruction for instruction.
+// entries K11/K12 take bf16 strips of their own (Mg3StripsBf16), so
+// Mg3Strips and every f32 kernel parameter stay as they were; the f32
+// instances are those of the f32-only tiles, instruction for instruction.
 #pragma once
 
 #include "stencil.cuh"
@@ -112,6 +113,28 @@ struct Mg3Strips {
   const float* right;
   int D;
 };
+
+// The same on bf16 arrays (the bf16 forms of K11/K12): a struct of its own,
+// so Mg3Strips, and every f32 instance's kernel parameter, stay as they were.
+struct Mg3StripsBf16 {
+  const __nv_bfloat16* top;
+  const __nv_bfloat16* bot;
+  const __nv_bfloat16* left;
+  const __nv_bfloat16* right;
+  int D;
+};
+
+// The strips of element type T: Mg3StripsOf<float> is Mg3Strips.
+template <class T>
+struct Mg3StripsFor {
+  using type = Mg3Strips;
+};
+template <>
+struct Mg3StripsFor<__nv_bfloat16> {
+  using type = Mg3StripsBf16;
+};
+template <class T>
+using Mg3StripsOf = typename Mg3StripsFor<T>::type;
 
 struct Mg3Tile {
   int n;         // grid side
@@ -157,20 +180,24 @@ static __device__ __forceinline__ bool mg3_owned(const Mg3Tile& t, int i, int j,
 
 // Block cell (lz, ly, x) of an array fed by strips (as mg_fetch in 2D);
 // the caller has checked that the cell lies in the grid, and a cell beyond
-// the strips gives 0.
-static __device__ __forceinline__ float mg3_fetch(const float* body, const Mg3Strips& s,
-                                                  int lz, int ly, int x, int nzl, int nyl,
-                                                  int nx) {
+// the strips gives 0.  T: the element type of the body and of the strips S
+// (Mg3StripsOf<T>); the value in f32.
+template <class T, class S>
+static __device__ __forceinline__ float mg3_fetch(const T* body, const S& s, int lz, int ly,
+                                                  int x, int nzl, int nyl, int nx) {
+  using E = Mg3Elem<T>;
   const int D = s.D;
   if (ly >= 0 && ly < nyl) {
-    if (lz >= 0 && lz < nzl) return body[((size_t)lz * nyl + ly) * nx + x];
-    if (lz < 0 && lz >= -D) return s.top[((size_t)(lz + D) * nyl + ly) * nx + x];
-    if (lz >= nzl && lz < nzl + D) return s.bot[((size_t)(lz - nzl) * nyl + ly) * nx + x];
+    if (lz >= 0 && lz < nzl) return E::ld(body + ((size_t)lz * nyl + ly) * nx + x);
+    if (lz < 0 && lz >= -D) return E::ld(s.top + ((size_t)(lz + D) * nyl + ly) * nx + x);
+    if (lz >= nzl && lz < nzl + D)
+      return E::ld(s.bot + ((size_t)(lz - nzl) * nyl + ly) * nx + x);
     return 0.f;
   }
   if (lz < -D || lz >= nzl + D || s.left == nullptr) return 0.f;
-  if (ly < 0 && ly >= -D) return s.left[((size_t)(lz + D) * D + (ly + D)) * nx + x];
-  if (ly >= nyl && ly < nyl + D) return s.right[((size_t)(lz + D) * D + (ly - nyl)) * nx + x];
+  if (ly < 0 && ly >= -D) return E::ld(s.left + ((size_t)(lz + D) * D + (ly + D)) * nx + x);
+  if (ly >= nyl && ly < nyl + D)
+    return E::ld(s.right + ((size_t)(lz + D) * D + (ly - nyl)) * nx + x);
   return 0.f;
 }
 
@@ -263,8 +290,9 @@ static __device__ void mg3_load(float* su, float* sf, const T* U, const T* F,
 // mg3_load for a block fed by strips: each tile cell from the body or a
 // strip, by its block index; cells outside the grid read 0.  U == nullptr
 // means u is identically zero and is not read.
-static __device__ void mg3_load_strips(float* su, float* sf, const float* U, const float* F,
-                                       const Mg3Strips& us, const Mg3Strips& fs,
+template <class T, class Strips>
+static __device__ void mg3_load_strips(float* su, float* sf, const T* U, const T* F,
+                                       const Strips& us, const Strips& fs,
                                        const Mg3Tile& t) {
   const int S = t.S;
   for (int k = threadIdx.x; k < S * S * S; k += blockDim.x) {

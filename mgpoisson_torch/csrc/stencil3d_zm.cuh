@@ -1,8 +1,9 @@
-// The z-marching (2.5D) tile of the whole-grid 3D legs, K5 mg_smooth_rr3d
-// and K6 mg_prolong_correct_smooth3d, at halos H <= MG3Z_MAX_HALO (the
-// tuned scheme's K5 at H = 4, K6 at 3 and with rnorm at 4; the fast
-// scheme's rbgs nu = 1 at 2 and 3).  Deeper halos, K4 mg_smooth3d and the
-// strip entries K11/K12 keep the cube tile of stencil3d.cuh.
+// The z-marching (2.5D) tile of the 3D legs, K5 mg_smooth_rr3d and K6
+// mg_prolong_correct_smooth3d and their strip entries K11 mg_sharded_rr3d
+// and K12 mg_sharded_pc3d (kStrips, on a rank's block), at halos H <=
+// MG3Z_MAX_HALO (the tuned scheme's K5 at H = 4, K6 at 3 and with rnorm at
+// 4; the fast scheme's rbgs nu = 1 at 2 and 3).  Deeper halos and K4
+// mg_smooth3d keep the cube tile of stencil3d.cuh.
 //
 // A block owns an xy column of T x T interior cells (T = 32 - 2H) and a
 // chunk of its z planes (mg3z_chunk: the whole column at 256^3).  It loads
@@ -54,15 +55,17 @@
 // order), so u, R and the corrected u equal the plain ops bit for bit.
 // Only sum(r^2) is summed in another order (one partial per block).
 //
-// The bf16 forms of K5 and K6 (the element type of Mg3zArgsOf) run this
-// tile on bf16 arrays with every add and multiply rounded to bf16 as plain
-// torch rounds it (stencil3d.cuh, Mg3Elem): the registers, the stage
-// planes and the rings stay f32 (their values are bf16), so the shared
-// memory is the f32 forms'; the rounds add two instructions per op to an
-// issue-bound tile.  Their instances have sources of their own
-// (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu), so nvcc
-// builds them beside the f32 ones.  The strip entries (kStrips) are f32
-// only.
+// The bf16 forms of K5/K6 and K11/K12 (the element type of Mg3zArgsOf)
+// run this tile on bf16 arrays with every add and multiply rounded to
+// bf16 as plain torch rounds it (stencil3d.cuh, Mg3Elem): the registers,
+// the stage planes and the rings stay f32 (their values are bf16), so the
+// shared memory is the f32 forms'; the rounds add two instructions per op
+// to an issue-bound tile.  The strip entries read bf16 strips
+// (Mg3zStripsBf16, of Mg3StripsBf16), structs of their own so that
+// Mg3zStrips and every f32 kernel parameter stay as they were.  Their
+// instances have sources of their own (mg_smooth_rr3d_bf16.cu,
+// mg_prolong_correct_smooth3d_bf16.cu, mg_sharded_rr3d_zm_bf16.cu,
+// mg_sharded_pc3d_zm_bf16.cu), so nvcc builds them beside the f32 ones.
 #pragma once
 
 #include "stencil3d.cuh"
@@ -195,14 +198,34 @@ struct Mg3zStrips {
   Mg3Strips us, fs, vs;
 };
 
+// The same with bf16 strips (the bf16 forms of K11/K12).
+struct Mg3zStripsBf16 {
+  Mg3Block blk;
+  Mg3StripsBf16 us, fs, vs;
+};
+
+// The strip-fed leg's strips of element type T: Mg3zStripsOf<float> is
+// Mg3zStrips.
+template <class T>
+struct Mg3zStripsFor {
+  using type = Mg3zStrips;
+};
+template <>
+struct Mg3zStripsFor<__nv_bfloat16> {
+  using type = Mg3zStripsBf16;
+};
+template <class T>
+using Mg3zStripsOf = typename Mg3zStripsFor<T>::type;
+
 // kStrips: the address of block plane z (-D <= z < nzl + D) in column
 // (yb, x) of an array fed by strips: the body or its top or bot strip for
 // a row of the block (0 <= yb < nyl), the left or right strip for a row
 // of the y halo.  Computed only at a switch of source; the march adds a
-// plane stride, nyl * n or D * n, in between.
-static __device__ __forceinline__ const float* mg3z_src(const float* body, const Mg3Strips& s,
-                                                        int z, int yb, int x, int nzl, int nyl,
-                                                        int n) {
+// plane stride, nyl * n or D * n, in between.  T: the element type of the
+// body and of the strips S (Mg3StripsOf<T>).
+template <class T, class S>
+static __device__ __forceinline__ const T* mg3z_src(const T* body, const S& s, int z, int yb,
+                                                    int x, int nzl, int nyl, int n) {
   const long long D = s.D, pl = (long long)nyl * n;
   if (yb >= 0 && yb < nyl) {
     const long long c = (long long)yb * n + x;
@@ -210,16 +233,18 @@ static __device__ __forceinline__ const float* mg3z_src(const float* body, const
     if (z < nzl) return body + z * pl + c;
     return s.bot + (z - nzl) * pl + c;
   }
-  const float* side = yb < 0 ? s.left : s.right;
+  const T* side = yb < 0 ? s.left : s.right;
   return side + ((z + D) * D + (yb < 0 ? yb + D : yb - nyl)) * n + x;
 }
 
 // kStrips: K12's coarse cell (Z, cy, cx) of V, global index, from V's
 // block and coarse strips; 0 outside the grid (c_in: the column is inside)
 // and beyond the strips, where the ring's last prefetch may lie (one plane
-// past the bottom strip at H = 4).
-static __device__ __forceinline__ float mg3z_coarse(const float* V, const Mg3zStrips& b,
-                                                    bool c_in, int Z, int cy, int cx) {
+// past the bottom strip at H = 4).  T: V's element type, B its
+// Mg3zStripsOf<T>; the value in f32.
+template <class T, class B>
+static __device__ __forceinline__ float mg3z_coarse(const T* V, const B& b, bool c_in, int Z,
+                                                    int cy, int cx) {
   const Mg3Block& k = b.blk;
   const int nc = k.n / 2;
   return c_in && mg_in(Z, nc) ? mg3_fetch(V, b.vs, Z - k.z0 / 2, cy - k.y0 / 2, cx, k.nzl / 2,
@@ -237,9 +262,10 @@ static __device__ __forceinline__ float mg3z_coarse(const float* V, const Mg3zSt
 // the arrays, the stores and K11's R, and the halo comes from the strips.
 // Without it every block-index term below is the global one, and the code
 // is the whole-grid leg's.  A: Mg3zArgs or Mg3zArgsBf16, whose Elem is
-// the arrays' element type (bf16 only without kStrips).
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class A>
-static __device__ __forceinline__ void mg3z_leg(const A& a, const Mg3zStrips& b) {
+// the arrays' element type; B: Mg3zStripsOf<Elem> (unread without
+// kStrips).
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class A, class B>
+static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
   using Elem = typename A::Elem;
   using E = Mg3Elem<Elem>;
   extern __shared__ float smem[];
@@ -510,6 +536,7 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const Mg3zStrips& b)
 using Mg3zKernel = void (*)(Mg3zArgs);                // the whole grid
 using Mg3zKernelBf16 = void (*)(Mg3zArgsBf16);        // the whole grid, bf16
 using Mg3zStripKernel = void (*)(Mg3zArgs, Mg3zStrips);  // a rank's block
+using Mg3zStripKernelBf16 = void (*)(Mg3zArgsBf16, Mg3zStripsBf16);  // a rank's block, bf16
 
 // The instance of a leg's kernel template K<STEPS, kSm, kFace> for a step
 // count, smoother and bc known at run time: every step count up to
@@ -568,6 +595,11 @@ static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const
 // smoother.
 Mg3zStripKernel mg_sharded_rr3d_zm_pick(int steps, int smoother, int bc);
 Mg3zStripKernel mg_sharded_pc3d_zm_pick(int steps, int smoother, int bc);
+
+// ... and their bf16 forms, in mg_sharded_rr3d_zm_bf16.cu and
+// mg_sharded_pc3d_zm_bf16.cu.
+Mg3zStripKernelBf16 mg_sharded_rr3d_zm_bf16_pick(int steps, int smoother, int bc);
+Mg3zStripKernelBf16 mg_sharded_pc3d_zm_bf16_pick(int steps, int smoother, int bc);
 
 // The bf16 instances of K5 and K6 on this tile, each in a source of its
 // own (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu) for

@@ -73,13 +73,12 @@ def use_sharded_kernels(spec, global_side: int, local_shape, device) -> bool:
     run the strip kernels K9-K12 iff ``use_kernels`` holds for the level's
     GLOBAL side (on the card, backend not 'torch', side >=
     kernel_min_size, sweep counts within the caps), a strip kernel takes
-    the level's dtype (``cuda.sharded_supports``: f32 in 2D and 3D, bf16 in
-    2D only, the bf16 forms of K9/K10), and every sharded axis of the
-    rank's block is deep enough for the strips from its immediate
-    neighbours: >= D, and its coarse half >= the coarse strips' depth
-    ops.coarse_depth(D).  Every other sharded level runs the plain
-    versions (kernels.ops); a bf16 3D level is refused before it gets here
-    (``core.spec``, ROADMAP Queue 2 A4c)."""
+    the level's dtype (``cuda.sharded_supports``: f32 or bf16, in 2D and
+    3D; the bf16 forms of K9-K12 exist in both ranks), and every sharded
+    axis of the rank's block is deep enough for the strips from its
+    immediate neighbours: >= D, and its coarse half >= the coarse strips'
+    depth ops.coarse_depth(D).  Every other sharded level runs the plain
+    versions (kernels.ops)."""
     if (not use_kernels(spec, global_side, device)
             or not cuda.sharded_supports(spec.ndim, getattr(torch, spec.dtype))):
         return False

@@ -53,11 +53,12 @@ SIGNATURES = {
     "mg_sharded_packed_pc": ((_P,) * 11 + (_I,) * 7 + (_F, _F, _I, _P), _I),
     "mg_error_string": ((_I,), ctypes.c_char_p),
 }
-# the bf16 forms of K1-K10 take what their f32 forms take
+# the bf16 forms of K1-K12 take what their f32 forms take
 SIGNATURES.update({name + "_bf16": SIGNATURES[name] for name in
                    ("mg_smooth", "mg_smooth_rr", "mg_prolong_correct_smooth", "mg_smooth3d",
                     "mg_smooth_rr3d", "mg_prolong_correct_smooth3d", "mg_packed_rr",
-                    "mg_packed_pc", "mg_sharded_rr", "mg_sharded_pc")})
+                    "mg_packed_pc", "mg_sharded_rr", "mg_sharded_pc", "mg_sharded_rr3d",
+                    "mg_sharded_pc3d")})
 
 
 def sources(csrc: Path = CSRC):

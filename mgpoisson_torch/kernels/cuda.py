@@ -42,16 +42,16 @@ register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
 
-K1-K10 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
+K1-K12 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
 ``mg_prolong_correct_smooth_bf16``, ``mg_smooth3d_bf16``,
 ``mg_smooth_rr3d_bf16``, ``mg_prolong_correct_smooth3d_bf16``,
 ``mg_packed_rr_bf16``, ``mg_packed_pc_bf16``, ``mg_sharded_rr_bf16``,
-``mg_sharded_pc_bf16``: the same sources and tiles, bf16 arrays and
-strips, each op rounded to bf16 as plain torch rounds it), which the
-wrappers launch for a bf16 square 2D or cubic 3D array, a bf16 packed one
-and a bf16 2D block.  The 3D strip kernels K11/K12 are f32 only for now
-(ROADMAP Queue 2 A4c); the packed strip kernels K13/K14 are f32 only, as
-the JAX package's packed strip kernels are.
+``mg_sharded_pc_bf16``, ``mg_sharded_rr3d_bf16``, ``mg_sharded_pc3d_bf16``:
+the same sources and tiles, bf16 arrays and strips, each op rounded to
+bf16 as plain torch rounds it), which the wrappers launch for a bf16
+square 2D or cubic 3D array, a bf16 packed one and a bf16 2D or 3D
+block.  The packed strip kernels K13/K14 are f32 only, as the JAX
+package's packed strip kernels are.
 
 Each wrapper has the signature of its counterpart in ``kernels.ops`` (the
 plain version beside it).  A tensor on the CPU goes to that plain
@@ -132,7 +132,8 @@ launches = dict.fromkeys((
     "mg_sharded_rr_bf16", "mg_sharded_rr_bf16.zero", "mg_sharded_pc_bf16",
     "mg_sharded_pc_bf16.rnorm",
     "mg_sharded_rr3d", "mg_sharded_rr3d.zero", "mg_sharded_pc3d",
-    "mg_sharded_pc3d.rnorm", "mg_sharded_packed_rr", "mg_sharded_packed_pc",
+    "mg_sharded_pc3d.rnorm", "mg_sharded_rr3d_bf16", "mg_sharded_rr3d_bf16.zero",
+    "mg_sharded_pc3d_bf16", "mg_sharded_pc3d_bf16.rnorm", "mg_sharded_packed_rr", "mg_sharded_packed_pc",
     "mg_sharded_packed_pc.rnorm"), 0)
 
 
@@ -461,14 +462,6 @@ def _check_packed(name, up, nu, *others):
     _check_operands(name, up, *others)
 
 
-def _f32_only(dtype, item):
-    """Why an f32-only kernel refuses a bf16 operand: the ROADMAP item
-    that brings its bf16 form."""
-    if dtype != torch.bfloat16:
-        return ""
-    return f" (f32 only: the bf16 form is ROADMAP Queue 2 {item})"
-
-
 def _packed_scalars(h):
     """-h^2/4 and 1/h^2, as the plain packed ops use them."""
     hsq = h * h
@@ -527,10 +520,9 @@ def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
 # ------------------------------------------------ one block of a sharded level
 
 def sharded_supports(ndim: int, dtype: torch.dtype) -> bool:
-    """Whether a strip kernel takes a block of this rank and dtype: f32 in
-    2D and 3D (K9-K12), bf16 in 2D (the bf16 forms of K9/K10; those of
-    K11/K12 are ROADMAP Queue 2 A4c)."""
-    return dtype == torch.float32 or (dtype == torch.bfloat16 and ndim == 2)
+    """Whether a strip kernel takes a block of this rank and dtype: f32 or
+    bf16 in 2D and 3D (K9-K12 and their bf16 forms)."""
+    return ndim in (2, 3) and dtype in (torch.float32, torch.bfloat16)
 
 
 def _check_sharded(name, f, origin, n_global, nu, smoother, bc, residual, *others):
@@ -545,10 +537,8 @@ def _check_sharded(name, f, origin, n_global, nu, smoother, bc, residual, *other
     if (not sharded_supports(f.ndim, f.dtype)
             or not supports(n_global, f.dtype, nu, smoother, f.ndim, residual)
             or bc not in BCS):
-        why = (_f32_only(f.dtype, "A4c, the bf16 forms of K11/K12")
-               if f.ndim == 3 else "")
         raise ValueError(f"{name}: no kernel for n={n_global} ndim={f.ndim} {f.dtype} "
-                         f"nu={nu} smoother={smoother!r} bc={bc!r}{why}")
+                         f"nu={nu} smoother={smoother!r} bc={bc!r}")
     (nl, ml), (r0, c0) = f.shape[:2], origin
     if (min(nl, ml) < 2 or (nl | ml | r0 | c0) & 1 or min(r0, c0) < 0
             or r0 + nl > n_global or c0 + ml > n_global):

@@ -25,8 +25,8 @@ its communication explicit:
 - mixed-precision refinement (a spec's sweep_dtype other than its dtype:
   ``step_mixed``, the JAX package's step_mixed_local): the residual in
   dtype after a one-cell exchange, one cycle in sweep_dtype on A e = r from
-  a zeros array (in 2D bf16 the bf16 forms of K9/K10, its strips exchanged
-  in bf16), psi += e in dtype.
+  a zeros array (in bf16 the bf16 forms of K9/K10 in 2D and of K11/K12 in
+  3D, its strips exchanged in bf16), psi += e in dtype.
 - the fast scheme on a mesh of one column (``kernels.use_packed_sharded``)
   keeps each rank's fine block checkerboard-packed for the whole solve
   (``cycle_packed``, ``step_packed``): a block of whole rows packs to the
@@ -41,7 +41,7 @@ go as they are.  The backend is the caller's choice
 (``multihost.initialize``): nothing here switches it.
 
 Not ported here (ROADMAP.md Queue 1 items 7 and 12): the pure bf16 step
-(A4b), bf16 sweeps in 3D (A4c), the adaptive cycles and FMG.
+(A4b), the adaptive cycles and FMG.
 """
 
 from __future__ import annotations

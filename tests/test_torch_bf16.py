@@ -145,12 +145,14 @@ ADMITTED = [dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
             dict(dtype="bfloat16", scheme="fast", size=256),   # packed: the bf16 forms of K7/K8
             dict(dtype="bfloat16", smoother="rbgs", cycle="w", size=1024),
             # mixed precision under a mesh (SpmdCycle.step_mixed): bf16 sweeps
-            # in 2D on the bf16 forms of K9/K10, f32 sweeps on K9-K12
+            # on the bf16 forms of K9/K10 in 2D and K11/K12 in 3D, f32 sweeps
+            # on K9-K12
             dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)),
+            dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2)),
+            dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(4, 1)),
             dict(sweep_dtype="float32", dtype="float64", mesh_shape=(4, 1)),
             dict(sweep_dtype="float32", dtype="float64", ndim=3, mesh_shape=(2, 2))]
-NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4b"),
-              (dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2)), "A4c")]
+NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4b")]
 
 
 @pytest.mark.parametrize("kw", ADMITTED, ids=repr)
@@ -237,11 +239,12 @@ def test_kernel_dispatch_takes_bf16_levels_on_the_card_only():
 
 
 def test_sharded_dispatch_takes_bf16_2d_blocks_only():
-    """The strip kernels' bf16 forms exist for 2D blocks (K9/K10) only: the
-    dispatch rule routes a bf16 2D level to them on the card and a bf16 3D
-    level nowhere (its K11/K12 forms are ROADMAP A4c); the wrappers' check
-    admits a bf16 2D block (it fails only for want of the card here) and
-    refuses a bf16 3D one, naming A4c."""
+    """The strip kernels' bf16 forms exist for 2D blocks (K9/K10) and, since
+    ROADMAP A4c, for 3D ones (K11/K12): the dispatch rule routes a bf16
+    level of either rank whose blocks pass the strip-depth rule to them on
+    the card, and none on the CPU; the wrappers' check admits a bf16 2D and
+    3D block (it fails only for want of the card here); the signatures and
+    counters hold both ranks' names."""
     from mgpoisson_torch.kernels import use_sharded_kernels
     spec = mgpoisson_torch.Spec(size=4096, sweep_dtype="bfloat16", mesh_shape=(2, 2))
     inner = spec.with_(dtype="bfloat16", mesh_shape=None)      # SpmdCycle.inner's spec
@@ -249,24 +252,29 @@ def test_sharded_dispatch_takes_bf16_2d_blocks_only():
     assert use_sharded_kernels(inner, 4096, (2048, 2048), "cpu") is False
     assert use_sharded_kernels(spec, 4096, (2048, 2048), "cuda") is True   # f32
     cube = mgpoisson_torch.Spec(size=256, ndim=3, dtype="bfloat16")
-    assert use_sharded_kernels(cube, 256, (128, 128, 256), "cuda") is False
+    assert use_sharded_kernels(cube, 256, (128, 128, 256), "cuda") is True
+    assert use_sharded_kernels(cube, 256, (128, 256, 256), "cuda") is True   # (2, 1)
+    assert use_sharded_kernels(cube, 256, (128, 128, 256), "cpu") is False
+    assert use_sharded_kernels(cube, 128, (64, 64, 128), "cuda") is False   # below 256
+    assert use_sharded_kernels(cube.with_(kernel_min_size=8), 16, (4, 4, 16), "cuda") is False
     assert use_sharded_kernels(cube.with_(dtype="float32"), 256, (128, 128, 256), "cuda")
-    assert cuda.sharded_supports(2, torch.bfloat16) and cuda.sharded_supports(3, torch.float32)
-    assert not cuda.sharded_supports(3, torch.bfloat16)
-    assert not cuda.sharded_supports(2, torch.float64)
+    for ndim in (2, 3):
+        assert cuda.sharded_supports(ndim, torch.bfloat16)
+        assert cuda.sharded_supports(ndim, torch.float32)
+        assert not cuda.sharded_supports(ndim, torch.float64)
     a = ((0, 0), 64, 3, "wjacobi", "ghost0", True)
     f2 = torch.empty((32, 32), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        cuda._check_sharded("mg_sharded_rr_bf16", f2, *a)
     f3 = torch.empty((32, 32, 64), dtype=torch.bfloat16, device="meta")
-    with pytest.raises(ValueError, match="no kernel.*A4c"):
-        cuda._check_sharded("mg_sharded_rr3d_bf16", f3, *a)
+    for name, f in (("mg_sharded_rr_bf16", f2), ("mg_sharded_rr3d_bf16", f3)):
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            cuda._check_sharded(name, f, *a)
     assert cuda._name("mg_sharded_pc", f2) == "mg_sharded_pc_bf16"
-    for name in ("mg_sharded_rr_bf16", "mg_sharded_rr_bf16.zero", "mg_sharded_pc_bf16",
-                 "mg_sharded_pc_bf16.rnorm"):
-        assert name in cuda.launches
-    for name in ("mg_sharded_rr", "mg_sharded_pc"):
-        assert SIGNATURES[name + "_bf16"] == SIGNATURES[name]
+    assert cuda._name("mg_sharded_rr", f3) == "mg_sharded_rr3d_bf16"
+    assert cuda._name("mg_sharded_pc", f3) == "mg_sharded_pc3d_bf16"
+    for base in ("mg_sharded_rr", "mg_sharded_pc", "mg_sharded_rr3d", "mg_sharded_pc3d"):
+        flag = ".zero" if "_rr" in base else ".rnorm"
+        assert base + "_bf16" in cuda.launches and base + "_bf16" + flag in cuda.launches
+        assert SIGNATURES[base + "_bf16"] == SIGNATURES[base]
 
 
 # --------------------------------------------------------------- the state

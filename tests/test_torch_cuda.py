@@ -678,8 +678,10 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
 
 @pytest.mark.cuda
 def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
-    """A bf16 2D block runs the bf16 form of K9; a bf16 3D block is
-    refused, naming the ROADMAP item of K11/K12's bf16 forms (A4c)."""
+    """A bf16 2D block runs the bf16 form of K9 and a bf16 3D block that of
+    K11 (ROADMAP Queue 2 A4a and A4c, both done): each from zero, on the
+    card, bf16 out, one launch each."""
+    cuda.reset_launches()
     f = torch.zeros((32, 32), dtype=torch.bfloat16, device=card)
     strips = (torch.zeros((4, 32), dtype=torch.bfloat16, device=card),) * 2 + (None, None)
     u, R = cuda.smooth_rr_sharded(None, f, None, strips, (0, 0), 32, 1 / 32, 3, "wjacobi",
@@ -688,24 +690,32 @@ def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
     f3 = torch.zeros((16, 16, 32), dtype=torch.bfloat16, device=card)
     s3 = (torch.zeros((4, 16, 32), dtype=torch.bfloat16, device=card),) * 2 + (
         torch.zeros((24, 4, 32), dtype=torch.bfloat16, device=card),) * 2
-    with pytest.raises(ValueError, match="A4c"):
-        cuda.smooth_rr_sharded(None, f3, None, s3, (0, 0), 32, 1 / 32, 3, "wjacobi",
-                               "ghost0", zero=True)
+    u3, R3 = cuda.smooth_rr_sharded(None, f3, None, s3, (0, 0), 32, 1 / 32, 3, "wjacobi",
+                                    "ghost0", zero=True)
+    assert u3.dtype == R3.dtype == torch.bfloat16 and R3.shape == (8, 8, 16)
+    assert not u3.any() and not R3.any()                  # f = 0, u = 0: all zero
+    assert cuda.launches["mg_sharded_rr_bf16.zero"] == 1
+    assert cuda.launches["mg_sharded_rr3d_bf16"] == cuda.launches["mg_sharded_rr3d_bf16.zero"] == 1
+    torch.cuda.synchronize()
 
 
-# The bf16 forms of K9/K10 on every block of the meshes (blocks below one
-# tile, of one and of several): each output bit-equal to the plain sharded
-# op in bf16 and, stitched, to the bf16 forms of K2/K3 on the whole grid.
-SHARDED_BF16 = [(64, (2, 2)), (64, (4, 1)), (256, (2, 2)), (256, (4, 1)), (4096, (2, 2))]
+# The bf16 forms of K9/K10 and K11/K12 on every block of the meshes
+# (blocks below one tile, of one and of several; in 3D both tiles: rbgs
+# nu = 2 runs K11.bf16 on the cube tile): each output bit-equal to the
+# plain sharded op in bf16 and, stitched, to the bf16 forms of K2/K3
+# (K5/K6) on the whole grid.
+SHARDED_BF16 = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (2, 256, (4, 1)),
+                (2, 4096, (2, 2)), (3, 32, (2, 2)), (3, 32, (4, 1)), (3, 256, (2, 2)),
+                (3, 256, (4, 1))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,mesh", SHARDED_BF16)
+@pytest.mark.parametrize("ndim,n,mesh", SHARDED_BF16)
 @pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 1), ("rbgs", 2),
                                          ("jacobi", 1)])
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
-def test_bf16_sharded_kernels_equal_plain(card, n, mesh, smoother, nu, bc):
-    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card))
+def test_bf16_sharded_kernels_equal_plain(card, ndim, n, mesh, smoother, nu, bc):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card, ndim))
     d = ops.sweep_radius(smoother) * nu + 1
     cols = mesh[1] > 1
     h = 1.0 / n
@@ -716,7 +726,7 @@ def test_bf16_sharded_kernels_equal_plain(card, n, mesh, smoother, nu, bc):
                        *cuda.prolong_correct_smooth_rnorm(u, f, V, h, nu, smoother, bc, kind))
     st = {k: [torch.empty_like(x) for x in v[:2]] for k, v in whole.items()}
     r2 = dict.fromkeys(("inject", "bilinear"), 0.0)
-    for origin, shape in _blocks(n, mesh, 2):
+    for origin, shape in _blocks(n, mesh, ndim):
         ub, us = block_from_grid(u, origin, shape, d, cols)
         fb, fs = block_from_grid(f, origin, shape, d, cols)
         vb, vs = block_from_grid(V, [o // 2 for o in origin], [s // 2 for s in shape],
@@ -773,9 +783,18 @@ def test_bf16_sharded_launch_counters(card):
     cuda.smooth_rr_sharded(None, ub, None, us, *a, zero=True)
     cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear", rnorm=True)
     cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear")
+    # ... and a 3D block (K11/K12's bf16 forms)
+    u3, _, V3 = (t.to(torch.bfloat16) for t in _data(32, 5, card, 3))
+    ub, us = block_from_grid(u3, (0, 16), (16, 16, 32), 4)
+    vb, vs = block_from_grid(V3, (0, 8), (8, 8, 16), 3)
+    a = ((0, 16), 32, 1 / 32, 3, "wjacobi", "face")
+    cuda.smooth_rr_sharded(None, ub, None, us, *a, zero=True)
+    cuda.pc_smooth_sharded(ub, ub, vb, us, us, vs, *a, "bilinear", rnorm=True)
     want = dict.fromkeys(cuda.launches, 0)
     want.update({"mg_sharded_rr_bf16": 2, "mg_sharded_rr_bf16.zero": 1,
-                 "mg_sharded_pc_bf16": 2, "mg_sharded_pc_bf16.rnorm": 1})
+                 "mg_sharded_pc_bf16": 2, "mg_sharded_pc_bf16.rnorm": 1,
+                 "mg_sharded_rr3d_bf16": 1, "mg_sharded_rr3d_bf16.zero": 1,
+                 "mg_sharded_pc3d_bf16": 1, "mg_sharded_pc3d_bf16.rnorm": 1})
     assert cuda.launches == want
 
 

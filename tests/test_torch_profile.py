@@ -173,18 +173,19 @@ def test_profile_reads_the_3d_bf16_solves(flags, tag, tmp_path):
 
 
 def test_ab_takes_the_bf16_forms_only():
-    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K10 at the
+    """bench/ab.py --dtype bfloat16 times the bf16 forms of K1-K12 at the
     2D, 3D and packed sides (the packed ones by default the 2D ones) and on
-    the (2, 2) block, and clears every f32-only part."""
+    the (2, 2) blocks, and clears every f32-only part (K13/K14)."""
     import torch
     from mgpoisson_torch.bench import ab
     args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024",
-                          "--packed", "4096", "--sharded3d", "256"])
+                          "--packed", "4096", "--sharded3d", "256", "--sharded-packed",
+                          "16384"])
     assert args.dtype == torch.bfloat16 and args.sides == [4096, 1024]
     assert args.sides3d == [256, 512]
-    # K9/K10 have bf16 forms: --sharded stays; K11-K14's are f32 only
+    # K9-K12 have bf16 forms: --sharded and --sharded3d stay; K13/K14 are f32 only
     assert (args.sharded, args.sharded3d, args.packed, args.sharded_packed) == (
-        16384, 0, [4096], 0)
+        16384, 256, [4096], 0)
     args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024"])
     assert args.packed == [4096, 1024]
     assert ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--packed"]).packed == []
@@ -204,6 +205,9 @@ def test_ab_takes_the_bf16_forms_only():
     cases, inputs = ab._cases_sharded(16, torch.device("cpu"), torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in ab._flat(inputs["K10.rnorm"]))
     assert set(cases) == {"K9", "K9.zero", "K10", "K10.rnorm"}
+    cases, inputs = ab._cases_sharded3d(16, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for t in ab._flat(inputs["K12.rnorm"]))
+    assert set(cases) == {"K11", "K11.zero", "K12", "K12.rnorm"}
 
 
 def test_packed_order_compares_the_residual_orders():

@@ -154,6 +154,11 @@ RANK_CASES = {
     "mixed-solve-2x2": (dict(MIXED, stop="residual", tol=1e-8), (2, 2), "solve"),
     "mixed-solve-4x1": (dict(MIXED, stop="residual", tol=1e-8), (4, 1), "solve"),
     "mixed-update-2x2": (dict(MIXED, stop="update", tol=2e-5), (2, 2), "solve"),
+    # ... in 3D: the bf16 V-cycle on the plain legs of K11/K12's bf16 forms
+    "mixed-3d-solve-2x2": (dict(MIXED, size=32, ndim=3, stop="residual", tol=1e-8), (2, 2),
+                           "solve"),
+    "mixed-3d-solve-4x1": (dict(MIXED, size=32, ndim=3, stop="residual", tol=1e-8), (4, 1),
+                           "solve"),
     "f64-f32-sweeps-4x1": (dict(size=64, dtype="float64", sweep_dtype="float32",
                                 scheme="tuned", stop="residual", tol=1e-10,
                                 replicate_below=8), (4, 1), "solve"),
@@ -265,13 +270,13 @@ def _single_device_solve(kw):
     return mgpoisson_torch.MultigridPoisson(mgpoisson_torch.Spec(**kw), device="cpu").solve()
 
 
-@pytest.mark.parametrize("cid", ["mixed-solve-2x2", "mixed-solve-4x1"])
+@pytest.mark.parametrize("cid", ["mixed-solve-2x2", "mixed-solve-4x1", "mixed-3d-solve-2x2"])
 def test_sharded_mixed_solve_matches_jax(spmd_results, cid):
-    """The mixed residual-stop solve (f32, bf16 sweeps) on 4 ranks: the
-    JAX package's spmd mixed solve's step count within one and its psi
-    within 1e-5 normalized (tests/test_mixed_precision.py's bar), the
-    first err 1.0 (the incoming iterate's), and the port's single-device
-    mixed solve's psi within 1e-6."""
+    """The mixed residual-stop solve (f32, bf16 sweeps) on 4 ranks, 64^2 or
+    32^3: the JAX package's spmd mixed solve's step count within one and
+    its psi within 1e-5 normalized (tests/test_mixed_precision.py's bar),
+    the first err 1.0 (the incoming iterate's), and the port's
+    single-device mixed solve's psi within 1e-6."""
     import mgpoisson
     kw, mesh_shape, _ = RANK_CASES[cid]
     got = spmd_results[cid]
@@ -281,6 +286,20 @@ def test_sharded_mixed_solve_matches_jax(spmd_results, cid):
     assert rN.converged and abs(got["iterations"] - rN.iterations) <= 1
     assert _nmax(got["psi"], np.asarray(rN.psi)) < 1e-5
     r1 = _single_device_solve(kw)
+    assert _nmax(got["psi"], r1.psi.numpy()) < 1e-6
+
+
+def test_sharded_mixed_3d_solve_on_a_mesh_of_one_column(spmd_results):
+    """The mixed 32^3 solve on (4, 1) (blocks of whole y planes), held to
+    the port's single-device mixed solve only, to spare a second JAX
+    compile: its step count and its psi within 1e-6 normalized, the first
+    err 1.0 and the history in f32."""
+    kw, _, _ = RANK_CASES["mixed-3d-solve-4x1"]
+    got = spmd_results["mixed-3d-solve-4x1"]
+    assert got["converged"] and got["errs"][0] == 1.0 and got["errs"].dtype == np.float32
+    assert got["psi_shape"] == (8, 32, 32)
+    r1 = _single_device_solve(kw)
+    assert got["iterations"] == r1.iterations
     assert _nmax(got["psi"], r1.psi.numpy()) < 1e-6
 
 
