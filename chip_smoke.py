@@ -30,11 +30,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
 4b. parity_bf16 — the bf16 forms of K1-K3 against their plain torch
               versions in bf16, at every side the two bf16 solves give the
               kernels (4096 ... 256) and at 128 ... 2, x bc x (jacobi and
-              wjacobi nu 1-3, rbgs nu 1-2), both prolongation kinds, from
-              zero and with rnorm: every output bit-equal, sum(r^2) within
-              1e-5; then (timing_bf16) each form at 4096^2 with the main
-              path's settings beside its f32 form's device time from the
-              same run, each with its bound and share of it.
+              wjacobi nu 1-3, rbgs nu 1-2), and at 256 and 16 with wjacobi
+              nu 3 and rbgs nu 1 on inputs x 2^-120 and at h = 0.01, 0.3,
+              both prolongation kinds, from zero and with rnorm: every
+              output bit-equal, sum(r^2) within 1e-5; then (timing_bf16)
+              each form at 4096^2 with the main path's settings beside its
+              f32 form's device time from the same run, each with its
+              bound and share of it.
 4c. slice_mixed — the mixed-precision refinement solve (f32 with a bf16
               V-cycle, tuned 4096^2, the JAX package's bench config):
               refinement steps against the JAX package's count (equal or
@@ -42,10 +44,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
               f64 re-check, the bf16 forms' launches, the same solve on
               plain ops (the same history, bit for bit), and device ms,
               launches and wall per step from torch.profiler beside the f32
-              tuned 4096^2 solve's.  Then (slice_bf16) the pure bf16 solve
-              (12 cycles, tol 1e-30): its history beside the JAX package's
-              and beside its plain-ops twin (equal), its launches, and a
-              traced bf16 V-cycle (K1's bf16 form).
+              tuned 4096^2 solve's.  Then (mixed_off_grid) the mixed
+              solve at 1024^2 with h = 0.01 (1/2^k at no level), tol 1e-8:
+              its launches, and its plain-ops twin bit-equal.  Then
+              (slice_bf16) the pure bf16 solve (12 cycles, tol 1e-30): its
+              history beside the JAX package's and beside its plain-ops
+              twin (equal), its launches, and a traced bf16 V-cycle (K1's
+              bf16 form).
 5. parity3d — each 3D kernel (K4-K6) against its plain version at every side
               the 3D paths give the kernels (512, 256) x bc x smoother x nu,
               both prolongation kinds, rnorm and from zero, and at every side
@@ -323,6 +328,18 @@ MIXED_SPEC = MAIN_SPEC.with_(sweep_dtype="bfloat16")
 BF16_SPEC = MAIN_SPEC.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
 BF16_SETTINGS = tuple([(sm, nu) for sm in ("jacobi", "wjacobi") for nu in (1, 2, 3)]
                       + [("rbgs", 1), ("rbgs", 2)])
+# ... and on inputs scaled by 2^-120 (u, f, V), so that Jacobi quotients
+# (and their sums) go subnormal in bf16, where bf16x2 arithmetic must keep
+# them as torch does: the 2D bf16 parity and its sharded form at these
+# sides with the tuned scheme's and the fast scheme's coarse settings
+SUBNORMAL_SCALE = 2.0 ** -120
+SUBNORMAL_SIDES = (256, 16)
+SUBNORMAL_SETTINGS = (("wjacobi", 3), ("rbgs", 1))
+# ... and at spacings h that are not 1/2^k, where 1/h^2, 1/adiag and adiag
+# are not bf16 values and the 2D bf16 legs multiply by them in f32, as
+# torch multiplies by an f32 scalar (csrc/stencil.cuh Mg2K): at the same
+# sides and settings
+OFF_GRID_H = (0.01, 0.3)
 # ... in 3D: the mixed 256^3 and 512^3 solves and the pure bf16 256^3 one
 MIXED_SPEC_3D = SPEC_3D.with_(sweep_dtype="bfloat16")
 BF16_SPEC_3D = SPEC_3D.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
@@ -421,9 +438,9 @@ KERNELS = {
                       "mgpoisson/kernels/pallas.py:4080"),
     "mg_sharded_pc": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
                       "mgpoisson/kernels/pallas.py:4228"),
-    "mg_sharded_rr_bf16": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
+    "mg_sharded_rr_bf16": ("mgpoisson_torch/csrc/mg_sharded_rr_bf16.cu",
                            "mgpoisson/kernels/pallas.py:4080"),
-    "mg_sharded_pc_bf16": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
+    "mg_sharded_pc_bf16": ("mgpoisson_torch/csrc/mg_sharded_pc_bf16.cu",
                            "mgpoisson/kernels/pallas.py:4228"),
     "mg_sharded_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
                         "mgpoisson/kernels/pallas.py:4908"),
@@ -595,9 +612,15 @@ def note(worst, kernel, tag, got, want, row, tol=PARITY_TOL, exact=False):
           f"{tag} {row[0]}: not bit-equal to its plain version (max |diff| {ab:.3e})")
 
 
-def note_r2(tag, got, want, row, tol=RNORM_TOL):
+def rel_r2(got, want):
+    """The relative difference of two sums of r^2; the absolute one where
+    want is 0 (r^2 of a residual near bf16's subnormals underflows in f32)."""
     got, want = float(got), float(want)
-    rel2 = abs(got / want - 1.0) if want != 0 else abs(got)
+    return abs(got / want - 1.0) if want != 0 else abs(got)
+
+
+def note_r2(tag, got, want, row, tol=RNORM_TOL):
+    rel2 = rel_r2(got, want)
     row.append(f"{tag}={rel2:.1e}")
     check(rel2 <= tol, f"{row[0]}: {tag} sum(r^2) relative difference {rel2:.3e} > {tol}")
 
@@ -959,14 +982,30 @@ def probe_restrict_order_3d(dev):
 
 
 def _bf16_parity_cases(ndim):
-    """(side, settings) of the bf16 parity: in 2D every level side the two
-    bf16 solves give the kernels and 128 ... 2, x BF16_SETTINGS; in 3D
-    512^3 with the main path's wjacobi 3, and 256^3 and 128 ... 2 with
-    SMALL_SETTINGS_3D (both tiles)."""
+    """(side, settings, scale of the inputs, spacing h or None for 1/side)
+    of the bf16 parity: in 2D every level side the two bf16 solves give the
+    kernels and 128 ... 2, x BF16_SETTINGS, then the subnormal set and the
+    OFF_GRID_H set; in 3D 512^3 with the main path's wjacobi 3, and 256^3
+    and 128 ... 2 with SMALL_SETTINGS_3D (both tiles)."""
     if ndim == 2:
-        return [(n, BF16_SETTINGS) for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES)]
-    return [(512, (("wjacobi", 3),))] + [(n, SMALL_SETTINGS_3D)
-                                        for n in (256,) + SMALL_SIDES]
+        return ([(n, BF16_SETTINGS, 1.0, None)
+                 for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES)]
+                + [(n, SUBNORMAL_SETTINGS, SUBNORMAL_SCALE, None) for n in SUBNORMAL_SIDES]
+                + [(n, SUBNORMAL_SETTINGS, 1.0, h) for h in OFF_GRID_H for n in SUBNORMAL_SIDES])
+    return [(512, (("wjacobi", 3),), 1.0, None)] + [(n, SMALL_SETTINGS_3D, 1.0, None)
+                                                   for n in (256,) + SMALL_SIDES]
+
+
+def _case_label(n, scale, h, ndim=None):
+    """A parity row's side, with its input scale and spacing where they
+    are not 1 and 1/side."""
+    return (f"n={n}{'' if ndim is None else f'^{ndim}'}"
+            f"{'' if scale == 1 else ' x2^-120'}{'' if h is None else f' h={h}'}")
+
+
+def _subnormals(x):
+    """The count of nonzero values of bf16 x below bf16's least normal."""
+    return int(((x != 0) & (x.float().abs() < torch.finfo(torch.bfloat16).tiny)).sum())
 
 
 def phase_parity_bf16(dev, worst, ndim=2):
@@ -978,15 +1017,18 @@ def phase_parity_bf16(dev, worst, ndim=2):
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     k_smooth, k_rr, k_pc = k_smooth + BF16, k_rr + BF16, k_pc + BF16
     label = "parity_bf16" if ndim == 2 else "parity_bf16_3d"
-    for n, settings in _bf16_parity_cases(ndim):
-        u, f, V = (t.to(torch.bfloat16) for t in _data(n, ndim, seed=n + 2, dev=dev))
-        h = 1.0 / n
+    for n, settings, scale, h_case in _bf16_parity_cases(ndim):
+        u, f, V = ((t * scale).to(torch.bfloat16)
+                   for t in _data(n, ndim, seed=n + 2, dev=dev))
+        h = 1.0 / n if h_case is None else h_case
         for bc in ("ghost0", "face"):
             for smoother, nu in settings:
-                row = [f"n={n} {bc} {smoother} nu={nu}"]
+                row = [f"{_case_label(n, scale, h_case)} {bc} {smoother} nu={nu}"]
                 a = (h, nu, smoother, bc)
-                note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a), ops.smooth(u, f, *a),
-                     row, exact=True)
+                want = ops.smooth(u, f, *a)
+                note(worst, k_smooth, t_smooth, cuda.smooth(u, f, *a), want, row, exact=True)
+                if scale != 1:
+                    row.append(f"subnormal {t_smooth}={_subnormals(want)}/{want.numel()}")
                 for tag, fk, fp, args in (
                         (t_rr, cuda.smooth_residual_restrict,
                          ops.smooth_residual_restrict, (u, f)),
@@ -1010,6 +1052,36 @@ def phase_parity_bf16(dev, worst, ndim=2):
                 print(f"[{label}] " + " ".join(row) + "; bit-equal")
         del u, f, V
         torch.cuda.empty_cache()
+
+
+def phase_mixed_off_grid(dev):
+    """The mixed solve at 1024^2 with the spacing OFF_GRID_H[0], which is
+    1/2^k at no level, so the bf16 forms of K2/K3 multiply by the level
+    constants in f32 (csrc/stencil.cuh Mg2K): to tol 1e-8 (the f32
+    residual of such an h stalls near 2e-10), one K2.bf16 from u and one
+    K3.bf16 per step at each kernel level, K2.bf16 from zero below the
+    fine one, and its psi and history equal its plain-ops twin's bit for
+    bit."""
+    label = "mixed_off_grid"
+    spec = MIXED_SPEC.with_(size=1024, h=OFF_GRID_H[0], tol=1e-8, maxiter=30)
+    k_rr, k_pc, shape = _bf16_legs(spec)
+    cuda.reset_launches()
+    _, res, _ = _solve(spec, dev)
+    launches = dict(cuda.launches)
+    it, errs = res.iterations, res.errs.tolist()
+    print(f"[{label}] f32 with bf16 sweeps, tuned {shape}, h={spec.h}: {it} steps, "
+          f"converged={res.converged}, final relres {res.final_err:.6e}")
+    check(res.converged, f"the mixed {shape} solve at h={spec.h} did not converge")
+    L = len(kernel_levels(spec))
+    check_launches(f"{shape} mixed solve at h={spec.h}", launches, _expected({
+        k_rr: it * L, k_rr + ".zero": it * (L - 1), k_pc: it * L}),
+        f"per step {k_rr} from u at {spec.size} and from zero below, and {k_pc}, "
+        f"at each of the {L} kernel levels")
+    plain = compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {},
+                          warm_up=False)
+    check(torch.equal(plain.psi, res.psi) and plain.errs.tolist() == errs,
+          f"the plain-ops mixed solve at h={spec.h} differs: {plain.errs.tolist()} vs {errs}")
+    print(f"[{label}] plain-ops twin: the same psi and {it} relres values, bit for bit")
 
 
 def _steps_beside(label, errs, jax_errs):
@@ -1433,19 +1505,26 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
     K11/K12 to K5/K6) and every K11/K12 output to its plain version.  With
     dtype bf16 (parity_sharded_bf16), the bf16 forms of K9-K12 at the same
     sides, every output bit-equal to the plain sharded op in bf16 and,
-    stitched, to the bf16 forms of K2/K3 (K5/K6).  A 3D row names the tile
-    each leg ran at its halo (csrc/stencil3d_zm.cuh mg3z_takes)."""
+    stitched, to the bf16 forms of K2/K3 (K5/K6), and in 2D also on the
+    subnormal set (SUBNORMAL_SIDES, inputs x 2^-120) and at the spacings
+    OFF_GRID_H.  A 3D row names the tile each leg ran at its halo
+    (csrc/stencil3d_zm.cuh mg3z_takes)."""
     bf16 = dtype == torch.bfloat16
     label = "parity_sharded_bf16" if bf16 else "parity_sharded"
     sides_of = sharded_sides()
     print(f"[{label}] global sides {sides_of} on the meshes {SHARDED_MESHES}")
     for ndim, sides in sides_of.items():
         k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim, dtype)
-        for n in sides:
-            u, f, V = (t.to(dtype) for t in _data(n, ndim, seed=n + 5, dev=dev))
-            h = 1.0 / n
-            for bc, (smoother, nu) in itertools.product(("ghost0", "face"), SHARDED_SETTINGS):
-                row = [f"n={n}^{ndim} {bc} {smoother} nu={nu}"]
+        cases = [(n, 1.0, SHARDED_SETTINGS, None) for n in sides]
+        if bf16 and ndim == 2:
+            cases += [(n, SUBNORMAL_SCALE, SUBNORMAL_SETTINGS, None) for n in SUBNORMAL_SIDES]
+            cases += [(n, 1.0, SUBNORMAL_SETTINGS, h) for h in OFF_GRID_H
+                      for n in SUBNORMAL_SIDES]
+        for n, scale, settings, h_case in cases:
+            u, f, V = ((t * scale).to(dtype) for t in _data(n, ndim, seed=n + 5, dev=dev))
+            h = 1.0 / n if h_case is None else h_case
+            for bc, (smoother, nu) in itertools.product(("ghost0", "face"), settings):
+                row = [f"{_case_label(n, scale, h_case, ndim)} {bc} {smoother} nu={nu}"]
                 w = _Worst(worst)
                 # the blocks' outputs against the plain block ops
                 exact = ndim == 3 or bf16
@@ -1482,7 +1561,7 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
                             w.note(k_pc, tag, cuda.pc_smooth_sharded(*pa), wu, exact)
                             w.note(k_pc, tag + "r.u", gu, wu, exact)
                             w.tags[tag + "r.r2"] = max(w.tags.get(tag + "r.r2", 0.0),
-                                                       abs(float(g2) / float(w2) - 1.0))
+                                                       rel_r2(g2, w2))
                             st[kind][0][fine] = gu
                             r2[kind] += float(g2)
                     m = "x".join(map(str, mesh))
@@ -1493,7 +1572,7 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
                     for kind in ("inject", "bilinear"):
                         tag = f"{t_pc}{kind[0]}~{s_pc}"
                         pairs.append((f"{tag}.u@{m}", st[kind][0], whole[kind][0]))
-                        w.tags[f"{tag}.r2@{m}"] = abs(r2[kind] / float(whole[kind][1]) - 1.0)
+                        w.tags[f"{tag}.r2@{m}"] = rel_r2(r2[kind], whole[kind][1])
                     for tag, got, want in pairs:
                         w.note(None, tag, got, want, exact=True)
                     del st
@@ -1964,6 +2043,7 @@ def main():
         print(f"[timing_bf16] {name} against its f32 form: " + _beside(times[f32], t))
     times.update(times_bf16)
     solve_mixed = phase_slice_mixed(dev)
+    phase_mixed_off_grid(dev)
     trace_bf16 = phase_slice_bf16(dev)
 
     # the 3D path: the tuned 256^3 solve, then 512^3

@@ -30,7 +30,8 @@
 // The bf16 forms of K3 (mg_prolong_correct_smooth_bf16, here) and K10
 // (mg_sharded_pc_bf16, in mg_sharded_pc_bf16.cu), with the rnorm flag, run
 // the same tile on bf16 u, f and V (and bf16 strips, MgStripsBf16),
-// rounding as plain torch does in bf16 (stencil.cuh, Mg2Elem); P(V) is
+// in bf16x2 words and arithmetic, each op rounded once as plain torch
+// rounds it in bf16 (stencil.cuh, Mg2Word and Mg2X2); P(V) is
 // blended in f32 and rounded once, as ops._up_leg_correct and
 // ops.pc_smooth_sharded do in a sub-f32 dtype and as the Pallas up-legs do
 // (pallas.py _bilinear_blend_2d); the partials stay f32.  Bound 1.625

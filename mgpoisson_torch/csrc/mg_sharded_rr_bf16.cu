@@ -16,11 +16,11 @@ mg_sharded_rr_bf16_kernel(const Mg2ArgsBf16 a) {
   mg2_rr_body<kSm, R, true>(a);
 }
 
-// Deep halos run the shallow tile's 24 rows: with 40 the Jacobi variants
-// spill (ptxas, sm_90a: 752 bytes of spill stores at 255 registers; K2's
-// bf16 form fits in 251-253, and the strip-fed body needs a few more), and
-// a deep halo (jacobi/wjacobi nu >= 4, rbgs nu >= 2) is off the main path.
-// So this kernel has no 40-row instance.
+// Deep halos run the shallow tile's 24 rows: a deep halo (jacobi/wjacobi
+// nu >= 4, rbgs nu >= 2) is off the main path, so this kernel has no
+// 40-row instance.  (With a round after every f32 op its Jacobi variants
+// spilled at 40 rows; on bf16x2 words K2.bf16's 40-row instances take
+// 145-210 registers, ptxas, sm_90a.)
 struct MgShardedRrBf16Launch {
   static constexpr int rows(int R) { return R == MG2_ROWS_DEEP ? MG2_ROWS_SHALLOW : R; }
   template <int kSm, int R>

@@ -6,18 +6,19 @@
 // _smooth_fused_wide (two-axis blocks), mgpoisson/kernels/pallas.py.
 // Bound: HBM bytes, 3 arrays (read u, f; write u).  It runs the register
 // tile of K2/K3 (stencil.cuh) with H = steps.  Its bf16 form
-// (mg_smooth_bf16) runs the same tile on bf16 arrays, rounding as plain
-// torch does in bf16 (stencil.cuh, Mg2Elem): half the bytes.
+// (mg_smooth_bf16) runs the same tile on bf16 arrays in bf16x2 words and
+// arithmetic, each op rounded once as plain torch rounds it in bf16
+// (stencil.cuh, Mg2Word and Mg2X2): half the bytes.
 #include "stencil.cuh"
 
 template <int kSm, int R, bool kEdge, class T>
 static __device__ __forceinline__ void mg2_smooth_tile(const Mg2ArgsOf<T>& a,
                                                        const Mg2Tile& t) {
-  Mg2Pair<R> u;
-  Mg2Pair<R> f;
+  Mg2Regs<T, R> u;
+  Mg2Regs<T, R> f;
   mg2_load<R, false, kEdge>(u, a.U, a.us, t);
   mg2_load<R, false, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
+  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
   mg2_store<R, kEdge>(a.Uout, u, t);
 }
 

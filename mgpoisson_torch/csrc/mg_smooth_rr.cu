@@ -31,7 +31,8 @@
 // The bf16 forms of K2 (mg_smooth_rr_bf16, here) and K9
 // (mg_sharded_rr_bf16, in mg_sharded_rr_bf16.cu), with the from-zero flag,
 // run the same tile on bf16 u, f and R (and bf16 strips, MgStripsBf16),
-// rounding as plain torch does in bf16 (stencil.cuh, Mg2Elem): bound 1.625
+// in bf16x2 words and arithmetic, each op rounded once as plain torch
+// rounds it in bf16 (stencil.cuh, Mg2Word and Mg2X2): bound 1.625
 // arrays of f32 bytes, 1.125 from zero.  The leg itself is in
 // stencil_rr.cuh.
 #include "stencil_rr.cuh"

@@ -21,12 +21,25 @@ static __device__ __forceinline__ float mg2_blend(float R, float S0, float S1, f
                    __fmul_rn(b0 * b1, S01));
 }
 
+// u += (p0, p1) on row i of a lane's registers, (p0, p1) P(V) of its two
+// cells: two f32 adds; on words P rounded once to a pair (as torch rounds
+// the f32 blend to bf16) and one bf16x2 add.
+template <int R>
+static __device__ __forceinline__ void mg2_add_p(Mg2Pair<R>& u, int i, float p0, float p1) {
+  u.x0[i] = __fadd_rn(u.x0[i], p0);
+  u.x1[i] = __fadd_rn(u.x1[i], p1);
+}
+template <int R>
+static __device__ __forceinline__ void mg2_add_p(Mg2Word<R>& u, int i, float p0, float p1) {
+  u.w[i] = Mg2X2::add(u.w[i], Mg2X2::pack(p0, p1));
+}
+
 // u += P(V) on the warp's in-grid cells.  Fine row i of the tile lies in
 // coarse row i/2 (the origin is even), so coarse rows -1 .. R/2 of the
 // tile cover the bilinear +-1 shifts; vc[k] is the lane's coarse column in
 // coarse row k - 1.
-template <int R, bool kStrips, bool kEdge, class T>
-static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2ArgsOf<T>& a,
+template <int R, bool kStrips, bool kEdge, class T, class U>
+static __device__ __forceinline__ void mg2_correct(U& u, const Mg2ArgsOf<T>& a,
                                                    const Mg2Tile& t) {
   using E = Mg2Elem<T>;
   constexpr int K = R / 2 + 2;
@@ -49,10 +62,7 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2ArgsO
 #pragma unroll
     for (int i = 0; i < R; ++i) {
       const bool in = !kEdge || (c.in && mg_in(t.gi0 + i, t.n));
-      if (in) {
-        u.x0[i] = E::rd(__fadd_rn(u.x0[i], vc[i / 2 + 1]));
-        u.x1[i] = E::rd(__fadd_rn(u.x1[i], vc[i / 2 + 1]));
-      }
+      if (in) mg2_add_p(u, i, vc[i / 2 + 1], vc[i / 2 + 1]);
     }
     return;
   }
@@ -81,12 +91,9 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2ArgsO
       const bool row_edge = kEdge && (gi == 0 || gi == t.n - 1);
       const bool in = !kEdge || (c.in && mg_in(gi, t.n));
       const float S0 = d ? vc[k + 1] : vc[k - 1];
-      const float p0 = E::rd(mg2_blend(vc[k], S0, lc, d ? lp : lm, row_edge, kEdge && c.lo0));
-      const float p1 = E::rd(mg2_blend(vc[k], S0, rc, d ? rp : rm, row_edge, kEdge && c.hi1));
-      if (in) {
-        u.x0[i] = E::rd(__fadd_rn(u.x0[i], p0));
-        u.x1[i] = E::rd(__fadd_rn(u.x1[i], p1));
-      }
+      const float p0 = mg2_blend(vc[k], S0, lc, d ? lp : lm, row_edge, kEdge && c.lo0);
+      const float p1 = mg2_blend(vc[k], S0, rc, d ? rp : rm, row_edge, kEdge && c.hi1);
+      if (in) mg2_add_p(u, i, p0, p1);
     }
     lm = lc;
     rm = rc;
@@ -97,15 +104,15 @@ static __device__ __forceinline__ void mg2_correct(Mg2Pair<R>& u, const Mg2ArgsO
 
 template <int kSm, int R, bool kStrips, bool kEdge, class T>
 static __device__ __forceinline__ float mg2_pc_tile(const Mg2ArgsOf<T>& a, const Mg2Tile& t) {
-  Mg2Pair<R> u;
-  Mg2Pair<R> f;
+  Mg2Regs<T, R> u;
+  Mg2Regs<T, R> f;
   mg2_load<R, kStrips, kEdge>(u, a.U, a.us, t);
   mg2_correct<R, kStrips, kEdge>(u, a, t);
   mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
+  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag);
   mg2_store<R, kEdge>(a.Uout, u, t);
   if (a.partials == nullptr) return 0.f;
-  return mg2_rsq<R, kEdge, T>(u, f, t, a.inv_hsq, a.adiag);
+  return mg2_rsq<R, kEdge>(u, f, t, a.inv_hsq, a.adiag);
 }
 
 // The leg on the block a.blk; each entry point below instantiates it.

@@ -9,16 +9,14 @@
 
 template <int kSm, int R, bool kStrips, bool kEdge, class T>
 static __device__ __forceinline__ void mg2_rr_tile(const Mg2ArgsOf<T>& a, const Mg2Tile& t) {
-  Mg2Pair<R> u;
-  Mg2Pair<R> f;
-  if (a.U) {
+  Mg2Regs<T, R> u;
+  Mg2Regs<T, R> f;
+  if (a.U)
     mg2_load<R, kStrips, kEdge>(u, a.U, a.us, t);
-  } else {
-#pragma unroll
-    for (int i = 0; i < R; ++i) u.put(i, make_float2(0.f, 0.f));
-  }
+  else
+    u = {};
   mg2_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2_sweeps<kSm, R, kEdge, T>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
+  mg2_sweeps<kSm, R, kEdge>(u, f, t, a.nu, a.bc, a.inv_hsq, a.inv_adiag, a.U == nullptr);
   mg2_store<R, kEdge>(a.Uout, u, t);
   mg2_restrict<R, kEdge>(a.Rout, u, f, t, a.bc, a.inv_hsq, a.adiag);
 }

@@ -617,14 +617,32 @@ def test_solver_takes_any_strided_input(card, scheme):
 # scheme's setting and at its cap.
 BF16_CASES = [(n, s, nu) for n in (2, 8, 64, 256, 1024)
               for s, nu in (("wjacobi", 3), ("jacobi", 8), ("rbgs", 1), ("rbgs", 4))]
+# ... and inputs scaled by 2^-120, so that Jacobi quotients go subnormal in
+# bf16: the bf16x2 arithmetic of the 2D legs must keep subnormals as torch
+SUBNORMAL = 2.0 ** -120
+SUBNORMAL_CASES = [(n, s, nu, SUBNORMAL) for n in (16, 256)
+                   for s, nu in (("wjacobi", 3), ("rbgs", 1))]
+# ... and spacings h that are not 1/2^k, where 1/h^2, 1/adiag and adiag
+# are not bf16 values: the 2D legs multiply by them in f32 as torch does
+# (csrc/stencil.cuh Mg2K), not by a bf16 word rounded from them
+OFF_GRID_H = (0.01, 0.3)
+OFF_GRID_CASES = [(n, s, nu, 1.0, h) for h in OFF_GRID_H for n in (16, 256)
+                  for s, nu in (("wjacobi", 3), ("rbgs", 1), ("jacobi", 2))]
+
+
+def _r2_close(got, want):
+    """sum(r^2) within 1e-5 relative (0 where r^2 underflows in f32)."""
+    return abs(float(got) - float(want)) <= 1e-5 * abs(float(want))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,smoother,nu", BF16_CASES)
+@pytest.mark.parametrize("n,smoother,nu,scale,h",
+                         [c + (1.0, None) for c in BF16_CASES]
+                         + [c + (None,) for c in SUBNORMAL_CASES] + OFF_GRID_CASES)
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
-def test_bf16_kernels_equal_plain(card, n, smoother, nu, bc):
-    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card))
-    a = (1.0 / n, nu, smoother, bc)
+def test_bf16_kernels_equal_plain(card, n, smoother, nu, scale, h, bc):
+    u, f, V = ((t * scale).to(torch.bfloat16) for t in _data(n, n + nu + 1, card))
+    a = (1.0 / n if h is None else h, nu, smoother, bc)
     got, want = cuda.smooth(u, f, *a), ops.smooth(u, f, *a)
     assert got.dtype == torch.bfloat16 and torch.equal(got, want)
     for fk, fp, args in ((cuda.smooth_residual_restrict, ops.smooth_residual_restrict, (u, f)),
@@ -638,7 +656,7 @@ def test_bf16_kernels_equal_plain(card, n, smoother, nu, bc):
         (gu, g2), (wu, w2) = (cuda.prolong_correct_smooth_rnorm(*pa),
                               ops.prolong_correct_smooth_rnorm(*pa))
         assert torch.equal(gu, wu) and g2.dtype == torch.float32
-        assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+        assert _r2_close(g2, w2)
     torch.cuda.synchronize()
 
 
@@ -707,18 +725,26 @@ def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
 SHARDED_BF16 = [(2, 64, (2, 2)), (2, 64, (4, 1)), (2, 256, (2, 2)), (2, 256, (4, 1)),
                 (2, 4096, (2, 2)), (3, 32, (2, 2)), (3, 32, (4, 1)), (3, 256, (2, 2)),
                 (3, 256, (4, 1))]
+SHARDED_SETTINGS = [("wjacobi", 3), ("rbgs", 1), ("rbgs", 2), ("jacobi", 1)]
+# the 2D blocks on the subnormal inputs (x 2^-120) with the tuned and the
+# fast scheme's coarse settings
+SHARDED_SUBNORMAL = [(2, n, mesh, s, nu, SUBNORMAL) for n in (16, 256)
+                     for mesh in ((2, 2), (4, 1)) for s, nu in (("wjacobi", 3), ("rbgs", 1))]
+# ... and at the spacings OFF_GRID_H
+SHARDED_OFF_GRID = [(2, n, mesh, s, nu, 1.0, h) for h in OFF_GRID_H for n in (16, 256)
+                    for mesh in ((2, 2), (4, 1)) for s, nu in (("wjacobi", 3), ("rbgs", 1))]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ndim,n,mesh", SHARDED_BF16)
-@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 1), ("rbgs", 2),
-                                         ("jacobi", 1)])
+@pytest.mark.parametrize("ndim,n,mesh,smoother,nu,scale,h",
+                         [c + s + (1.0, None) for c in SHARDED_BF16 for s in SHARDED_SETTINGS]
+                         + [c + (None,) for c in SHARDED_SUBNORMAL] + SHARDED_OFF_GRID)
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
-def test_bf16_sharded_kernels_equal_plain(card, ndim, n, mesh, smoother, nu, bc):
-    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 1, card, ndim))
+def test_bf16_sharded_kernels_equal_plain(card, ndim, n, mesh, smoother, nu, scale, h, bc):
+    u, f, V = ((t * scale).to(torch.bfloat16) for t in _data(n, n + nu + 1, card, ndim))
     d = ops.sweep_radius(smoother) * nu + 1
     cols = mesh[1] > 1
-    h = 1.0 / n
+    h = 1.0 / n if h is None else h
     whole = {"rr": cuda.smooth_residual_restrict(u, f, h, nu, smoother, bc),
              "rrz": cuda.smooth_residual_restrict_zero(f, h, nu, smoother, bc)}
     for kind in ("inject", "bilinear"):
@@ -747,14 +773,14 @@ def test_bf16_sharded_kernels_equal_plain(card, ndim, n, mesh, smoother, nu, bc)
             (gu, g2), (wu, w2) = (cuda.pc_smooth_sharded(*pa, rnorm=True),
                                   ops.pc_smooth_sharded(*pa, rnorm=True))
             assert torch.equal(gu, wu) and g2.dtype == torch.float32
-            assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+            assert _r2_close(g2, w2)
             st[kind][0][fine], st[kind][1][fine] = got, gu
             r2[kind] += float(g2)
     for key, outs in st.items():
         for got, want in zip(outs, whole[key]):
             assert torch.equal(got, want), key
     for kind, total in r2.items():
-        assert abs(total / float(whole[kind][2]) - 1.0) <= 1e-5
+        assert _r2_close(total, whole[kind][2])
     torch.cuda.synchronize()
 
 
