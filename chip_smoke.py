@@ -340,6 +340,10 @@ SUBNORMAL_SETTINGS = (("wjacobi", 3), ("rbgs", 1))
 # torch multiplies by an f32 scalar (csrc/stencil.cuh Mg2K): at the same
 # sides and settings
 OFF_GRID_H = (0.01, 0.3)
+# ... and both sets for the bf16 3D legs (the word tile of K5/K6 and
+# K11/K12, whose product by 1/adiag is f32 at every h, and the cube tile
+# at deeper halos): at these small cubes, whole grid and blocks
+SUBNORMAL_SIDES_3D = (64, 32)
 # ... in 3D: the mixed 256^3 and 512^3 solves and the pure bf16 256^3 one
 MIXED_SPEC_3D = SPEC_3D.with_(sweep_dtype="bfloat16")
 BF16_SPEC_3D = SPEC_3D.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
@@ -533,10 +537,10 @@ def phase_build():
               "shared memory")
     # the bf16 forms of K1-K3 and of K9/K10 (one instance per smoother and
     # tile row count; K9's without the deep tile's 40 rows), of K4-K6 (the
-    # cube tile's three kernels, and one z-marching instance per step count,
-    # smoother and bc: 16 of K5, 22 of K6), of K11/K12 (the same: two cube
-    # kernels, 16 + 22 strip-fed z-marching instances) and of K7/K8 (one
-    # per tile row count)
+    # cube tile's three kernels, and one word-tile instance per step count,
+    # smoother and bc: 16 of K5, 22 of K6, each at <= 64 registers for two
+    # blocks per SM), of K11/K12 (the same: two cube kernels, 16 + 22
+    # strip-fed word-tile instances) and of K7/K8 (one per tile row count)
     flat2d = lambda fn: "3d" not in fn and "packed" not in fn
     for what, want, rank in (("K1-K3", 27, lambda fn: flat2d(fn) and "sharded" not in fn),
                              ("K9/K10", 15, lambda fn: flat2d(fn) and "sharded" in fn),
@@ -566,6 +570,21 @@ def phase_build():
               f"{cuda.zm_chunk(256, halo)} / {cuda.zm_chunk(512, halo)} planes per block at "
               f"256^3 / 512^3, {cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of "
               "dynamic shared memory per block")
+    # their bf16 forms on the word tile (csrc/stencil3d_zw.cuh)
+    bf = torch.bfloat16
+    for name, steps, rr in (("mg_smooth_rr3d_bf16", 3, True),
+                            ("mg_prolong_correct_smooth3d_bf16", 3, False),
+                            ("mg_prolong_correct_smooth3d_bf16.rnorm", 3, False)):
+        halo = steps + (name != "mg_prolong_correct_smooth3d_bf16")
+        ty, tx = cuda.tile3d_zw(halo)
+        chunks = [cuda.zm_chunk(n, halo, dtype=bf) for n in (256, 512)]
+        blocks = [cuda.blocks3d(n, halo, dtype=bf) for n in (256, 512)]
+        print(f"[build] {name} at the tuned scheme's halo {halo}: word tile, "
+              f"{cuda.ZW_LANES} words x {cuda.ZW_ROWS} rows loaded per plane ({ty} x {tx} owned "
+              f"cells), {chunks[0]} / {chunks[1]} planes per block at 256^3 / 512^3 "
+              f"({blocks[0]} / {blocks[1]} blocks), "
+              f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr, dtype=bf)} bytes of dynamic "
+              "shared memory per block")
     # the strip entries on the 256^3 solve's (2, 2) block
     nzl, nyl = SPEC_3D.size // 2, SPEC_3D.size // 2
     for name, steps, rr in (("mg_sharded_rr3d", 3, True), ("mg_sharded_pc3d", 3, False),
@@ -577,7 +596,9 @@ def phase_build():
               f"{t}^2 owned cells per column, {c} planes per block, "
               f"{cuda.blocks3d(SPEC_3D.size, halo, nzl, nyl)} blocks, "
               f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of dynamic shared "
-              "memory per block")
+              "memory per block; bf16 on the word tile: "
+              f"{cuda.zm_chunk(SPEC_3D.size, halo, nzl, nyl, bf)} planes per block, "
+              f"{cuda.blocks3d(SPEC_3D.size, halo, nzl, nyl, bf)} blocks")
     # the packed legs on the 2D register tile at the fast scheme's fine
     # settings (rbgs nu = 1), on the whole 4096^2 grid and on the sharded
     # 16384^2 solve's (4096, 16384) block; their ptxas lines are above
@@ -986,14 +1007,17 @@ def _bf16_parity_cases(ndim):
     of the bf16 parity: in 2D every level side the two bf16 solves give the
     kernels and 128 ... 2, x BF16_SETTINGS, then the subnormal set and the
     OFF_GRID_H set; in 3D 512^3 with the main path's wjacobi 3, and 256^3
-    and 128 ... 2 with SMALL_SETTINGS_3D (both tiles)."""
+    and 128 ... 2 with SMALL_SETTINGS_3D (both tiles), then the subnormal
+    and OFF_GRID_H sets at SUBNORMAL_SIDES_3D with those settings."""
     if ndim == 2:
         return ([(n, BF16_SETTINGS, 1.0, None)
                  for n in kernel_levels(MIXED_SPEC) + list(SMALL_SIDES)]
                 + [(n, SUBNORMAL_SETTINGS, SUBNORMAL_SCALE, None) for n in SUBNORMAL_SIDES]
                 + [(n, SUBNORMAL_SETTINGS, 1.0, h) for h in OFF_GRID_H for n in SUBNORMAL_SIDES])
-    return [(512, (("wjacobi", 3),), 1.0, None)] + [(n, SMALL_SETTINGS_3D, 1.0, None)
-                                                   for n in (256,) + SMALL_SIDES]
+    return ([(512, (("wjacobi", 3),), 1.0, None)]
+            + [(n, SMALL_SETTINGS_3D, 1.0, None) for n in (256,) + SMALL_SIDES]
+            + [(n, SMALL_SETTINGS_3D, SUBNORMAL_SCALE, None) for n in SUBNORMAL_SIDES_3D]
+            + [(n, SMALL_SETTINGS_3D, 1.0, h) for h in OFF_GRID_H for n in SUBNORMAL_SIDES_3D])
 
 
 def _case_label(n, scale, h, ndim=None):
@@ -1505,9 +1529,10 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
     K11/K12 to K5/K6) and every K11/K12 output to its plain version.  With
     dtype bf16 (parity_sharded_bf16), the bf16 forms of K9-K12 at the same
     sides, every output bit-equal to the plain sharded op in bf16 and,
-    stitched, to the bf16 forms of K2/K3 (K5/K6), and in 2D also on the
-    subnormal set (SUBNORMAL_SIDES, inputs x 2^-120) and at the spacings
-    OFF_GRID_H.  A 3D row names the tile each leg ran at its halo
+    stitched, to the bf16 forms of K2/K3 (K5/K6), and also on the
+    subnormal set (inputs x 2^-120) and at the spacings OFF_GRID_H: in 2D
+    at SUBNORMAL_SIDES with SUBNORMAL_SETTINGS, in 3D at SUBNORMAL_SIDES_3D
+    with SHARDED_SETTINGS (both tiles).  A 3D row names the tile each leg ran at its halo
     (csrc/stencil3d_zm.cuh mg3z_takes)."""
     bf16 = dtype == torch.bfloat16
     label = "parity_sharded_bf16" if bf16 else "parity_sharded"
@@ -1516,10 +1541,11 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
     for ndim, sides in sides_of.items():
         k_rr, k_pc, (t_rr, t_pc), (s_rr, s_pc) = _sharded_names(ndim, dtype)
         cases = [(n, 1.0, SHARDED_SETTINGS, None) for n in sides]
-        if bf16 and ndim == 2:
-            cases += [(n, SUBNORMAL_SCALE, SUBNORMAL_SETTINGS, None) for n in SUBNORMAL_SIDES]
-            cases += [(n, 1.0, SUBNORMAL_SETTINGS, h) for h in OFF_GRID_H
-                      for n in SUBNORMAL_SIDES]
+        if bf16:
+            small, sets = ((SUBNORMAL_SIDES, SUBNORMAL_SETTINGS) if ndim == 2
+                           else (SUBNORMAL_SIDES_3D, SHARDED_SETTINGS))
+            cases += [(n, SUBNORMAL_SCALE, sets, None) for n in small]
+            cases += [(n, 1.0, sets, h) for h in OFF_GRID_H for n in small]
         for n, scale, settings, h_case in cases:
             u, f, V = ((t * scale).to(dtype) for t in _data(n, ndim, seed=n + 5, dev=dev))
             h = 1.0 / n if h_case is None else h_case

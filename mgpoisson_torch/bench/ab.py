@@ -3,8 +3,8 @@
     python3 -m mgpoisson_torch.bench.ab --old build/parent/mgpoisson_torch/csrc \\
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
         [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
-        [--old-strip3d] [--packed 4096 ...] [--sharded-packed 16384]
-        [--old-packed-tile 32] [--dtype {float32,bfloat16}] [--reps 25]
+        [--old-strip3d] [--old-rounding3d] [--packed 4096 ...]
+        [--sharded-packed 16384] [--old-packed-tile 32] [--dtype {float32,bfloat16}] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -41,7 +41,10 @@ so its partials are one per T^3 block; with --old-strip3d the old build's
 K12 does (a build whose strip entries K11/K12 keep the cube tile); with
 --old-packed-tile T the old build's K8/K14 write one per T x T packed tile
 (32: a build whose packed up-leg ran a shared-memory tile of 32 x 32
-packed lanes, before the register tile).  Prints
+packed lanes, before the register tile); with --old-rounding3d the old
+build's bf16 K6/K12 run the f32 z-marching tile's geometry (a build whose
+bf16 3D legs rounded every op on f32 registers, before the word tile of
+csrc/stencil3d_zw.cuh), so their partials are per block of that tile.  Prints
 the card, one JSON line per case and exits non-zero without a GPU.  Compares only inside one
 call: two calls may get two cards.
 
@@ -90,7 +93,7 @@ class Builds:
     """The two libraries and a switch between them for kernels.cuda."""
 
     def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False,
-                 old_strip3d=False, old_packed_tile=0):
+                 old_strip3d=False, old_packed_tile=0, old_rounding3d=False):
         root = build.BUILD_DIR.parent / "ab"
         self.libs = {"old": build.load_library(build.build(old_csrc, root)),
                      "new": build.load()}
@@ -101,6 +104,7 @@ class Builds:
         self.packed_rnorm_partials = cuda.packed_rnorm_partials
         self.table = {"new": (cuda.TILE_WARPS, cuda.TILE_ROWS),
                       "old": old_table or (cuda.TILE_WARPS, cuda.TILE_ROWS)}
+        self.old_rounding3d = old_rounding3d
 
     def use(self, which):
         lib = self.libs[which]
@@ -115,19 +119,24 @@ class Builds:
             pt = self.old_packed_tile
             cuda.packed_rnorm_partials = lambda nl, n, nu: -(-(n // 2) // pt) * -(-nl // pt)
         t, cube, base = self.old_tile, self.old_tile3d, self.rnorm_partials
+        # the dtype whose z-marching geometry the old build's legs run
+        geo = (lambda dtype: torch.float32) if self.old_rounding3d else (lambda dtype: dtype)
 
-        def partials(shape, nu, smoother, n):
+        def partials(shape, nu, smoother, n, dtype=torch.float32):
             if len(shape) == 3 and cube:
                 return _cube_partials(shape, nu, smoother, n)
             if len(shape) == 2 and t:
                 return -(-shape[0] // t) * -(-shape[1] // t)
-            return base(shape, nu, smoother, n)
+            return base(shape, nu, smoother, n, geo(dtype))
         cuda.rnorm_partials = partials
+        strip = self.strip_rnorm_partials
         if self.old_strip3d:
-            strip = self.strip_rnorm_partials
-            cuda.strip_rnorm_partials = lambda shape, nu, smoother, n: (
+            cuda.strip_rnorm_partials = lambda shape, nu, smoother, n, dtype=torch.float32: (
                 _cube_partials(shape, nu, smoother, n) if len(shape) == 3
-                else strip(shape, nu, smoother, n))
+                else strip(shape, nu, smoother, n, dtype))
+        else:
+            cuda.strip_rnorm_partials = lambda shape, nu, smoother, n, dtype=torch.float32: (
+                strip(shape, nu, smoother, n, geo(dtype)))
 
 
 def _cube_partials(shape, nu, smoother, n):
@@ -323,6 +332,9 @@ def parse_args(argv=None):
     ap.add_argument("--old-strip3d", action="store_true",
                     help="the other build's K12 runs the cube tile at every halo (before "
                     "the strip-fed z-marching tile)")
+    ap.add_argument("--old-rounding3d", action="store_true",
+                    help="the other build's bf16 K5/K6 and K11/K12 round every op on the f32 "
+                    "z-marching tile (before the word tile)")
     ap.add_argument("--packed", type=int, nargs="*", default=None,
                     help="sides of the packed legs K7/K8 at rbgs nu = 1, 2, 3 (by default "
                     "none, in bf16 the --sides)")
@@ -355,7 +367,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     table = args.old_table and (args.old_table[0], tuple(args.old_table[1:]))
     builds = Builds(args.old, args.old_tile, table, args.old_tile3d, args.old_strip3d,
-                    args.old_packed_tile)
+                    args.old_packed_tile, args.old_rounding3d)
     settings = [(n, "wjacobi", 3) for n in args.sides]
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))

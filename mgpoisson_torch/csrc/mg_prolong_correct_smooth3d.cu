@@ -33,12 +33,14 @@
 // H = 5.
 //
 // The bf16 forms of K6 (mg_prolong_correct_smooth3d_bf16) and K12
-// (mg_sharded_pc3d_bf16), with the rnorm flag, run both tiles on bf16 u,
-// f, V, out and strips (Mg3StripsBf16), rounding as plain torch does in
-// bf16 (stencil3d.cuh, Mg3Elem): P(V) blended in f32 and rounded once,
-// sum(r^2) in f32 partials; bound 1.5625 arrays of f32 bytes (K12.bf16
-// replaces _pc_sharded_3d in bf16).  Their z-marching instances are in
-// mg_prolong_correct_smooth3d_bf16.cu and mg_sharded_pc3d_zm_bf16.cu.
+// (mg_sharded_pc3d_bf16), with the rnorm flag, take bf16 u, f, V, out and
+// strips (Mg3StripsBf16), every output bit-equal to plain torch in bf16:
+// P(V) blended in f32 and rounded once, sum(r^2) in f32 partials; bound
+// 1.5625 arrays of f32 bytes (K12.bf16 replaces _pc_sharded_3d in bf16).
+// At halos <= 4 they run the word tile of stencil3d_zw.cuh, the
+// z-marching march on bf16x2 words, its instances and launches in
+// mg_prolong_correct_smooth3d_bf16.cu and mg_sharded_pc3d_zm_bf16.cu;
+// deeper, the cube tile rounding every op (stencil3d.cuh, Mg3Elem).
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -214,10 +216,28 @@ struct MgPc3dZm {
   static __host__ Mg3zKernel fn() { return mg_pc3d_zm_kernel<STEPS, kSm, kFace>; }
 };
 
+// K6's and K12's z-marching launches in f32 (those of the bf16 forms, on
+// the word tile, are mg_pc3d_zw_launch and mg_sharded_pc3d_zw_launch):
+// the instance for the step count, smoother and bc, the chunk from the
+// chunk table over the block.
+static int mg_pc3d_zm_launch(const Mg3Block& blk, Mg3zArgs a, int steps, int smoother, int bc,
+                             cudaStream_t stream) {
+  a.chunk = mg3z_chunk(blk.n, blk.nyl, blk.nzl, a.H);
+  return mg3z_launch(mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(steps, smoother, bc), blk, a,
+                     mg3z_bytes(steps, false, true), stream);
+}
+
+static int mg_sharded_pc3d_zm_launch(const Mg3Block& blk, Mg3zArgs a, int steps, int smoother,
+                                     int bc, cudaStream_t stream, const Mg3zStrips& b) {
+  a.chunk = mg3z_chunk(blk.n, blk.nyl, blk.nzl, a.H);
+  return mg3z_launch(mg_sharded_pc3d_zm_pick(steps, smoother, bc), blk, a,
+                     mg3z_bytes(steps, false, true), stream, b);
+}
+
 // The whole n^3 grid in element type T (A its z-marching arguments): the
-// z-marching instance `zm` (null: none for the step count and smoother)
-// where the tile takes the halo (with rnorm one partial per block of
-// mg3z_grid), else the cube kernel `cube` of side `tile` (kernels/cuda.py
+// z-marching launch `zm` (mg_pc3d_zm_launch or, in bf16, the word tile's)
+// where the tile takes the halo (with rnorm one partial per block of its
+// grid), else the cube kernel `cube` of side `tile` (kernels/cuda.py
 // tile3d; one partial per T^3 block).
 template <class A, class T, class Zm>
 static int mg_pc3d_grid(Zm zm,
@@ -228,10 +248,9 @@ static int mg_pc3d_grid(Zm zm,
                         float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
   const int steps = mg_steps(nu, smoother), H = steps + (rnorm ? 1 : 0);
   if (mg3z_takes(H)) {
-    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, mg3z_chunk(n, n, n, H),
-              kind, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(zm, Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, false, true),
-                       stream);
+    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, 0, kind, inv_hsq,
+              inv_adiag, adiag};
+    return zm(Mg3Block{n, n, n, 0, 0}, a, steps, smoother, bc, stream);
   }
   const size_t bytes = mg_pc3d_bytes(tile, H);
   const Mg3Block grid{n, n, n, 0, 0};
@@ -249,27 +268,26 @@ extern "C" int mg_prolong_correct_smooth3d(const float* u, const float* f, const
                                            float inv_hsq, float inv_adiag, float adiag,
                                            int rnorm, cudaStream_t stream) {
   return mg_pc3d_grid<Mg3zArgs>(
-      mg3z_pick_from<MgPc3dZm, 0, MG3Z_MAX_HALO>(mg_steps(nu, smoother), smoother, bc),
-      mg_pc3d_kernel, u, f, V, out, partials, n, tile, nu, smoother, bc, kind, inv_hsq,
-      inv_adiag, adiag, rnorm, stream);
+      mg_pc3d_zm_launch, mg_pc3d_kernel, u, f, V, out, partials, n, tile, nu, smoother, bc, kind,
+      inv_hsq, inv_adiag, adiag, rnorm, stream);
 }
 
 extern "C" int mg_prolong_correct_smooth3d_bf16(
     const __nv_bfloat16* u, const __nv_bfloat16* f, const __nv_bfloat16* V, __nv_bfloat16* out,
     float* partials, int n, int tile, int nu, int smoother, int bc, int kind, float inv_hsq,
     float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
-  return mg_pc3d_grid<Mg3zArgsBf16>(mg_pc3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
-                                    mg_pc3d_bf16_kernel, u, f, V, out, partials, n, tile, nu,
-                                    smoother, bc, kind, inv_hsq, inv_adiag, adiag, rnorm,
-                                    stream);
+  return mg_pc3d_grid<Mg3zArgsBf16>(mg_pc3d_zw_launch, mg_pc3d_bf16_kernel, u, f, V, out,
+                                    partials, n, tile, nu, smoother, bc, kind, inv_hsq,
+                                    inv_adiag, adiag, rnorm, stream);
 }
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level in
 // element type T (A its z-marching arguments); u and f strips D >= H deep,
 // V's coarse strips DV >= ceil(H/2) + 1 deep (the left/right ones null on
-// a mesh of one column).  The z-marching instance `zm` (null: none for the
-// step count and smoother) where the tile takes the halo (with rnorm one
-// partial per block of mg3z_grid over the block), else the cube kernel
+// a mesh of one column).  The z-marching launch `zm`
+// (mg_sharded_pc3d_zm_launch or, in bf16, the word tile's) where the tile
+// takes the halo (with rnorm one partial per block of its grid over the
+// block), else the cube kernel
 // `cube` of side `tile` (one partial per block of the (ceil(n/T),
 // ceil(nyl/T), ceil(nzl/T)) grid).
 template <class A, class T, class Zm, class Cube>
@@ -287,10 +305,9 @@ static int mg_sharded_pc3d_block(Zm zm, Cube cube, const T* u, const T* f, const
   if (D < H || DV < mg3_coarse_halo(H)) return (int)cudaErrorInvalidValue;
   const S us{ut, ub, ul, ur, D}, fs{ft, fb, fl, fr, D}, vs{vt, vb, vl, vr, DV};
   if (mg3z_takes(H)) {
-    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H,
-              mg3z_chunk(n, nyl, nzl, H), kind, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(zm, blk, a, mg3z_bytes(steps, false, true), stream,
-                       Mg3zStripsOf<T>{blk, us, fs, vs});
+    const A a{u, f, V, out, nullptr, rnorm ? partials : nullptr, n, H, 0, kind, inv_hsq,
+              inv_adiag, adiag};
+    return zm(blk, a, steps, smoother, bc, stream, Mg3zStripsOf<T>{blk, us, fs, vs});
   }
   const size_t bytes = mg_pc3d_bytes(tile, H);
   const int rc = mg3_prepare((const void*)cube, blk, tile, bytes);
@@ -311,9 +328,9 @@ extern "C" int mg_sharded_pc3d(const float* u, const float* f, const float* V, f
                                int kind, float inv_hsq, float inv_adiag, float adiag,
                                int rnorm, cudaStream_t stream) {
   return mg_sharded_pc3d_block<Mg3zArgs>(
-      mg_sharded_pc3d_zm_pick(mg_steps(nu, smoother), smoother, bc), mg_sharded_pc3d_kernel,
-      u, f, V, out, partials, ut, ub, ul, ur, ft, fb, fl, fr, vt, vb, vl, vr, n, nzl, nyl, z0,
-      y0, D, DV, tile, nu, smoother, bc, kind, inv_hsq, inv_adiag, adiag, rnorm, stream);
+      mg_sharded_pc3d_zm_launch, mg_sharded_pc3d_kernel, u, f, V, out, partials, ut, ub, ul,
+      ur, ft, fb, fl, fr, vt, vb, vl, vr, n, nzl, nyl, z0, y0, D, DV, tile, nu, smoother, bc,
+      kind, inv_hsq, inv_adiag, adiag, rnorm, stream);
 }
 
 extern "C" int mg_sharded_pc3d_bf16(
@@ -325,8 +342,7 @@ extern "C" int mg_sharded_pc3d_bf16(
     int nyl, int z0, int y0, int D, int DV, int tile, int nu, int smoother, int bc, int kind,
     float inv_hsq, float inv_adiag, float adiag, int rnorm, cudaStream_t stream) {
   return mg_sharded_pc3d_block<Mg3zArgsBf16>(
-      mg_sharded_pc3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
-      mg_sharded_pc3d_bf16_kernel, u, f, V, out, partials, ut, ub, ul, ur, ft, fb, fl, fr, vt,
-      vb, vl, vr, n, nzl, nyl, z0, y0, D, DV, tile, nu, smoother, bc, kind, inv_hsq, inv_adiag,
-      adiag, rnorm, stream);
+      mg_sharded_pc3d_zw_launch, mg_sharded_pc3d_bf16_kernel, u, f, V, out, partials, ut, ub,
+      ul, ur, ft, fb, fl, fr, vt, vb, vl, vr, n, nzl, nyl, z0, y0, D, DV, tile, nu, smoother, bc,
+      kind, inv_hsq, inv_adiag, adiag, rnorm, stream);
 }

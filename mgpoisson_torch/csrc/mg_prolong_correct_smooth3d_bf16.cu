@@ -1,15 +1,16 @@
-// K6.bf16 mg_prolong_correct_smooth3d_bf16 on the z-marching tile: the
-// bf16 instances of the up-leg of stencil3d_zm.cuh (mg3z_leg on bf16
-// arrays), one per step count, smoother and bc, at halos H = steps (+ 1
-// with rnorm) <= MG3Z_MAX_HALO.  The entry point, its checks and the cube
-// tile of deeper halos are in mg_prolong_correct_smooth3d.cu beside K6;
-// these instances have a source of their own so that nvcc builds them in
-// parallel with K6's.
-#include "stencil3d_zm.cuh"
+// K6.bf16 mg_prolong_correct_smooth3d_bf16 on the word tile: the bf16
+// instances of the up-leg of stencil3d_zw.cuh (mg3w_leg, the z-marching
+// tile on bf16x2 words), one per step count, smoother and bc, at halos H =
+// steps (+ 1 with rnorm) <= MG3Z_MAX_HALO, and their launch.  The entry
+// point, its checks and the cube tile of deeper halos are in
+// mg_prolong_correct_smooth3d.cu beside K6; these instances have a source
+// of their own so that nvcc builds them in parallel with K6's.
+#include "stencil3d_zw.cuh"
 
 template <int STEPS, int kSm, bool kFace>
-__global__ void __launch_bounds__(MG3Z_THREADS, 1) mg_pc3d_zm_bf16_kernel(Mg3zArgsBf16 a) {
-  mg3z_leg<STEPS, kSm, kFace, false, false>(a, Mg3zStrips{});
+__global__ void __launch_bounds__(MG3W_THREADS, MG3W_MIN_BLOCKS)
+    mg_pc3d_zm_bf16_kernel(Mg3zArgsBf16 a) {
+  mg3w_run<STEPS, kSm, kFace, false, false>(a, Mg3zStripsBf16{});
 }
 
 template <int STEPS, int kSm, bool kFace>
@@ -17,6 +18,8 @@ struct MgPc3dZmBf16 {
   static __host__ Mg3zKernelBf16 fn() { return mg_pc3d_zm_bf16_kernel<STEPS, kSm, kFace>; }
 };
 
-Mg3zKernelBf16 mg_pc3d_zm_bf16_pick(int steps, int smoother, int bc) {
-  return mg3z_pick_from<MgPc3dZmBf16, 0, MG3Z_MAX_HALO>(steps, smoother, bc);
+int mg_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
+                      cudaStream_t stream) {
+  return mg3w_launch(mg3z_pick_from<MgPc3dZmBf16, 0, MG3Z_MAX_HALO>(steps, smoother, bc), blk,
+                     a, steps, false, stream, nullptr);
 }

@@ -32,12 +32,14 @@
 // H = 5.
 //
 // The bf16 forms of K5 (mg_smooth_rr3d_bf16) and K11
-// (mg_sharded_rr3d_bf16), with the from-zero flag, run both tiles on bf16
-// u, f, R and strips (Mg3StripsBf16), rounding as plain torch does in bf16
-// (stencil3d.cuh, Mg3Elem): bound 1.5625 arrays of f32 bytes, 1.0625 from
-// zero (K11.bf16 replaces _rr_sharded_3d in bf16: the JAX package's
-// sharded_plan3 admits bf16).  Their z-marching instances are in
-// mg_smooth_rr3d_bf16.cu and mg_sharded_rr3d_zm_bf16.cu.
+// (mg_sharded_rr3d_bf16), with the from-zero flag, take bf16 u, f, R and
+// strips (Mg3StripsBf16), every output bit-equal to plain torch in bf16:
+// bound 1.5625 arrays of f32 bytes, 1.0625 from zero (K11.bf16 replaces
+// _rr_sharded_3d in bf16: the JAX package's sharded_plan3 admits bf16).
+// At halos <= 4 they run the word tile of stencil3d_zw.cuh, the
+// z-marching march on bf16x2 words, its instances and launches in
+// mg_smooth_rr3d_bf16.cu and mg_sharded_rr3d_zm_bf16.cu; deeper, the cube
+// tile rounding every op (stencil3d.cuh, Mg3Elem).
 #include "stencil3d.cuh"
 #include "stencil3d_zm.cuh"
 
@@ -139,8 +141,26 @@ struct MgRr3dZm {
   static __host__ Mg3zKernel fn() { return mg_rr3d_zm_kernel<STEPS, kSm, kFace>; }
 };
 
+// K5's and K11's z-marching launches in f32 (those of the bf16 forms,
+// on the word tile, are mg_rr3d_zw_launch and mg_sharded_rr3d_zw_launch):
+// the instance for the step count, smoother and bc, the chunk from the
+// chunk table over the block.
+static int mg_rr3d_zm_launch(const Mg3Block& blk, Mg3zArgs a, int steps, int smoother, int bc,
+                             cudaStream_t stream) {
+  a.chunk = mg3z_chunk(blk.n, blk.nyl, blk.nzl, a.H);
+  return mg3z_launch(mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc), blk,
+                     a, mg3z_bytes(steps, true, false), stream);
+}
+
+static int mg_sharded_rr3d_zm_launch(const Mg3Block& blk, Mg3zArgs a, int steps, int smoother,
+                                     int bc, cudaStream_t stream, const Mg3zStrips& b) {
+  a.chunk = mg3z_chunk(blk.n, blk.nyl, blk.nzl, a.H);
+  return mg3z_launch(mg_sharded_rr3d_zm_pick(steps, smoother, bc), blk, a,
+                     mg3z_bytes(steps, true, false), stream, b);
+}
+
 // The whole n^3 grid in element type T (A its z-marching arguments): the
-// z-marching instance `zm` (null: none for the step count and smoother)
+// z-marching launch `zm` (mg_rr3d_zm_launch or, in bf16, the word tile's)
 // where the tile takes the halo, else the cube kernel `cube` of side
 // `tile` (kernels/cuda.py tile3d).
 template <class A, class T, class Zm>
@@ -152,10 +172,9 @@ static int mg_smooth_rr3d_grid(Zm zm,
                                float adiag, int zero, cudaStream_t stream) {
   const int steps = mg_steps(nu, smoother), H = steps + 1;
   if (mg3z_takes(H)) {
-    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, mg3z_chunk(n, n, n, H),
-              0, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(zm, Mg3Block{n, n, n, 0, 0}, a, mg3z_bytes(steps, true, false),
-                       stream);
+    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, 0, 0, inv_hsq, inv_adiag,
+              adiag};
+    return zm(Mg3Block{n, n, n, 0, 0}, a, steps, smoother, bc, stream);
   }
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
   const Mg3Block grid{n, n, n, 0, 0};
@@ -171,9 +190,8 @@ extern "C" int mg_smooth_rr3d(const float* u, const float* f, float* out, float*
                               int tile, int nu, int smoother, int bc, float inv_hsq,
                               float inv_adiag, float adiag, int zero, cudaStream_t stream) {
   return mg_smooth_rr3d_grid<Mg3zArgs>(
-      mg3z_pick_from<MgRr3dZm, 0, MG3Z_MAX_HALO - 1>(mg_steps(nu, smoother), smoother, bc),
-      mg_smooth_rr3d_kernel, u, f, out, R, n, tile, nu, smoother, bc, inv_hsq, inv_adiag,
-      adiag, zero, stream);
+      mg_rr3d_zm_launch, mg_smooth_rr3d_kernel, u, f, out, R, n, tile, nu, smoother, bc,
+      inv_hsq, inv_adiag, adiag, zero, stream);
 }
 
 extern "C" int mg_smooth_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
@@ -182,16 +200,16 @@ extern "C" int mg_smooth_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* 
                                    float inv_adiag, float adiag, int zero,
                                    cudaStream_t stream) {
   return mg_smooth_rr3d_grid<Mg3zArgsBf16>(
-      mg_rr3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc), mg_smooth_rr3d_bf16_kernel,
-      u, f, out, R, n, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero, stream);
+      mg_rr3d_zw_launch, mg_smooth_rr3d_bf16_kernel, u, f, out, R, n, tile, nu, smoother, bc,
+      inv_hsq, inv_adiag, adiag, zero, stream);
 }
 
 // One rank's (nzl, nyl, n) block at global (z0, y0) of an n^3 level in
 // element type T (A its z-marching arguments); u and f strips D >= H deep
 // (ut..ur unused from zero; ul/ur and fl/fr null on a mesh of one column).
-// The z-marching instance `zm` (null: none for the step count and
-// smoother) where the tile takes the halo (its chunk from the chunk table
-// over the block), else the cube kernel `cube` of side `tile`.
+// The z-marching launch `zm` (mg_sharded_rr3d_zm_launch or, in bf16, the
+// word tile's) where the tile takes the halo, else the cube kernel `cube`
+// of side `tile`.
 template <class A, class T, class Zm, class Cube>
 static int mg_sharded_rr3d_block(Zm zm, Cube cube, const T* u, const T* f, T* out, T* R,
                                  const T* ut, const T* ub, const T* ul, const T* ur,
@@ -205,10 +223,10 @@ static int mg_sharded_rr3d_block(Zm zm, Cube cube, const T* u, const T* f, T* ou
   if (D < H) return (int)cudaErrorInvalidValue;
   const S us = zero ? S{nullptr, nullptr, nullptr, nullptr, D} : S{ut, ub, ul, ur, D};
   if (mg3z_takes(H)) {
-    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H,
-              mg3z_chunk(n, nyl, nzl, H), 0, inv_hsq, inv_adiag, adiag};
-    return mg3z_launch(zm, blk, a, mg3z_bytes(steps, true, false), stream,
-                       Mg3zStripsOf<T>{blk, us, S{ft, fb, fl, fr, D}, S{}});
+    const A a{zero ? nullptr : u, f, nullptr, out, R, nullptr, n, H, 0, 0, inv_hsq, inv_adiag,
+              adiag};
+    return zm(blk, a, steps, smoother, bc, stream,
+              Mg3zStripsOf<T>{blk, us, S{ft, fb, fl, fr, D}, S{}});
   }
   const size_t bytes = mg3_tile_floats(tile, H) * sizeof(float);
   const int rc = mg3_prepare((const void*)cube, blk, tile, bytes);
@@ -227,9 +245,9 @@ extern "C" int mg_sharded_rr3d(const float* u, const float* f, float* out, float
                                float inv_hsq, float inv_adiag, float adiag, int zero,
                                cudaStream_t stream) {
   return mg_sharded_rr3d_block<Mg3zArgs>(
-      mg_sharded_rr3d_zm_pick(mg_steps(nu, smoother), smoother, bc), mg_sharded_rr3d_kernel,
-      u, f, out, R, ut, ub, ul, ur, ft, fb, fl, fr, n, nzl, nyl, z0, y0, D, tile, nu, smoother,
-      bc, inv_hsq, inv_adiag, adiag, zero, stream);
+      mg_sharded_rr3d_zm_launch, mg_sharded_rr3d_kernel, u, f, out, R, ut, ub, ul, ur, ft, fb,
+      fl, fr, n, nzl, nyl, z0, y0, D, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero,
+      stream);
 }
 
 extern "C" int mg_sharded_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16* f,
@@ -242,7 +260,7 @@ extern "C" int mg_sharded_rr3d_bf16(const __nv_bfloat16* u, const __nv_bfloat16*
                                     int smoother, int bc, float inv_hsq, float inv_adiag,
                                     float adiag, int zero, cudaStream_t stream) {
   return mg_sharded_rr3d_block<Mg3zArgsBf16>(
-      mg_sharded_rr3d_zm_bf16_pick(mg_steps(nu, smoother), smoother, bc),
-      mg_sharded_rr3d_bf16_kernel, u, f, out, R, ut, ub, ul, ur, ft, fb, fl, fr, n, nzl, nyl,
-      z0, y0, D, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag, zero, stream);
+      mg_sharded_rr3d_zw_launch, mg_sharded_rr3d_bf16_kernel, u, f, out, R, ut, ub, ul, ur, ft,
+      fb, fl, fr, n, nzl, nyl, z0, y0, D, tile, nu, smoother, bc, inv_hsq, inv_adiag, adiag,
+      zero, stream);
 }

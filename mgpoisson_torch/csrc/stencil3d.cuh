@@ -55,19 +55,19 @@
 // the block index addresses the arrays, and a strip-fed launch reads its
 // halo from the neighbours' strips (Mg3Strips).
 //
-// The bf16 forms of K4-K6 and K11/K12 run both tiles on bf16 arrays, as
-// the 2D register tile does (stencil.cuh, Mg2Elem): the element type T of
-// the loads, the stores and the arithmetic below, the values in f32 (the
-// cube tile's shared memory, the z-marching tile's registers and planes
-// stay f32: every value is bf16 already, so no byte budget changes), a
-// round to bf16 (Mg3Elem<T>::rd, nothing for f32) after every add and
-// multiply as plain torch rounds each op of a bf16 tensor, and the
-// damped-Jacobi weight 6/7 rounded to bf16 (0.85546875) as
-// ops._omega(3, torch.bfloat16) and the JAX package's weak-typed scalar
-// round it.  The up-leg's trilinear blend runs in f32 and is rounded once
-// (ops._up_leg_correct; the Pallas blend), the restriction's eight values
-// are summed in f32 (mg3_sum8) and rounded once, as torch's sum of a bf16
-// tensor, and sum(r^2) squares the bf16 residual in f32.  The strip
+// The bf16 forms of K4 and, at halos above 4, of K5/K6 and K11/K12 run
+// the cube tile on bf16 arrays (at halos <= 4 the legs' bf16 forms run
+// the word tile of stencil3d_zw.cuh): the element type T of the loads,
+// the stores and the arithmetic below, the values in f32 (the cube tile's
+// shared memory stays f32: every value is bf16 already), a round to bf16
+// (Mg3Elem<T>::rd, nothing for f32) after every add and multiply as plain
+// torch rounds each op of a bf16 tensor, and the damped-Jacobi weight
+// 6/7 rounded to bf16 (0.85546875) as ops._omega(3, torch.bfloat16) and
+// the JAX package's weak-typed scalar round it.  The up-leg's trilinear
+// blend runs in f32 and is rounded once (ops._up_leg_correct; the Pallas
+// blend), the restriction's eight values are summed in f32 (mg3_sum8) and
+// rounded once, as torch's sum of a bf16 tensor, and sum(r^2) squares the
+// bf16 residual in f32.  The strip
 // entries K11/K12 take bf16 strips of their own (Mg3StripsBf16), so
 // Mg3Strips and every f32 kernel parameter stay as they were; the f32
 // instances are those of the f32-only tiles, instruction for instruction.

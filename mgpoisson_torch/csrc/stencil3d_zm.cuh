@@ -55,15 +55,14 @@
 // order), so u, R and the corrected u equal the plain ops bit for bit.
 // Only sum(r^2) is summed in another order (one partial per block).
 //
-// The bf16 forms of K5/K6 and K11/K12 (the element type of Mg3zArgsOf)
-// run this tile on bf16 arrays with every add and multiply rounded to
-// bf16 as plain torch rounds it (stencil3d.cuh, Mg3Elem): the registers,
-// the stage planes and the rings stay f32 (their values are bf16), so the
-// shared memory is the f32 forms'; the rounds add two instructions per op
-// to an issue-bound tile.  The strip entries read bf16 strips
-// (Mg3zStripsBf16, of Mg3StripsBf16), structs of their own so that
-// Mg3zStrips and every f32 kernel parameter stay as they were.  Their
-// instances have sources of their own (mg_smooth_rr3d_bf16.cu,
+// The bf16 forms of K5/K6 and K11/K12 run this march on bf16x2 words, a
+// thread's pair of x cells in one register and every op one bf16x2
+// instruction: the word tile of stencil3d_zw.cuh, with a geometry, chunk
+// table and launch of its own.  Here are only the arguments and strips
+// they share with the entries (Mg3zArgsBf16, Mg3zStripsBf16, structs of
+// their own so that Mg3zArgs, Mg3zStrips and every f32 kernel parameter
+// stay as they were) and their launches' declarations; their instances
+// have sources of their own (mg_smooth_rr3d_bf16.cu,
 // mg_prolong_correct_smooth3d_bf16.cu, mg_sharded_rr3d_zm_bf16.cu,
 // mg_sharded_pc3d_zm_bf16.cu), so nvcc builds them beside the f32 ones.
 #pragma once
@@ -131,12 +130,12 @@ static __host__ inline size_t mg3z_bytes(int steps, bool rr, bool pc) {
 }
 
 // Everything a z-marching leg takes besides its template arguments (step
-// count, smoother, bc), its arrays of element type Elem.  U == nullptr: u
-// identically zero (K5's from-zero flag); V and kind only for K6, Rout
-// only for K5; partials (K6's rnorm) null or one f32 per block.
+// count, smoother, bc), its arrays of element type T (bf16: the word
+// tile's legs).  U == nullptr: u identically zero (K5's from-zero flag); V
+// and kind only for K6, Rout only for K5; partials (K6's rnorm) null or
+// one f32 per block.
 template <class T>
 struct Mg3zArgsOf {
-  using Elem = T;
   const T* U;
   const T* F;
   const T* V;
@@ -145,6 +144,10 @@ struct Mg3zArgsOf {
   float* partials;
   int n, H, chunk, kind;
   float inv_hsq, inv_adiag, adiag;
+  // the word tile's (stencil3d_zw.cuh mg3w_launch sets them): whether
+  // 1/h^2 and adiag are bf16 values, and then each as a bf16x2 word
+  int exact;
+  uint32_t w_inv_hsq, w_adiag;
 };
 using Mg3zArgsBf16 = Mg3zArgsOf<__nv_bfloat16>;
 // The f32 legs' arguments, the same fields in a struct of their own: a
@@ -152,7 +155,6 @@ using Mg3zArgsBf16 = Mg3zArgsOf<__nv_bfloat16>;
 // instances' machine code (bench/sass_diff.py), and this name keeps their
 // symbols.
 struct Mg3zArgs {
-  using Elem = float;
   const float* U;
   const float* F;
   const float* V;
@@ -172,20 +174,18 @@ struct Mg3zWin {
 // value is subtracted after each axis pair on the grid's edge planes of
 // that axis: mz, my, mx are -1 there and 0 elsewhere (n >= 2, so a cell
 // lies on at most one edge per axis), and fma(c, -1, acc) rounds acc - c
-// as the plain op's subtraction does.  Each op's result rounded to T (rd),
-// here and in the leg below.
-template <bool kFace, class T = float>
+// as the plain op's subtraction does.
+template <bool kFace>
 static __device__ __forceinline__ float mg3z_nbr(const Mg3zWin& w, float ylo, float yhi,
                                                  float xlo, float xhi, float mz, float my,
                                                  float mx) {
-  using E = Mg3Elem<T>;
   const float c = w.c;
-  float acc = E::rd(__fadd_rn(w.lo, w.hi));
-  if (kFace) acc = E::rd(__fmaf_rn(c, mz, acc));
-  acc = E::rd(__fadd_rn(acc, E::rd(__fadd_rn(ylo, yhi))));
-  if (kFace) acc = E::rd(__fmaf_rn(c, my, acc));
-  acc = E::rd(__fadd_rn(acc, E::rd(__fadd_rn(xlo, xhi))));
-  if (kFace) acc = E::rd(__fmaf_rn(c, mx, acc));
+  float acc = __fadd_rn(w.lo, w.hi);
+  if (kFace) acc = __fmaf_rn(c, mz, acc);
+  acc = __fadd_rn(acc, __fadd_rn(ylo, yhi));
+  if (kFace) acc = __fmaf_rn(c, my, acc);
+  acc = __fadd_rn(acc, __fadd_rn(xlo, xhi));
+  if (kFace) acc = __fmaf_rn(c, mx, acc);
   return acc;
 }
 
@@ -261,13 +261,9 @@ static __device__ __forceinline__ float mg3z_coarse(const T* V, const B& b, bool
 // edges, the colour and the trilinear weights, the BLOCK index addresses
 // the arrays, the stores and K11's R, and the halo comes from the strips.
 // Without it every block-index term below is the global one, and the code
-// is the whole-grid leg's.  A: Mg3zArgs or Mg3zArgsBf16, whose Elem is
-// the arrays' element type; B: Mg3zStripsOf<Elem> (unread without
-// kStrips).
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class A, class B>
-static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
-  using Elem = typename A::Elem;
-  using E = Mg3Elem<Elem>;
+// is the whole-grid leg's (b unread).
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips>
+static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStrips& b) {
   extern __shared__ float smem[];
   constexpr int W = MG3Z_COLS, R = MG3Z_ROWS, P = MG3Z_PLANE, CS = MG3Z_CSIDE;
   const int l = (int)threadIdx.x, j = (int)threadIdx.y, me = j * W + l;
@@ -293,8 +289,8 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
   asm volatile("" : "+f"(my), "+f"(mx));   // kept, not rebuilt per stage
   const bool res = kRR || a.partials != nullptr;
   const size_t nn = (size_t)n * n, col = in_xy ? (size_t)gy * n + gx : 0;
-  const Elem* __restrict__ U = a.U;
-  const Elem* __restrict__ F = a.F;
+  const float* __restrict__ U = a.U;
+  const float* __restrict__ F = a.F;
 
   float* sh = smem;                               // [STEPS + 1][2][P]
   float* rsh = sh + (STEPS + 1) * 2 * P;          // K5: [4][P]
@@ -321,7 +317,7 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
   const size_t ccol = c_in ? (size_t)(cy0 + ly) * nc + (cx0 + lx) : 0;
   const auto slot = [](int Z) { return (Z + 6) % 3; };
   const auto coarse = [&](int Z) {
-    return c_in && mg_in(Z, nc) ? E::ldg(a.V + (size_t)Z * nc * nc + ccol) : 0.f;
+    return c_in && mg_in(Z, nc) ? __ldg(a.V + (size_t)Z * nc * nc + ccol) : 0.f;
   };
   if (loads_c) {
     const int Zf = gz0 >> 1;
@@ -359,9 +355,9 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
   // running pointers: u and f of the next plane to load, the output
   // plane, and their plane strides (kStrips: the loads' is the source's)
   const long long nnl = (long long)nn;
-  const Elem* pU;
-  const Elem* pF;
-  Elem* pO;
+  const float* pU;
+  const float* pF;
+  float* pO;
   long long pl, plo;
   if constexpr (kStrips) {
     pl = yb >= 0 && yb < nyl ? (long long)nyl * n : (long long)D * n;
@@ -376,8 +372,8 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
     pF = F + off0;
     pO = a.Uout + (off0 - STEPS * nnl);
   }
-  float pu = has_u && in_xy && src && mg_in(gz0, n) ? E::ldg(pU) : 0.f;
-  float pf = in_xy && src && mg_in(gz0, n) ? E::ldg(pF) : 0.f;
+  float pu = has_u && in_xy && src && mg_in(gz0, n) ? __ldg(pU) : 0.f;
+  float pf = in_xy && src && mg_in(gz0, n) ? __ldg(pF) : 0.f;
 
   Mg3zWin w[STEPS + 1];
   float fq[STEPS + 2];   // fq[i]: f at march plane k - i
@@ -406,8 +402,8 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
       }
     }
     const bool zn = (act & 1u) && mg_in(gz + 1, n) && (!kStrips || zb0 + k + 1 < nzl + D);
-    pu = has_u && zn ? E::ldg(pU) : 0.f;
-    pf = zn ? E::ldg(pF) : 0.f;
+    pu = has_u && zn ? __ldg(pU) : 0.f;
+    pf = zn ? __ldg(pF) : 0.f;
     float cnext = 0.f;
     const bool c_step = !kRR && (gz & 1);   // odd fine plane: the next coarse plane
     if (c_step && loads_c) {
@@ -435,7 +431,7 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
           p = __fadd_rn(p, __fmul_rn(__fmul_rn(b0, qba), cc[dz + dyo]));
           p = __fadd_rn(p, __fmul_rn(__fmul_rn(b0, qbb), cc[dz + dyo + dxo]));
         }
-        v0 = E::rd(__fadd_rn(v0, E::rd(p)));   // P(V) blended in f32, rounded once
+        v0 = __fadd_rn(v0, p);
       } else {
         v0 = 0.f;
       }
@@ -458,12 +454,10 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
       if (((act >> s) & 1u) && mg_in(gzs, n)) {
         const float* prev = rd + (s - 1) * 2 * P;
         const float mz = gzs == 0 || gzs == n - 1 ? -1.f : 0.f;
-        const float nbr =
-            mg3z_nbr<kFace, Elem>(w[s - 1], prev[-W], prev[W], xlo, xhi, mz, my, mx);
-        const float jac = E::rd(__fmul_rn(
-            E::rd(__fsub_rn(fq[s], E::rd(__fmul_rn(nbr, a.inv_hsq)))), a.inv_adiag));
+        const float nbr = mg3z_nbr<kFace>(w[s - 1], prev[-W], prev[W], xlo, xhi, mz, my, mx);
+        const float jac = __fmul_rn(__fsub_rn(fq[s], __fmul_rn(nbr, a.inv_hsq)), a.inv_adiag);
         if (kSm == MG_WJACOBI)
-          v = E::rd(__fadd_rn(c, E::rd(__fmul_rn(E::omega, E::rd(__fsub_rn(jac, c))))));
+          v = __fadd_rn(c, __fmul_rn(MG3_OMEGA, __fsub_rn(jac, c)));
         else if (kSm == MG_RBGS)
           v = ((gzs & 1) ^ pxy) == ((s - 1) & 1) ? jac : c;
         else
@@ -476,7 +470,7 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
     // the smoothed u of plane k - STEPS
     {
       const int p = k - STEPS;
-      if (((act >> (STEPS + 1)) & 1u) && p >= H && p < H + zl) *pO = E::cvt(w[STEPS].hi);
+      if (((act >> (STEPS + 1)) & 1u) && p >= H && p < H + zl) *pO = w[STEPS].hi;
       pO += plo;
     }
 
@@ -492,9 +486,9 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
         const float* prev = rd + STEPS * 2 * P;
         const float mz = gzr == 0 || gzr == n - 1 ? -1.f : 0.f;
         const float nbr =
-            mg3z_nbr<kRR && kFace, Elem>(w[STEPS], prev[-W], prev[W], xlo, xhi, mz, my, mx);
-        r = E::rd(__fsub_rn(fq[STEPS + 1], E::rd(__fadd_rn(E::rd(__fmul_rn(nbr, a.inv_hsq)),
-                                                          E::rd(__fmul_rn(a.adiag, c))))));
+            mg3z_nbr<kRR && kFace>(w[STEPS], prev[-W], prev[W], xlo, xhi, mz, my, mx);
+        r = __fsub_rn(fq[STEPS + 1],
+                      __fadd_rn(__fmul_rn(nbr, a.inv_hsq), __fmul_rn(a.adiag, c)));
         if (!kRR && p >= H && p < H + zl) acc = __fmaf_rn(r, r, acc);
       }
       if (kRR) rsh[(p & 3) * P + me] = r;
@@ -510,7 +504,7 @@ static __device__ __forceinline__ void mg3z_leg(const A& a, const B& b) {
         const float* r1 = rsh + (q & 3) * P + c_at;
         float r8[8] = {r0[0], r0[1], r0[W], r0[W + 1], r1[0], r1[1], r1[W], r1[W + 1]};
         a.Rout[(size_t)((kStrips ? gq - oz : gq) >> 1) * ncy * nc + c_out] =
-            E::cvt(E::rd(__fmul_rn(E::rd(mg3_sum8(r8)), 0.125f)));
+            __fmul_rn(mg3_sum8(r8), 0.125f);
       }
     }
     if (c_step && loads_c) cv[slot((gz >> 1) + 2) * CS * CS + me] = cnext;
@@ -596,14 +590,19 @@ static __host__ inline int mg3z_launch(Kernel kernel, const Mg3Block& blk, const
 Mg3zStripKernel mg_sharded_rr3d_zm_pick(int steps, int smoother, int bc);
 Mg3zStripKernel mg_sharded_pc3d_zm_pick(int steps, int smoother, int bc);
 
-// ... and their bf16 forms, in mg_sharded_rr3d_zm_bf16.cu and
-// mg_sharded_pc3d_zm_bf16.cu.
-Mg3zStripKernelBf16 mg_sharded_rr3d_zm_bf16_pick(int steps, int smoother, int bc);
-Mg3zStripKernelBf16 mg_sharded_pc3d_zm_bf16_pick(int steps, int smoother, int bc);
-
-// The bf16 instances of K5 and K6 on this tile, each in a source of its
-// own (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu) for
-// the same reason; null where no instance takes the step count and
-// smoother.
-Mg3zKernelBf16 mg_rr3d_zm_bf16_pick(int steps, int smoother, int bc);
-Mg3zKernelBf16 mg_pc3d_zm_bf16_pick(int steps, int smoother, int bc);
+// The bf16 forms of K5, K6, K11 and K12 on the word tile of
+// stencil3d_zw.cuh, each in a source of its own (mg_smooth_rr3d_bf16.cu,
+// mg_prolong_correct_smooth3d_bf16.cu, mg_sharded_rr3d_zm_bf16.cu,
+// mg_sharded_pc3d_zm_bf16.cu) for the same reason: each launches its
+// instance for the step count, smoother and bc on the block `blk` at halo
+// a.H (the chunk its own, a.chunk unread) with the strips b (K11, K12);
+// returns a cudaError_t, cudaErrorInvalidValue where no instance takes the
+// step count and smoother.
+int mg_rr3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
+                      cudaStream_t stream);
+int mg_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
+                      cudaStream_t stream);
+int mg_sharded_rr3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother,
+                              int bc, cudaStream_t stream, const Mg3zStripsBf16& b);
+int mg_sharded_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother,
+                              int bc, cudaStream_t stream, const Mg3zStripsBf16& b);

@@ -36,8 +36,9 @@ row-sharded mesh, its halo rows from the neighbours' strips:
 K5/K6 and their strip entries K11/K12 run two tiles by halo depth
 (``zmarch3d``): the z-marching tile of ``csrc/stencil3d_zm.cuh`` at halos
 <= 4 (the main path's; K11/K12 in its strip-fed form, over a rank's block
-with its own chunk table), the cube tile of ``csrc/stencil3d.cuh`` beyond,
-which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
+with its own chunk table; their bf16 forms the same march on bf16x2 words,
+the word tile of ``csrc/stencil3d_zw.cuh``, ``tile3d_zw``), the cube tile
+of ``csrc/stencil3d.cuh`` beyond, which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
 register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``).
@@ -111,6 +112,14 @@ ZM_COLS = 32
 ZM_MAX_HALO = 4
 ZM_SMS = 132
 ZM_MIN_CHUNK = 32
+# ... and their bf16 forms there run the word tile of csrc/stencil3d_zw.cuh:
+# the same march on bf16x2 words, ZW_LANES lanes of a pair of cells each
+# per loaded row of ZM_COLS cells, ZW_ROWS rows per plane, the xy halo
+# rounded up to even (tile3d_zw), ZW_MIN_BLOCKS blocks per SM (so the
+# chunk table counts ZM_SMS * ZW_MIN_BLOCKS slots)
+ZW_LANES = 16
+ZW_ROWS = 32
+ZW_MIN_BLOCKS = 2
 # packed kernels: the JAX package's sweep cap (pallas.py packed_plan)
 PACKED_MAX_NU = 3
 
@@ -201,20 +210,39 @@ def tile3d_zm(halo: int) -> int:
     return ZM_COLS - 2 * halo
 
 
-def zm_chunk(n: int, halo: int, nzl: int | None = None, nyl: int | None = None) -> int:
+def tile3d_zw(halo: int) -> tuple[int, int]:
+    """(rows, columns) of the interior of a word-tile block, the bf16
+    z-marching legs' (mg3w_rows, mg3w_cols): the halo rounded up to even
+    on both xy axes."""
+    hw = halo + (halo & 1)
+    return ZW_ROWS - 2 * hw, ZM_COLS - 2 * hw
+
+
+def _zm_tile(halo, dtype):
+    """(rows, columns, slots) of the z-marching tile that runs a leg of
+    this dtype at this halo: the f32 tile's, or the word tile's in bf16."""
+    if dtype == torch.bfloat16:
+        return (*tile3d_zw(halo), ZM_SMS * ZW_MIN_BLOCKS)
+    t = tile3d_zm(halo)
+    return t, t, ZM_SMS
+
+
+def zm_chunk(n: int, halo: int, nzl: int | None = None, nyl: int | None = None,
+             dtype: torch.dtype = torch.float32) -> int:
     """Planes per z-marching block at this halo on a block of nzl planes of
     nyl rows of n cells (by default the whole n^3 level): the chunk table of
-    mg3z_chunk.  One block runs per SM, so a launch over ceil(n/T)
-    ceil(nyl/T) columns takes ceil(blocks / ZM_SMS) rounds of c + 2 halo
+    mg3z_chunk (in bf16 the word tile's, mg3w_chunk).  One f32 block runs
+    per SM (ZW_MIN_BLOCKS word-tile blocks), so a launch over ceil(n/T)
+    ceil(nyl/T) columns takes ceil(blocks / slots) rounds of c + 2 halo
     plane-steps; the chunk c (nzl, nzl/2, ... down to ZM_MIN_CHUNK) with
     the fewest in all, the larger on a tie."""
     nzl = n if nzl is None else nzl
     nyl = n if nyl is None else nyl
-    t = tile3d_zm(halo)
-    cols = -(-n // t) * -(-nyl // t)
+    ty, tx, slots = _zm_tile(halo, dtype)
+    cols = -(-n // tx) * -(-nyl // ty)
     best, best_cost, c = nzl, None, nzl
     while c >= 1 and nzl % c == 0 and (c == nzl or c >= ZM_MIN_CHUNK):
-        cost = -(-(cols * (nzl // c)) // ZM_SMS) * (c + 2 * halo)
+        cost = -(-(cols * (nzl // c)) // slots) * (c + 2 * halo)
         if best_cost is None or cost < best_cost:
             best, best_cost = c, cost
         if c & 1:
@@ -223,28 +251,34 @@ def zm_chunk(n: int, halo: int, nzl: int | None = None, nyl: int | None = None) 
     return best
 
 
-def blocks3d(n: int, halo: int, nzl: int | None = None, nyl: int | None = None) -> int:
+def blocks3d(n: int, halo: int, nzl: int | None = None, nyl: int | None = None,
+             dtype: torch.dtype = torch.float32) -> int:
     """Number of blocks of a 3D leg's launch at this halo (one rnorm partial
     each) on a block of nzl planes of nyl rows of n cells (by default the
-    whole n^3 level): the z-marching tile's (x, y, chunk) grid, or the cube
-    tile's T^3 blocks."""
+    whole n^3 level): the z-marching tile's (x, y, chunk) grid (in bf16 the
+    word tile's), or the cube tile's T^3 blocks."""
     nzl = n if nzl is None else nzl
     nyl = n if nyl is None else nyl
     if zmarch3d(halo):
-        t = tile3d_zm(halo)
-        return -(-n // t) * -(-nyl // t) * -(-nzl // zm_chunk(n, halo, nzl, nyl))
+        ty, tx, _ = _zm_tile(halo, dtype)
+        return -(-n // tx) * -(-nyl // ty) * -(-nzl // zm_chunk(n, halo, nzl, nyl, dtype))
     t = tile3d(halo)
     return -(-n // t) * -(-nyl // t) * -(-nzl // t)
 
 
-def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False) -> int:
-    """Dynamic shared memory of one z-marching block, as the C entries size
-    it (mg3z_bytes): two planes per stage (steps + 1 stages), K5's ring of
-    four residual planes (`rr`), K6's ring of three coarse planes (`pc`)."""
-    plane = ZM_COLS * ZM_COLS
+def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False,
+                       dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one whole-grid z-marching block, as the C
+    entries size it (mg3z_bytes; in bf16 the word tile's mg3w_bytes): two
+    planes per stage (steps + 1 stages; f32 cells, or words of a pair of
+    cells), K5's ring of four residual planes (`rr`), K6's ring of three f32
+    coarse planes (`pc`)."""
+    bf16 = dtype == torch.bfloat16
+    rows = ZW_ROWS if bf16 else ZM_COLS
+    plane = rows * (ZW_LANES if bf16 else ZM_COLS)
     floats = (steps + 1) * 2 * plane + (4 * plane if rr else 0)
     if pc:
-        floats += 3 * (ZM_COLS // 2 + 3) ** 2
+        floats += 3 * (ZM_COLS // 2 + 3) * (rows // 2 + 3)
     return 4 * floats
 
 
@@ -306,27 +340,30 @@ def _geometry(u, halo):
     return (n,) if u.ndim == 2 else (n, tile3d(halo))
 
 
-def rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
+def rnorm_partials(shape, nu: int, smoother: str, n_global: int,
+                   dtype: torch.dtype = torch.float32) -> int:
     """Number of f32 Sigma r^2 partials, one per thread block, that a
-    whole-grid up-leg with rnorm (K3, K6) writes on an array of this shape
-    of a grid of side n_global: in 2D the tile table's blocks at the halo
-    steps + 1, in 3D the blocks of blocks3d at that halo."""
+    whole-grid up-leg with rnorm (K3, K6) of this dtype writes on an array
+    of this shape of a grid of side n_global: in 2D the tile table's blocks
+    at the halo steps + 1, in 3D the blocks of blocks3d at that halo (the
+    word tile's in bf16)."""
     halo = _steps(nu, smoother) + 1
     if len(shape) == 2:
         return blocks2d(shape[0], shape[1], halo)
-    return blocks3d(n_global, halo)
+    return blocks3d(n_global, halo, dtype=dtype)
 
 
-def strip_rnorm_partials(shape, nu: int, smoother: str, n_global: int) -> int:
+def strip_rnorm_partials(shape, nu: int, smoother: str, n_global: int,
+                         dtype: torch.dtype = torch.float32) -> int:
     """The same for a strip up-leg (K10, K12) on one rank's block of this
     shape: in 2D the tile table's blocks, in 3D the blocks of blocks3d over
     the (shape[0], shape[1], n_global) block (x whole) at the halo
-    steps + 1: the z-marching grid at halos <= ZM_MAX_HALO, the cube tile's
-    T^3 blocks beyond."""
+    steps + 1: the z-marching grid at halos <= ZM_MAX_HALO (the word
+    tile's in bf16), the cube tile's T^3 blocks beyond."""
     halo = _steps(nu, smoother) + 1
     if len(shape) == 2:
         return blocks2d(shape[0], shape[1], halo)
-    return blocks3d(n_global, halo, shape[0], shape[1])
+    return blocks3d(n_global, halo, shape[0], shape[1], dtype)
 
 
 def _scalars(h, ndim):
@@ -401,7 +438,7 @@ def _pc(u, f, V, h, nu, smoother, bc, kind, rnorm):
     _check(name, u, nu, smoother, bc, rnorm, (f, u.shape), (V, _half(u.shape)))
     out = torch.empty_like(u)
     halo = _steps(nu, smoother) + rnorm
-    partials = (torch.empty(rnorm_partials(u.shape, nu, smoother, u.shape[0]),
+    partials = (torch.empty(rnorm_partials(u.shape, nu, smoother, u.shape[0], u.dtype),
                             dtype=torch.float32, device=u.device)
                 if rnorm else None)
     inv_hsq, inv_adiag, adiag = _scalars(h, u.ndim)
@@ -629,7 +666,7 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
     out = torch.empty_like(u)
     partials = None
     if rnorm:
-        partials = torch.empty(strip_rnorm_partials(u.shape, nu, smoother, n_global),
+        partials = torch.empty(strip_rnorm_partials(u.shape, nu, smoother, n_global, u.dtype),
                                dtype=torch.float32, device=u.device)
     tile = (tile3d(halo),) if u.ndim == 3 else ()
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),

@@ -695,6 +695,86 @@ def test_bf16_wrappers_reject_what_the_kernels_do_not_take(card):
 
 
 @pytest.mark.cuda
+def test_bf16_3d_word_tile_refuses_misaligned_operands(card):
+    """The bf16 3D legs at halos <= 4 run the word tile, which reads and
+    writes a pair of cells as one 4-byte word: an operand at an odd 2-byte
+    offset is refused with an error, not run another way; one at a 4-byte
+    offset runs, bit-equal."""
+    u, f, V = (t.to(torch.bfloat16) for t in _data(16, 3, card, ndim=3))
+    odd = torch.empty(16 ** 3 + 1, dtype=torch.bfloat16, device=card)[1:].view(16, 16, 16)
+    odd.copy_(u)
+    a = (1 / 16, 3, "wjacobi", "face")
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.smooth_residual_restrict(odd, f, *a)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        cuda.prolong_correct_smooth(u, odd, V, *a, "bilinear")
+    four = torch.empty(16 ** 3 + 2, dtype=torch.bfloat16, device=card)[2:].view(16, 16, 16)
+    four.copy_(u)
+    for got, want in zip(cuda.smooth_residual_restrict(four, f, *a),
+                         ops.smooth_residual_restrict(u, f, *a)):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bf16_3d_word_tile_addresses_a_2048_cube(card):
+    """A 2048^3 grid has 2^33 cells, and the (1024, 2048, 2048) block of
+    its (2, 1) mesh 2^32: the word tile's element offsets pass 32 bits
+    there.  Zero data but for a 16^3 patch at z = 1800 (a block plane
+    above 2^31 / 2048^2): every output of K5/K6 on the whole grid and of
+    K11/K12 on the block equals the plain legs on a 64^3 cube around the
+    patch (the patch's reach, 5 cells, stays inside it) and is zero
+    elsewhere.  About 60 GB on the card."""
+    torch.cuda.empty_cache()
+    n, h, a = 2048, 1.0 / 2048, (3, "wjacobi", "face")
+    z0, y0 = 1776, 976                              # the 64^3 cube (even: R aligns)
+    cube = (slice(z0, z0 + 64), slice(y0, y0 + 64), slice(y0, y0 + 64))
+    half = tuple(slice(s.start // 2, s.stop // 2) for s in cube)
+    patch = tuple(slice(s.start + 24, s.start + 40) for s in cube)
+    g = torch.Generator(device=card).manual_seed(2048)
+    u, f = (torch.zeros((n,) * 3, dtype=torch.bfloat16, device=card) for _ in range(2))
+    V = torch.zeros((n // 2,) * 3, dtype=torch.bfloat16, device=card)
+    for x, p in ((u, patch), (f, patch), (V, tuple(slice(s.start // 2, s.stop // 2)
+                                                    for s in patch))):
+        x[p] = torch.randn((16 if x is not V else 8,) * 3, generator=g,
+                           device=card).to(torch.bfloat16)
+    us, fs, Vs = u[cube].contiguous(), f[cube].contiguous(), V[half].contiguous()
+    # counted 64 planes at a time (count_nonzero of the whole would take 64 GB)
+    nonzero = lambda x: sum(int(torch.count_nonzero(x[i:i + 64])) for i in range(0, len(x), 64))
+
+    def held(got, want, at):
+        assert torch.equal(got[at], want) and nonzero(got) == nonzero(want)
+
+    got = cuda.smooth_residual_restrict(u, f, h, *a)
+    for g_, w, at in zip(got, ops.smooth_residual_restrict(us, fs, h, *a), (cube, half)):
+        held(g_, w, at)
+    del got
+    gu, g2 = cuda.prolong_correct_smooth_rnorm(u, f, V, h, *a, "bilinear")
+    wu, w2 = ops.prolong_correct_smooth_rnorm(us, fs, Vs, h, *a, "bilinear")
+    held(gu, wu, cube)
+    assert _r2_close(g2, w2)
+    del gu
+    # the (2, 1) mesh's second block, its strips cut as the exchange cuts them
+    d, dv, o = 4, ops.coarse_depth(4), n // 2
+    strips = lambda x, o, d: (x[o - d:o], torch.zeros_like(x[:d]), None, None)
+    ub, fb, vb = u[o:], f[o:], V[o // 2:]
+    sa = ((o, 0), n, h, *a)
+    bcube = (slice(z0 - o, z0 - o + 64),) + cube[1:]
+    bhalf = (slice((z0 - o) // 2, (z0 - o + 64) // 2),) + half[1:]
+    got = cuda.smooth_rr_sharded(ub, fb, strips(u, o, d), strips(f, o, d), *sa)
+    for g_, w, at in zip(got, ops.smooth_residual_restrict(us, fs, h, *a), (bcube, bhalf)):
+        held(g_, w, at)
+    del got
+    gu, g2 = cuda.pc_smooth_sharded(ub, fb, vb, strips(u, o, d), strips(f, o, d),
+                                    strips(V, o // 2, dv), *sa, "bilinear", rnorm=True)
+    held(gu, wu, bcube)
+    assert _r2_close(g2, w2)
+    del gu, u, f, V
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 def test_bf16_sharded_wrappers_name_their_roadmap_item(card):
     """A bf16 2D block runs the bf16 form of K9 and a bf16 3D block that of
     K11 (ROADMAP Queue 2 A4a and A4c, both done): each from zero, on the
