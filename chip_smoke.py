@@ -95,17 +95,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
               order only; then the time of K7, K8 and K8 with rnorm at
               4096^2 (rbgs nu = 1, bilinear, the fast scheme's fine
               settings) beside K2 and K3 at the same settings unpacked,
-              each pair with its device times and bounds, and the time of
-              the solver's pack and unpack.
+              each pair with its device times and bounds (a packed leg's
+              counts u's black plane only: the red one is dead on input),
+              and the time of the solver's pack and unpack.
 9. slice_fast — the fast-scheme 4096^2 f32 solve, packed, as in phase 4
               (cycles, relres, f64 re-check, launches), then the same spec
               with MGPOISSON_PACKED=0 (the unpacked K2/K3 fine level) and on
               plain ops, each with its per-cycle wall; then 1024^2 and
               16384^2 with the same checks.  Then (parity_packed_bf16) the
               bf16 forms of K7 and K8 against their plain packed versions in
-              bf16 at 4096, 1024, 256 x nu in {1, 2, 3} and 128 ... 2 with nu =
-              1 and 3, every output bit-equal, after a probe that torch sums a
-              bf16 row pair of the packed restriction in f32 and rounds once;
+              bf16 at 4096, 1024, 256 x nu in {1, 2, 3} and with nu = 1 and 3
+              at 128 ... 2, at 10 and 6 (n % 4 == 2), on inputs x 2^-120 and
+              at h = 0.01 and 0.3 (256 and 16), every output bit-equal, after
+              a probe that torch sums a bf16 row pair of the packed
+              restriction in f32 and rounds once;
               (timing_packed_bf16) their times at 4096^2 beside their f32
               forms' and the bf16 K2/K3 at rbgs nu = 1 unpacked; and
               (slice_fast_bf16) the pure bf16 fast solve, packed, at 4096^2
@@ -353,6 +356,10 @@ PACKED_SIDES = (16384, 4096, 1024, 256)   # the fine sides of the packed solves,
 # sides (every fine side of those solves, and 256)
 FAST_BF16_SPEC = FAST_SPEC.with_(dtype="bfloat16", tol=1e-30, maxiter=12)
 PACKED_BF16_SIDES = (4096, 1024, 256)
+# ... and for the packed word tile of K7.bf16/K8.bf16: sides n % 4 == 2 (the
+# black plane at odd offsets: 2-byte accesses), then the subnormal and
+# OFF_GRID_H sets at SUBNORMAL_SIDES, each with nu = 1 and 3
+PACKED_ODD_SIDES = (10, 6)
 CROSS_TOL = 1e-4           # packed against unpacked kernels: two formulas, add order only
 # the sharded solve: its meshes and the sweep settings of its schemes; its
 # parity sides are those of the solves of phase_spmd (sharded_sides)
@@ -434,9 +441,9 @@ KERNELS = {
                      "mgpoisson/kernels/pallas.py:3079"),
     "mg_packed_pc": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
                      "mgpoisson/kernels/pallas.py:3243"),
-    "mg_packed_rr_bf16": ("mgpoisson_torch/csrc/mg_packed_rr.cu",
+    "mg_packed_rr_bf16": ("mgpoisson_torch/csrc/mg_packed_rr_bf16.cu",
                           "mgpoisson/kernels/pallas.py:3079"),
-    "mg_packed_pc_bf16": ("mgpoisson_torch/csrc/mg_packed_pc.cu",
+    "mg_packed_pc_bf16": ("mgpoisson_torch/csrc/mg_packed_pc_bf16.cu",
                           "mgpoisson/kernels/pallas.py:3243"),
     "mg_sharded_rr": ("mgpoisson_torch/csrc/mg_smooth_rr.cu",
                       "mgpoisson/kernels/pallas.py:4080"),
@@ -540,13 +547,14 @@ def phase_build():
     # cube tile's three kernels, and one word-tile instance per step count,
     # smoother and bc: 16 of K5, 22 of K6, each at <= 64 registers for two
     # blocks per SM), of K11/K12 (the same: two cube kernels, 16 + 22
-    # strip-fed word-tile instances) and of K7/K8 (one per tile row count)
+    # strip-fed word-tile instances) and of K7/K8 (on the packed word tile,
+    # one per row count, 16 or 32, and answer of the constant rule)
     flat2d = lambda fn: "3d" not in fn and "packed" not in fn
     for what, want, rank in (("K1-K3", 27, lambda fn: flat2d(fn) and "sharded" not in fn),
                              ("K9/K10", 15, lambda fn: flat2d(fn) and "sharded" in fn),
                              ("K4-K6", 41, lambda fn: "3d" in fn and "sharded" not in fn),
                              ("K11/K12", 40, lambda fn: "3d" in fn and "sharded" in fn),
-                             ("K7/K8", 6, lambda fn: "packed" in fn)):
+                             ("K7/K8", 8, lambda fn: "packed" in fn)):
         bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
         check(len(bf16) == want,
               f"{len(bf16)} bf16 instances of {what} in the ptxas report, not {want}")
@@ -609,6 +617,14 @@ def phase_build():
                   f"register tile, halo {halo} (even {halo + (halo & 1)}), {rows} x {cols} "
                   f"owned cells per block of {cuda.TILE_WARPS} warps, "
                   f"{cuda.blocks2d(nl, n, halo)} blocks, no dynamic shared memory")
+    # ... and their bf16 forms on the packed word tile, on the whole grid
+    for name, halo in (("mg_packed_rr_bf16", 3), ("mg_packed_pc_bf16", 2),
+                       ("mg_packed_pc_bf16.rnorm", 3)):
+        rows, cols = cuda.tile_packed_w(halo)
+        print(f"[build] {name} at rbgs nu = 1 on (4096, 4096): packed word tile, halo "
+              f"{halo}, {rows} rows x {cols} packed columns of each plane owned per block of "
+              f"{cuda.TILE_WARPS} warps, {-(-4096 // rows) * -(-2048 // cols)} blocks, no "
+              "dynamic shared memory")
 
 
 def _data(n, ndim, seed, dev):
@@ -723,6 +739,14 @@ def _work(ndim, nu, smoother, leg, kind=None, rnorm=False):
         work += 1 + (2 ** (ndim + 1) if kind == "bilinear" else 0)
         work += residual + 2 if rnorm else 0
     return work
+
+
+def _black(up):
+    """A packed array's black plane (its right half), the part of u that a
+    packed leg needs: the red plane is dead on input, the first red step
+    overwriting it from the black plane alone, so the bounds count only the
+    black one (the f32 tile loads both all the same)."""
+    return ops._planes(up)[1]
 
 
 def bound_ms(inputs, outputs, operations):
@@ -859,16 +883,16 @@ def phase_timing_packed(dev, n, dtype=torch.float32):
     rr, pc = "mg_smooth_rr" + sfx, "mg_prolong_correct_smooth" + sfx
     cases = {
         "mg_packed_rr" + sfx: (lambda m: m.packed_smooth_residual_restrict(up, fp, h, nu),
-                               (up, fp), w_rr),
+                               (_black(up), fp), w_rr),
         rr + "@rbgs": (lambda m: m.smooth_residual_restrict(u, f, *unpacked), (u, f), w_rr),
         "mg_packed_pc" + sfx: (lambda m: m.packed_prolong_correct_smooth(up, fp, V, h, nu,
                                                                          "bilinear"),
-                               (up, fp, V), w_pc),
+                               (_black(up), fp, V), w_pc),
         pc + "@rbgs": (lambda m: m.prolong_correct_smooth(u, f, V, *unpacked, "bilinear"),
                        (u, f, V), w_pc),
         f"mg_packed_pc{sfx}.rnorm": (
             lambda m: m.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, "bilinear"),
-            (up, fp, V), w_pcr),
+            (_black(up), fp, V), w_pcr),
         pc + ".rnorm@rbgs": (
             lambda m: m.prolong_correct_smooth_rnorm(u, f, V, *unpacked, "bilinear"),
             (u, f, V), w_pcr),
@@ -1315,19 +1339,32 @@ def probe_restrict_order_packed(dev):
           "side 16384 ... 2 (spread magnitudes)")
 
 
+def _packed_bf16_parity_cases():
+    """(side, scale of the inputs, spacing h or None for 1/side) of the bf16
+    packed parity: every fine side of the bf16 fast solves and 256, 128 ...
+    2, PACKED_ODD_SIDES, then the subnormal and OFF_GRID_H sets at
+    SUBNORMAL_SIDES."""
+    return ([(n, 1.0, None) for n in PACKED_BF16_SIDES + SMALL_SIDES + PACKED_ODD_SIDES]
+            + [(n, SUBNORMAL_SCALE, None) for n in SUBNORMAL_SIDES]
+            + [(n, 1.0, h) for h in OFF_GRID_H for n in SUBNORMAL_SIDES])
+
+
 def phase_parity_packed_bf16(dev, worst):
     """The bf16 forms of K7 and K8 (both prolongation kinds, rnorm) against
     their plain packed versions in bf16 at every fine side of the bf16 fast
-    solves and 256 with nu in {1, 2, 3}, and at 128 ... 2 with nu = 1 and 3:
-    every output bit-equal, sum(r^2) within RNORM_TOL."""
+    solves and 256 with nu in {1, 2, 3}, and with nu = 1 and 3 at 128 ... 2,
+    at sides n % 4 == 2, on inputs x 2^-120 and at h = 0.01 and 0.3
+    (_packed_bf16_parity_cases): every output bit-equal, sum(r^2) within
+    RNORM_TOL."""
     probe_restrict_order_packed(dev)
-    for n in PACKED_BF16_SIDES + SMALL_SIDES:
-        u, f, V = (t.to(torch.bfloat16) for t in _data(n, 2, seed=n + 3, dev=dev))
+    for n, scale, h_case in _packed_bf16_parity_cases():
+        u, f, V = ((t * scale).to(torch.bfloat16) for t in _data(n, 2, seed=n + 3, dev=dev))
         up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
         check(torch.equal(cuda.unpack_grid(up), u), f"unpack(pack(u)) != u at {n}^2 bf16")
-        h = 1.0 / n
-        for nu in (1, 2, 3) if n in PACKED_BF16_SIDES else (1, 3):
-            row = [f"n={n} nu={nu}"]
+        h = 1.0 / n if h_case is None else h_case
+        full = n in PACKED_BF16_SIDES and scale == 1 and h_case is None
+        for nu in (1, 2, 3) if full else (1, 3):
+            row = [f"{_case_label(n, scale, h_case)} nu={nu}"]
             (gu, gR), (wu, wR) = (cuda.packed_smooth_residual_restrict(up, fp, h, nu),
                                   ops.packed_smooth_residual_restrict(up, fp, h, nu))
             note(worst, "mg_packed_rr_bf16", "K7.u", gu, wu, row, exact=True)
@@ -1341,6 +1378,8 @@ def phase_parity_packed_bf16(dev, worst):
                                         ops.packed_prolong_correct_smooth_rnorm(*pa))
                 note(worst, "mg_packed_pc_bf16", tag + "r.u", gru, wru, row, exact=True)
                 note_r2(tag + "r.r2", g2, w2, row)
+            if scale != 1:
+                row.append(f"subnormal K7.u={_subnormals(wu)}/{wu.numel()}")
             check(gu.dtype == gR.dtype == gru.dtype == torch.bfloat16
                   and g2.dtype == torch.float32,
                   f"bf16 packed dtypes {gu.dtype}, {gR.dtype}, {gru.dtype}, {g2.dtype}")
@@ -1792,7 +1831,7 @@ def phase_timing_sharded_packed(dev):
     b = ((nl, 0), n, h, nu)
     w_rr, w_pc = _work(2, nu, "rbgs", "rr"), _work(2, nu, "rbgs", "pc", "bilinear")
     w_pcr = _work(2, nu, "rbgs", "pc", "bilinear", rnorm=True)
-    fine_in = [ub, fb, *us[:2], *fs[:2]]
+    fine_in = [_black(ub), fb, *map(_black, us[:2]), *fs[:2]]
     cases = {
         "mg_sharded_packed_rr": (lambda k: k.packed_rr_sharded(ub, fb, us, fs, *b),
                                  fine_in, w_rr),
@@ -1813,13 +1852,13 @@ def phase_timing_sharded_packed(dev):
     hm = 1.0 / m
     whole = {
         f"mg_packed_rr@{m}": (lambda k: k.packed_smooth_residual_restrict(up, fp, hm, nu),
-                             (up, fp), w_rr),
+                             (_black(up), fp), w_rr),
         f"mg_packed_pc@{m}": (
             lambda k: k.packed_prolong_correct_smooth(up, fp, V, hm, nu, "bilinear"),
-            (up, fp, V), w_pc),
+            (_black(up), fp, V), w_pc),
         f"mg_packed_pc.rnorm@{m}": (
             lambda k: k.packed_prolong_correct_smooth_rnorm(up, fp, V, hm, nu, "bilinear"),
-            (up, fp, V), w_pcr),
+            (_black(up), fp, V), w_pcr),
     }
     t = _time_cases("timing_sharded_packed", whole, f"{m}^2", m * m)
     for sharded, single in (("mg_sharded_packed_rr", "mg_packed_rr"),

@@ -4,7 +4,8 @@
         [--old-tile 32 | --old-table WARPS SMALL SHALLOW DEEP] [--sides 4096 ... 256]
         [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
         [--old-strip3d] [--old-rounding3d] [--packed 4096 ...]
-        [--sharded-packed 16384] [--old-packed-tile 32] [--dtype {float32,bfloat16}] [--reps 25]
+        [--sharded-packed 16384] [--old-packed-tile 32] [--old-packed-bf16]
+        [--dtype {float32,bfloat16}] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -28,7 +29,8 @@ each time two ways: CUDA events around each call, median of --reps calls
 (`*_ms`, what chip_smoke.py reports; at small sides it is the host's
 enqueue time), and the kernels' own device time per call from
 torch.profiler over --reps calls (`*_kernel_ms`).  With each: the bound
-(unique bytes over 3.35 TB/s) and the largest normalized difference
+(unique bytes over 3.35 TB/s; of a packed u only its black plane, the red
+one being dead on input) and the largest normalized difference
 between the two builds' outputs (0 where they round alike).  The old
 build's up-leg writes one Sigma r^2 partial per block of its own tile, so
 the partials are sized for it while it runs: by default the tile table of
@@ -41,7 +43,11 @@ so its partials are one per T^3 block; with --old-strip3d the old build's
 K12 does (a build whose strip entries K11/K12 keep the cube tile); with
 --old-packed-tile T the old build's K8/K14 write one per T x T packed tile
 (32: a build whose packed up-leg ran a shared-memory tile of 32 x 32
-packed lanes, before the register tile); with --old-rounding3d the old
+packed lanes, before the register tile); with --old-packed-bf16 the old
+build's bf16 K8 writes one per block of the f32 register tile
+(blocks2d at the halo 2 nu + 1: a build whose bf16 packed legs rounded
+every op on f32 registers, before the packed word tile of
+csrc/stencil_packed_w.cuh); with --old-rounding3d the old
 build's bf16 K6/K12 run the f32 z-marching tile's geometry (a build whose
 bf16 3D legs rounded every op on f32 registers, before the word tile of
 csrc/stencil3d_zw.cuh), so their partials are per block of that tile.  Prints
@@ -85,6 +91,12 @@ def _flat(x):
         [] if x is None else [x])
 
 
+def _black(up):
+    """A packed array's black plane: the red plane of u is dead on input
+    (the first red step overwrites it), so a bound counts only this one."""
+    return ops._planes(up)[1]
+
+
 def _bytes(*xs):
     return sum(t.numel() * t.element_size() for t in _flat(xs) if torch.is_tensor(t))
 
@@ -93,7 +105,8 @@ class Builds:
     """The two libraries and a switch between them for kernels.cuda."""
 
     def __init__(self, old_csrc: Path, old_tile: int, old_table=None, old_tile3d=False,
-                 old_strip3d=False, old_packed_tile=0, old_rounding3d=False):
+                 old_strip3d=False, old_packed_tile=0, old_rounding3d=False,
+                 old_packed_bf16=False):
         root = build.BUILD_DIR.parent / "ab"
         self.libs = {"old": build.load_library(build.build(old_csrc, root)),
                      "new": build.load()}
@@ -105,6 +118,7 @@ class Builds:
         self.table = {"new": (cuda.TILE_WARPS, cuda.TILE_ROWS),
                       "old": old_table or (cuda.TILE_WARPS, cuda.TILE_ROWS)}
         self.old_rounding3d = old_rounding3d
+        self.old_packed_bf16 = old_packed_bf16
 
     def use(self, which):
         lib = self.libs[which]
@@ -117,7 +131,11 @@ class Builds:
             return
         if self.old_packed_tile:
             pt = self.old_packed_tile
-            cuda.packed_rnorm_partials = lambda nl, n, nu: -(-(n // 2) // pt) * -(-nl // pt)
+            cuda.packed_rnorm_partials = (lambda nl, n, nu, dtype=torch.float32:
+                                          -(-(n // 2) // pt) * -(-nl // pt))
+        elif self.old_packed_bf16:
+            packed = self.packed_rnorm_partials
+            cuda.packed_rnorm_partials = lambda nl, n, nu, dtype=torch.float32: packed(nl, n, nu)
         t, cube, base = self.old_tile, self.old_tile3d, self.rnorm_partials
         # the dtype whose z-marching geometry the old build's legs run
         geo = (lambda dtype: torch.float32) if self.old_rounding3d else (lambda dtype: dtype)
@@ -245,14 +263,14 @@ def _cases_packed(n, nu, dev, dtype=torch.float32):
     del u, f
     h = 1.0 / n
     cases = {"K7": lambda: cuda.packed_smooth_residual_restrict(up, fp, h, nu)}
-    inputs = {"K7": (up, fp)}
+    inputs = {"K7": (_black(up), fp)}
     for kind in ("bilinear", "inject"):
         k = "" if kind == "bilinear" else " inject"
         cases["K8" + k] = lambda kind=kind: cuda.packed_prolong_correct_smooth(
             up, fp, V, h, nu, kind)
         cases["K8.rnorm" + k] = lambda kind=kind: cuda.packed_prolong_correct_smooth_rnorm(
             up, fp, V, h, nu, kind)
-        inputs["K8" + k] = inputs["K8.rnorm" + k] = (up, fp, V)
+        inputs["K8" + k] = inputs["K8.rnorm" + k] = (_black(up), fp, V)
     return cases, inputs
 
 
@@ -273,8 +291,8 @@ def _cases_sharded_packed(n, dev):
         "K14.rnorm": lambda: cuda.packed_pc_sharded(ub, fb, vb, us, fs, vs, *b, "bilinear",
                                                     rnorm=True),
     }
-    inputs = {"K13": (ub, fb, us, fs), "K14": (ub, fb, vb, us, fs, vs),
-              "K14.rnorm": (ub, fb, vb, us, fs, vs)}
+    fine = (_black(ub), fb, *map(_black, us[:2]), fs)
+    inputs = {"K13": fine, "K14": (*fine, vb, vs), "K14.rnorm": (*fine, vb, vs)}
     return cases, inputs
 
 
@@ -344,6 +362,9 @@ def parse_args(argv=None):
     ap.add_argument("--old-packed-tile", type=int, default=0,
                     help="the other build's packed tile side (its K8/K14 rnorm partials, one "
                     "per T x T packed tile), 32 before the register tile; 0: the register tile")
+    ap.add_argument("--old-packed-bf16", action="store_true",
+                    help="the other build's bf16 K8 writes its rnorm partials per block of the "
+                    "f32 register tile (before the packed word tile)")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="bfloat16: the bf16 forms of K1-K12 only")
     ap.add_argument("--reps", type=int, default=25)
@@ -367,7 +388,7 @@ def main(argv=None):
     dev = torch.device("cuda")
     table = args.old_table and (args.old_table[0], tuple(args.old_table[1:]))
     builds = Builds(args.old, args.old_tile, table, args.old_tile3d, args.old_strip3d,
-                    args.old_packed_tile, args.old_rounding3d)
+                    args.old_packed_tile, args.old_rounding3d, args.old_packed_bf16)
     settings = [(n, "wjacobi", 3) for n in args.sides]
     if 4096 in args.sides:
         settings.append((4096, "rbgs", 1))

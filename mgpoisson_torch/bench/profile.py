@@ -22,7 +22,8 @@ the error callback, each cycle ending in a scalar readback) and one solve
 under torch.profiler.  From the profiled solve it prints, per cycle, the
 device launches, the device time (union of the device events' intervals)
 and the time in the mg_* CUDA kernels, and the device busy share of the
-timed solve's wall.  With --out, each profiled solve is also written as a
+timed solve's wall, and the timed solve's history (``errs``, the relres of
+each cycle).  With --out, each profiled solve is also written as a
 Chrome trace.  On a CPU device there are no device events: those fields
 read "not measured".
 
@@ -157,7 +158,8 @@ def profile_solve(spec, device, out: str | None = None):
     row = {"size": spec.size, "ndim": spec.ndim, "scheme": spec.scheme,
            "dtype": spec.dtype, "sweep_dtype": spec.sweep_dtype, "packed": mg._packed, "kernel_min_size": spec.kernel_min_size,
            "device": str(mg.device), "cycles": it, "converged": res.converged,
-           "final_err": res.final_err, "profiled_cycles": res_p.iterations,
+           "final_err": res.final_err, "errs": res.errs.tolist(),
+           "profiled_cycles": res_p.iterations,
            "wall_ms_per_cycle": wall_ms, "cycle_ms": cycle_ms,
            "kernel_calls": kernel_calls}
     k = res_p.iterations

@@ -19,7 +19,8 @@
 // a row of column partials accumulated over its sequential stripes; here
 // each block writes one partial.
 //
-// Bound: HBM bytes, 3.25 arrays (read up, fp, V; write up'); K14's strips
+// Bound: HBM bytes, 2.75 arrays (read up's black plane, fp, V; write up':
+// u's red plane is dead on input, though this tile loads it); K14's strips
 // add (4D + Dv)/nl of an array.  Design: the 2D register tile of K3
 // (stencil.cuh) on packed state (stencil_packed.cuh): a warp per 64 fine
 // columns, R rows of the tile table in registers, one shuffle per cell and
@@ -27,10 +28,7 @@
 // rnorm), so the instance without rnorm keeps a shallower halo than K3's.
 //
 // The bf16 form of K8 (mg_packed_pc_bf16, with the rnorm flag) runs the
-// same tile on bf16 up, fp and V, rounding as the plain packed ops do in
-// bf16, P(V) blended in f32 and rounded once (stencil_packed.cuh); its
-// partials stay f32.  Bound 1.625 arrays of f32 bytes.  K14 has no bf16
-// form.
+// packed word tile, in mg_packed_pc_bf16.cu; K14 has no bf16 form.
 #include "stencil_packed.cuh"
 
 // K8: the whole n x n grid.
@@ -57,25 +55,10 @@ struct MgPackedPcLaunch {
   }
 };
 
-// K8 in bf16: the whole n x n grid.
-template <int R>
-__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
-mg_packed_pc_bf16_kernel(const Mg2pArgsBf16 a) {
-  mg2p_pc_body<R, false>(a);
-}
-
-struct MgPackedPcBf16Launch {
-  template <int R, bool kStrips>
-  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2pArgsBf16& a) {
-    static_assert(!kStrips, "the packed strip kernels are f32 only");
-    mg_packed_pc_bf16_kernel<R><<<grid, block, 0, stream>>>(a);
-  }
-};
-
-template <class A, class T>
-static A mg2p_args(const T* up, const T* fp, const T* V, T* out, float* partials, int nu,
-                   int kind, float mhq, float inv_hsq, int rnorm) {
-  A a{};
+static Mg2pArgs mg2p_args(const float* up, const float* fp, const float* V, float* out,
+                          float* partials, int nu, int kind, float mhq, float inv_hsq,
+                          int rnorm) {
+  Mg2pArgs a{};
   a.U = up;
   a.F = fp;
   a.V = V;
@@ -96,22 +79,9 @@ extern "C" int mg_packed_pc(const float* up, const float* fp, const float* V, fl
                             float inv_hsq, int rnorm, cudaStream_t stream) {
   if (n < 2 || n & 1 || nu < 1 || nu > MG2P_MAX_NU || (kind != MG_INJECT && kind != MG_BILINEAR))
     return (int)cudaErrorInvalidValue;
-  Mg2pArgs a = mg2p_args<Mg2pArgs>(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
+  Mg2pArgs a = mg2p_args(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
   a.blk = MgBlock{n, n, n, 0, 0};
   return mg2p_launch<MgPackedPcLaunch, false>(a, stream);
-}
-
-// The same on bf16 arrays; the partials f32, as for the f32 form.
-extern "C" int mg_packed_pc_bf16(const __nv_bfloat16* up, const __nv_bfloat16* fp,
-                                 const __nv_bfloat16* V, __nv_bfloat16* out, float* partials,
-                                 int n, int nu, int kind, float mhq, float inv_hsq, int rnorm,
-                                 cudaStream_t stream) {
-  if (n < 2 || n & 1 || nu < 1 || nu > MG2P_MAX_NU || (kind != MG_INJECT && kind != MG_BILINEAR))
-    return (int)cudaErrorInvalidValue;
-  Mg2pArgsBf16 a =
-      mg2p_args<Mg2pArgsBf16>(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
-  a.blk = MgBlock{n, n, n, 0, 0};
-  return mg2p_launch<MgPackedPcBf16Launch, false>(a, stream);
 }
 
 // One rank's packed (nl x n) block from global row r0 of an n x n level, V
@@ -131,7 +101,7 @@ extern "C" int mg_sharded_packed_pc(const float* up, const float* fp, const floa
       nu > MG2P_MAX_NU || D < H || Dv < (H + 1) / 2 + 1 ||
       (kind != MG_INJECT && kind != MG_BILINEAR))
     return (int)cudaErrorInvalidValue;
-  Mg2pArgs a = mg2p_args<Mg2pArgs>(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
+  Mg2pArgs a = mg2p_args(up, fp, V, out, partials, nu, kind, mhq, inv_hsq, rnorm);
   a.blk = MgBlock{n, nl, n, r0, 0};
   a.us = MgStrips{ut, ub, nullptr, nullptr, D};
   a.fs = MgStrips{ft, fb, nullptr, nullptr, D};

@@ -18,7 +18,8 @@
 // picks each halo row from its strip and the global row does what the flags
 // did.  Rc is the block's (nl/2, n/2) coarse rhs, coarse rows from r0/2.
 //
-// Bound: HBM bytes, 3.25 arrays (read up, fp; write up', Rc); K13's strips
+// Bound: HBM bytes, 2.75 arrays (read up's black plane, fp; write up', Rc:
+// u's red plane is dead on input, though this tile loads it); K13's strips
 // add 4D/nl of an array.  Design: the 2D register tile of K2 (stencil.cuh)
 // on packed state (stencil_packed.cuh): a warp per 64 fine columns, R rows
 // of the tile table in registers, one shuffle per cell and colour step, no
@@ -26,10 +27,8 @@
 // Halo H = 2 nu + 1, K2's at rbgs, so at nu = 1 the tile loads what K2's
 // loads.
 //
-// The bf16 form of K7 (mg_packed_rr_bf16) runs the same tile on bf16 up,
-// fp and Rc, rounding as the plain packed ops do in bf16
-// (stencil_packed.cuh): bound 1.625 arrays of f32 bytes.  K13 has no bf16
-// form.
+// The bf16 form of K7 (mg_packed_rr_bf16) runs the packed word tile, in
+// mg_packed_rr_bf16.cu; K13 has no bf16 form.
 #include "stencil_packed.cuh"
 
 // K7: the whole n x n grid.
@@ -56,25 +55,9 @@ struct MgPackedRrLaunch {
   }
 };
 
-// K7 in bf16: the whole n x n grid.
-template <int R>
-__global__ void __launch_bounds__(MG2_THREADS, MG2_MIN_BLOCKS(R))
-mg_packed_rr_bf16_kernel(const Mg2pArgsBf16 a) {
-  mg2p_rr_body<R, false>(a);
-}
-
-struct MgPackedRrBf16Launch {
-  template <int R, bool kStrips>
-  static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2pArgsBf16& a) {
-    static_assert(!kStrips, "the packed strip kernels are f32 only");
-    mg_packed_rr_bf16_kernel<R><<<grid, block, 0, stream>>>(a);
-  }
-};
-
-template <class A, class T>
-static A mg2p_rr_args(const T* up, const T* fp, T* out, T* Rc, int nu, float mhq,
-                      float inv_hsq) {
-  A a{};
+static Mg2pArgs mg2p_rr_args(const float* up, const float* fp, float* out, float* Rc, int nu,
+                             float mhq, float inv_hsq) {
+  Mg2pArgs a{};
   a.U = up;
   a.F = fp;
   a.Uout = out;
@@ -89,18 +72,9 @@ static A mg2p_rr_args(const T* up, const T* fp, T* out, T* Rc, int nu, float mhq
 extern "C" int mg_packed_rr(const float* up, const float* fp, float* out, float* Rc, int n,
                             int nu, float mhq, float inv_hsq, cudaStream_t stream) {
   if (n < 2 || n % 2 || nu < 1 || nu > MG2P_MAX_NU) return (int)cudaErrorInvalidValue;
-  Mg2pArgs a = mg2p_rr_args<Mg2pArgs>(up, fp, out, Rc, nu, mhq, inv_hsq);
+  Mg2pArgs a = mg2p_rr_args(up, fp, out, Rc, nu, mhq, inv_hsq);
   a.blk = MgBlock{n, n, n, 0, 0};
   return mg2p_launch<MgPackedRrLaunch, false>(a, stream);
-}
-
-extern "C" int mg_packed_rr_bf16(const __nv_bfloat16* up, const __nv_bfloat16* fp,
-                                 __nv_bfloat16* out, __nv_bfloat16* Rc, int n, int nu,
-                                 float mhq, float inv_hsq, cudaStream_t stream) {
-  if (n < 2 || n % 2 || nu < 1 || nu > MG2P_MAX_NU) return (int)cudaErrorInvalidValue;
-  Mg2pArgsBf16 a = mg2p_rr_args<Mg2pArgsBf16>(up, fp, out, Rc, nu, mhq, inv_hsq);
-  a.blk = MgBlock{n, n, n, 0, 0};
-  return mg2p_launch<MgPackedRrBf16Launch, false>(a, stream);
 }
 
 // One rank's packed (nl x n) block from global row r0 of an n x n level; u
@@ -114,7 +88,7 @@ extern "C" int mg_sharded_packed_rr(const float* up, const float* fp, float* out
   if (n < 2 || n % 2 || nl < 2 || (nl | r0) & 1 || r0 < 0 || r0 + nl > n || nu < 1 ||
       nu > MG2P_MAX_NU || D < 2 * nu + 1)
     return (int)cudaErrorInvalidValue;
-  Mg2pArgs a = mg2p_rr_args<Mg2pArgs>(up, fp, out, Rc, nu, mhq, inv_hsq);
+  Mg2pArgs a = mg2p_rr_args(up, fp, out, Rc, nu, mhq, inv_hsq);
   a.blk = MgBlock{n, nl, n, r0, 0};
   a.us = MgStrips{ut, ub, nullptr, nullptr, D};
   a.fs = MgStrips{ft, fb, nullptr, nullptr, D};

@@ -44,30 +44,13 @@
 //             beside), each pass with (0.5, 0) at the grid's edge lines
 //
 // each add and multiply rounded on its own (__fadd_rn, __fmul_rn), so every
-// output equals the plain packed ops bit for bit.
-//
-// The bf16 forms of K7/K8 (mg_packed_rr_bf16, mg_packed_pc_bf16) run the
-// same tile on bf16 packed arrays, as the bf16 forms of K1-K3 run
-// stencil.cuh's (Mg2Elem<T>): a lane loads its red and its black cell as
-// two 2-byte loads (64 bytes per warp and plane), the values stay in f32
-// registers, and every add and multiply above is followed by a round to
-// bf16 (rd), what plain torch does on a bf16 tensor; -h^2/4 and 1/h^2 are
-// f32 scalars, as torch takes a Python scalar.  Three steps round
-// otherwise, as the plain packed ops do: the restriction adds the two
-// rows' bf16 sums r_red + r_black in f32 and rounds once (torch's bf16
-// sum over the row pair), then the quarter; the bilinear P(V) is blended
-// in f32 and rounded once before the add (ops._packed_correction, as the
-// Pallas packed up-leg); sum(r^2) squares the bf16 residual in f32.  The
-// element type is that of the argument struct's arrays (Mg2pArgs f32,
-// Mg2pArgsBf16 bf16: two structs, no template, so the f32 instances keep
-// their code); the strip entries K13/K14 are f32 only, as the JAX
-// package's packed strip kernels are.  The bc is ghost0 (the
-// fine level's by definition): cells outside the grid load 0 and are never
-// updated.  Halo: H = 2 nu steps, + 1 where a residual reads one more ring
-// (the down-leg, the up-leg with rnorm); the tile rounds it up to even.
+// output equals the plain packed ops bit for bit.  The bf16 forms of K7/K8
+// run the packed word tile (stencil_packed_w.cuh), which takes mg2p_mix and
+// MG2P_MAX_NU from here.  The bc is ghost0 (the fine level's by
+// definition): cells outside the grid load 0 and are never updated.  Halo:
+// H = 2 nu steps, + 1 where a residual reads one more ring (the down-leg,
+// the up-leg with rnorm); the tile rounds it up to even.
 #pragma once
-
-#include <type_traits>
 
 #include "stencil.cuh"
 
@@ -88,37 +71,18 @@ struct Mg2pArgs {
   float* Rout;
 };
 
-// The same on bf16 arrays (the bf16 forms of K7/K8; no strips).
-struct Mg2pArgsBf16 {
-  const __nv_bfloat16* U;
-  const __nv_bfloat16* F;
-  const __nv_bfloat16* V;
-  __nv_bfloat16* Uout;
-  float* partials;
-  MgBlock blk;
-  MgStrips us, fs, vs;
-  int H, nu, kind;
-  float mhq, inv_hsq;
-  __nv_bfloat16* Rout;
-};
-
-// The element type of an argument struct's arrays.
-template <class A>
-using Mg2pElem = std::remove_cv_t<std::remove_pointer_t<decltype(A::U)>>;
-
 // Loads the warp's R rows of the packed X (a block of whole rows, c0 = 0)
 // into x: row i's red and black lane J in (x0, x1) on even rows and in
 // (x1, x0) on odd ones; cells outside the grid read 0.
-template <int R, bool kStrips, bool kEdge, class T>
-static __device__ __forceinline__ void mg2p_load(Mg2Pair<R>& x, const T* __restrict__ X,
+template <int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ void mg2p_load(Mg2Pair<R>& x, const float* __restrict__ X,
                                                  const MgStrips& s, const Mg2Tile& t) {
-  using E = Mg2Elem<T>;
   const int w = t.n / 2, J = t.lj0 / 2 + t.lane;
   if (!kEdge) {
-    const T* p = X + (size_t)t.li0 * t.ml + J;
+    const float* p = X + (size_t)t.li0 * t.ml + J;
 #pragma unroll
     for (int i = 0; i < R; ++i) {
-      const float a = E::ldg(p + (size_t)i * t.ml), b = E::ldg(p + (size_t)i * t.ml + w);
+      const float a = __ldg(p + (size_t)i * t.ml), b = __ldg(p + (size_t)i * t.ml + w);
       x.x0[i] = i & 1 ? b : a;
       x.x1[i] = i & 1 ? a : b;
     }
@@ -129,13 +93,13 @@ static __device__ __forceinline__ void mg2p_load(Mg2Pair<R>& x, const T* __restr
   for (int i = 0; i < R; ++i) {
     float a = 0.f, b = 0.f;
     if (col_in && mg_in(t.gi0 + i, t.n)) {
-      if constexpr (kStrips) {
+      if (kStrips) {
         a = mg_fetch(X, s, t.li0 + i, J, t.nl, t.ml);
         b = mg_fetch(X, s, t.li0 + i, w + J, t.nl, t.ml);
       } else {
-        const T* p = X + (size_t)(t.gi0 + i) * t.n + J;
-        a = E::ld(p);
-        b = E::ld(p + w);
+        const float* p = X + (size_t)(t.gi0 + i) * t.n + J;
+        a = p[0];
+        b = p[w];
       }
     }
     x.x0[i] = i & 1 ? b : a;
@@ -144,20 +108,19 @@ static __device__ __forceinline__ void mg2p_load(Mg2Pair<R>& x, const T* __restr
 }
 
 // Writes the warp's interior back to the block's packed (nl x n) array.
-template <int R, bool kEdge, class T>
-static __device__ __forceinline__ void mg2p_store(T* __restrict__ out, const Mg2Pair<R>& u,
+template <int R, bool kEdge>
+static __device__ __forceinline__ void mg2p_store(float* __restrict__ out, const Mg2Pair<R>& u,
                                                   const Mg2Tile& t) {
-  using E = Mg2Elem<T>;
   if (!mg2_lane_owns<kEdge>(t)) return;
   const int w = t.n / 2;
-  T* p = out + (t.lj0 / 2 + t.lane);
+  float* p = out + (t.lj0 / 2 + t.lane);
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int li = t.li0 + i;
     if (i >= t.hr && i < R - t.hr && (!kEdge || mg_in(li, t.nl))) {
-      T* q = p + (size_t)li * t.ml;
-      q[0] = E::cvt(i & 1 ? u.x1[i] : u.x0[i]);   // red
-      q[w] = E::cvt(i & 1 ? u.x0[i] : u.x1[i]);   // black
+      float* q = p + (size_t)li * t.ml;
+      q[0] = i & 1 ? u.x1[i] : u.x0[i];   // red
+      q[w] = i & 1 ? u.x0[i] : u.x1[i];   // black
     }
   }
 }
@@ -167,18 +130,15 @@ static __device__ __forceinline__ float mg2p_mix(float a, float x, float b, floa
   return __fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y));
 }
 
-// up += P(V) on the warp's in-grid cells (ops._packed_correction).  vc[k] is
+// up += P(V) on the warp's in-grid cells (ops._packed_prolong).  vc[k] is
 // the lane's coarse column in coarse row k - 1 of the tile, as in K3's
 // mg2_correct; the bilinear row blend B of the lane's own column and of the
 // columns beside it (from the lanes beside it, lanes 0 and 31 load their
 // outer one), then the lane blend: x0 with the column to the left, x1 with
-// the one to the right.  The blend is f32 (in bf16 rounded once, then the
-// add rounded).
-template <int R, bool kStrips, bool kEdge, class A>
-static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
+// the one to the right.
+template <int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const Mg2pArgs& a,
                                                     const Mg2Tile& t) {
-  using T = Mg2pElem<A>;
-  using E = Mg2Elem<T>;
   constexpr int K = R / 2 + 2;
   const int lI0 = t.li0 / 2 - 1, gI0 = t.gi0 / 2 - 1;
   const int lJ = t.lj0 / 2 + t.lane, gJ = t.gj0 / 2 + t.lane;
@@ -187,9 +147,9 @@ static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
   const Mg2Cols c = mg2_cols_of(t);
   float vc[K];
   if (!kEdge) {
-    const T* p = a.V + (size_t)lI0 * (t.ml / 2) + lJ;
+    const float* p = a.V + (size_t)lI0 * (t.ml / 2) + lJ;
 #pragma unroll
-    for (int k = 0; k < K; ++k) vc[k] = E::ldg(p + (size_t)k * (t.ml / 2));
+    for (int k = 0; k < K; ++k) vc[k] = __ldg(p + (size_t)k * (t.ml / 2));
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k)
@@ -200,8 +160,8 @@ static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
     for (int i = 0; i < R; ++i) {
       const bool in = !kEdge || (c.in && mg_in(t.gi0 + i, t.n));
       if (in) {
-        u.x0[i] = E::rd(__fadd_rn(u.x0[i], vc[i / 2 + 1]));
-        u.x1[i] = E::rd(__fadd_rn(u.x1[i], vc[i / 2 + 1]));
+        u.x0[i] = __fadd_rn(u.x0[i], vc[i / 2 + 1]);
+        u.x1[i] = __fadd_rn(u.x1[i], vc[i / 2 + 1]);
       }
     }
     return;
@@ -210,7 +170,7 @@ static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
     float e = 0.f;
     if (outer)
       e = kEdge ? mg2_coarse<kStrips>(a.V, a.vs, t, lI0 + k, lJ + side, gI0 + k, gJ + side)
-                : E::ldg(a.V + (size_t)(lI0 + k) * (t.ml / 2) + (lJ + side));
+                : __ldg(a.V + (size_t)(lI0 + k) * (t.ml / 2) + (lJ + side));
     const float fl = mg2_from_left(vc[k]), fr = mg2_from_right(vc[k]);
     l = t.lane == 0 ? e : fl;
     r = t.lane == 31 ? e : fr;
@@ -236,8 +196,8 @@ static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
       const float Bl = mg2p_mix(a0, lc, b0, d ? lp : lm);
       const float Br = mg2p_mix(a0, rc, b0, d ? rp : rm);
       if (in) {
-        u.x0[i] = E::rd(__fadd_rn(u.x0[i], E::rd(mg2p_mix(a1l, B, b1l, Bl))));
-        u.x1[i] = E::rd(__fadd_rn(u.x1[i], E::rd(mg2p_mix(a1r, B, b1r, Br))));
+        u.x0[i] = __fadd_rn(u.x0[i], mg2p_mix(a1l, B, b1l, Bl));
+        u.x1[i] = __fadd_rn(u.x1[i], mg2p_mix(a1r, B, b1r, Br));
       }
     }
     lm = lc;
@@ -247,31 +207,23 @@ static __device__ __forceinline__ void mg2p_correct(Mg2Pair<R>& u, const A& a,
   }
 }
 
-// The packed sweep's update of one cell (ops._packed_core), each op's
-// result rounded to T (rd), here and below.
-template <class T = float>
+// The packed sweep's update of one cell (ops._packed_core).
 static __device__ __forceinline__ float mg2p_relax(float up, float dn, float same, float partner,
                                                    float f, float mhq) {
-  using E = Mg2Elem<T>;
-  return E::rd(__fadd_rn(
-      E::rd(__fmul_rn(E::rd(__fadd_rn(E::rd(__fadd_rn(up, dn)), E::rd(__fadd_rn(same, partner)))),
-                      0.25f)),
-      E::rd(__fmul_rn(f, mhq))));
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fadd_rn(up, dn), __fadd_rn(same, partner)), 0.25f),
+                   __fmul_rn(f, mhq));
 }
 
 // The packed residual of one cell (ops._packed_residual).
-template <class T = float>
 static __device__ __forceinline__ float mg2p_resid(float x, float up, float dn, float same,
                                                    float partner, float f, float inv_hsq) {
-  using E = Mg2Elem<T>;
-  const float nbr = E::rd(__fadd_rn(E::rd(__fadd_rn(E::rd(__fadd_rn(up, dn)), same)), partner));
-  return E::rd(__fsub_rn(
-      f, E::rd(__fmul_rn(E::rd(__fsub_rn(nbr, E::rd(__fmul_rn(4.f, x)))), inv_hsq))));
+  const float nbr = __fadd_rn(__fadd_rn(__fadd_rn(up, dn), same), partner);
+  return __fsub_rn(f, __fmul_rn(__fsub_rn(nbr, __fmul_rn(4.f, x)), inv_hsq));
 }
 
 // One colour step: cells with (global row + column) % 2 == P, red for P = 0
 // (see stencil.cuh mg2_colour); cells outside the grid keep their 0.
-template <int P, int R, bool kEdge, class T = float>
+template <int P, int R, bool kEdge>
 static __device__ __forceinline__ void mg2p_colour(Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                    const Mg2Tile& t, const Mg2Cols& c,
                                                    float mhq) {
@@ -279,19 +231,19 @@ static __device__ __forceinline__ void mg2p_colour(Mg2Pair<R>& u, const Mg2Pair<
   for (int i = 1; i < R - 1; ++i) {
     const bool in = !kEdge || (c.in && mg_in(t.gi0 + i, t.n));
     if ((i & 1) == P) {
-      const float v = mg2p_relax<T>(u.x0[i - 1], u.x0[i + 1], u.x1[i],
-                                    mg2_from_left(u.x1[i]), f.x0[i], mhq);
+      const float v = mg2p_relax(u.x0[i - 1], u.x0[i + 1], u.x1[i], mg2_from_left(u.x1[i]),
+                                 f.x0[i], mhq);
       if (in) u.x0[i] = v;
     } else {
-      const float v = mg2p_relax<T>(u.x1[i - 1], u.x1[i + 1], u.x0[i],
-                                    mg2_from_right(u.x0[i]), f.x1[i], mhq);
+      const float v = mg2p_relax(u.x1[i - 1], u.x1[i + 1], u.x0[i], mg2_from_right(u.x0[i]),
+                                 f.x1[i], mhq);
       if (in) u.x1[i] = v;
     }
   }
 }
 
 // nu red-black sweeps, red first, on the warp's registers.
-template <int R, bool kEdge, class T = float>
+template <int R, bool kEdge>
 static __device__ __forceinline__ void mg2p_sweeps(Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                    const Mg2Tile& t, int nu, float mhq) {
   const Mg2Cols c = mg2_cols_of(t);
@@ -300,23 +252,23 @@ static __device__ __forceinline__ void mg2p_sweeps(Mg2Pair<R>& u, const Mg2Pair<
     // the checked body's row tests, made anew each sweep (see mg2_sweeps)
     Mg2Tile ts = t;
     if (kEdge) asm volatile("" : "+r"(ts.gi0));
-    mg2p_colour<0, R, kEdge, T>(u, f, ts, c, mhq);
-    mg2p_colour<1, R, kEdge, T>(u, f, ts, c, mhq);
+    mg2p_colour<0, R, kEdge>(u, f, ts, c, mhq);
+    mg2p_colour<1, R, kEdge>(u, f, ts, c, mhq);
   }
 }
 
 // The ghost0 residual of row i's pair (x0, x1) (ops._packed_residual).
-template <int R, class T = float>
+template <int R>
 static __device__ __forceinline__ float2 mg2p_resid2(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                      int i, float inv_hsq) {
   const float x0 = u.x0[i], x1 = u.x1[i];
   return make_float2(
-      mg2p_resid<T>(x0, u.x0[i - 1], u.x0[i + 1], x1, mg2_from_left(x1), f.x0[i], inv_hsq),
-      mg2p_resid<T>(x1, u.x1[i - 1], u.x1[i + 1], x0, mg2_from_right(x0), f.x1[i], inv_hsq));
+      mg2p_resid(x0, u.x0[i - 1], u.x0[i + 1], x1, mg2_from_left(x1), f.x0[i], inv_hsq),
+      mg2p_resid(x1, u.x1[i - 1], u.x1[i + 1], x0, mg2_from_right(x0), f.x1[i], inv_hsq));
 }
 
 // sum(r^2) of the ghost0 residual over the warp's owned cells.
-template <int R, bool kEdge, class T = float>
+template <int R, bool kEdge>
 static __device__ __forceinline__ float mg2p_rsq(const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                  const Mg2Tile& t, float inv_hsq) {
   const bool owns = mg2_lane_owns<kEdge>(t);
@@ -324,7 +276,7 @@ static __device__ __forceinline__ float mg2p_rsq(const Mg2Pair<R>& u, const Mg2P
 #pragma unroll
   for (int i = 1; i < R - 1; ++i) {
     if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
-    const float2 r = mg2p_resid2<R, T>(u, f, i, inv_hsq);
+    const float2 r = mg2p_resid2<R>(u, f, i, inv_hsq);
     if (owns && (!kEdge || mg_in(t.li0 + i, t.nl))) {
       acc = __fmaf_rn(r.x, r.x, acc);
       acc = __fmaf_rn(r.y, r.y, acc);
@@ -338,11 +290,9 @@ static __device__ __forceinline__ float mg2p_rsq(const Mg2Pair<R>& u, const Mg2P
 // coarse cell, coarse column J = its packed lane (mg2_restrict's geometry),
 // one coalesced 4-byte store per lane and row pair.  The pair holds red and
 // black on either row parity (swapped on odd rows), so each row's r_red +
-// r_black is x0's plus x1's in that order or the other, the same sum.  In
-// bf16 each row's sum is rounded, the two rows' f32 sum is rounded once,
-// then the quarter (exact).
-template <int R, bool kEdge, class T>
-static __device__ __forceinline__ void mg2p_restrict(T* __restrict__ Rout,
+// r_black is x0's plus x1's in that order or the other, the same sum.
+template <int R, bool kEdge>
+static __device__ __forceinline__ void mg2p_restrict(float* __restrict__ Rout,
                                                      const Mg2Pair<R>& u, const Mg2Pair<R>& f,
                                                      const Mg2Tile& t, float inv_hsq) {
   const int J = t.lj0 / 2 + t.lane, w = t.n / 2;
@@ -350,34 +300,31 @@ static __device__ __forceinline__ void mg2p_restrict(T* __restrict__ Rout,
 #pragma unroll
   for (int i = 2; i < R - 2; i += 2) {
     if (i < t.hr || i >= R - t.hr) continue;   // the same for every lane
-    const float2 r0 = mg2p_resid2<R, T>(u, f, i, inv_hsq);
-    const float2 r1 = mg2p_resid2<R, T>(u, f, i + 1, inv_hsq);
+    const float2 r0 = mg2p_resid2<R>(u, f, i, inv_hsq);
+    const float2 r1 = mg2p_resid2<R>(u, f, i + 1, inv_hsq);
     const int I = (t.li0 + i) / 2;
-    using E = Mg2Elem<T>;
     if (owns && (!kEdge || mg_in(I, t.nl / 2)))
-      Rout[(size_t)I * w + J] = E::cvt(E::rd(__fmul_rn(
-          E::rd(__fadd_rn(E::rd(__fadd_rn(r0.x, r0.y)), E::rd(__fadd_rn(r1.x, r1.y)))),
-          0.25f)));
+      Rout[(size_t)I * w + J] =
+          __fmul_rn(__fadd_rn(__fadd_rn(r0.x, r0.y), __fadd_rn(r1.x, r1.y)), 0.25f);
   }
 }
 
-template <int R, bool kStrips, bool kEdge, class A>
-static __device__ __forceinline__ float mg2p_pc_tile(const A& a, const Mg2Tile& t) {
-  using T = Mg2pElem<A>;
+template <int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ float mg2p_pc_tile(const Mg2pArgs& a, const Mg2Tile& t) {
   Mg2Pair<R> u;
   Mg2Pair<R> f;
   mg2p_load<R, kStrips, kEdge>(u, a.U, a.us, t);
   mg2p_correct<R, kStrips, kEdge>(u, a, t);
   mg2p_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2p_sweeps<R, kEdge, T>(u, f, t, a.nu, a.mhq);
+  mg2p_sweeps<R, kEdge>(u, f, t, a.nu, a.mhq);
   mg2p_store<R, kEdge>(a.Uout, u, t);
   if (a.partials == nullptr) return 0.f;
-  return mg2p_rsq<R, kEdge, T>(u, f, t, a.inv_hsq);
+  return mg2p_rsq<R, kEdge>(u, f, t, a.inv_hsq);
 }
 
 // The packed up-leg on the block a.blk ({n, n, n, 0, 0} for the grid).
-template <int R, bool kStrips, class A>
-static __device__ __forceinline__ void mg2p_pc_body(const A& a) {
+template <int R, bool kStrips>
+static __device__ __forceinline__ void mg2p_pc_body(const Mg2pArgs& a) {
   const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
   float acc = 0.f;
   if (mg2_owns(t))
@@ -386,21 +333,20 @@ static __device__ __forceinline__ void mg2p_pc_body(const A& a) {
   if (a.partials != nullptr) mg2_partial(acc, a.partials);
 }
 
-template <int R, bool kStrips, bool kEdge, class A>
-static __device__ __forceinline__ void mg2p_rr_tile(const A& a, const Mg2Tile& t) {
-  using T = Mg2pElem<A>;
+template <int R, bool kStrips, bool kEdge>
+static __device__ __forceinline__ void mg2p_rr_tile(const Mg2pArgs& a, const Mg2Tile& t) {
   Mg2Pair<R> u;
   Mg2Pair<R> f;
   mg2p_load<R, kStrips, kEdge>(u, a.U, a.us, t);
   mg2p_load<R, kStrips, kEdge>(f, a.F, a.fs, t);
-  mg2p_sweeps<R, kEdge, T>(u, f, t, a.nu, a.mhq);
+  mg2p_sweeps<R, kEdge>(u, f, t, a.nu, a.mhq);
   mg2p_store<R, kEdge>(a.Uout, u, t);
   mg2p_restrict<R, kEdge>(a.Rout, u, f, t, a.inv_hsq);
 }
 
 // The packed down-leg on the block a.blk ({n, n, n, 0, 0} for the grid).
-template <int R, bool kStrips, class A>
-static __device__ __forceinline__ void mg2p_rr_body(const A& a) {
+template <int R, bool kStrips>
+static __device__ __forceinline__ void mg2p_rr_body(const Mg2pArgs& a) {
   const Mg2Tile t = mg2_tile<R>(a.blk, a.H);
   if (!mg2_owns(t)) return;
   if (mg2_inside<R>(t))
@@ -411,8 +357,8 @@ static __device__ __forceinline__ void mg2p_rr_body(const A& a) {
 
 // Launches L::go<R, kStrips> (one leg's instances) for the tile table's R
 // on the (nl x n) block a.blk at halo a.H; returns the launch's error.
-template <class L, bool kStrips, class A>
-static __host__ int mg2p_launch(const A& a, cudaStream_t stream) {
+template <class L, bool kStrips>
+static __host__ int mg2p_launch(const Mg2pArgs& a, cudaStream_t stream) {
   const int R = mg2_rows(a.blk.nl, a.blk.ml, a.H);
   const dim3 grid = mg2_grid(a.blk.nl, a.blk.ml, a.H), block(32, MG2_WARPS);
   if (R == MG2_ROWS_DEEP)

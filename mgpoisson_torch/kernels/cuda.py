@@ -41,7 +41,9 @@ the word tile of ``csrc/stencil3d_zw.cuh``, ``tile3d_zw``), the cube tile
 of ``csrc/stencil3d.cuh`` beyond, which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
 register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
-(``csrc/stencil_packed.cuh``).
+(``csrc/stencil_packed.cuh``); the bf16 forms of K7/K8 run the packed
+word tile of ``csrc/stencil_packed_w.cuh`` (two packed columns of each
+plane per lane as bf16x2 words, ``tile_packed_w``).
 
 K1-K12 have bf16 forms (``mg_smooth_bf16``, ``mg_smooth_rr_bf16``,
 ``mg_prolong_correct_smooth_bf16``, ``mg_smooth3d_bf16``,
@@ -122,6 +124,13 @@ ZW_ROWS = 32
 ZW_MIN_BLOCKS = 2
 # packed kernels: the JAX package's sweep cap (pallas.py packed_plan)
 PACKED_MAX_NU = 3
+# the packed word tile of the bf16 forms of K7/K8 (csrc/stencil_packed_w.cuh):
+# a warp loads PACKED_W_COLS packed columns of each plane (a word of two per
+# lane), its column halo the kernel halo in fine columns rounded up to a
+# multiple of 4, and PACKED_W_ROWS = (shallow, deep) rows: shallow at an
+# even row halo <= TILE_SHALLOW_HALO
+PACKED_W_COLS = 64
+PACKED_W_ROWS = (16, 32)
 
 # Launches per kernel, counted where the wrapper launches it; ".zero" and
 # ".rnorm" count the flagged launches among them.  Read and reset by
@@ -481,12 +490,26 @@ def packed_supports(n: int, dtype: torch.dtype, nu: int) -> bool:
             and 1 <= nu <= PACKED_MAX_NU)
 
 
-def packed_rnorm_partials(nl: int, n: int, nu: int) -> int:
+def tile_packed_w(halo: int) -> tuple[int, int]:
+    """(rows, packed columns of each plane) of the interior of one block of
+    the packed word tile at this kernel halo, on a packed level of any side
+    (csrc/stencil_packed_w.cuh mg2w_rows, mg2w_grid): the row halo rounded
+    up to even, the column halo to a multiple of 4 fine columns."""
+    hr = halo + (halo & 1)
+    rows = PACKED_W_ROWS[hr > TILE_SHALLOW_HALO]
+    return TILE_WARPS * (rows - 2 * hr), PACKED_W_COLS - (halo + 3) // 4 * 4
+
+
+def packed_rnorm_partials(nl: int, n: int, nu: int, dtype: torch.dtype = torch.float32) -> int:
     """Number of f32 Sigma r^2 partials, one per thread block, that the
     packed up-leg with rnorm (K8 on the grid, nl = n; K14 on a block of nl
-    whole rows) writes: it runs the 2D register tile on the fine geometry
-    of the packed (nl, n) array at the halo 2 nu + 1 (blocks2d)."""
-    return blocks2d(nl, n, 2 * nu + 1)
+    whole rows) writes at the halo 2 nu + 1: in f32 the 2D register tile on
+    the fine geometry of the packed (nl, n) array (blocks2d), in bf16 (K8
+    only) the packed word tile's blocks (tile_packed_w)."""
+    if dtype != torch.bfloat16:
+        return blocks2d(nl, n, 2 * nu + 1)
+    rows, cols = tile_packed_w(2 * nu + 1)
+    return -(-nl // rows) * -(-(n // 2) // cols)
 
 
 def _check_packed(name, up, nu, *others):
@@ -526,7 +549,7 @@ def _packed_pc(up, fp, V, h, nu, kind, rnorm):
     _check_packed(name, up, nu, (fp, up.shape), (V, _half(up.shape)))
     n = up.shape[0]
     out = torch.empty_like(up)
-    partials = (torch.empty(packed_rnorm_partials(n, n, nu), dtype=torch.float32,
+    partials = (torch.empty(packed_rnorm_partials(n, n, nu, up.dtype), dtype=torch.float32,
                             device=up.device) if rnorm else None)
     _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
             partials.data_ptr() if rnorm else None, n, nu, PROLONG_KINDS[kind],

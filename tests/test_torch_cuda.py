@@ -195,6 +195,88 @@ def test_packed_kernels_vs_plain(card, n, nu):
     torch.cuda.synchronize()
 
 
+# ... and their bf16 forms on the packed word tile (two packed columns of
+# each plane per lane as bf16x2 words): below one warp's 128 fine columns,
+# n % 4 == 2 (w odd: the black plane, V and Rc put a pair at an odd offset,
+# so the launch takes 2-byte accesses), one tile and several; an operand
+# at an odd 2-byte offset runs the same way.  Bit-equal.
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 6, 10, 16, 64, 256, 1024])
+@pytest.mark.parametrize("nu", [1, 3])
+def test_packed_bf16_kernels_vs_plain(card, n, nu):
+    u, f, V = (t.to(torch.bfloat16) for t in _data(n, n + nu + 9, card))
+    up, fp = cuda.pack_grid(u), cuda.pack_grid(f)
+    h = 1.0 / n
+    for got, want in zip(cuda.packed_smooth_residual_restrict(up, fp, h, nu),
+                         ops.packed_smooth_residual_restrict(up, fp, h, nu)):
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    for kind in ("inject", "bilinear"):
+        pa = (up, fp, V, h, nu, kind)
+        assert torch.equal(cuda.packed_prolong_correct_smooth(*pa),
+                           ops.packed_prolong_correct_smooth(*pa))
+        got_u, got_r2 = cuda.packed_prolong_correct_smooth_rnorm(*pa)
+        want_u, want_r2 = ops.packed_prolong_correct_smooth_rnorm(*pa)
+        assert torch.equal(got_u, want_u)
+        assert abs(float(got_r2) / float(want_r2) - 1.0) <= 1e-5
+    odd = torch.empty(n * n + 1, dtype=torch.bfloat16, device=card)[1:].view(n, n)
+    odd.copy_(up)
+    for got, want in zip(cuda.packed_smooth_residual_restrict(odd, fp, h, nu),
+                         ops.packed_smooth_residual_restrict(up, fp, h, nu)):
+        assert torch.equal(got, want)
+    got_u, _ = cuda.packed_prolong_correct_smooth_rnorm(odd, fp, V, h, nu, "bilinear")
+    assert torch.equal(got_u, ops.packed_prolong_correct_smooth(up, fp, V, h, nu, "bilinear"))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_packed_bf16_word_tile_addresses_a_65536_grid(card):
+    """A packed 65536^2 grid has 2^32 cells: the word tile's element offsets
+    pass 2^31 and reach 2^32 - 1 there (it takes them in 64 bits).  Zero
+    data but for a patch in the grid's last 40 rows and columns: every
+    output of K7.bf16 and K8.bf16 (rnorm, bilinear) on the whole grid equals
+    the plain legs on the 64 x 64 corner around the patch (its reach, 8
+    cells, stays inside it; V, and so P(V), is zero along the corner's inner
+    edges) and is zero elsewhere.  About 30 GB on the card."""
+    torch.cuda.empty_cache()
+    n, m, nu = 65536, 64, 3
+    w, c, h = n // 2, n - m, 1.0 / n
+    g = torch.Generator(device=card).manual_seed(n)
+    small = []
+    for s in (m, m, m // 2):
+        x = torch.zeros((s, s), device=card)
+        x[s - s * 40 // m:, s - s * 40 // m:] = torch.randn((s * 40 // m,) * 2, generator=g,
+                                                            device=card)
+        small.append(x.to(torch.bfloat16))
+    us, fs = cuda.pack_grid(small[0]), cuda.pack_grid(small[1])
+    Vs = small[2]
+    up, fp = (torch.zeros((n, n), dtype=torch.bfloat16, device=card) for _ in range(2))
+    V = torch.zeros((w, w), dtype=torch.bfloat16, device=card)
+    rows, red, black = slice(c, n), slice(c // 2, w), slice(w + c // 2, n)
+    for big, sm in ((up, us), (fp, fs)):
+        big[rows, red], big[rows, black] = sm[:, :m // 2], sm[:, m // 2:]
+    V[c // 2:, c // 2:] = Vs
+
+    def nonzero(x):   # counted 1024 rows at a time
+        return sum(int(torch.count_nonzero(x[i:i + 1024])) for i in range(0, len(x), 1024))
+
+    def held(got, want):
+        assert torch.equal(torch.cat([got[rows, red], got[rows, black]], dim=1), want)
+        assert nonzero(got) == nonzero(want)
+
+    got_u, got_R = cuda.packed_smooth_residual_restrict(up, fp, h, nu)
+    want_u, want_R = ops.packed_smooth_residual_restrict(us, fs, h, nu)
+    held(got_u, want_u)
+    assert torch.equal(got_R[c // 2:, c // 2:], want_R) and nonzero(got_R) == nonzero(want_R)
+    del got_u, got_R
+    got_u, got_r2 = cuda.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, "bilinear")
+    want_u, want_r2 = ops.packed_prolong_correct_smooth_rnorm(us, fs, Vs, h, nu, "bilinear")
+    held(got_u, want_u)
+    assert abs(float(got_r2) / float(want_r2) - 1.0) <= 1e-5
+    del got_u, up, fp, V
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.cuda
 def test_packed_wrappers_reject_what_the_kernels_do_not_take(card):
     u, f, V = _data(64, 2, card)

@@ -20,11 +20,8 @@ The kernels run only on the card, so two things are held here:
   sides below one tile (8), of about one (64) and of several (256), on
   the whole grid and on every block of (2, 1) and (4, 1) meshes with the
   solver's strips (2 nu + 1 deep, one row short of the tile's even halo
-  with a residual); and the same model in bf16, the bf16 forms' steps
-  (each op rounded to bf16, the bilinear P(V) blended in f32 and rounded
-  once, each row's r_red + r_black rounded and the row pair summed in f32
-  and rounded once), which must equal the plain packed ops in bf16 bit for
-  bit on the whole grid."""
+  with a residual).  The bf16 forms of K7/K8 run the packed word tile,
+  held in tests/test_torch_bf16x2_packed.py."""
 
 import math
 import re
@@ -249,9 +246,8 @@ def _scatter_once(out, rows, *cols_vals_own):
 
 def _tile_model(up, fp, V, h, nu, kind, rnorm, r0=0, n=None, strips=(None, None, None)):
     """csrc/stencil_packed.cuh's up-leg on the packed block up (nl whole rows
-    from global row r0 of a grid of side n), warp by warp in up's dtype (f32,
-    or bf16: each op rounded, the bilinear blend in f32 and rounded once):
-    returns (up', sum(r^2) of the owned cells, accumulated in f64)."""
+    from global row r0 of a grid of side n), warp by warp in f32: returns
+    (up', sum(r^2) of the owned cells, accumulated in f64)."""
     nl, n = up.shape[0], up.shape[1] if n is None else n
     g = _Warps(nl, n, 2 * nu + rnorm, r0)
     R, w, J, gi = g.R, g.w, g.J, g.gi
@@ -278,11 +274,11 @@ def _tile_model(up, fp, V, h, nu, kind, rnorm, r0=0, n=None, strips=(None, None,
         row_edge = (gi == 0) | (gi == n - 1)
         a0, b0 = torch.where(row_edge, _c(0.5), _c(0.75)), torch.where(row_edge, _c(0.0), _c(0.25))
         S = lambda v: torch.where(d == 1, v[:, k + 1], v[:, k - 1])
-        B, Bl, Br = (a0 * v[:, k].float() + b0 * S(v).float() for v in (vc, vl, vr))
+        B, Bl, Br = (a0 * v[:, k] + b0 * S(v) for v in (vc, vl, vr))
         lo, hi = 2 * J == 0, 2 * J + 1 == n - 1
         a1l, b1l = torch.where(lo, _c(0.5), _c(0.75)), torch.where(lo, _c(0.0), _c(0.25))
         a1r, b1r = torch.where(hi, _c(0.5), _c(0.75)), torch.where(hi, _c(0.0), _c(0.25))
-        p0, p1 = ((a1l * B + b1l * Bl).to(up.dtype), (a1r * B + b1r * Br).to(up.dtype))
+        p0, p1 = a1l * B + b1l * Bl, a1r * B + b1r * Br
     x0 = torch.where(g.in_grid, x0 + p0, x0)
     x1 = torch.where(g.in_grid, x1 + p1, x1)
 
@@ -298,10 +294,9 @@ def _tile_model(up, fp, V, h, nu, kind, rnorm, r0=0, n=None, strips=(None, None,
 
 def _rr_model(up, fp, h, nu, r0=0, n=None, strips=(None, None)):
     """csrc/stencil_packed.cuh's down-leg on the packed block up, warp by
-    warp in up's dtype: nu sweeps at the halo 2 nu + 1, the store, the
-    residual and mg2p_restrict (each row's red plus black, then the row
-    pair, then the quarter; in bf16 the row pair's sum of two bf16 values
-    rounded once) into the UNPACKED (nl/2, n/2) coarse rhs, every coarse
+    warp in f32: nu sweeps at the halo 2 nu + 1, the store, the residual
+    and mg2p_restrict (each row's red plus black, then the row pair, then
+    the quarter) into the UNPACKED (nl/2, n/2) coarse rhs, every coarse
     cell written once: returns (up', Rc)."""
     nl, n = up.shape[0], up.shape[1] if n is None else n
     g = _Warps(nl, n, 2 * nu + 1, r0)
@@ -383,34 +378,3 @@ def test_tile_model_equals_the_plain_packed_down_leg(n, nu, mx):
         got = _rr_model(ub, fb, h, nu, r0, n, (us[:2], fs[:2]))
         want = ops.packed_rr_sharded(ub, fb, us, fs, (r0, 0), n, h, nu)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-
-
-# the bf16 forms of K7/K8 (whole grid only: the strip kernels are f32 only)
-BF16_CASES = [(n, nu) for n in (8, 64, 256) for nu in (1, 3)]
-
-
-def _data_bf16(n, seed):
-    return [t.to(torch.bfloat16) for t in _data(n, seed)]
-
-
-@pytest.mark.parametrize("n,nu", BF16_CASES)
-@pytest.mark.parametrize("kind", ["inject", "bilinear"])
-def test_tile_model_equals_the_plain_packed_bf16_leg(n, nu, kind):
-    up, fp, V = _data_bf16(n, 11 * n + nu)
-    h = 1.0 / n
-    got, _ = _tile_model(up, fp, V, h, nu, kind, rnorm=False)
-    assert got.dtype == torch.bfloat16
-    assert torch.equal(got, ops.packed_prolong_correct_smooth(up, fp, V, h, nu, kind))
-    got, rsq = _tile_model(up, fp, V, h, nu, kind, rnorm=True)
-    want, want_r2 = ops.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind)
-    assert torch.equal(got, want)
-    assert math.isclose(rsq, float(want_r2), rel_tol=1e-5)
-
-
-@pytest.mark.parametrize("n,nu", BF16_CASES)
-def test_tile_model_equals_the_plain_packed_bf16_down_leg(n, nu):
-    up, fp, _ = _data_bf16(n, 13 * n + nu)
-    h = 1.0 / n
-    got = _rr_model(up, fp, h, nu)
-    want = ops.packed_smooth_residual_restrict(up, fp, h, nu)
-    assert all(a.dtype == torch.bfloat16 and torch.equal(a, b) for a, b in zip(got, want))

@@ -1,5 +1,7 @@
 """mgpoisson_torch.bench.profile: the profiled solve on the CPU."""
 
+from pathlib import Path
+
 import pytest
 
 from mgpoisson_torch import MultigridPoisson, Spec
@@ -17,6 +19,7 @@ def test_profile_rows_match_a_plain_solve(kms, tmp_path, capsys):
     res = MultigridPoisson(spec, device="cpu").solve()
     assert row["cycles"] == row["profiled_cycles"] == res.iterations
     assert row["converged"] is True and row["final_err"] == res.final_err
+    assert row["errs"] == res.errs.tolist() and row["errs"][-1] == res.final_err
     assert len(row["cycle_ms"]) == res.iterations
     assert all(v == 0 for v in row["kernel_calls"].values())   # CPU: no kernels
     assert row["device_busy_share"] == "not measured"
@@ -208,6 +211,74 @@ def test_ab_takes_the_bf16_forms_only():
     cases, inputs = ab._cases_sharded3d(16, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
     assert all(t.dtype == torch.bfloat16 for t in ab._flat(inputs["K12.rnorm"]))
     assert set(cases) == {"K11", "K11.zero", "K12", "K12.rnorm"}
+
+
+def test_ab_sizes_the_parents_bf16_packed_partials(monkeypatch):
+    """--old-packed-bf16: while the other build runs, the bf16 K8's Sigma
+    r^2 partials are sized by the f32 register tile (blocks2d at the halo
+    2 nu + 1, a build before the packed word tile); this build's by the
+    word tile (kernels.cuda.tile_packed_w)."""
+    import torch
+    from mgpoisson_torch.bench import ab
+    from mgpoisson_torch.kernels import cuda
+    assert ab.parse_args(["--old", "x", "--old-packed-bf16"]).old_packed_bf16
+    assert not ab.parse_args(["--old", "x"]).old_packed_bf16
+    for name in ("load", "TILE_WARPS", "TILE_ROWS", "rnorm_partials",
+                 "strip_rnorm_partials", "packed_rnorm_partials"):
+        monkeypatch.setattr(cuda, name, getattr(cuda, name))   # restored after the test
+    monkeypatch.setattr(ab.build, "build", lambda csrc, root: csrc)
+    monkeypatch.setattr(ab.build, "load_library", lambda path: "old library")
+    monkeypatch.setattr(ab.build, "load", lambda: "new library")
+    builds = ab.Builds(Path("x"), 0, old_packed_bf16=True)
+    for n, nu in ((4096, 1), (1024, 3), (256, 2)):
+        f32 = cuda.blocks2d(n, n, 2 * nu + 1)
+        rows, cols = cuda.tile_packed_w(2 * nu + 1)
+        word = -(-n // rows) * -(-(n // 2) // cols)
+        assert word != f32
+        builds.use("old")
+        assert cuda.load() == "old library"
+        assert cuda.packed_rnorm_partials(n, n, nu, torch.bfloat16) == f32
+        assert cuda.packed_rnorm_partials(n, n, nu) == f32
+        builds.use("new")
+        assert cuda.packed_rnorm_partials(n, n, nu, torch.bfloat16) == word
+        assert cuda.packed_rnorm_partials(n, n, nu) == f32
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_a_packed_bound_counts_u_by_its_black_plane(dtype):
+    """The bounds of the packed legs (bench/ab.py, chip_smoke.py) count u's
+    black plane only: its red plane is dead on input, the first red step
+    overwriting it from the black plane alone.  The plain packed legs give
+    the same outputs, bit for bit, whatever u's red plane holds."""
+    import importlib.util
+    import torch
+    from mgpoisson_torch.bench import ab
+    where = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", where)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    from mgpoisson_torch.kernels import ops
+    dtype = getattr(torch, dtype)
+    n, h = 16, 1.0 / 16
+    cases, inputs = ab._cases_packed(n, 1, torch.device("cpu"), dtype)
+    size = torch.tensor([], dtype=dtype).element_size()
+    assert ab._bytes(inputs["K7"]) == (n * n // 2 + n * n) * size
+    assert ab._bytes(inputs["K8.rnorm"]) == (n * n // 2 + n * n + n * n // 4) * size
+    g = torch.Generator().manual_seed(5)
+    up, fp = (torch.randn((n, n), generator=g).to(dtype) for _ in range(2))
+    V = torch.randn((n // 2, n // 2), generator=g).to(dtype)
+    assert torch.equal(chip_smoke._black(up), ops._planes(up)[1])
+    assert torch.equal(ab._black(up), ops._planes(up)[1])
+    other = up.clone()
+    other[:, :n // 2] = torch.randn((n, n // 2), generator=g).to(dtype) * 1e3
+    for nu in (1, 3):
+        for a, b in zip(ops.packed_smooth_residual_restrict(up, fp, h, nu),
+                        ops.packed_smooth_residual_restrict(other, fp, h, nu)):
+            assert torch.equal(a, b)
+        for kind in ("inject", "bilinear"):
+            a, a2 = ops.packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind)
+            b, b2 = ops.packed_prolong_correct_smooth_rnorm(other, fp, V, h, nu, kind)
+            assert torch.equal(a, b) and torch.equal(a2, b2)
 
 
 def test_packed_order_compares_the_residual_orders():
