@@ -9,7 +9,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build    — builds every CUDA kernel from mgpoisson_torch/csrc (one nvcc
               per source, in parallel) and prints ptxas's registers, spills
               and shared memory (K7/K8 and K13/K14 among them: the register
-              tile's instances), and the tiles' geometry.
+              tile's instances), and the tiles' geometry (K4's at the tuned
+              scheme's halo 3: the z-marching tile, in bf16 the word tile).
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
               (4096 ... 256) x bc x smoother x nu, and at every side below
@@ -27,7 +28,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
               a traced V-cycle (the per-stage debugging path, the one caller
               of K1) with the counters zeroed again; then the same solve on
               plain ops (backend="torch") for comparison.
-4b. parity_bf16 — the bf16 forms of K1-K3 against their plain torch
+4b. parity_bf16 — first a probe that torch on the card divides a bf16
+              tensor by a Python scalar c as a product by f32(1 / f32(c)),
+              the constants kernels.cuda._scalars hands the bf16 kernels;
+              then the bf16 forms of K1-K3 against their plain torch
               versions in bf16, at every side the two bf16 solves give the
               kernels (4096 ... 256) and at 128 ... 2, x bc x (jacobi and
               wjacobi nu 1-3, rbgs nu 1-2), and at 256 and 16 with wjacobi
@@ -57,7 +61,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
               below (128 ... 2: sides smaller than one z-marching column or
               chunk) x bc with wjacobi nu = 3, rbgs nu = 1, rbgs nu = 2 and
               jacobi nu = 4 (halo 5: K5 and K6 with rnorm on the cube tile,
-              K6 on the z-marching one); every K4-K6 output, of either tile,
+              K6 on the z-marching one; K4 runs the z-marching tile at halos
+              <= 4 and the cube tile at rbgs nu = 3's 6); every K4-K6
+              output, of either tile,
               must equal its plain version bit for bit.  Then the time of
               each at 256^3 with the main path's settings.
 6. slice3d  — the tuned 256^3 f32 solve (BASELINE config 4) as in phase 4:
@@ -338,10 +344,10 @@ BF16_SETTINGS = tuple([(sm, nu) for sm in ("jacobi", "wjacobi") for nu in (1, 2,
 SUBNORMAL_SCALE = 2.0 ** -120
 SUBNORMAL_SIDES = (256, 16)
 SUBNORMAL_SETTINGS = (("wjacobi", 3), ("rbgs", 1))
-# ... and at spacings h that are not 1/2^k, where 1/h^2, 1/adiag and adiag
-# are not bf16 values and the 2D bf16 legs multiply by them in f32, as
-# torch multiplies by an f32 scalar (csrc/stencil.cuh Mg2K): at the same
-# sides and settings
+# ... and at spacings h that are not 1/2^k, where the plain ops' bf16 h^2
+# and adiag (ops._level) give a 1/h^2 and 1/adiag that are no bf16 values,
+# which the 2D bf16 legs multiply by in f32, as torch multiplies by an f32
+# scalar (csrc/stencil.cuh Mg2K): at the same sides and settings
 OFF_GRID_H = (0.01, 0.3)
 # ... and both sets for the bf16 3D legs (the word tile of K5/K6 and
 # K11/K12, whose product by 1/adiag is f32 at every h, and the cube tile
@@ -407,7 +413,9 @@ TIMING_REPS = 25
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 
-# kernel -> (source, the Pallas kernel it replaces); K1 and K4 (and their
+# kernel -> (source, the Pallas kernel it replaces: for K4, K5 and K6 in
+# bf16 and for K4 in f32 the source of their z-marching instances, the
+# main path's tile); K1 and K4 (and their
 # bf16 forms) run only on the traced cycles, K2, K3, K5, K6, K7 and K8 (and
 # the bf16 forms of K2, K3, K5 and K6) carry the solves
 OFF_PATH = ("mg_smooth", "mg_smooth3d", "mg_smooth_bf16", "mg_smooth3d_bf16")
@@ -424,13 +432,13 @@ KERNELS = {
                           "mgpoisson/kernels/pallas.py:2223"),
     "mg_prolong_correct_smooth_bf16": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth.cu",
                                        "mgpoisson/kernels/pallas.py:2482"),
-    "mg_smooth3d": ("mgpoisson_torch/csrc/mg_smooth3d.cu",
+    "mg_smooth3d": ("mgpoisson_torch/csrc/mg_smooth3d_zm.cu",
                     "mgpoisson/kernels/pallas.py:1558"),
     "mg_smooth_rr3d": ("mgpoisson_torch/csrc/mg_smooth_rr3d.cu",
                        "mgpoisson/kernels/pallas.py:1693"),
     "mg_prolong_correct_smooth3d": ("mgpoisson_torch/csrc/mg_prolong_correct_smooth3d.cu",
                                     "mgpoisson/kernels/pallas.py:1821"),
-    "mg_smooth3d_bf16": ("mgpoisson_torch/csrc/mg_smooth3d.cu",
+    "mg_smooth3d_bf16": ("mgpoisson_torch/csrc/mg_smooth3d_zw.cu",
                          "mgpoisson/kernels/pallas.py:1558"),
     "mg_smooth_rr3d_bf16": ("mgpoisson_torch/csrc/mg_smooth_rr3d_bf16.cu",
                             "mgpoisson/kernels/pallas.py:1693"),
@@ -545,16 +553,16 @@ def phase_build():
     # the bf16 forms of K1-K3 and of K9/K10 (one instance per smoother and
     # tile row count; K9's without the deep tile's 40 rows), of K4-K6 (the
     # cube tile's three kernels, and one word-tile instance per step count,
-    # smoother and bc: 16 of K5, 22 of K6, each at <= 64 registers for two
-    # blocks per SM), of K11/K12 (the same: two cube kernels, 16 + 22
-    # strip-fed word-tile instances) and of K7/K8 (on the packed word tile,
-    # one per row count, 16 or 32, and answer of the constant rule)
+    # smoother and bc: 20 of K4, 16 of K5, 22 of K6, each at <= 64
+    # registers for two blocks per SM), of K11/K12 (the same: two cube
+    # kernels, 16 + 22 strip-fed word-tile instances) and of K7/K8 (on the
+    # packed word tile, one per row count, 16 or 32)
     flat2d = lambda fn: "3d" not in fn and "packed" not in fn
     for what, want, rank in (("K1-K3", 27, lambda fn: flat2d(fn) and "sharded" not in fn),
                              ("K9/K10", 15, lambda fn: flat2d(fn) and "sharded" in fn),
-                             ("K4-K6", 41, lambda fn: "3d" in fn and "sharded" not in fn),
+                             ("K4-K6", 61, lambda fn: "3d" in fn and "sharded" not in fn),
                              ("K11/K12", 40, lambda fn: "3d" in fn and "sharded" in fn),
-                             ("K7/K8", 8, lambda fn: "packed" in fn)):
+                             ("K7/K8", 4, lambda fn: "packed" in fn)):
         bf16 = {fn: r for fn, r in report.items() if BF16 in fn and rank(fn)}
         check(len(bf16) == want,
               f"{len(bf16)} bf16 instances of {what} in the ptxas report, not {want}")
@@ -564,35 +572,45 @@ def phase_build():
               f"registers, {len(spilled)} with spills")
         check(not spilled, f"bf16 instances spill: {spilled}")
     # ptxas reports static shared memory only; the 3D kernels' is dynamic.
-    # K4 runs the cube tile; K5/K6 and K11/K12 the z-marching tile at halos
-    # <= 4
-    print(f"[build] mg_smooth3d at the tuned scheme's halo 3: cube tile "
-          f"{cuda.tile3d(3)}^3, {cuda.shared_bytes_3d(3)} bytes of dynamic shared memory "
-          "per block")
-    for name, steps, rr in (("mg_smooth_rr3d", 3, True), ("mg_prolong_correct_smooth3d", 3, False),
-                            ("mg_prolong_correct_smooth3d.rnorm", 3, False)):
-        halo = steps + (name != "mg_prolong_correct_smooth3d")
+    # K4-K6 and K11/K12 run the z-marching tile at halos <= 4 (K4's halo is
+    # its step count, K5's and K6.rnorm's one more), the cube tile beyond
+    legs = (("mg_smooth3d", 3, "smooth"), ("mg_smooth_rr3d", 4, "rr"),
+            ("mg_prolong_correct_smooth3d", 3, "pc"),
+            ("mg_prolong_correct_smooth3d.rnorm", 4, "pc"))
+    check(all(cuda.zmarch3d(halo) for _, halo, _ in legs),
+          "a leg at the tuned scheme's halo runs the cube tile")
+    for name, halo, leg in legs:
         t = cuda.tile3d_zm(halo)
+        smem = cuda.shared_bytes_3d_zm(3, leg == "rr", leg == "pc", smooth=leg == "smooth")
         print(f"[build] {name} at the tuned scheme's halo {halo}: z-marching tile, "
               f"{cuda.ZM_COLS}^2 loaded cells per plane ({t}^2 owned), "
               f"{cuda.zm_chunk(256, halo)} / {cuda.zm_chunk(512, halo)} planes per block at "
-              f"256^3 / 512^3, {cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)} bytes of "
-              "dynamic shared memory per block")
+              f"256^3 / 512^3, {smem} bytes of dynamic shared memory per block")
     # their bf16 forms on the word tile (csrc/stencil3d_zw.cuh)
     bf = torch.bfloat16
-    for name, steps, rr in (("mg_smooth_rr3d_bf16", 3, True),
-                            ("mg_prolong_correct_smooth3d_bf16", 3, False),
-                            ("mg_prolong_correct_smooth3d_bf16.rnorm", 3, False)):
-        halo = steps + (name != "mg_prolong_correct_smooth3d_bf16")
+    for name, halo, leg in legs:
         ty, tx = cuda.tile3d_zw(halo)
         chunks = [cuda.zm_chunk(n, halo, dtype=bf) for n in (256, 512)]
         blocks = [cuda.blocks3d(n, halo, dtype=bf) for n in (256, 512)]
-        print(f"[build] {name} at the tuned scheme's halo {halo}: word tile, "
-              f"{cuda.ZW_LANES} words x {cuda.ZW_ROWS} rows loaded per plane ({ty} x {tx} owned "
-              f"cells), {chunks[0]} / {chunks[1]} planes per block at 256^3 / 512^3 "
-              f"({blocks[0]} / {blocks[1]} blocks), "
-              f"{cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr, dtype=bf)} bytes of dynamic "
-              "shared memory per block")
+        print(f"[build] {name.replace('3d', '3d' + BF16, 1)} at the tuned scheme's halo "
+              f"{halo}: word tile, {cuda.ZW_LANES} words x {cuda.ZW_ROWS} rows loaded per plane "
+              f"({ty} x {tx} owned cells), {chunks[0]} / {chunks[1]} planes per block at 256^3 "
+              f"/ 512^3 ({blocks[0]} / {blocks[1]} blocks), "
+              f"{cuda.shared_bytes_3d_zm(3, leg == 'rr', leg == 'pc', bf, leg == 'smooth')} "
+              "bytes of dynamic shared memory per block")
+    k4 = {fn: r for fn, r in report.items() if "mg_smooth3d_zm" in fn}
+    for what, sel in (("f32", lambda fn: BF16 not in fn), ("bf16", lambda fn: BF16 in fn)):
+        regs = sorted(r["registers"] for fn, r in k4.items() if sel(fn))
+        spills = sum(1 for fn, r in k4.items()
+                     if sel(fn) and (r["spill_stores"] or r["spill_loads"]))
+        check(len(regs) == 20,
+              f"{len(regs)} {what} instances of K4 on the z-marching tiles, not 20")
+        print(f"[build] K4 {what} on the {'word' if what == 'bf16' else 'z-marching'} tile: "
+              f"{len(regs)} instances, {regs[0]}-{regs[-1]} registers, {spills} with spills")
+    for fn, r in k4.items():
+        if "ILi3ELi1ELb0E" in fn:   # the tuned scheme's wjacobi nu = 3, ghost0
+            print(f"[build] K4 at halo 3 (wjacobi, ghost0): {fn}: {r['registers']} registers, "
+                  f"{r['spill_stores']} / {r['spill_loads']} bytes of spill stores / loads")
     # the strip entries on the 256^3 solve's (2, 2) block
     nzl, nyl = SPEC_3D.size // 2, SPEC_3D.size // 2
     for name, steps, rr in (("mg_sharded_rr3d", 3, True), ("mg_sharded_pc3d", 3, False),
@@ -711,9 +729,10 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
                     note(worst, k_pc, tag + "r.u", gu, wu, row, exact=exact)
                     note_r2(tag + "r.r2", g2, w2, row)
                 if ndim == 3:
-                    row.append("bit-equal; K5/K6: " + ", ".join(
-                        f"halo {hh} {'z-marching' if cuda.zmarch3d(hh) else 'cube'} tile"
-                        for hh in sorted({steps, steps + 1})))
+                    tile = lambda hh: "z-marching" if cuda.zmarch3d(hh) else "cube"
+                    row.append(f"bit-equal; K4: halo {steps} {tile(steps)} tile; K5/K6: "
+                               + ", ".join(f"halo {hh} {tile(hh)} tile"
+                                           for hh in sorted({steps, steps + 1})))
                 torch.cuda.synchronize()
                 print(f"[{label}] " + " ".join(row))
         del u, f, V
@@ -1054,6 +1073,31 @@ def _case_label(n, scale, h, ndim=None):
 def _subnormals(x):
     """The count of nonzero values of bf16 x below bf16's least normal."""
     return int(((x != 0) & (x.float().abs() < torch.finfo(torch.bfloat16).tiny)).sum())
+
+
+def probe_scalar_division(dev):
+    """That torch on the card divides a bf16 tensor by a Python scalar c as
+    a product by f32(1 / f32(c)), rounded once to bf16, and multiplies by
+    f32(c): the constants kernels.cuda._scalars hands the bf16 kernels, the
+    reciprocals taken in f32 from the plain ops' bf16 h^2 and adiag
+    (ops._level), at h = 1/256 and OFF_GRID_H in 2D and 3D.  The CPU
+    divides; the cells where its quotient differs are counted."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(1 << 20, generator=g, device=dev).to(torch.bfloat16)
+    xc = x.cpu()
+    for ndim, h in itertools.product((2, 3), (1.0 / 256,) + OFF_GRID_H):
+        hsq, adiag, _, _ = ops._level(h, ndim, torch.bfloat16)
+        inv_hsq, inv_adiag, k_adiag = (c.value for c in cuda._scalars(h, ndim, torch.bfloat16))
+        row = [f"ndim={ndim} h={h}"]
+        for c, inv in ((hsq, inv_hsq), (adiag, inv_adiag)):
+            got = x / c
+            check(torch.equal(got, (x.float() * inv).to(torch.bfloat16)),
+                  f"{row[0]}: torch's x / {c!r} on the card is not x * f32(1 / f32(c))")
+            row.append(f"x / {c!r} = x * {inv!r} ({int((got.cpu() != xc / c).sum())} of "
+                       f"{x.numel()} cells off the CPU's quotient)")
+        check(k_adiag == adiag and torch.equal(x * adiag, (x.float() * k_adiag).to(torch.bfloat16)),
+              f"{row[0]}: torch's x * {adiag!r} on the card is not the f32 product")
+        print("[probe_division] " + "; ".join(row))
 
 
 def phase_parity_bf16(dev, worst, ndim=2):
@@ -2101,6 +2145,7 @@ def main():
 
     # the bf16 forms of K1-K3: the mixed-precision 4096^2 solve and the
     # pure bf16 one
+    probe_scalar_division(dev)
     phase_parity_bf16(dev, worst)
     times_bf16 = phase_timing(dev, MAIN_N, 2, torch.bfloat16)
     for name, t in times_bf16.items():

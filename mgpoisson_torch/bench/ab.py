@@ -5,7 +5,7 @@
         [--sharded 16384] [--sides3d 256 512] [--sharded3d 256] [--old-tile3d]
         [--old-strip3d] [--old-rounding3d] [--packed 4096 ...]
         [--sharded-packed 16384] [--old-packed-tile 32] [--old-packed-bf16]
-        [--dtype {float32,bfloat16}] [--reps 25]
+        [--smooth3d] [--dtype {float32,bfloat16}] [--reps 25]
 
 Builds the source tree given by --old (e.g. a parent commit's
 ``mgpoisson_torch/csrc``, unpacked with ``git archive``) beside this
@@ -16,7 +16,8 @@ settings of chip_smoke.py's timing phase) and at 4096^2 with rbgs nu = 1
 (the fast scheme's coarse levels); then K9/K10 on the (0, 0) block of a
 (2, 2) mesh of 16384^2; then the 3D legs K5, K5 from zero, K6 and K6
 with rnorm at every --sides3d side, with wjacobi nu = 3 (and K4) and rbgs
-nu = 1;
+nu = 1 (with --smooth3d K4 alone instead, at every setting of
+SMOOTH3D_SETTINGS in both bcs);
 then their strip entries K11, K11 from zero, K12 and K12 with rnorm on the
 (0, 0) block of a (2, 2) mesh of --sharded3d^3, with the same two
 settings (K11/K12 only with --sharded3d; an empty --sides or --sides3d,
@@ -84,6 +85,11 @@ from mgpoisson_torch.core.spec import Spec
 from mgpoisson_torch.shard.spmd import block_from_grid
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, datasheet
+# --smooth3d: K4's settings, halos 1-4 on the z-marching tiles (jacobi nu 1-4,
+# wjacobi nu 1-3, rbgs nu 1-2)
+SMOOTH3D_SETTINGS = tuple([("jacobi", nu) for nu in (1, 2, 3, 4)]
+                          + [("wjacobi", nu) for nu in (1, 2, 3)]
+                          + [("rbgs", nu) for nu in (1, 2)])
 
 
 def _flat(x):
@@ -201,6 +207,17 @@ def _cases_whole3d(n, smoother, nu, dev, dtype=torch.float32):
     inputs = {"K4": (u, f), "K5": (u, f), "K5.zero": (f,), "K6": (u, f, V),
               "K6.rnorm": (u, f, V)}
     return cases, inputs
+
+
+def _cases_smooth3d(n, dev, dtype=torch.float32):
+    """K4 alone at side n, every SMOOTH3D_SETTINGS setting in both bcs."""
+    g = torch.Generator(device=dev).manual_seed(n + 5)
+    u, f = (torch.randn((n,) * 3, generator=g, device=dev).to(dtype) for _ in range(2))
+    h = 1.0 / n
+    cases = {f"K4 {sm} nu={nu} {bc}":
+             (lambda sm=sm, nu=nu, bc=bc: cuda.smooth(u, f, h, nu, sm, bc))
+             for sm, nu in SMOOTH3D_SETTINGS for bc in ("ghost0", "face")}
+    return cases, dict.fromkeys(cases, (u, f))
 
 
 def _cases_sharded(n, dev, dtype=torch.float32):
@@ -365,6 +382,9 @@ def parse_args(argv=None):
     ap.add_argument("--old-packed-bf16", action="store_true",
                     help="the other build's bf16 K8 writes its rnorm partials per block of the "
                     "f32 register tile (before the packed word tile)")
+    ap.add_argument("--smooth3d", action="store_true",
+                    help="time K4 alone at every --sides3d side over SMOOTH3D_SETTINGS in "
+                    "both bcs, instead of the 3D legs' two settings")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="bfloat16: the bf16 forms of K1-K12 only")
     ap.add_argument("--reps", type=int, default=25)
@@ -405,7 +425,14 @@ def main(argv=None):
              inputs, args.reps)
         del cases, inputs
         torch.cuda.empty_cache()
-    for n, (smoother, nu) in itertools.product(args.sides3d, (("wjacobi", 3), ("rbgs", 1))):
+    for n in args.sides3d if args.smooth3d else ():
+        cases, inputs = _cases_smooth3d(n, dev, args.dtype)
+        dt = " bf16" if args.dtype == torch.bfloat16 else ""
+        _run(builds, f"{n}^3{dt}", cases, inputs, args.reps)
+        del cases, inputs
+        torch.cuda.empty_cache()
+    for n, (smoother, nu) in itertools.product(() if args.smooth3d else args.sides3d,
+                                               (("wjacobi", 3), ("rbgs", 1))):
         cases, inputs = _cases_whole3d(n, smoother, nu, dev, args.dtype)
         dt = " bf16" if args.dtype == torch.bfloat16 else ""
         _run(builds, f"{n}^3{dt} {smoother} nu={nu}", cases, inputs, args.reps)

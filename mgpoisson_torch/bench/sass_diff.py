@@ -1,6 +1,6 @@
 """Compares the machine code (SASS) of the kernels two builds share.
 
-    python3 -m mgpoisson_torch.bench.sass_diff OLD.so NEW.so
+    python3 -m mgpoisson_torch.bench.sass_diff OLD.so NEW.so [--rename OLD_FN NEW_FN ...]
 
 Disassembles both libraries (``cuobjdump -sass``, from the CUDA toolkit),
 cuts each listing into its functions and prints one JSON line per function
@@ -12,7 +12,10 @@ are dropped (`registers_only`: the same instructions and operands in the
 same order, in other registers).  This
 shows whether a change to shared tile code left a kernel's code as it was,
 e.g. the single-device kernels of a commit against its parent's build.
-Exits non-zero if cuobjdump fails.
+`--rename OLD_FN NEW_FN` (repeatable; mangled names, as cuobjdump prints
+them) compares the old build's OLD_FN under the new name: a kernel whose
+name changed, e.g. with a template argument dropped.  Exits non-zero if
+cuobjdump fails.
 """
 
 from __future__ import annotations
@@ -72,6 +75,16 @@ def compare(old: dict, new: dict):
     return rows
 
 
+def rename(fns: dict, pairs) -> dict:
+    """The listing with each (old name, new name) pair's function under its
+    new name, where the listing holds it."""
+    fns = dict(fns)
+    for a, b in pairs:
+        if a in fns:
+            fns[b] = fns.pop(a)
+    return fns
+
+
 def cuobjdump() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     for c in (shutil.which("cuobjdump"), os.path.join(home, "bin", "cuobjdump")):
@@ -89,8 +102,11 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("old")
     p.add_argument("new")
+    p.add_argument("--rename", nargs=2, action="append", default=[],
+                   metavar=("OLD_FN", "NEW_FN"))
     args = p.parse_args(argv)
-    for row in compare(functions(sass(args.old)), functions(sass(args.new))):
+    old = rename(functions(sass(args.old)), args.rename)
+    for row in compare(old, functions(sass(args.new))):
         print(json.dumps(row))
     return 0
 

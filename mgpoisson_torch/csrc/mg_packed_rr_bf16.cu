@@ -15,16 +15,16 @@
 // (stencil_packed_w.cuh).
 #include "stencil_packed_w.cuh"
 
-template <int R, bool kExact>
+template <int R>
 __global__ void __launch_bounds__(MG2_THREADS, MG2W_MIN_BLOCKS(R))
 mg_packed_rr_bf16_kernel(const Mg2wArgs a) {
-  mg2w_rr_body<R, kExact>(a);
+  mg2w_rr_body<R>(a);
 }
 
 struct MgPackedRrBf16Launch {
-  template <int R, bool kExact>
+  template <int R>
   static void go(dim3 grid, dim3 block, cudaStream_t stream, const Mg2wArgs& a) {
-    mg_packed_rr_bf16_kernel<R, kExact><<<grid, block, 0, stream>>>(a);
+    mg_packed_rr_bf16_kernel<R><<<grid, block, 0, stream>>>(a);
   }
 };
 

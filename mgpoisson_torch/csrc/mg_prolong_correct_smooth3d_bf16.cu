@@ -21,5 +21,5 @@ struct MgPc3dZmBf16 {
 int mg_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
                       cudaStream_t stream) {
   return mg3w_launch(mg3z_pick_from<MgPc3dZmBf16, 0, MG3Z_MAX_HALO>(steps, smoother, bc), blk,
-                     a, steps, false, stream, nullptr);
+                     a, steps, MG3W_PC, stream, nullptr);
 }

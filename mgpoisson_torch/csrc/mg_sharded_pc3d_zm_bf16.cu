@@ -24,5 +24,5 @@ struct MgShardedPc3dZmBf16 {
 int mg_sharded_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother,
                               int bc, cudaStream_t stream, const Mg3zStripsBf16& b) {
   return mg3w_launch(mg3z_pick_from<MgShardedPc3dZmBf16, 0, MG3Z_MAX_HALO>(steps, smoother, bc),
-                     blk, a, steps, false, stream, &b, b);
+                     blk, a, steps, MG3W_PC, stream, &b, b);
 }

@@ -25,5 +25,5 @@ int mg_sharded_rr3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, in
                               int bc, cudaStream_t stream, const Mg3zStripsBf16& b) {
   return mg3w_launch(
       mg3z_pick_from<MgShardedRr3dZmBf16, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc), blk, a,
-      steps, true, stream, &b, b);
+      steps, MG3W_RR, stream, &b, b);
 }

@@ -21,5 +21,5 @@ struct MgRr3dZmBf16 {
 int mg_rr3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
                       cudaStream_t stream) {
   return mg3w_launch(mg3z_pick_from<MgRr3dZmBf16, 0, MG3Z_MAX_HALO - 1>(steps, smoother, bc),
-                     blk, a, steps, true, stream, nullptr);
+                     blk, a, steps, MG3W_RR, stream, nullptr);
 }

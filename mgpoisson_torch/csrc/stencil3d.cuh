@@ -1,9 +1,9 @@
 // The cube tile of the 3D stencil kernels: K4 mg_smooth3d, and the legs
 // K5 mg_smooth_rr3d and K6 mg_prolong_correct_smooth3d with their strip
-// entries K11 mg_sharded_rr3d and K12 mg_sharded_pc3d at halos above 4
+// entries K11 mg_sharded_rr3d and K12 mg_sharded_pc3d, at halos above 4
 // (MG3Z_MAX_HALO: K5/K11 and K6/K12 with rnorm at jacobi/wjacobi nu >= 4 or
-// rbgs nu >= 2, K6/K12 without at nu >= 5 or rbgs nu >= 3).  At halos up
-// to 4, the main path's, the legs run the z-marching tile of
+// rbgs nu >= 2, K4 and K6/K12 without at nu >= 5 or rbgs nu >= 3).  At
+// halos up to 4, the main path's, the legs run the z-marching tile of
 // stencil3d_zm.cuh, which takes the enums, MG3_OMEGA, Mg3Block, Mg3Strips,
 // mg3_fetch and mg3_sum8 from here.  The 7-point operator on an (n, n, n)
 // array, z-major (index (z * n + y) * n + x).

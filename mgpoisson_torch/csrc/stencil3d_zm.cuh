@@ -1,9 +1,10 @@
 // The z-marching (2.5D) tile of the 3D legs, K5 mg_smooth_rr3d and K6
 // mg_prolong_correct_smooth3d and their strip entries K11 mg_sharded_rr3d
-// and K12 mg_sharded_pc3d (kStrips, on a rank's block), at halos H <=
-// MG3Z_MAX_HALO (the tuned scheme's K5 at H = 4, K6 at 3 and with rnorm at
-// 4; the fast scheme's rbgs nu = 1 at 2 and 3).  Deeper halos and K4
-// mg_smooth3d keep the cube tile of stencil3d.cuh.
+// and K12 mg_sharded_pc3d (kStrips, on a rank's block), and K4
+// mg_smooth3d (kSmooth: the sweeps alone), at halos H <= MG3Z_MAX_HALO
+// (the tuned scheme's K5 at H = 4, K6 at 3 and with rnorm at 4, K4 at 3;
+// the fast scheme's rbgs nu = 1 at 2 and 3).  Deeper halos keep the cube
+// tile of stencil3d.cuh.
 //
 // A block owns an xy column of T x T interior cells (T = 32 - 2H) and a
 // chunk of its z planes (mg3z_chunk: the whole column at 256^3).  It loads
@@ -29,9 +30,11 @@
 // per plane orders them.  K5 keeps its residual planes in a ring of four
 // for the 2x2x2 restriction, done one step later on the odd planes; K6
 // keeps a ring of three coarse planes of V for the +-1 trilinear tap and
-// loads one plane ahead on odd fine planes.  Global loads of the next
-// plane are issued one step ahead.  Shared memory: 2 (steps + 1) planes of
-// 4 KB, plus K5's 16 KB ring or K6's 4.3 KB coarse ring: at most 48 KB.
+// loads one plane ahead on odd fine planes.  K4 has neither, and its last
+// stage (no residual reads it) no shared plane: its halo is the step
+// count.  Global loads of the next plane are issued one step ahead.
+// Shared memory: 2 (steps + 1) planes of 4 KB (K4: 2 steps), plus K5's
+// 16 KB ring or K6's 4.3 KB coarse ring: at most 48 KB.
 //
 // Redundancy at H = 4: (32 / 24)^2 = 1.78 loaded cells per interior cell
 // in xy and (256 + 8) / 256 = 1.03 in z at 256^3 (the cube tile: 3.4 and
@@ -120,10 +123,11 @@ static __host__ inline dim3 mg3z_grid(const Mg3Block& b, int H, int chunk) {
   return dim3((b.n + T - 1) / T, (b.nyl + T - 1) / T, (b.nzl + chunk - 1) / chunk);
 }
 
-// Dynamic shared memory of one block: the stages' double-buffered planes,
-// K5's residual ring (rr), K6's coarse ring (pc).
-static __host__ inline size_t mg3z_bytes(int steps, bool rr, bool pc) {
-  size_t floats = (size_t)(steps + 1) * 2 * MG3Z_PLANE;
+// Dynamic shared memory of one block: the stages' double-buffered planes
+// (K4's, `smooth`, but for its last stage), K5's residual ring (rr), K6's
+// coarse ring (pc).
+static __host__ inline size_t mg3z_bytes(int steps, bool rr, bool pc, bool smooth = false) {
+  size_t floats = (size_t)(smooth ? steps : steps + 1) * 2 * MG3Z_PLANE;
   if (rr) floats += 4 * MG3Z_PLANE;
   if (pc) floats += 3 * MG3Z_CSIDE * MG3Z_CSIDE;
   return floats * sizeof(float);
@@ -253,8 +257,10 @@ static __device__ __forceinline__ float mg3z_coarse(const T* V, const B& b, bool
 }
 
 // The leg of one block: K5 (kRR: sweeps, residual with the level's bc,
-// restriction) or K6 (correction, sweeps, and with partials the
-// zero-ghost sum(r^2)).  STEPS = mg_steps(nu, smoother), kSm the smoother
+// restriction), K6 (correction, sweeps, and with partials the zero-ghost
+// sum(r^2)) or K4 (kSmooth, with kRR false: the sweeps alone, at the
+// halo STEPS; V, kind, partials and Rout unread).  STEPS =
+// mg_steps(nu, smoother), kSm the smoother
 // (any at STEPS = 0), kFace the level's bc.  With kStrips the leg runs on a
 // rank's block (K11, K12; `b`): the launch grid covers the block, the
 // GLOBAL index (the block's origin added) decides inside/outside, the
@@ -262,8 +268,9 @@ static __device__ __forceinline__ float mg3z_coarse(const T* V, const B& b, bool
 // the arrays, the stores and K11's R, and the halo comes from the strips.
 // Without it every block-index term below is the global one, and the code
 // is the whole-grid leg's (b unread).
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips>
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, bool kSmooth = false>
 static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStrips& b) {
+  constexpr bool kPC = !kRR && !kSmooth;   // K6: the coarse ring and the correction
   extern __shared__ float smem[];
   constexpr int W = MG3Z_COLS, R = MG3Z_ROWS, P = MG3Z_PLANE, CS = MG3Z_CSIDE;
   const int l = (int)threadIdx.x, j = (int)threadIdx.y, me = j * W + l;
@@ -287,7 +294,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
   const bool y0e = gy == 0, y1e = gy == n - 1, x0e = gx == 0, x1e = gx == n - 1;
   float my = y0e || y1e ? -1.f : 0.f, mx = x0e || x1e ? -1.f : 0.f;
   asm volatile("" : "+f"(my), "+f"(mx));   // kept, not rebuilt per stage
-  const bool res = kRR || a.partials != nullptr;
+  const bool res = kRR || (!kSmooth && a.partials != nullptr);
   const size_t nn = (size_t)n * n, col = in_xy ? (size_t)gy * n + gx : 0;
   const float* __restrict__ U = a.U;
   const float* __restrict__ F = a.F;
@@ -309,9 +316,9 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
   const float a1 = (y0e || y1e) ? 0.5f : 0.75f, b1 = (y0e || y1e) ? 0.f : 0.25f;
   const float a2 = (x0e || x1e) ? 0.5f : 0.75f, b2 = (x0e || x1e) ? 0.f : 0.25f;
   float qaa = a1 * a2, qab = a1 * b2, qba = b1 * a2, qbb = b1 * b2;
-  if (!kRR) asm volatile("" : "+r"(cbase), "+r"(dyo), "+r"(dxo), "+f"(qaa), "+f"(qab),
-                         "+f"(qba), "+f"(qbb));
-  const bool loads_c = !kRR && me < CS * CS;
+  if (kPC) asm volatile("" : "+r"(cbase), "+r"(dyo), "+r"(dxo), "+f"(qaa), "+f"(qab),
+                        "+f"(qba), "+f"(qbb));
+  const bool loads_c = kPC && me < CS * CS;
   const int ly = me / CS, lx = me - (me / CS) * CS;
   const bool c_in = loads_c && mg_in(cy0 + ly, nc) && mg_in(cx0 + lx, nc);
   const size_t ccol = c_in ? (size_t)(cy0 + ly) * nc + (cx0 + lx) : 0;
@@ -328,7 +335,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
         cv[slot(Z) * CS * CS + me] = coarse(Z);
     }
   }
-  if (!kRR) __syncthreads();
+  if (kPC) __syncthreads();
 
   // K5: the coarse cell (cy, cx) of the block's that this thread
   // restricts, its first fine cell in the plane and its coarse index
@@ -405,14 +412,14 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
     pu = has_u && zn ? __ldg(pU) : 0.f;
     pf = zn ? __ldg(pF) : 0.f;
     float cnext = 0.f;
-    const bool c_step = !kRR && (gz & 1);   // odd fine plane: the next coarse plane
+    const bool c_step = kPC && (gz & 1);   // odd fine plane: the next coarse plane
     if (c_step && loads_c) {
       if constexpr (kStrips)
         cnext = mg3z_coarse(a.V, b, c_in, (gz >> 1) + 2, cy0 + ly, cx0 + lx);
       else
         cnext = coarse((gz >> 1) + 2);
     }
-    if constexpr (!kRR) {
+    if constexpr (kPC) {
       if ((act & 1u) && mg_in(gz, n)) {
         const int Z = gz >> 1;
         const float* cc = cv + slot(Z) * CS * CS + cbase;
@@ -511,7 +518,7 @@ static __device__ __forceinline__ void mg3z_leg(const Mg3zArgs& a, const Mg3zStr
     __syncthreads();
   }
 
-  if (kRR || a.partials == nullptr) return;
+  if (kRR || kSmooth || a.partials == nullptr) return;
   // one f32 partial per block: each warp's sum by a butterfly, then the
   // warps' in order; the same sum every run
   __shared__ float red[MG3Z_ROWS];
@@ -606,3 +613,13 @@ int mg_sharded_rr3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, in
                               int bc, cudaStream_t stream, const Mg3zStripsBf16& b);
 int mg_sharded_pc3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother,
                               int bc, cudaStream_t stream, const Mg3zStripsBf16& b);
+
+// K4's launches on the whole grid, f32 on this tile and bf16 on the word
+// tile, each in a source of its own (mg_smooth3d_zm.cu, mg_smooth3d_zw.cu)
+// for the same reason: the instance of the sweeps alone for the step count
+// (the halo a.H), smoother and bc; a cudaError_t, cudaErrorInvalidValue
+// where no instance takes the step count and smoother.
+int mg_smooth3d_zm_launch(const Mg3Block& blk, Mg3zArgs a, int steps, int smoother, int bc,
+                          cudaStream_t stream);
+int mg_smooth3d_zw_launch(const Mg3Block& blk, Mg3zArgsBf16 a, int steps, int smoother, int bc,
+                          cudaStream_t stream);

@@ -1,11 +1,12 @@
 // The word tile: the z-marching tile of stencil3d_zm.cuh on bf16x2 words,
 // which the bf16 forms of K5 mg_smooth_rr3d and K6
-// mg_prolong_correct_smooth3d and of their strip entries K11
-// mg_sharded_rr3d and K12 mg_sharded_pc3d run at halos H <=
-// MG3Z_MAX_HALO.  Included only by their four instance sources
-// (mg_smooth_rr3d_bf16.cu, mg_prolong_correct_smooth3d_bf16.cu,
-// mg_sharded_rr3d_zm_bf16.cu, mg_sharded_pc3d_zm_bf16.cu), so every other
-// instance keeps its machine code.
+// mg_prolong_correct_smooth3d, of their strip entries K11
+// mg_sharded_rr3d and K12 mg_sharded_pc3d, and of K4 mg_smooth3d (the
+// sweeps alone, kSmooth) run at halos H <= MG3Z_MAX_HALO.  Included only
+// by their five instance sources (mg_smooth_rr3d_bf16.cu,
+// mg_prolong_correct_smooth3d_bf16.cu, mg_sharded_rr3d_zm_bf16.cu,
+// mg_sharded_pc3d_zm_bf16.cu, mg_smooth3d_zw.cu), so every other instance
+// keeps its machine code.
 //
 // The march is the f32 tile's (stage pipeline, windows of three planes
 // and the f queue in registers, y neighbours from a shared plane per
@@ -42,13 +43,15 @@
 //   -1 or 0 per half (x: only the half on the grid's edge, gx = 0 low, gx
 //   = n - 1 high), one rounding as the f32 tile's fma(c, -1, acc).  No two
 //   ops are fused (tests/test_torch_bf16x2.py).
-// - Level constants, per constant (Mg3wK): the product by 1/h^2 and by
-//   adiag is one mul.rn.bf16x2 where both are bf16 values (h = 1/2^k:
-//   every level at the default spacing); in 3D 1/adiag = f32(-h^2/6) is a
-//   bf16 value at no h, so the product by it is two f32 products and one
-//   cvt.rn.bf16x2.f32, as torch multiplies by an f32 scalar; at any other
-//   h all three are made so.  The launch decides it (mg3w_launch: a.exact,
-//   and the words in a.w_inv_hsq, a.w_adiag) and the leg is instanced
+// - Level constants, per constant (Mg3wK), as kernels/cuda.py _scalars
+//   derives them from the plain ops' bf16 h^2 and adiag: adiag is a bf16
+//   value at every h, 1/h^2 = f32(1 / bf16(h^2)) at h = 1/2^k (every
+//   level at the default spacing), so the products by both are one
+//   mul.rn.bf16x2 there; in 3D 1/adiag is a bf16 value at no h, so the
+//   product by it is two f32 products and one cvt.rn.bf16x2.f32, as torch
+//   multiplies by an f32 scalar; at any other h all three are made so.
+//   The launch decides it (mg3w_launch: a.exact, and the words in
+//   a.w_inv_hsq, a.w_adiag; K4 by 1/h^2 alone) and the leg is instanced
 //   once for each answer.  The f32 products alone would be right at every
 //   h (a product of two bf16 values is exact in f32), but timed 1.16-1.23x
 //   the word products at 256^3 on the H100 (PERF.md, word tile).  The
@@ -65,9 +68,9 @@
 //   rounded, x 0.125 and rounded; Sigma r^2 of the bf16 residual, one
 //   f32 partial per block.
 //
-// Shared memory: 2 (steps + 1) word planes of 2 KB, plus K5's 8 KB ring or
-// K6's 4.3 KB coarse ring, and for K12 its f queue, steps + 2 word planes
-// (mg3w_bytes).  Launch failures surface as errors
+// Shared memory: 2 (steps + 1) word planes of 2 KB (K4: 2 steps), plus
+// K5's 8 KB ring or K6's 4.3 KB coarse ring, and for K12 its f queue,
+// steps + 2 word planes (mg3w_bytes).  Launch failures surface as errors
 // (no fallback): a null instance, a misaligned operand or strip.
 #pragma once
 
@@ -123,10 +126,12 @@ static __host__ inline dim3 mg3w_grid(const Mg3Block& b, int H, int chunk) {
 }
 
 // Dynamic shared memory of one block: the stages' double-buffered word
-// planes, K5's ring of residual words (rr), K6's f32 coarse ring (pc),
-// and K12's f queue of steps + 2 word planes (fq: the strip-fed up-leg).
-static __host__ inline size_t mg3w_bytes(int steps, bool rr, bool pc, bool fq) {
-  size_t words = (size_t)(steps + 1) * 2 * MG3W_PLANE;
+// planes (K4's, `smooth`, but for its last stage), K5's ring of residual
+// words (rr), K6's f32 coarse ring (pc), and K12's f queue of steps + 2
+// word planes (fq: the strip-fed up-leg).
+static __host__ inline size_t mg3w_bytes(int steps, bool rr, bool pc, bool fq,
+                                         bool smooth = false) {
+  size_t words = (size_t)(smooth ? steps : steps + 1) * 2 * MG3W_PLANE;
   if (rr) words += 4 * MG3W_PLANE;
   if (pc) words += 3 * MG3W_CX * MG3W_CY;
   if (fq) words += (size_t)(steps + 2) * MG3W_PLANE;
@@ -251,9 +256,9 @@ static __device__ __forceinline__ const T* mg3w_src_base(const T* body, const S&
   return yb < 0 ? s.left : s.right;
 }
 
-// The leg of one block on words: K5 (kRR) or K6, on the whole grid or with
-// kStrips on a rank's block (K11, K12), as mg3z_leg (whose comments hold
-// here too), with the level's constants k.  For the registers (64 at two
+// The leg of one block on words: K5 (kRR), K6 or K4 (kSmooth), on the
+// whole grid or with kStrips on a rank's block (K11, K12), as mg3z_leg
+// (whose comments hold here too), with the level's constants k.  For the registers (64 at two
 // blocks per SM) the whole grid's addresses are one unsigned 32-bit WORD
 // offset from the arguments' bases, advanced by n^2 / 2 per plane (taken
 // modulo 2^32 on the halo planes before plane 0, which it never reads;
@@ -262,7 +267,7 @@ static __device__ __forceinline__ const T* mg3w_src_base(const T* body, const S&
 // K11 carries its sources' pointers as mg3z_leg does, while K12, the leg
 // with the most live values, makes them per plane (mg3w_src_off) and keeps
 // its f queue in shared memory.
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class K>
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, class K, bool kSmooth = false>
 static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3zStripsBf16& b,
                                                 const K& k) {
   using X = Mg2X2;
@@ -271,6 +276,7 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
   extern __shared__ uint32_t mg3w_smem[];
   constexpr int L = MG3W_LANES, R = MG3W_ROWS, P = MG3W_PLANE, CX = MG3W_CX,
                 CC = MG3W_CX * MG3W_CY;
+  constexpr bool kPC = !kRR && !kSmooth;    // K6: the coarse ring and the correction
   constexpr bool kFsh = kStrips && !kRR;   // the f queue in shared memory
   constexpr int Q = STEPS + 2;             // its planes
   constexpr uint32_t kM1 = 0xbf80bf80u;    // -1 in both halves
@@ -294,7 +300,7 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
   uint32_t my = y0e || y1e ? kM1 : 0u,
            mx = (x0e ? 0x0000bf80u : 0u) | (x1e ? 0xbf800000u : 0u);
   asm volatile("" : "+r"(my), "+r"(mx));   // kept, not rebuilt per stage
-  const bool res = kRR || a.partials != nullptr;
+  const bool res = kRR || (!kSmooth && a.partials != nullptr);
   const T* __restrict__ U = a.U;
   const T* __restrict__ F = a.F;
   const bool has_u = U != nullptr;
@@ -310,7 +316,7 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
   const int nc = n / 2;
   const int cy0 = kStrips ? (oy >> 1) + ((y0 - Hw) >> 1) - 1 : ((y0 - Hw) >> 1) - 1,
             cx0 = ((x0 - Hw) >> 1) - 1;
-  const bool loads_c = !kRR && me < CC;
+  const bool loads_c = kPC && me < CC;
   const int ly = me / CX, lx = me - (me / CX) * CX;
   const bool c_in = loads_c && mg_in(cy0 + ly, nc) && mg_in(cx0 + lx, nc);
   const size_t ccol = c_in ? (size_t)(cy0 + ly) * nc + (cx0 + lx) : 0;
@@ -325,7 +331,7 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
     const int Zf = gz0 >> 1;
     for (int Z = Zf - 1; Z <= Zf + 1; ++Z) cv[slot(Z) * CC + me] = coarse(Z);
   }
-  if (!kRR) __syncthreads();
+  if (kPC) __syncthreads();
 
   // K5: the coarse cell (cy, cx) of the block's that this thread
   // restricts, its first fine word in the plane and its coarse index
@@ -416,9 +422,9 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
     const bool zn = (act & 1u) && mg_in(gz + 1, n) && (!kStrips || zb < nzl + D);
     pu = has_u && zn ? load(U, pU, b.us, zb) : 0u;
     pf = zn ? load(F, pF, b.fs, zb) : 0u;
-    const bool c_step = !kRR && (gz & 1);   // odd fine plane: the next coarse plane
+    const bool c_step = kPC && (gz & 1);   // odd fine plane: the next coarse plane
     const float cnext = c_step && loads_c ? coarse((gz >> 1) + 2) : 0.f;
-    if constexpr (!kRR) {
+    if constexpr (kPC) {
       if ((act & 1u) && mg_in(gz, n)) {
         const int Z = gz >> 1;
         const float* cc = cv + slot(Z) * CC + ((gy >> 1) - cy0) * CX + ((gx >> 1) - cx0);
@@ -526,7 +532,7 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
     __syncthreads();
   }
 
-  if (kRR || a.partials == nullptr) return;
+  if (kRR || kSmooth || a.partials == nullptr) return;
   // one f32 partial per block: each warp's sum by a butterfly, then the
   // warps' in order; the same sum every run
   __shared__ float red[MG3W_THREADS / 32];
@@ -544,12 +550,12 @@ static __device__ __forceinline__ void mg3w_leg(const Mg3zArgsBf16& a, const Mg3
 
 // The leg with the level's constants as the word products take them
 // (a.exact, uniform): instanced once for each answer.
-template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips>
+template <int STEPS, int kSm, bool kFace, bool kRR, bool kStrips, bool kSmooth = false>
 static __device__ __forceinline__ void mg3w_run(const Mg3zArgsBf16& a, const Mg3zStripsBf16& b) {
   if (a.exact)
-    mg3w_leg<STEPS, kSm, kFace, kRR, kStrips>(a, b, Mg3wK<true>{a});
+    mg3w_leg<STEPS, kSm, kFace, kRR, kStrips, Mg3wK<true>, kSmooth>(a, b, Mg3wK<true>{a});
   else
-    mg3w_leg<STEPS, kSm, kFace, kRR, kStrips>(a, b, Mg3wK<false>{a});
+    mg3w_leg<STEPS, kSm, kFace, kRR, kStrips, Mg3wK<false>, kSmooth>(a, b, Mg3wK<false>{a});
 }
 
 static __host__ inline bool mg3w_aligned(const void* p) { return ((uintptr_t)p & 3) == 0; }
@@ -567,17 +573,22 @@ static __host__ inline uint32_t mg3w_bits(float x) {
   return u;
 }
 
-// Opts `kernel` (null: no instance for the step count and smoother) in to
-// its dynamic shared memory and launches it on the block `blk` at halo
-// a.H (checked by the caller with mg3z_takes), with the word tile's chunk
-// (mg3w_chunk) and level words, the strips `strips` of a strip-fed leg
-// (null for the whole grid) passed on in `args`; returns a cudaError_t.
+// The leg a word-tile launch runs: K5 or K11 (the down-leg), K6 or K12
+// (the up-leg), K4 (the sweeps alone).
+enum Mg3wLeg { MG3W_RR, MG3W_PC, MG3W_SMOOTH };
+
+// Opts `kernel` (null: no instance for the step count and smoother) of the
+// leg `leg` in to its dynamic shared memory and launches it on the block
+// `blk` at halo a.H (checked by the caller with mg3z_takes), with the word
+// tile's chunk (mg3w_chunk) and level words, the strips `strips` of a
+// strip-fed leg (null for the whole grid) passed on in `args`; returns a
+// cudaError_t.
 // u, f, the output and the u and f strips are read and written as words:
 // a pointer that is not 4-byte aligned is refused, and so is a whole grid
 // of more than 2^32 words (above 2048^3, the leg's 32-bit word offsets).
 template <class Kernel, class... Args>
 static __host__ inline int mg3w_launch(Kernel kernel, const Mg3Block& blk, Mg3zArgsBf16 a,
-                                       int steps, bool rr, cudaStream_t stream,
+                                       int steps, Mg3wLeg leg, cudaStream_t stream,
                                        const Mg3zStripsBf16* strips, Args... args) {
   if (kernel == nullptr || blk.n < 2 || (blk.n & 1) || blk.nzl < 2 || blk.nyl < 2 ||
       (blk.nzl | blk.nyl | blk.z0 | blk.y0) & 1 ||
@@ -588,10 +599,11 @@ static __host__ inline int mg3w_launch(Kernel kernel, const Mg3Block& blk, Mg3zA
     return (int)cudaErrorMisalignedAddress;
   a.chunk = mg3w_chunk(blk.n, blk.nyl, blk.nzl, a.H);
   const uint32_t ih = mg3w_bits(a.inv_hsq), ad = mg3w_bits(a.adiag);
-  a.exact = (ih & 0xffffu) == 0 && (ad & 0xffffu) == 0;
+  const bool pc = leg == MG3W_PC, smooth = leg == MG3W_SMOOTH;
+  a.exact = (ih & 0xffffu) == 0 && (smooth || (ad & 0xffffu) == 0);   // K4 reads no adiag
   a.w_inv_hsq = (ih >> 16) * 0x10001u;
   a.w_adiag = (ad >> 16) * 0x10001u;
-  const size_t bytes = mg3w_bytes(steps, rr, !rr, strips != nullptr && !rr);
+  const size_t bytes = mg3w_bytes(steps, leg == MG3W_RR, pc, strips != nullptr && pc, smooth);
   const int rc = (int)cudaFuncSetAttribute((const void*)kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);

@@ -49,14 +49,12 @@
 //   as a word.  The lane blend takes the coarse columns J - 1 and J +
 //   2 from the words beside (lanes 0 and 31 load theirs).  Sigma r^2
 //   squares the bf16 residual in f32, one f32 partial per block.
-// - Level constants (Mg2wK): the products by -h^2/4 and 1/h^2 are one
-//   bf16x2 multiply where both are bf16 values (h = 1/2^k, every level at
-//   the default spacing); else each half is multiplied in f32 by the f32
-//   constant and rounded once, as torch multiplies by an f32 scalar.  The
-//   launch decides it (mg2w_launch) and instances each answer.  The f32
-//   products alone are right at every h too, but timed 1.003-1.32x the word
-//   products' device time on the H100 (PERF.md, packed word tile).  0.25
-//   and 4 are exact words.
+// - Level constants (Mg2wK): -h^2/4 and 1/h^2 are bf16 values at every h
+//   (the plain packed ops round them to bf16 as the Pallas packed kernels
+//   do, kernels/ops.py _level), so a product by either is one bf16x2
+//   multiply, rounded once as torch rounds its f32 product by a bf16
+//   value; the launch refuses other constants.  0.25 and 4 are exact
+//   words.
 // - Any even n: where w is odd (n % 4 == 2) the black plane, V and Rc put
 //   a pair at an odd bf16 offset, and the last word of a plane is half
 //   outside the grid.  Such a launch (and one with an operand not 4-byte
@@ -72,8 +70,6 @@
 #pragma once
 
 #include <string.h>
-
-#include <type_traits>
 
 #include "stencil_packed.cuh"
 
@@ -116,23 +112,15 @@ struct Mg2wArgs {
   float mhq, inv_hsq;   // -h^2/4 and 1/h^2, f32, as the plain packed ops take them
 };
 
-// The level's constants: products by -h^2/4 and 1/h^2, one bf16x2 multiply
-// by their words where both are bf16 values (kExact), else each half in
-// f32 by the f32 constant, rounded once (stencil.cuh Mg2K's rule).
-template <bool kExact>
+// The level's constants -h^2/4 and 1/h^2, bf16 values (mg2w_launch checks
+// them), as words: a product by either is one bf16x2 multiply.
 struct Mg2wK {
-  float mhq, inv_hsq;
   uint32_t w_mhq, w_inv_hsq;
   __device__ __forceinline__ Mg2wK(float m, float ih)
-      : mhq(m), inv_hsq(ih), w_mhq(Mg2X2::pack(m, m)), w_inv_hsq(Mg2X2::pack(ih, ih)) {}
-  __device__ __forceinline__ uint32_t times(uint32_t x, uint32_t w, float k) const {
-    if constexpr (kExact) return Mg2X2::mul(x, w);
-    const float2 v = Mg2X2::unpack(x);
-    return Mg2X2::pack(__fmul_rn(v.x, k), __fmul_rn(v.y, k));
-  }
-  __device__ __forceinline__ uint32_t by_mhq(uint32_t x) const { return times(x, w_mhq, mhq); }
+      : w_mhq(Mg2X2::pack(m, m)), w_inv_hsq(Mg2X2::pack(ih, ih)) {}
+  __device__ __forceinline__ uint32_t by_mhq(uint32_t x) const { return Mg2X2::mul(x, w_mhq); }
   __device__ __forceinline__ uint32_t by_inv_hsq(uint32_t x) const {
-    return times(x, w_inv_hsq, inv_hsq);
+    return Mg2X2::mul(x, w_inv_hsq);
   }
 };
 
@@ -481,11 +469,11 @@ static __device__ __forceinline__ void mg2w_correct(Mg2wRegs<R>& u, const Mg2wAr
   }
 }
 
-template <int R, bool kEdge, bool kExact>
+template <int R, bool kEdge>
 static __device__ __forceinline__ float mg2w_pc_tile(const Mg2wArgs& a, const Mg2wTile& t) {
   const Mg2wCols c = mg2w_cols_of(t);
   const uint32_t cm = kEdge ? c.cm : 0xffffffffu;
-  const Mg2wK<kExact> k(a.mhq, a.inv_hsq);
+  const Mg2wK k(a.mhq, a.inv_hsq);
   Mg2wRegs<R> u, f;
   mg2w_load<R, kEdge, false>(u, a.U, t, c, a.pairs);
   mg2w_correct<R, kEdge>(u, a, t, c);
@@ -497,21 +485,21 @@ static __device__ __forceinline__ float mg2w_pc_tile(const Mg2wArgs& a, const Mg
 }
 
 // The packed up-leg on the n x n grid; with partials, one per block.
-template <int R, bool kExact>
+template <int R>
 static __device__ __forceinline__ void mg2w_pc_body(const Mg2wArgs& a) {
   const Mg2wTile t = mg2w_tile<R>(a.n, a.H);
   float acc = 0.f;
   if (mg2w_owns(t))
-    acc = mg2w_inside<R>(t, a.pairs) ? mg2w_pc_tile<R, false, kExact>(a, t)
-                                     : mg2w_pc_tile<R, true, kExact>(a, t);
+    acc = mg2w_inside<R>(t, a.pairs) ? mg2w_pc_tile<R, false>(a, t)
+                                     : mg2w_pc_tile<R, true>(a, t);
   if (a.partials != nullptr) mg2_partial(acc, a.partials);
 }
 
-template <int R, bool kEdge, bool kExact>
+template <int R, bool kEdge>
 static __device__ __forceinline__ void mg2w_rr_tile(const Mg2wArgs& a, const Mg2wTile& t) {
   const Mg2wCols c = mg2w_cols_of(t);
   const uint32_t cm = kEdge ? c.cm : 0xffffffffu;
-  const Mg2wK<kExact> k(a.mhq, a.inv_hsq);
+  const Mg2wK k(a.mhq, a.inv_hsq);
   Mg2wRegs<R> u, f;
   mg2w_load<R, kEdge, false>(u, a.U, t, c, a.pairs);
   mg2w_load<R, kEdge>(f, a.F, t, c, a.pairs);
@@ -521,35 +509,28 @@ static __device__ __forceinline__ void mg2w_rr_tile(const Mg2wArgs& a, const Mg2
 }
 
 // The packed down-leg on the n x n grid.
-template <int R, bool kExact>
+template <int R>
 static __device__ __forceinline__ void mg2w_rr_body(const Mg2wArgs& a) {
   const Mg2wTile t = mg2w_tile<R>(a.n, a.H);
   if (!mg2w_owns(t)) return;
   if (mg2w_inside<R>(t, a.pairs))
-    mg2w_rr_tile<R, false, kExact>(a, t);
+    mg2w_rr_tile<R, false>(a, t);
   else
-    mg2w_rr_tile<R, true, kExact>(a, t);
+    mg2w_rr_tile<R, true>(a, t);
 }
 
-// Launches L::go<R, kExact> for the tile table's R and the constants'
-// answer on the n x n level at halo a.H (a.pairs set here from the
-// operands and w); returns the launch's error.
+// Launches L::go<R> for the tile table's R on the n x n level at halo a.H
+// (a.pairs set here from the operands and w); returns the launch's error,
+// cudaErrorInvalidValue where -h^2/4 or 1/h^2 is no bf16 value.
 template <class L>
 static __host__ int mg2w_launch(Mg2wArgs a, cudaStream_t stream) {
+  if (!mg2w_is_bf16(a.mhq) || !mg2w_is_bf16(a.inv_hsq)) return (int)cudaErrorInvalidValue;
   const int R = mg2w_rows(a.H);
   const dim3 grid = mg2w_grid(a.n, a.H, R), block(32, MG2_WARPS);
   a.pairs = (a.n / 2) % 2 == 0 && mg2_aligned<__nv_bfloat16>(a.U, a.F, a.V, a.Uout, a.Rout);
-  const bool exact = mg2w_is_bf16(a.mhq) && mg2w_is_bf16(a.inv_hsq);
-  auto go = [&](auto kExact) {
-    constexpr bool E = decltype(kExact)::value;
-    if (R == MG2W_ROWS_DEEP)
-      L::template go<MG2W_ROWS_DEEP, E>(grid, block, stream, a);
-    else
-      L::template go<MG2W_ROWS_SHALLOW, E>(grid, block, stream, a);
-  };
-  if (exact)
-    go(std::true_type{});
+  if (R == MG2W_ROWS_DEEP)
+    L::template go<MG2W_ROWS_DEEP>(grid, block, stream, a);
   else
-    go(std::false_type{});
+    L::template go<MG2W_ROWS_SHALLOW>(grid, block, stream, a);
   return (int)cudaGetLastError();
 }

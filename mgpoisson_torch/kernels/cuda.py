@@ -33,12 +33,13 @@ row-sharded mesh, its halo rows from the neighbours' strips:
   K13 ``mg_sharded_packed_rr`` — ``packed_rr_sharded``
   K14 ``mg_sharded_packed_pc`` — ``packed_pc_sharded``
 
-K5/K6 and their strip entries K11/K12 run two tiles by halo depth
+K4-K6 and the strip entries K11/K12 run two tiles by halo depth
 (``zmarch3d``): the z-marching tile of ``csrc/stencil3d_zm.cuh`` at halos
 <= 4 (the main path's; K11/K12 in its strip-fed form, over a rank's block
-with its own chunk table; their bf16 forms the same march on bf16x2 words,
-the word tile of ``csrc/stencil3d_zw.cuh``, ``tile3d_zw``), the cube tile
-of ``csrc/stencil3d.cuh`` beyond, which K4 runs at every halo.  The 2D legs K1-K3 and K9/K10 run the
+with its own chunk table; K4 its sweeps alone; their bf16 forms the same
+march on bf16x2 words, the word tile of ``csrc/stencil3d_zw.cuh``,
+``tile3d_zw``), the cube tile of ``csrc/stencil3d.cuh`` beyond.  The 2D
+legs K1-K3 and K9/K10 run the
 register tile of ``csrc/stencil.cuh``, and so do the packed legs K7/K8
 and their strip entries K13/K14 on packed state
 (``csrc/stencil_packed.cuh``); the bf16 forms of K7/K8 run the packed
@@ -104,12 +105,12 @@ TILE_FILL_WARPS = 528
 # (pallas.py _plan3d), so composites take jacobi/wjacobi nu <= 7 and rbgs
 # nu <= 3, K4 alone jacobi/wjacobi nu <= 8 and rbgs nu <= 4
 MAX_HALO_3D = 8
-# K5/K6 and the strip entries K11/K12 at a halo <= ZM_MAX_HALO run the
-# z-marching tile of csrc/stencil3d_zm.cuh: ZM_COLS x ZM_COLS loaded cells
-# per plane (a warp per row), a chunk of planes per block from the chunk
-# table (zm_chunk, over the grid or a rank's block, tuned for the ZM_SMS
-# SMs of an H100); deeper halos and K4 run the cube tile of
-# csrc/stencil3d.cuh (tile3d)
+# K4-K6 and the strip entries K11/K12 at a halo <= ZM_MAX_HALO (K4's is
+# its step count) run the z-marching tile of csrc/stencil3d_zm.cuh:
+# ZM_COLS x ZM_COLS loaded cells per plane (a warp per row), a chunk of
+# planes per block from the chunk table (zm_chunk, over the grid or a
+# rank's block, tuned for the ZM_SMS SMs of an H100); deeper halos run the
+# cube tile of csrc/stencil3d.cuh (tile3d)
 ZM_COLS = 32
 ZM_MAX_HALO = 4
 ZM_SMS = 132
@@ -208,8 +209,9 @@ def shared_bytes_3d(halo: int, pc: bool = False) -> int:
 
 
 def zmarch3d(halo: int) -> bool:
-    """Whether the 3D legs (K5, K6 and their strip entries K11, K12) run
-    the z-marching tile at this halo depth, else the cube tile:
+    """Whether the 3D legs (K4 at the halo steps, K5, K6 and their strip
+    entries K11, K12 at steps + 1) run the z-marching tile at this halo
+    depth (in bf16 the word tile), else the cube tile:
     csrc/stencil3d_zm.cuh mg3z_takes."""
     return halo <= ZM_MAX_HALO
 
@@ -238,9 +240,10 @@ def _zm_tile(halo, dtype):
 
 def zm_chunk(n: int, halo: int, nzl: int | None = None, nyl: int | None = None,
              dtype: torch.dtype = torch.float32) -> int:
-    """Planes per z-marching block at this halo on a block of nzl planes of
-    nyl rows of n cells (by default the whole n^3 level): the chunk table of
-    mg3z_chunk (in bf16 the word tile's, mg3w_chunk).  One f32 block runs
+    """Planes per z-marching block at this halo (K4's is its step count) on
+    a block of nzl planes of nyl rows of n cells (by default the whole n^3
+    level): the chunk table of mg3z_chunk (in bf16 the word tile's,
+    mg3w_chunk), the same for every leg.  One f32 block runs
     per SM (ZW_MIN_BLOCKS word-tile blocks), so a launch over ceil(n/T)
     ceil(nyl/T) columns takes ceil(blocks / slots) rounds of c + 2 halo
     plane-steps; the chunk c (nzl, nzl/2, ... down to ZM_MIN_CHUNK) with
@@ -276,16 +279,17 @@ def blocks3d(n: int, halo: int, nzl: int | None = None, nyl: int | None = None,
 
 
 def shared_bytes_3d_zm(steps: int, rr: bool = False, pc: bool = False,
-                       dtype: torch.dtype = torch.float32) -> int:
+                       dtype: torch.dtype = torch.float32, smooth: bool = False) -> int:
     """Dynamic shared memory of one whole-grid z-marching block, as the C
     entries size it (mg3z_bytes; in bf16 the word tile's mg3w_bytes): two
-    planes per stage (steps + 1 stages; f32 cells, or words of a pair of
-    cells), K5's ring of four residual planes (`rr`), K6's ring of three f32
-    coarse planes (`pc`)."""
+    planes per stage (steps + 1 stages, K4's sweeps alone (`smooth`) steps:
+    no residual reads its last; f32 cells, or words of a pair of cells), K5's
+    ring of four residual planes (`rr`), K6's ring of three f32 coarse
+    planes (`pc`)."""
     bf16 = dtype == torch.bfloat16
     rows = ZW_ROWS if bf16 else ZM_COLS
     plane = rows * (ZW_LANES if bf16 else ZM_COLS)
-    floats = (steps + 1) * 2 * plane + (4 * plane if rr else 0)
+    floats = (steps + (not smooth)) * 2 * plane + (4 * plane if rr else 0)
     if pc:
         floats += 3 * (ZM_COLS // 2 + 3) * (rows // 2 + 3)
     return 4 * floats
@@ -375,12 +379,21 @@ def strip_rnorm_partials(shape, nu: int, smoother: str, n_global: int,
     return blocks3d(n_global, halo, shape[0], shape[1], dtype)
 
 
-def _scalars(h, ndim):
-    """1/h^2, 1/adiag and adiag of the 2*ndim+1-point operator, as the
-    plain ops use them (adiag = -2*ndim/h^2)."""
-    hsq = h * h
-    adiag = -2.0 * ndim / hsq
-    return ctypes.c_float(1.0 / hsq), ctypes.c_float(1.0 / adiag), ctypes.c_float(adiag)
+def _scalars(h, ndim, dtype=torch.float32):
+    """1/h^2, 1/adiag and adiag of the 2*ndim+1-point operator (adiag =
+    -2*ndim/h^2) for a kernel of this dtype.  In f32 the double values
+    rounded to f32, as the f32 kernels have always taken them.  In bf16 the
+    constants plain torch uses on the card with ops' rounded h^2 and adiag
+    (ops._level): it divides a tensor by a Python scalar c as a product by
+    1/c taken in f32 from f32(c), and multiplies by f32(c)."""
+    if dtype != torch.bfloat16:
+        hsq = h * h
+        adiag = -2.0 * ndim / hsq
+        return ctypes.c_float(1.0 / hsq), ctypes.c_float(1.0 / adiag), ctypes.c_float(adiag)
+    hsq, adiag, _, _ = ops._level(h, ndim, dtype)
+    one = torch.tensor(1.0)
+    return (ctypes.c_float(float(one / hsq)), ctypes.c_float(float(one / adiag)),
+            ctypes.c_float(adiag))
 
 
 def _launch(name, u, *args):
@@ -395,7 +408,9 @@ def _launch(name, u, *args):
 
 
 def smooth(u, f, h, nu, smoother="jacobi", bc="ghost0"):
-    """nu smoother sweeps in one pass (K1, K4)."""
+    """nu smoother sweeps in one pass (K1, K4).  K4 runs at the halo
+    steps, on the z-marching tile (in bf16 the word tile) where zmarch3d
+    takes it, else on the cube tile of side tile3d(steps)."""
     if u.device.type == "cpu":
         return ops.smooth(u, f, h, nu, smoother, bc)
     name = _name("mg_smooth", u)
@@ -403,7 +418,7 @@ def smooth(u, f, h, nu, smoother="jacobi", bc="ghost0"):
     if nu == 0:
         return u
     out = torch.empty_like(u)
-    inv_hsq, inv_adiag, _ = _scalars(h, u.ndim)
+    inv_hsq, inv_adiag, _ = _scalars(h, u.ndim, u.dtype)
     _launch(name, u, u.data_ptr(), f.data_ptr(), out.data_ptr(),
             *_geometry(u, _steps(nu, smoother)), nu, SMOOTHERS[smoother],
             BCS[bc], inv_hsq, inv_adiag)
@@ -414,7 +429,7 @@ def _rr(u, f, h, nu, smoother, bc, zero):
     name = _name("mg_smooth_rr", f)
     out = torch.empty_like(f)
     R = torch.empty(_half(f.shape), dtype=f.dtype, device=f.device)
-    inv_hsq, inv_adiag, adiag = _scalars(h, f.ndim)
+    inv_hsq, inv_adiag, adiag = _scalars(h, f.ndim, f.dtype)
     _launch(name, f, None if zero else u.data_ptr(), f.data_ptr(),
             out.data_ptr(), R.data_ptr(), *_geometry(f, _steps(nu, smoother) + 1),
             nu, SMOOTHERS[smoother], BCS[bc], inv_hsq, inv_adiag, adiag, int(zero))
@@ -450,7 +465,7 @@ def _pc(u, f, V, h, nu, smoother, bc, kind, rnorm):
     partials = (torch.empty(rnorm_partials(u.shape, nu, smoother, u.shape[0], u.dtype),
                             dtype=torch.float32, device=u.device)
                 if rnorm else None)
-    inv_hsq, inv_adiag, adiag = _scalars(h, u.ndim)
+    inv_hsq, inv_adiag, adiag = _scalars(h, u.ndim, u.dtype)
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
             partials.data_ptr() if rnorm else None, *_geometry(u, halo), nu,
             SMOOTHERS[smoother], BCS[bc], PROLONG_KINDS[kind], inv_hsq,
@@ -522,10 +537,10 @@ def _check_packed(name, up, nu, *others):
     _check_operands(name, up, *others)
 
 
-def _packed_scalars(h):
-    """-h^2/4 and 1/h^2, as the plain packed ops use them."""
-    hsq = h * h
-    return ctypes.c_float(-hsq * 0.25), ctypes.c_float(1.0 / hsq)
+def _packed_scalars(h, dtype=torch.float32):
+    """-h^2/4 and 1/h^2, as the plain packed ops of this dtype multiply by
+    them (ops._level): bf16 values in bf16."""
+    return [ctypes.c_float(c) for c in ops._level(h, 2, dtype)[2:]]
 
 
 def packed_smooth_residual_restrict(up, fp, h, nu):
@@ -538,7 +553,7 @@ def packed_smooth_residual_restrict(up, fp, h, nu):
     out = torch.empty_like(up)
     Rc = torch.empty(_half(up.shape), dtype=up.dtype, device=up.device)
     _launch(name, up, up.data_ptr(), fp.data_ptr(), out.data_ptr(), Rc.data_ptr(),
-            up.shape[0], nu, *_packed_scalars(h))
+            up.shape[0], nu, *_packed_scalars(h, up.dtype))
     return out, Rc
 
 
@@ -553,7 +568,7 @@ def _packed_pc(up, fp, V, h, nu, kind, rnorm):
                             device=up.device) if rnorm else None)
     _launch(name, up, up.data_ptr(), fp.data_ptr(), V.data_ptr(), out.data_ptr(),
             partials.data_ptr() if rnorm else None, n, nu, PROLONG_KINDS[kind],
-            *_packed_scalars(h), int(rnorm))
+            *_packed_scalars(h, up.dtype), int(rnorm))
     if rnorm:
         launches[name + ".rnorm"] += 1
     return out, partials
@@ -659,7 +674,7 @@ def smooth_rr_sharded(u, f, ustrips, fstrips, origin, n_global, h, nu,
     tile = (tile3d(halo),) if f.ndim == 3 else ()
     _launch(name, f, None if zero else u.data_ptr(), f.data_ptr(), out.data_ptr(),
             R.data_ptr(), *uptrs, *fptrs, *_sharded_geometry(f, origin, n_global), d, *tile,
-            nu, SMOOTHERS[smoother], BCS[bc], *_scalars(h, f.ndim), int(zero))
+            nu, SMOOTHERS[smoother], BCS[bc], *_scalars(h, f.ndim, f.dtype), int(zero))
     if zero:
         launches[name + ".zero"] += 1
     return out, R
@@ -695,7 +710,7 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h, n
     _launch(name, u, u.data_ptr(), f.data_ptr(), V.data_ptr(), out.data_ptr(),
             None if partials is None else partials.data_ptr(), *uptrs, *fptrs, *vptrs,
             *_sharded_geometry(u, origin, n_global), d, dv, *tile, nu, SMOOTHERS[smoother],
-            BCS[bc], PROLONG_KINDS[kind], *_scalars(h, u.ndim), int(bool(rnorm)))
+            BCS[bc], PROLONG_KINDS[kind], *_scalars(h, u.ndim, u.dtype), int(bool(rnorm)))
     if not rnorm:
         return out
     launches[name + ".rnorm"] += 1

@@ -55,9 +55,8 @@ def neighbor_sum(u: torch.Tensor, bc: str = "ghost0", edges=None) -> torch.Tenso
 
 def jacobi_sweep(u, f, h, bc: str = "ghost0"):
     """One out-of-place Jacobi sweep."""
-    hsq = h * h
+    hsq, adiag, _, _ = _level(h, u.ndim, u.dtype)
     askew = neighbor_sum(u, bc) / hsq
-    adiag = -2.0 * u.ndim / hsq
     return (f - askew) / adiag
 
 
@@ -67,6 +66,21 @@ def _omega(ndim: int, dtype: torch.dtype) -> float:
     package's weak-typed Python scalar is: in bf16 0.80078125 (2D), the
     value torch then takes in f32; in f32 and f64 the value it had."""
     return float(torch.tensor(2.0 * ndim / (2.0 * ndim + 1.0), dtype=dtype))
+
+
+@functools.cache
+def _level(h: float, ndim: int, dtype: torch.dtype) -> tuple[float, float, float, float]:
+    """The constants of a level of spacing h: h^2 and adiag = -2*ndim/h^2,
+    which the unpacked and sharded ops divide by, and -h^2/4 and 1/h^2,
+    which the packed ops multiply by.  Each is computed in double from the
+    unrounded h^2 and rounded to `dtype`, as the JAX package rounds them
+    (xla's weak-typed scalars; the Pallas packed kernels'
+    ``jnp.asarray(..., dtype)``): in bf16 the values torch then takes in
+    f32 (a Python scalar would stay f32, unrounded), bf16 values at every
+    h; in f32 and f64 the values torch took before."""
+    hsq = h * h
+    return tuple(float(torch.tensor(c, dtype=dtype))
+                 for c in (hsq, -2.0 * ndim / hsq, -hsq * 0.25, 1.0 / hsq))
 
 
 def wjacobi_sweep(u, f, h, bc: str = "ghost0"):
@@ -86,8 +100,7 @@ def _parity_mask(shape, device):
 
 def rbgs_sweep(u, f, h, bc: str = "ghost0"):
     """Red-black Gauss-Seidel sweep (colour 0 first, then colour 1)."""
-    hsq = h * h
-    adiag = -2.0 * u.ndim / hsq
+    hsq, adiag, _, _ = _level(h, u.ndim, u.dtype)
     parity = _parity_mask(u.shape, u.device)
     for p in (0, 1):
         upd = (f - neighbor_sum(u, bc) / hsq) / adiag
@@ -109,15 +122,14 @@ def smooth(u, f, h, nu: int, smoother: str = "jacobi", bc: str = "ghost0"):
 
 def residual(u, f, h, bc: str = "ghost0"):
     """r = f - A u."""
-    hsq = h * h
+    hsq, adiag, _, _ = _level(h, u.ndim, u.dtype)
     askew = neighbor_sum(u, bc) / hsq
-    adiag = -2.0 * u.ndim / hsq
     return f - (askew + adiag * u)
 
 
 def apply_operator(u, h, bc: str = "ghost0"):
     """Matrix-free A u = (sum nbrs - 2*ndim*u)/h^2."""
-    hsq = h * h
+    hsq = _level(h, u.ndim, u.dtype)[0]
     return (neighbor_sum(u, bc) - 2.0 * u.ndim * u) / hsq
 
 
@@ -211,7 +223,7 @@ def coarse_solve(u, f, h, smoother: str = "jacobi", bc: str = "ghost0"):
     bc='ghost0'; for bc='face' the 1x1 solve u = f*h^2/(-4*ndim) is
     exact."""
     if bc == "face" and u.shape[0] == 1:
-        return f * (h * h) / (-4.0 * u.ndim)
+        return f * _level(h, u.ndim, u.dtype)[0] / (-4.0 * u.ndim)
     return _SWEEPS[smoother](u, f, h, bc)
 
 
@@ -345,8 +357,7 @@ def _block_sweeps(ue, fe, geo, h, nu, smoother, bc):
     wjacobi_sweep's); cells outside the grid stay 0 (before each red-black
     colour too: the second colour reads what the first wrote)."""
     inside, edges, parity = geo
-    hsq = h * h
-    adiag = -2.0 * ue.ndim / hsq
+    hsq, adiag, _, _ = _level(h, ue.ndim, ue.dtype)
     if smoother == "rbgs":
         for _ in range(nu):
             for p in (0, 1):
@@ -362,8 +373,8 @@ def _block_sweeps(ue, fe, geo, h, nu, smoother, bc):
 
 
 def _block_residual(ue, fe, geo, h, bc):
-    hsq = h * h
-    return fe - (neighbor_sum(ue, bc, geo[1]) / hsq + (-2.0 * ue.ndim / hsq) * ue)
+    hsq, adiag, _, _ = _level(h, ue.ndim, ue.dtype)
+    return fe - (neighbor_sum(ue, bc, geo[1]) / hsq + adiag * ue)
 
 
 def _strip_depth(strips, need, what):
@@ -577,9 +588,9 @@ def packed_smooth_residual_restrict(up, fp, h, nu):
     Rc), Rc the UNPACKED (n/2, n/2) coarse rhs."""
     xr, xb = _planes(up)
     fr, fb = _planes(fp)
-    hsq = h * h
-    xr, xb = _packed_core(xr, xb, fr * (-hsq * 0.25), fb * (-hsq * 0.25), nu)
-    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / hsq)
+    _, _, mhq, inv_hsq = _level(h, 2, up.dtype)
+    xr, xb = _packed_core(xr, xb, fr * mhq, fb * mhq, nu)
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, inv_hsq)
     n, w = xr.shape
     Rc = (r_r + r_b).reshape(n // 2, 2, w).sum(dim=1) * 0.25
     return torch.cat([xr, xb], dim=1), Rc
@@ -602,7 +613,7 @@ def packed_prolong_correct_smooth(up, fp, V, h, nu, kind="inject"):
     pr, pb = _packed_correction(V, kind)
     xr, xb = _planes(up)
     fr, fb = _planes(fp)
-    mhq = -(h * h) * 0.25
+    mhq = _level(h, 2, up.dtype)[2]
     xr, xb = _packed_core(xr + pr, xb + pb, fr * mhq, fb * mhq, nu)
     return torch.cat([xr, xb], dim=1)
 
@@ -611,7 +622,7 @@ def packed_prolong_correct_smooth_rnorm(up, fp, V, h, nu, kind="inject"):
     """The packed up-leg and sum(r^2) of the result's zero-ghost residual,
     accumulated in at least f32: (up', sum(r^2))."""
     up = packed_prolong_correct_smooth(up, fp, V, h, nu, kind)
-    r_r, r_b = _packed_residual(*_planes(up), *_planes(fp), 1.0 / (h * h))
+    r_r, r_b = _packed_residual(*_planes(up), *_planes(fp), _level(h, 2, up.dtype)[3])
     r = torch.cat([r_r, r_b], dim=1).to(_acc_dtype(up.dtype))
     return up, torch.sum(r * r)
 
@@ -653,10 +664,9 @@ def packed_rr_sharded(up, fp, ustrips, fstrips, origin, n_global, h, nu):
     ue, fe = _extend_rows(up, ustrips), _extend_rows(fp, fstrips)
     rows = _rows(r0 - d, ue.shape[0], up.device)
     (xr, xb), (fr, fb) = _planes(ue), _planes(fe)
-    hsq = h * h
-    xr, xb = _packed_core(xr, xb, fr * (-hsq * 0.25), fb * (-hsq * 0.25), nu,
-                          rows, n_global)
-    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / hsq, rows)
+    _, _, mhq, inv_hsq = _level(h, 2, up.dtype)
+    xr, xb = _packed_core(xr, xb, fr * mhq, fb * mhq, nu, rows, n_global)
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, inv_hsq, rows)
     nl, w = up.shape[0], xr.shape[1]
     Rc = (r_r + r_b)[d:d + nl].reshape(nl // 2, 2, w).sum(dim=1) * 0.25
     return torch.cat([xr, xb], dim=1)[d:d + nl].contiguous(), Rc
@@ -687,13 +697,13 @@ def packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin, n_global, h,
     (xr, xb), (fr, fb) = _planes(ue), _planes(fe)
     xr = torch.where(inside, xr + pr[lo:lo + ue.shape[0]], 0.0)
     xb = torch.where(inside, xb + pb[lo:lo + ue.shape[0]], 0.0)
-    mhq = -(h * h) * 0.25
+    _, _, mhq, inv_hsq = _level(h, 2, up.dtype)
     xr, xb = _packed_core(xr, xb, fr * mhq, fb * mhq, nu, rows, n_global)
     nl = up.shape[0]
     out = torch.cat([xr, xb], dim=1)[d:d + nl].contiguous()
     if not rnorm:
         return out
-    r_r, r_b = _packed_residual(xr, xb, fr, fb, 1.0 / (h * h), rows)
+    r_r, r_b = _packed_residual(xr, xb, fr, fb, inv_hsq, rows)
     r = torch.cat([r_r, r_b], dim=1)[d:d + nl].to(_acc_dtype(up.dtype))
     return out, torch.sum(r * r)
 

@@ -225,8 +225,8 @@ def residual(u, f, h, mesh: ProcessMesh):
     operations, so the blocks tile the whole grid's r bit for bit)."""
     ue = ops.extend(u, strips(u, 1, mesh))
     nbr = ops.neighbor_sum(ue, "ghost0")[1:-1, 1:-1]
-    hsq = h * h
-    return f - (nbr / hsq + (-2.0 * u.ndim / hsq) * u)
+    hsq, adiag, _, _ = ops._level(h, u.ndim, u.dtype)
+    return f - (nbr / hsq + adiag * u)
 
 
 def _sq_sum(x):

@@ -133,27 +133,30 @@ def test_fusing_through_inv_adiag_is_not_exact():
 
 @pytest.mark.parametrize("h", [1.0 / 2 ** k for k in range(1, 15)] + [0.01, 0.3])
 def test_a_word_product_by_a_level_constant_needs_a_bf16_value(h):
-    """The kernels multiply by 1/h^2, 1/adiag and adiag (f32, as
-    kernels.cuda passes them) as one bf16x2 word only where all three are
-    bf16 values, and else each half in f32, rounded once (stencil.cuh
-    Mg2K).  At h = 1/2^k they are, and the two products agree; at 0.01 and
-    0.3 they are not, and a word rounded from them (1/h^2 = 10000 as 9984)
-    gives other products than the f32 constant.  The damped-Jacobi weight
-    in the header is ops._omega's, a bf16 value."""
+    """The bf16 kernels multiply by 1/h^2, 1/adiag and adiag as
+    kernels.cuda passes them (f32: the reciprocals taken in f32 from the
+    plain ops' bf16 h^2 and adiag, ops._level) as one bf16x2 word only
+    where all three are bf16 values, and else each half in f32, rounded
+    once (stencil.cuh Mg2K).  adiag is a bf16 value at every h; 1/h^2 and
+    1/adiag are at h = 1/2^k, where the two products agree, and not at 0.01
+    and 0.3, where a word rounded from them (1/bf16(h^2) = 9986.4375 as
+    9984) gives other products than the f32 constant.  The damped-Jacobi
+    weight in the header is ops._omega's, a bf16 value."""
     src = (Path(cuda.__file__).parents[1] / "csrc" / "stencil.cuh").read_text()
     m = re.search(r"struct Mg2Elem<__nv_bfloat16>[^{]*\{[^}]*omega = ([0-9.]+)f;", src)
     assert m and float(m.group(1)) == ops._omega(2, torch.bfloat16)
     assert float(torch.tensor(float(m.group(1)), dtype=torch.bfloat16)) == float(m.group(1))
-    consts = [x.value for x in cuda._scalars(h, 2)]
+    consts = [x.value for x in cuda._scalars(h, 2, torch.bfloat16)]
     words = [float(torch.tensor(c, dtype=torch.bfloat16)) for c in consts]
     power_of_two = float(np.log2(h)).is_integer()
-    assert (words == consts) == power_of_two
+    exact = [w == c for w, c in zip(words, consts)]
+    assert exact == [power_of_two, power_of_two, True]
     x = sample(7)
     x = x[torch.isfinite(x) & (x.double().abs() < 2.0 ** 100)]
-    for c, w in zip(consts, words):
+    for c, w, e in zip(consts, words, exact):
         in_f32 = (x.float() * np.float32(c)).to(torch.bfloat16)        # Mg2K<false>
         as_word = x * torch.tensor(w, dtype=torch.bfloat16)             # Mg2K<true>
-        assert same(as_word, in_f32).all() == power_of_two
+        assert same(as_word, in_f32).all() == e
 
 
 # ------------------------------------------------- (d) the kernels' order

@@ -56,7 +56,7 @@ class _K:
     """The level's constants as the word tile multiplies by them (Mg3wK)."""
 
     def __init__(self, h):
-        self.inv_hsq, self.inv_adiag, self.adiag = (c.value for c in cuda._scalars(h, 3))
+        self.inv_hsq, self.inv_adiag, self.adiag = (c.value for c in cuda._scalars(h, 3, BF))
         self.exact = _bf16_value(self.inv_hsq) and _bf16_value(self.adiag)
         self.omega = torch.tensor(ops._omega(3, BF), dtype=BF)
 
@@ -254,10 +254,32 @@ def _model(u, f, h, nu, smoother, bc, leg, V=None, kind=None):
 SETTINGS = [("jacobi", 1), ("jacobi", 3), ("wjacobi", 1), ("wjacobi", 3), ("rbgs", 1)]
 
 
+def _as_on_the_card(monkeypatch):
+    """Runs the plain ops as they run on the card, where the kernels are
+    held to them.  There torch divides a bf16 tensor by a Python scalar c
+    as a product by f32(1 / f32(c)), rounded once to bf16 (chip_smoke.py
+    probe_scalar_division), and sums a bf16 2x2x2 restriction in f32 in
+    mg3_sum8's order (probe_restrict_order_3d).  On the CPU it divides in
+    f32, which may round otherwise where 1/c is inexact (1/adiag in 3D,
+    1/h^2 at h = 0.01), and sums in another order, which differs where
+    residuals of spread magnitudes cancel (one coarse cell at h = 0.01
+    below)."""
+    div, restrict = torch.Tensor.__truediv__, ops.restrict
+
+    def divide(x, c):
+        if x.dtype == BF and isinstance(c, float):
+            return (x.float() * float(torch.tensor(1.0) / c)).to(BF)
+        return div(x, c)
+    monkeypatch.setattr(torch.Tensor, "__truediv__", divide)
+    monkeypatch.setattr(ops, "restrict",
+                        lambda r: _restrict(r) if r.dtype == BF and r.ndim == 3 else restrict(r))
+
+
 @pytest.mark.parametrize("n,h", [(8, None), (32, None), (32, 0.01)])
 @pytest.mark.parametrize("smoother,nu", SETTINGS)
 @pytest.mark.parametrize("bc", ["ghost0", "face"])
-def test_word_tile_equals_the_plain_bf16_3d_legs(n, h, smoother, nu, bc):
+def test_word_tile_equals_the_plain_bf16_3d_legs(n, h, smoother, nu, bc, monkeypatch):
+    _as_on_the_card(monkeypatch)
     g = torch.Generator().manual_seed(100 * n + 10 * nu + (bc == "face"))
     u, f = (torch.randn((n,) * 3, generator=g).to(BF) for _ in range(2))
     V = torch.randn((n // 2,) * 3, generator=g).to(BF)
@@ -293,7 +315,7 @@ def test_inv_adiag_is_never_a_bf16_value_in_3d(k):
     products may be words; f32(1/adiag) = f32(-h^2/6) is not, and a word
     product by its bf16 rounding differs from torch's on some values, so
     the word tile multiplies by it in f32 and rounds once."""
-    inv_hsq, inv_adiag, adiag = (c.value for c in cuda._scalars(2.0 ** -k, 3))
+    inv_hsq, inv_adiag, adiag = (c.value for c in cuda._scalars(2.0 ** -k, 3, BF))
     assert _bf16_value(inv_hsq) and _bf16_value(adiag)
     assert not _bf16_value(inv_adiag)
     x = torch.randn(4096, generator=torch.Generator().manual_seed(k)).to(BF)

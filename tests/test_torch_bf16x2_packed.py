@@ -16,8 +16,8 @@ The kernels run only on the card, so two things are held here:
   half of a word beyond it, the trapezoid of the whole-word colour steps,
   the word residual and restriction, the bilinear blend in f32 rounded
   once to a word and added as one, u's red plane never loaded nor
-  corrected (the first red step overwrites it), the rule that makes a product by -h^2/4
-  and 1/h^2 a word only where both are bf16 values), each bf16x2
+  corrected (the first red step overwrites it), the products by -h^2/4
+  and 1/h^2 as words, bf16 values at every h), each bf16x2
   instruction one bf16 op of torch (one rounding: tests/test_torch_bf16x2.py).
   It must equal the plain packed ops in bf16 bit for bit (signed zeros
   too) at sides 6 and 10 (n % 4 == 2: the last word of a plane half
@@ -156,25 +156,19 @@ def _partner(y, left):
 
 
 class _K:
-    """Mg2wK: the products by -h^2/4 and 1/h^2 (f32, as kernels.cuda passes
-    them): a word product where both are bf16 values, else each half in f32,
-    rounded once."""
+    """Mg2wK: the products by -h^2/4 and 1/h^2 as kernels.cuda passes them
+    to the bf16 kernels, bf16 values at every h (mg2w_launch refuses
+    others): word products."""
 
     def __init__(self, h):
-        self.mhq, self.inv_hsq = (c.value for c in cuda._packed_scalars(h))
-        words = [float(torch.tensor(c, dtype=BF16)) for c in (self.mhq, self.inv_hsq)]
-        self.exact = words == [self.mhq, self.inv_hsq]
-
-    def _times(self, x, c):
-        if self.exact:
-            return x * torch.tensor(c, dtype=BF16)
-        return (x.float() * torch.tensor(c, dtype=torch.float32)).to(BF16)
+        self.mhq, self.inv_hsq = (c.value for c in cuda._packed_scalars(h, BF16))
+        assert all(float(torch.tensor(c, dtype=BF16)) == c for c in (self.mhq, self.inv_hsq))
 
     def by_mhq(self, x):
-        return self._times(x, self.mhq)
+        return x * torch.tensor(self.mhq, dtype=BF16)
 
     def by_inv_hsq(self, x):
-        return self._times(x, self.inv_hsq)
+        return x * torch.tensor(self.inv_hsq, dtype=BF16)
 
 
 def _c(x):
@@ -402,15 +396,21 @@ def test_word_tile_keeps_the_plain_legs_signed_zeros(n):
 
 @pytest.mark.parametrize("h", [2.0 ** -k for k in range(1, 15)] + [0.01, 0.3])
 def test_word_products_by_the_packed_constants_need_bf16_values(h):
-    """-h^2/4 and 1/h^2 (f32, as kernels.cuda passes them) are bf16 values
-    at h = 1/2^k, where the tile multiplies by their words (mg2w_launch's
-    rule), and not at 0.01 or 0.3, where a word rounded from them gives
-    other products than torch's product by the f32 constant."""
+    """-h^2/4 and 1/h^2 as kernels.cuda passes them to the bf16 kernels
+    (ops._level: rounded to bf16, as the Pallas packed kernels round them)
+    are bf16 values at every h, so the tile's word products equal torch's
+    product by them in f32.  The same constants rounded to f32 only (the
+    f32 forms', and the bf16 ones' before the reference's rounding) are
+    bf16 values at h = 1/2^k alone: at 0.01 and 0.3 a word rounded from
+    them gives other products than torch's by the f32 constant."""
     k = _K(h)
-    assert k.exact == float(math.log2(h)).is_integer()
+    power_of_two = float(math.log2(h)).is_integer()
     g = torch.Generator().manual_seed(3)
     x = torch.randn(4096, generator=g).to(BF16)
-    for c in (k.mhq, k.inv_hsq):
+    for c, c32 in zip((k.mhq, k.inv_hsq), (c.value for c in cuda._packed_scalars(h))):
         as_word = x * torch.tensor(c, dtype=BF16)
-        in_f32 = (x.float() * torch.tensor(c, dtype=torch.float32)).to(BF16)
-        assert _same(as_word, in_f32) == k.exact
+        assert _same(as_word, (x.float() * torch.tensor(c, dtype=torch.float32)).to(BF16))
+        assert (float(torch.tensor(c32, dtype=BF16)) == c32) == power_of_two
+        as_word = x * torch.tensor(c32, dtype=BF16)
+        in_f32 = (x.float() * torch.tensor(c32, dtype=torch.float32)).to(BF16)
+        assert _same(as_word, in_f32) == power_of_two

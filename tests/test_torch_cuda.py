@@ -450,9 +450,9 @@ def test_sharded3d_kernels_read_nothing_beyond_their_strips(card, mesh, smoother
     torch.cuda.synchronize()
 
 
-# the cube tile (K4 at every halo, K5/K6 and K11/K12 at halos 5-8) rounds
-# as the plain ops do since it takes each add and multiply on its own: its
-# outputs equal them bit for bit.  n = 2, face, jacobi nu = 4 puts K5's
+# the cube tile (K4-K6 and K11/K12 at halos 5-8; K4 at jacobi 4 and rbgs 2
+# runs the z-marching tile) rounds as the plain ops do since it takes each
+# add and multiply on its own: its outputs equal them bit for bit.  n = 2, face, jacobi nu = 4 puts K5's
 # 1x1x1 coarse R, a sum with cancellation, at halo 5.
 CUBE_CASES = [(n, s, nu) for n in (2, 4, 8, 16, 32)
               for s, nu in (("jacobi", 4), ("rbgs", 2), ("wjacobi", 5), ("jacobi", 7))]
@@ -1031,6 +1031,43 @@ def test_bf16_kernels3d_equal_plain(card, n, smoother, nu, bc):
                               ops.prolong_correct_smooth_rnorm(*pa))
         assert torch.equal(gu, wu) and g2.dtype == torch.float32
         assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
+    torch.cuda.synchronize()
+
+
+# K4 alone, f32 and bf16, at its halos 1-4 (jacobi 1, rbgs 1, wjacobi 3,
+# jacobi 4, rbgs 2: the z-marching tile, in bf16 the word tile) and 5
+# (jacobi 5: the cube tile), at sides below one 32 x 32 column up to
+# several columns and chunks
+K4_CASES = [(n, s, nu) for n in (2, 4, 8, 32, 128, 256)
+            for s, nu in (("jacobi", 1), ("rbgs", 1), ("wjacobi", 3), ("jacobi", 4),
+                          ("rbgs", 2), ("jacobi", 5))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,smoother,nu", K4_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_k4_equals_plain_on_both_tiles(card, n, smoother, nu, dtype, bc):
+    u, f, _ = (t.to(dtype) for t in _data(n, n + nu + 5, card, ndim=3))
+    steps = 2 * nu if smoother == "rbgs" else nu
+    assert cuda.zmarch3d(steps) == (steps <= 4)
+    a = (1.0 / n, nu, smoother, bc)
+    got = cuda.smooth(u, f, *a)
+    assert got.dtype == dtype and torch.equal(got, ops.smooth(u, f, *a))
+    torch.cuda.synchronize()
+
+
+# ... and K4.bf16 at the spacings OFF_GRID_H (1/h^2 no bf16 value: the word
+# tile's f32 constant path) and on inputs x 2^-120, on both tiles
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,scale", [(h, 1.0) for h in OFF_GRID_H] + [(None, SUBNORMAL)])
+@pytest.mark.parametrize("smoother,nu", [("wjacobi", 3), ("rbgs", 2), ("jacobi", 5)])
+@pytest.mark.parametrize("bc", ["ghost0", "face"])
+def test_k4_bf16_off_the_default_spacing(card, h, scale, smoother, nu, bc):
+    n = 32
+    u, f, _ = ((t * scale).to(torch.bfloat16) for t in _data(n, n + nu + 6, card, ndim=3))
+    a = (1.0 / n if h is None else h, nu, smoother, bc)
+    assert torch.equal(cuda.smooth(u, f, *a), ops.smooth(u, f, *a))
     torch.cuda.synchronize()
 
 

@@ -374,3 +374,51 @@ def test_zmarch_shared_memory_fits(halo):
         got = cuda.shared_bytes_3d_zm(steps, rr=rr, pc=not rr)
         assert got == 2 * (steps + 1) * plane + (4 * plane if rr else coarse)
         assert got <= 100 * 1024 <= 232448
+
+
+# --------------------------------------------- K4 on the z-marching tiles
+# K4 runs its sweeps alone on the z-marching tile (kSmooth; in bf16 the word
+# tile) at the halo steps <= 4, the cube tile beyond: the entry chooses as
+# zmarch3d does, instances exist for every step count the tile takes, the
+# chunk table and blocks are the other legs' at that halo, and the shared
+# memory has no plane for the last stage (no residual reads it).
+
+_CSRC = Path(cuda.__file__).parents[1] / "csrc"
+
+
+@pytest.mark.parametrize("smoother,nu", _admitted(False))
+def test_k4_runs_the_zmarching_tile_at_halos_up_to_4(smoother, nu):
+    steps = 2 * nu if smoother == "rbgs" else nu
+    assert cuda.zmarch3d(steps) == (steps <= cuda.ZM_MAX_HALO)
+    entry = (_CSRC / "mg_smooth3d.cu").read_text()
+    assert "const int H = mg_steps(nu, smoother);\n  if (mg3z_takes(H))" in entry
+    for src, kernel in (("mg_smooth3d_zm.cu", "MgSmooth3dZm"),
+                        ("mg_smooth3d_zw.cu", "MgSmooth3dZmBf16")):
+        text = (_CSRC / src).read_text()
+        assert f"mg3z_pick_from<{kernel}, 1, MG3Z_MAX_HALO>" in text
+
+
+@pytest.mark.parametrize("steps", range(1, cuda.ZM_MAX_HALO + 1))
+def test_k4_shared_memory(steps):
+    """Two planes per stage but the last, f32 cells or words of a pair of
+    cells (mg3z_bytes / mg3w_bytes with `smooth`): within 48 KB."""
+    f32 = cuda.shared_bytes_3d_zm(steps, smooth=True)
+    bf16 = cuda.shared_bytes_3d_zm(steps, dtype=torch.bfloat16, smooth=True)
+    assert f32 == 4 * 2 * steps * cuda.ZM_COLS ** 2
+    assert bf16 == 4 * 2 * steps * cuda.ZW_LANES * cuda.ZW_ROWS == f32 // 2
+    assert f32 <= 48 * 1024
+    assert "mg3z_bytes(steps, false, false, true)" in (_CSRC / "mg_smooth3d_zm.cu").read_text()
+    assert "MG3W_SMOOTH" in (_CSRC / "mg_smooth3d_zw.cu").read_text()
+    assert re.search(r"\(smooth \? steps : steps \+ 1\) \* 2 \* MG3Z_PLANE", _ZM_HEADER)
+
+
+def test_k4_chunk_table_at_the_main_path():
+    """K4 at the tuned scheme's halo 3 (wjacobi nu = 3): in f32 one chunk
+    per column at 256^3 (100 blocks, one round) and 128 planes at 512^3;
+    in bf16 128 planes at 256^3 (242 blocks, one round of 2 x 132 slots)
+    and the whole column at 512^3."""
+    bf = torch.bfloat16
+    assert (cuda.zm_chunk(256, 3), cuda.blocks3d(256, 3)) == (256, 100)
+    assert (cuda.zm_chunk(512, 3), cuda.blocks3d(512, 3)) == (128, 1600)
+    assert (cuda.zm_chunk(256, 3, dtype=bf), cuda.blocks3d(256, 3, dtype=bf)) == (128, 242)
+    assert (cuda.zm_chunk(512, 3, dtype=bf), cuda.blocks3d(512, 3, dtype=bf)) == (512, 484)

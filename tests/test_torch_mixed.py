@@ -6,7 +6,8 @@ equal bit for bit on the card).  A refinement step computes r = f - A psi
 in dtype, runs one bf16 V-cycle on A e = r from e = 0, adds e, and reports
 ||r||/||r0|| of the INCOMING iterate, so the first err is 1.0 on both sides.
 
-The cycle counts are equal in every case below.  The per-step relres agree
+The cycle counts are equal in every case below but one, off the default
+spacing, where the port takes one step more.  The per-step relres agree
 to bf16 rounding noise, not more: the bf16 V-cycles differ in the
 restriction's sum (XLA on the CPU adds in bf16, torch in f32) and in the
 bilinear blend (bf16 in xla.prolong, f32 in the port's up-leg, as in the
@@ -25,6 +26,11 @@ Pallas kernel).  The two histories (the JAX package's, then the port's):
   fast 128^2 (rbgs, unpacked on both sides), residual, 9 steps each:
     1, 5.638e-4, 2.17e-6, 1.23e-7, 2.14e-8, 4.79e-9, 1.18e-9, 2.89e-10, 7.57e-11
     1, 5.638e-4, 2.14e-6, 1.29e-7, 2.21e-8, 4.84e-9, 1.17e-9, 2.92e-10, 7.70e-11
+  tuned 64^2 at h = 0.01, residual, tol 1e-10, 14 and 15 steps (STEP_SLACK):
+    1, 1.17e-2, 8.30e-4, 9.61e-5, 1.55e-5, 3.23e-6, 8.04e-7, 2.12e-7,
+       5.70e-8, 1.55e-8, 4.16e-9, 1.16e-9, 3.19e-10, 9.81e-11
+    1, 1.158e-2, 9.65e-4, 1.10e-4, 1.98e-5, 4.27e-6, 9.42e-7, 2.37e-7,
+       6.18e-8, 1.64e-8, 4.49e-9, 1.22e-9, 3.40e-10, 1.009e-10, 5.11e-11
   tuned 64^2, update, tol 1e-4, 13 steps each:
     15458, 932.6, 115.7, 17.41, 3.042, 0.666, 0.162, 4.22e-2, 1.13e-2,
        3.06e-3, 8.04e-4, 2.26e-4, 7.48e-5
@@ -47,6 +53,10 @@ from mgpoisson_torch.kernels import cuda, use_packed
 CASES = {
     "tuned64": dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
                     stop="residual", tol=1e-10),
+    # off the default spacing, where the bf16 constants are rounded from h
+    # (ROADMAP Queue 3 F4)
+    "tuned64_h01": dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
+                        stop="residual", tol=1e-10, h=0.01),
     "tuned128": dict(size=128, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
                      stop="residual", tol=1e-10),
     "fast128": dict(size=128, dtype="float32", sweep_dtype="bfloat16", scheme="fast",
@@ -58,6 +68,13 @@ CASES = {
                      tol=5e-2, maxiter=30),
 }
 STEP_RTOL = 0.5
+# steps the port may take beyond the JAX package's: at h = 0.01 its step 13
+# stops at 1.009e-10, just above tol, where the JAX package's reaches
+# 9.81e-11, so it takes 15 steps to JAX's 14 (before the level constants
+# were rounded to bf16 it took 14: 1.595e-10, 6.31e-11).  The bf16 ops
+# agree bit for bit (tests/test_torch_level_constants.py) but for the
+# restriction's sum and the blend, as in every case here.
+STEP_SLACK = {"tuned64_h01": 1}
 
 
 @pytest.fixture(scope="module")
@@ -81,13 +98,13 @@ def _port(name, **kw):
     return mgpoisson_torch.MultigridPoisson(spec, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["tuned64", "tuned128", "fast128", "update64"])
+@pytest.mark.parametrize("name", ["tuned64", "tuned64_h01", "tuned128", "fast128", "update64"])
 def test_mixed_solve_matches_jax(name, jax_runs):
     it_j, conv_j, errs_j = jax_runs(name)
     cuda.reset_launches()
     res = _port(name).solve()
     assert conv_j and res.converged
-    assert res.iterations == it_j
+    assert it_j <= res.iterations <= it_j + STEP_SLACK.get(name, 0)
     assert res.errs.dtype == torch.float32 and res.psi.dtype == torch.float32
     errs = res.errs.tolist()
     if CASES[name]["stop"] == "residual":

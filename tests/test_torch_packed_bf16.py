@@ -7,8 +7,8 @@ kernels in bf16, run in interpret mode as tests/test_packed_persistent.py
 runs them: both round every op to bf16 in the same order and blend the
 bilinear P(V) in f32, rounding it once, so the outputs are bit-equal (the
 JAX package's 5e-2 bar is kept beside for sum(r^2), summed in another
-order); off the default spacing (h = 0.3) within that bar, the reference
-rounding its level constants to bf16 where torch keeps them f32.  Also:
+order), also off the default spacing (h = 0.3), both rounding the level
+constants to bf16 (ops._level).  Also:
 the repair of the plain packed up-leg's blend (it blended in
 bf16), the packed bf16 cycle and solve against the JAX package's, which bf16
 solves pack (the rule of ``mgpoisson.cycle.packed.supported``), and the JAX
@@ -141,30 +141,24 @@ def test_plain_packed_bf16_legs_equal_pallas(op, nu, kind):
 
 
 def test_plain_packed_bf16_legs_off_the_default_spacing():
-    """At h = 0.3, where -h^2/4 and 1/h^2 are no bf16 values: the plain
-    packed bf16 up-leg with rnorm against the Pallas one (interpret).  The
-    reference rounds both constants to bf16 before its products (pallas.py
+    """At h = 0.3, where -h^2/4 and 1/h^2 rounded to f32 are no bf16
+    values: the plain packed bf16 legs (the down-leg, the up-leg with
+    rnorm) against the Pallas ones (interpret).  The reference rounds both
+    constants to bf16 before its products (pallas.py
     ``jnp.asarray(-hsq * 0.25, dtype)`` and _packed_residual's
-    ``jnp.asarray(inv_hsq, dtype)``); torch multiplies by the f32 scalars,
-    as the port's bf16 kernels do.  So the two agree within the JAX
-    package's bf16 bar, and bit for bit once the plain steps take the
-    constants rounded as the reference rounds them."""
+    ``jnp.asarray(inv_hsq, dtype)``), and so do the plain ops
+    (ops._level): the outputs are bit-equal, sum(r^2) within 1e-5."""
     h, nu, kind = 0.3, 1, "bilinear"
     (u, f, V), (ut, ft, Vt) = _arrays(N, seed=31)
     uj, fj = P.pack_grid(u), P.pack_grid(f)
     up, fp = ops.pack_grid(ut), ops.pack_grid(ft)
-    gu, g2 = cuda.packed_prolong_correct_smooth_rnorm(up, fp, Vt, h, nu, kind)  # the plain op
+    got = cuda.packed_smooth_residual_restrict(up, fp, h, nu)    # the plain op
+    want = P.packed_smooth_residual_restrict(uj, fj, h, nu)
+    assert all(torch.equal(g, _torch(w)) for g, w in zip(got, want))
+    gu, g2 = cuda.packed_prolong_correct_smooth_rnorm(up, fp, Vt, h, nu, kind)
     wu, w2 = P.packed_prolong_correct_smooth_rnorm(uj, fj, V, h, nu, kind=kind)
-    assert _nmax(gu, _torch(wu)) <= TOL and abs(float(g2) / float(w2) - 1.0) <= TOL
-    # the plain op's steps with the reference's constants
-    mhq = torch.tensor(-(h * h) * 0.25, dtype=torch.bfloat16)
-    inv_hsq = float(torch.tensor(1.0 / (h * h), dtype=torch.bfloat16))
-    pr, pb = ops._packed_correction(Vt, kind)
-    (xr, xb), (fr, fb) = ops._planes(up), ops._planes(fp)
-    xr, xb = ops._packed_core(xr + pr, xb + pb, fr * mhq, fb * mhq, nu)
-    assert torch.equal(torch.cat([xr, xb], dim=1), _torch(wu))
-    r = torch.cat(ops._packed_residual(xr, xb, fr, fb, inv_hsq), dim=1).float()
-    assert abs(float(torch.sum(r * r)) / float(w2) - 1.0) <= 1e-5
+    assert torch.equal(gu, _torch(wu))
+    assert abs(float(g2) / float(w2) - 1.0) <= 1e-5
 
 
 # ------------------------------------------------ the cycle and the solve

@@ -295,3 +295,35 @@ def test_packed_order_compares_the_residual_orders():
     f64 = [r["f64_relres"] for r in rows]
     assert max(f64) <= 1.05 * min(f64)
     assert rows[0]["relres"] != rows[1]["relres"]
+
+
+def test_sass_diff_compares_a_renamed_kernel():
+    """--rename OLD_FN NEW_FN: the old build's function compared under its
+    new name (a kernel whose template argument was dropped); a pair the
+    old listing lacks changes nothing."""
+    from mgpoisson_torch.bench import sass_diff
+    old = {"_Z1kILi16ELb1EEvv": ["NOP", "EXIT"], "_Z1gv": ["EXIT"]}
+    new = {"_Z1kILi16EEvv": ["NOP", "EXIT"], "_Z1gv": ["EXIT"]}
+    assert [r["function"] for r in sass_diff.compare(old, new)] == ["_Z1gv"]
+    renamed = sass_diff.rename(old, [("_Z1kILi16ELb1EEvv", "_Z1kILi16EEvv"), ("_Z1xv", "_Z1yv")])
+    rows = sass_diff.compare(renamed, new)
+    assert [(r["function"], r["identical"]) for r in rows] == [("_Z1kILi16EEvv", True),
+                                                               ("_Z1gv", True)]
+    assert "_Z1kILi16ELb1EEvv" in old    # the listing itself is left as it was
+
+
+def test_ab_times_k4_alone_with_smooth3d():
+    """--smooth3d: K4 alone at each --sides3d side over SMOOTH3D_SETTINGS
+    (halos 1-4: jacobi nu 1-4, wjacobi nu 1-3, rbgs nu 1-2) in both bcs,
+    each case a K4 call whose output is the plain op's on the CPU."""
+    import torch
+    from mgpoisson_torch.bench import ab
+    from mgpoisson_torch.kernels import ops
+    assert ab.parse_args(["--old", "x", "--smooth3d"]).smooth3d
+    assert not ab.parse_args(["--old", "x"]).smooth3d
+    halos = {2 * nu if sm == "rbgs" else nu for sm, nu in ab.SMOOTH3D_SETTINGS}
+    assert halos == {1, 2, 3, 4}
+    cases, inputs = ab._cases_smooth3d(8, torch.device("cpu"))
+    assert len(cases) == 2 * len(ab.SMOOTH3D_SETTINGS) and set(inputs) == set(cases)
+    u, f = inputs["K4 rbgs nu=2 face"]
+    assert torch.equal(cases["K4 rbgs nu=2 face"](), ops.smooth(u, f, 1.0 / 8, 2, "rbgs", "face"))
