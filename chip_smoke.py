@@ -20,7 +20,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
               each at 4096^2 beside the plain version's (CUDA events, median
               of 25, alternating; and the kernel's own device time from
               torch.profiler, without the host's time to enqueue the call)
-              and beside its bound.
+              and beside its bound.  At the tuned and fast solves' settings
+              (wjacobi nu = 3, rbgs nu = 1) every output must be bit-equal.
 4. slice    — the tuned-scheme 4096^2 f32 solve through
               MultigridPoisson(spec, device="cuda").solve(): the cycle count
               and per-cycle relres against the JAX package's, the returned
@@ -126,6 +127,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
               Fortran-order NumPy or a view at an odd 4-byte offset: each
               gives the psi and the cycle count of its dense copy, bit for
               bit.
+9b. fmg_adaptive — FMG and the adaptive stop, each solve as a user calls it,
+              with no callback, timed by CUDA events: slice_fmg (tuned
+              4096^2 FMG: the JAX package's cycle count and relres, the f64
+              re-check, the FMG pass's launches and its wall alone),
+              slice_adaptive (tuned 4096^2 adaptive: the JAX package's
+              cycles and metric evaluations, each measured relres against
+              JAX_ERRS, K3 with rnorm on the JAX run's measured cycles
+              (JAX_MEASURED) only, one
+              device->host read per evaluation), slice_fast_adaptive (fast
+              4096^2 packed adaptive, then to a stop at maxiter on a skipped
+              cycle, K8 without rnorm there, then with FMG, its loop
+              packed), slice_fmg3d (256^3 FMG and adaptive together); every
+              count against a JAX CPU run, every launch count worked out in
+              code.
 10. parity_sharded — the strip kernels K9-K12 of the sharded solve against
               their plain versions at every block position of the (2, 2) and
               (4, 1) meshes, blocks and strips cut from a whole grid as the
@@ -183,8 +198,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
               re-check of each gathered iterate, and every rank's launches
               (K9/K10 at every sharded level >= 256, K11/K12 at every 3D
               one, their bf16 forms in a mixed solve, K13/K14 at a packed
-              fine level, no single-device kernel).  With 4 or more cards, the tuned,
-              the packed and the mixed 4096^2 solves again over NCCL.
+              fine level, no single-device kernel).  Then FMG and the
+              adaptive stop: 4096^2 FMG and 4096^2 adaptive on (2, 2), the
+              fast packed 4096^2 adaptive on (4, 1) and its stop at maxiter
+              on a skipped cycle (K14 without rnorm), each with the
+              iterations, metric evaluations and psi (within 1e-5
+              normalized) of its single-device solve of phase 9b.  With 4 or
+              more cards, the tuned, the packed and the mixed 4096^2 solves
+              again over NCCL.
 
 The last lines are a JSON object of the off-path kernels (K1, K4 and their
 bf16 forms, with their launches in the traced cycles), a JSON object of the
@@ -219,13 +240,14 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from mgpoisson_torch import MultigridPoisson, Spec
-from mgpoisson_torch.bench.profile import event_ms, kernel_ms, profile_solve
+from mgpoisson_torch.bench.profile import device_summary, event_ms, kernel_ms, profile_solve
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
 from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packed_sharded,
                                      use_sharded_kernels)
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import ProcessMesh
+from mgpoisson_torch.solver import multigrid
 
 # mgpoisson (the JAX package, backend='xla'), run on a CPU for
 # Spec(size=4096, dtype='float32', scheme='tuned', stop='residual',
@@ -308,6 +330,25 @@ JAX_ERRS_MIXED_3D = [1.0, 0.019899588078260422, 0.0016835599672049284, 0.0001845
 # ... and the first two cycles of Spec(size=256, ndim=3, dtype='bfloat16',
 # scheme='tuned', stop='residual', tol=1e-30, maxiter=2)
 JAX_ERRS_BF16_3D = [0.018860479816794395, 0.0015980113530531526]
+# the same package and backend on a CPU, each solve without a callback, for
+# Spec(size=4096, dtype='float32', scheme='tuned', stop='residual',
+# tol=1e-10, cycle='fmg'): 1 V-cycle after the FMG pass, converged, with
+# this relres (against the -f guess)
+JAX_ITERATIONS_FMG = 1
+JAX_ERRS_FMG = [1.739887400820095e-11]
+# ... and (iterations, n_metric_evals) with stop_check='adaptive' for: that
+# spec with cycle='v' (measured relres JAX_ERRS's within 0.003 %), for
+# scheme='fast', at tol=1e-30 and maxiter=6 (a stop on a skipped cycle, the
+# returned iterate remeasured), and with cycle='fmg'; and for
+# Spec(size=256, ndim=3, dtype='float32', scheme='tuned', stop='residual',
+# tol=1e-10, cycle='fmg', stop_check='adaptive'), whose history is
+# JAX_ERRS_FMG3D.  JAX_MEASURED: the cycles (1-based) that run measured
+JAX_ADAPTIVE = {"tuned": (9, 5), "fast": (2, 2), "fast_stale": (6, 3), "fast_fmg": (1, 1),
+                "fmg3d": (4, 4)}
+JAX_MEASURED = {"tuned": [1, 5, 7, 8, 9], "fast": [1, 2], "fast_stale": [1, 5],
+                "fast_fmg": [1], "fmg3d": [1, 2, 3, 4]}
+JAX_ERRS_FMG3D = [6.677884023531533e-09, 8.609845614238054e-10, 1.1970295588081825e-10,
+                  1.766055704455205e-11]
 BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_pallas_bf16.py)
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
@@ -316,6 +357,13 @@ PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 # halos (rbgs nu = 4, jacobi nu = 7)
 SMALL_SIDES = tuple(2 ** k for k in range(7, 0, -1))
 SMALL_SETTINGS = (("wjacobi", 3), ("rbgs", 1), ("rbgs", 4), ("jacobi", 7))
+# the sweep settings of the tuned and the fast solves: at these every 2D f32
+# output of K1-K3 and of K9/K10 (blocks against the plain block ops) must be
+# bit-equal to its plain version, as every 3D one and every bf16 one must:
+# among them the forms that FMG's V-cycles (K2 from u with bc face, K9 too)
+# and the adaptive stop's skipped cycles (K3, K10 without rnorm at the fine
+# level) launch
+PATH_SETTINGS = (("wjacobi", 3), ("rbgs", 1))
 # the 3D parity below the main path's sides (128 ... 2): the main path's
 # settings, the fast scheme's rbgs nu = 1 (both on the z-marching tile of
 # K5/K6), rbgs nu = 2 and jacobi nu = 4 (halo 5 with a residual: the cube
@@ -331,6 +379,12 @@ SPEC_3D = Spec(size=256, ndim=3, dtype="float32", scheme="tuned", stop="residual
                tol=1e-10)
 SIDES_3D = (512, 256)      # the 3D levels the 256^3 and 512^3 solves run on the kernels
 FAST_SPEC = MAIN_SPEC.with_(scheme="fast")
+# FMG and the adaptive stop (phase_fmg_adaptive, and under a mesh)
+FMG_SPEC = MAIN_SPEC.with_(cycle="fmg")
+ADAPTIVE_SPEC = MAIN_SPEC.with_(stop_check="adaptive")
+FAST_ADAPTIVE_SPEC = FAST_SPEC.with_(stop_check="adaptive")
+FAST_STALE_SPEC = FAST_ADAPTIVE_SPEC.with_(tol=1e-30, maxiter=6)
+FMG3D_SPEC = SPEC_3D.with_(cycle="fmg", stop_check="adaptive")
 # the bf16 paths: mixed-precision refinement (bench.py's sec_bf16 config) and
 # the pure bf16 solve; the bf16 parity's settings
 MIXED_SPEC = MAIN_SPEC.with_(sweep_dtype="bfloat16")
@@ -396,7 +450,14 @@ SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4,
               ("spmd16384mixed", MIXED_16K, (2, 2), False),
               ("spmd256^3mixed", MIXED_SPEC_3D, (2, 2), True),
               ("spmd256^3mixed", MIXED_SPEC_3D, (4, 1), True),
-              ("spmd512^3mixed", MIXED_512, (2, 2), False))
+              ("spmd512^3mixed", MIXED_512, (2, 2), False),
+              # FMG and the adaptive stop, each held to the single-device
+              # solve of phase_fmg_adaptive; the last to a stop at maxiter
+              # on a skipped cycle (K14 without rnorm, the packed remeasure)
+              ("spmd4096fmg", FMG_SPEC, (2, 2), False),
+              ("spmd4096adaptive", ADAPTIVE_SPEC, (2, 2), False),
+              ("spmd4096fastadaptive", FAST_ADAPTIVE_SPEC, (4, 1), False),
+              ("spmd4096faststale", FAST_STALE_SPEC, (4, 1), False))
 # timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
 # 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
 TIMING_SHARDED_PACKED = (16384, 4, 8192)
@@ -697,15 +758,15 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
     (k_smooth, k_rr, k_pc), (t_smooth, t_rr, t_pc) = RANK[ndim]
     label = "parity" if ndim == 2 else "parity3d"
 
-    # every 3D output equals its plain version bit for bit, on the
-    # z-marching tile (halo <= 4) and on the cube tile alike
-    exact = ndim == 3
-
     for n in list(sides) + list(small_sides):
         u, f, V = _data(n, ndim, seed=n, dev=dev)
         h = 1.0 / n
         for bc in ("ghost0", "face"):
             for smoother, nu in _parity_settings(ndim, n in sides):
+                # every 3D output equals its plain version bit for bit, on
+                # the z-marching tile (halo <= 4) and on the cube tile
+                # alike; in 2D every output at the settings of the solves
+                exact = ndim == 3 or (smoother, nu) in PATH_SETTINGS
                 row = [f"n={n} {bc} {smoother} nu={nu}"]
                 a = (h, nu, smoother, bc)
                 steps = ops.sweep_radius(smoother) * nu
@@ -728,6 +789,8 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
                                           ops.prolong_correct_smooth_rnorm(*pa))
                     note(worst, k_pc, tag + "r.u", gu, wu, row, exact=exact)
                     note_r2(tag + "r.r2", g2, w2, row)
+                if ndim == 2 and exact:
+                    row.append("bit-equal")
                 if ndim == 3:
                     tile = lambda hh: "z-marching" if cuda.zmarch3d(hh) else "cube"
                     row.append(f"bit-equal; K4: halo {steps} {tile(steps)} tile; K5/K6: "
@@ -986,13 +1049,7 @@ def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=Tru
     check(res.psi.shape == spec.shape and bool(torch.isfinite(res.psi).all()),
           f"psi is not a finite {shape} array")
 
-    # the returned psi, re-checked independently in f64 with the plain ops
-    f64, psi64 = f.double(), res.psi.double()
-    rel64 = float(ops.residual_norm(psi64, f64, spec.fine_h)
-                  / ops.residual_norm(-f64, f64, spec.fine_h))
-    del f64, psi64
-    print(f"[{label}] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
-    check(rel64 < spec.tol, f"{shape}: f64 relres of the returned psi {rel64:.3e} >= tol")
+    f64_recheck(label, spec, f, res.psi)
     print(f"[{label}] kernel levels {kernel_levels(spec)}; launches in the solve "
           f"{after_solve}; in the traced cycle {after_trace}")
     ms_k = statistics.median(cycle_ms)
@@ -1002,6 +1059,17 @@ def phase_slice(label, spec, dev, jax_iterations, jax_errs, *, compare_plain=Tru
     if compare_plain:
         compare_solve(label, "plain", spec.with_(backend="torch"), dev, it, {}, warm_up)
     return it, after_solve, after_trace
+
+
+def f64_recheck(label, spec, f, psi):
+    """The returned psi, re-checked independently in f64 with the plain
+    ops: ||r|| / ||r0|| of the -f guess must be below tol."""
+    f64, psi64 = f.double(), psi.double()
+    rel64 = float(ops.residual_norm(psi64, f64, spec.fine_h)
+                  / ops.residual_norm(-f64, f64, spec.fine_h))
+    del f64, psi64
+    print(f"[{label}] f64 re-check: ||r||/||r0|| = {rel64:.6e} (tol {spec.tol})")
+    check(rel64 < spec.tol, f"{label}: f64 relres of the returned psi {rel64:.3e} >= tol")
 
 
 def compare_solve(label, what, spec, dev, it, launches, warm_up=True):
@@ -1310,20 +1378,54 @@ def check_launches(label, got, want, what):
     check(got == want, f"{label}: launches {got}, expected {want}: {what}")
 
 
-def fast_launches(spec, it, packed=True):
+def fast_launches(spec, it, packed=True, measured=None):
     """The launch counts of an `it`-cycle fast V-cycle solve of `spec` (the
-    bf16 forms' for a bf16 spec): packed, K7 and K8 (with rnorm) once per
-    cycle at the fine level and K2 (from zero) and K3 once per cycle at each
-    coarse kernel level; unpacked, K2 and K3 at every kernel level, K3 with
-    rnorm at the fine one."""
+    bf16 forms' for a bf16 spec): packed, K7 and K8 (with rnorm on the
+    `measured` cycles, by default all) once per cycle at the fine level and
+    K2 (from zero) and K3 once per cycle at each coarse kernel level;
+    unpacked, K2 and K3 at every kernel level, K3 with rnorm at the fine
+    one."""
     L = len(kernel_levels(spec))
     sfx = BF16 if spec.dtype == "bfloat16" else ""
     rr, pc = "mg_smooth_rr" + sfx, "mg_prolong_correct_smooth" + sfx
+    measured = it if measured is None else measured
     if packed:
         return {"mg_packed_rr" + sfx: it, "mg_packed_pc" + sfx: it,
-                f"mg_packed_pc{sfx}.rnorm": it, rr: it * (L - 1), rr + ".zero": it * (L - 1),
-                pc: it * (L - 1)}
-    return {rr: it * L, rr + ".zero": it * (L - 1), pc: it * L, pc + ".rnorm": it}
+                f"mg_packed_pc{sfx}.rnorm": measured, rr: it * (L - 1),
+                rr + ".zero": it * (L - 1), pc: it * (L - 1)}
+    return loop_launches(rr, pc, L, it, measured)
+
+
+def loop_launches(rr, pc, L, it, measured):
+    """The launches of `it` V-cycles with L kernel levels (whole grid, or
+    sharded: K9/K10, K11/K12): the down-leg `rr` at each, from zero below
+    the fine level, the up-leg `pc` at each, with rnorm on the `measured`
+    cycles."""
+    return {rr: it * L, rr + ".zero": it * (L - 1), pc: it * L, pc + ".rnorm": measured}
+
+
+def fmg_launches(spec, sides, rr, pc):
+    """The launches of the FMG pass of `spec` (cycle.vcycle.fmg, or
+    SpmdCycle.fmg) whose V-cycles run the kernels at the level sides
+    `sides`: one V-cycle from the prolonged iterate at every level but the
+    coarsest, each running the down-leg (from u at its own side, from zero
+    below) and the up-leg (no rnorm) at every kernel side at or below its
+    own."""
+    counts = {rr: 0, rr + ".zero": 0, pc: 0}
+    for side in level_sizes(spec.size, spec.coarse_size)[:-1]:
+        k = sum(1 for s in sides if s <= side)
+        counts[rr] += k
+        counts[rr + ".zero"] += max(k - 1, 0)
+        counts[pc] += k
+    return counts
+
+
+def add_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
 
 
 class _packed_flag:
@@ -1509,6 +1611,166 @@ def phase_slice_fast_bf16(dev, n, compare):
     return out
 
 
+def _solve_timed(spec, dev):
+    """One solve as a user calls it, without a callback (the FMG pass and
+    the adaptive loop run only so): the solver, the result, the solve's
+    wall ms (CUDA events around solve(), which ends on a read of the last
+    metric) and the solve loop's device->host reads (multigrid.read_scalar,
+    the loop's one way to the host)."""
+    mg = MultigridPoisson(spec, device=dev)
+    reads, read = [], multigrid.read_scalar
+    multigrid.read_scalar = lambda t: reads.append(1) or read(t)
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = mg.solve()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        multigrid.read_scalar = read
+    return mg, res, start.elapsed_time(end), len(reads)
+
+
+def _new_phase_solve(label, spec, dev, jax_count, launches_of, jax_errs=None,
+                     jax_measured=None):
+    """One solve of the FMG or adaptive phases, without a callback: its
+    cycles and metric evaluations against the JAX package's CPU run
+    (`jax_count`: iterations, n_metric_evals; `jax_measured`: an adaptive
+    solve's measured cycles, a stale stop at maxiter remeasured once more),
+    one device->host read per metric evaluation, each measured relres
+    within RELRES_TOL of `jax_errs`, the f64 re-check of a converged psi,
+    and the launches, exactly `launches_of(it, measured)`: K3 (K8) with
+    rnorm on the JAX run's measured cycles only.  The timed solve follows a
+    warm-up solve of the same spec.  Returns (result, wall ms, launches)."""
+    _solve_timed(spec, dev)
+    cuda.reset_launches()
+    mg, res, ms, reads = _solve_timed(spec, dev)
+    launches = dict(cuda.launches)
+    it, n, errs = res.iterations, res.n_metric_evals, res.errs.tolist()
+    cyc = jax_measured if spec.stop_check == "adaptive" else list(range(1, it + 1))
+    stale = it not in cyc
+    what = (f"{spec.scheme}{' packed' if mg._packed else ''} {spec.size}^{spec.ndim} "
+            f"cycle={spec.cycle} stop_check={spec.stop_check} tol={spec.tol:g}")
+    print(f"[{label}] {what}: {it} cycles, {n} metric evaluations (the JAX run's measured "
+          f"cycles {cyc}"
+          f"{', then the returned iterate' if stale else ''}), {reads} device->host reads, "
+          f"converged={res.converged}, final relres {res.final_err:.6e}; solve wall {ms:.3f} ms "
+          "(CUDA events, no callback)")
+    for k, e in enumerate(errs, 1):
+        ej = jax_errs[k - 1] if jax_errs is not None and k <= len(jax_errs) else None
+        print(f"[{label}]   cycle {k}: relres {e:.6e} {'measured' if k in cyc else 'predicted'}"
+              + ("" if ej is None else f"  jax {ej:.6e}  rel diff {abs(e - ej) / ej:.2e}"))
+    check((it, n) == jax_count, f"{label}: {it} cycles, {n} metric evaluations; the JAX package "
+          f"takes {jax_count}")
+    check(reads == n, f"{label}: {n} metric evaluations, {reads} device->host reads")
+    check(mg._packed == (spec.scheme == "fast"), f"{label}: packed={mg._packed}")
+    for k in cyc if jax_errs is not None and it == len(jax_errs) else ():
+        check(abs(errs[k - 1] - jax_errs[k - 1]) <= RELRES_TOL * jax_errs[k - 1],
+              f"{label} cycle {k}: relres {errs[k - 1]:.6e} vs the JAX package's "
+              f"{jax_errs[k - 1]:.6e}")
+    check(res.psi.shape == spec.shape and bool(torch.isfinite(res.psi).all()),
+          f"{label}: psi is not a finite {spec.shape} array")
+    if res.converged:
+        f64_recheck(label, spec, mg.rhs(), res.psi)
+    check_launches(label, launches, _expected(launches_of(it, len(cyc))),
+                   "the FMG pass's V-cycles and the loop's, rnorm on the measured cycles")
+    print(f"[{label}] launches {({k: v for k, v in launches.items() if v})}")
+    print(f"[{label}] " + profiled_solve(mg, ms))
+    return res, ms, launches
+
+
+def profiled_solve(mg, wall_ms):
+    """One more solve of `mg` under torch.profiler, the card's activity only
+    (a solve is ~10^4 launches: the host's ops would cost the capture
+    seconds more): its device launches, device ms (the union of the device
+    events) and mg_* kernel ms, and the device's busy share of `wall_ms`,
+    the timed solve's wall.  A capture that records no device event is
+    taken once more, then reported as not measured."""
+    t0 = time.perf_counter()
+    for _ in range(2):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            mg.solve()
+            torch.cuda.synchronize()
+        n_ev, dev_ms, mg_ms = device_summary(prof)
+        if n_ev:
+            break
+    else:
+        return (f"profiled solve: not measured (two captures recorded no device event; "
+                f"{time.perf_counter() - t0:.1f} s)")
+    return (f"profiled solve: {n_ev} device launches, device {dev_ms:.4f} ms, mg_* kernels "
+            f"{mg_ms:.4f} ms; device busy {100 * dev_ms / wall_ms:.1f} % of the timed "
+            f"solve's {wall_ms:.3f} ms (the capture took {time.perf_counter() - t0:.1f} s)")
+
+
+def _single_ref(res, measured=None):
+    """What the sharded solves of phase_spmd are held to; `measured`, an
+    adaptive solve's measured cycles in the JAX run (JAX_MEASURED)."""
+    return {"errs": res.errs.tolist(), "n_metric_evals": res.n_metric_evals,
+            "converged": res.converged, "psi": res.psi.cpu(), "measured": measured}
+
+
+def phase_fmg_adaptive(dev):
+    """slice_fmg, slice_adaptive, slice_fast_adaptive and slice_fmg3d: FMG
+    and the adaptive stop on one card, each solve as a user calls it, with
+    no callback.  Returns the single-device results the sharded solves of
+    phase_spmd are held to, and the phases' seconds."""
+    t0 = time.perf_counter()
+    (_, rr, pc), _ = RANK[2]
+    L = len(kernel_levels(MAIN_SPEC))
+    fmg2 = fmg_launches(FMG_SPEC, kernel_levels(FMG_SPEC), rr, pc)
+    refs = {}
+
+    # slice_fmg: the tuned 4096^2 solve from the FMG pass's iterate
+    res, _, _ = _new_phase_solve(
+        "slice_fmg", FMG_SPEC, dev, (JAX_ITERATIONS_FMG, JAX_ITERATIONS_FMG),
+        lambda it, m: add_counts(fmg2, loop_launches(rr, pc, L, it, m)), JAX_ERRS_FMG)
+    refs["spmd4096fmg"] = _single_ref(res)
+    mg = MultigridPoisson(FMG_SPEC, device=dev)
+    f = mg.rhs()
+    cuda.reset_launches()
+    mg.init_state(f)
+    torch.cuda.synchronize()
+    check_launches("slice_fmg pass", dict(cuda.launches), _expected(fmg2),
+                   "the FMG pass's V-cycles")
+    ms = event_ms(lambda: mg.init_state(f), reps=5)
+    print(f"[slice_fmg] the FMG pass alone (init_state): {ms:.3f} ms (CUDA events, median of "
+          f"5); launches per pass {fmg2}")
+
+    # slice_adaptive: the tuned 4096^2 solve, cycle v, adaptive stop
+    res, _, _ = _new_phase_solve("slice_adaptive", ADAPTIVE_SPEC, dev, JAX_ADAPTIVE["tuned"],
+                                 lambda it, m: loop_launches(rr, pc, L, it, m), JAX_ERRS,
+                                 jax_measured=JAX_MEASURED["tuned"])
+    refs["spmd4096adaptive"] = _single_ref(res, JAX_MEASURED["tuned"])
+
+    # slice_fast_adaptive: the fast 4096^2 solve, packed, adaptive; to a
+    # stop at maxiter on a skipped cycle (K8 without rnorm); with FMG (L3)
+    for key, spec, jax_errs in (("fast", FAST_ADAPTIVE_SPEC, JAX_ERRS_FAST[MAIN_N]),
+                                ("fast_stale", FAST_STALE_SPEC, None),
+                                ("fast_fmg", FAST_ADAPTIVE_SPEC.with_(cycle="fmg"), None)):
+        pass_counts = (fmg_launches(spec, kernel_levels(spec), rr, pc)
+                       if spec.cycle == "fmg" else {})
+        res, _, launches = _new_phase_solve(
+            f"slice_{key}_adaptive", spec, dev, JAX_ADAPTIVE[key],
+            lambda it, m: add_counts(pass_counts, fast_launches(spec, it, measured=m)), jax_errs,
+            jax_measured=JAX_MEASURED[key])
+        check(launches["mg_packed_rr"] > 0 and launches["mg_packed_pc"] > 0,
+              f"slice_{key}_adaptive: the packed loop did not run K7/K8")
+        if key != "fast_fmg":
+            refs[{"fast": "spmd4096fastadaptive", "fast_stale": "spmd4096faststale"}[key]] = \
+                _single_ref(res, JAX_MEASURED[key])
+
+    # slice_fmg3d: the tuned 256^3 solve, FMG and the adaptive stop together
+    (_, rr3, pc3), _ = RANK[3]
+    L3 = len(kernel_levels(FMG3D_SPEC))
+    _new_phase_solve("slice_fmg3d", FMG3D_SPEC, dev, JAX_ADAPTIVE["fmg3d"],
+                     lambda it, m: add_counts(fmg_launches(FMG3D_SPEC, kernel_levels(FMG3D_SPEC),
+                                                           rr3, pc3),
+                                              loop_launches(rr3, pc3, L3, it, m)),
+                     JAX_ERRS_FMG3D, jax_measured=JAX_MEASURED["fmg3d"])
+    torch.cuda.empty_cache()
+    return refs, time.perf_counter() - t0
+
+
 def _misaligned(x):
     """x's values in a dense row-major view at an odd 4-byte offset."""
     buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
@@ -1636,7 +1898,7 @@ def phase_parity_sharded(dev, worst, dtype=torch.float32):
                 row = [f"{_case_label(n, scale, h_case, ndim)} {bc} {smoother} nu={nu}"]
                 w = _Worst(worst)
                 # the blocks' outputs against the plain block ops
-                exact = ndim == 3 or bf16
+                exact = ndim == 3 or bf16 or (smoother, nu) in PATH_SETTINGS
                 a = (h, nu, smoother, bc)
                 whole = {"rr": cuda.smooth_residual_restrict(u, f, *a),
                          "rrz": cuda.smooth_residual_restrict_zero(f, *a)}
@@ -1945,24 +2207,27 @@ def _cycle_spec(spec):
     return spec.with_(dtype=spec.sweep_dtype, mesh_shape=None)
 
 
-def sharded_launches(spec, mesh_shape, it):
+def sharded_launches(spec, mesh_shape, it, measured=None):
     """One rank's launches in an `it`-cycle (or step) sharded solve, the
     kernels of its cycle's dtype (the bf16 forms of K9/K10 for bf16
     sweeps): the down-leg (from zero below the fine level) and the up-leg
-    at every sharded kernel level, the up-leg with rnorm once per cycle
-    (never in a mixed step, which measures the residual it computes
-    itself; its fine down-leg starts from a zeros array, not the zero
-    flag); with a packed fine level, K13 and K14 (rnorm) there, once per
-    cycle."""
+    at every sharded kernel level, the up-leg with rnorm on the `measured`
+    cycles, by default every cycle (never in a mixed step, which measures
+    the residual it computes itself; its fine down-leg starts from a zeros
+    array, not the zero flag); with a packed fine level, K13 and K14
+    (rnorm) there, once per cycle; with cycle='fmg', the FMG pass's
+    V-cycles on the sharded kernel levels before them."""
     cyc = _cycle_spec(spec)
-    L = len(sharded_kernel_levels(cyc, mesh_shape))
+    sides = sharded_kernel_levels(cyc, mesh_shape)
+    L = len(sides)
     k_rr, k_pc, _, _ = _sharded_names(spec.ndim, getattr(torch, cyc.dtype))
+    measured = it if measured is None else measured
+    fmg = fmg_launches(spec, sides, k_rr, k_pc) if spec.cycle == "fmg" else {}
     if packed_sharded(spec, mesh_shape):
-        return {"mg_sharded_packed_rr": it, "mg_sharded_packed_pc": it,
-                "mg_sharded_packed_pc.rnorm": it, k_rr: (L - 1) * it,
-                k_rr + ".zero": (L - 1) * it, k_pc: (L - 1) * it}
-    return {k_rr: L * it, k_rr + ".zero": (L - 1) * it, k_pc: L * it,
-            k_pc + ".rnorm": it if cyc is spec else 0}
+        return add_counts(fmg, {"mg_sharded_packed_rr": it, "mg_sharded_packed_pc": it,
+                                "mg_sharded_packed_pc.rnorm": measured, k_rr: (L - 1) * it,
+                                k_rr + ".zero": (L - 1) * it, k_pc: (L - 1) * it})
+    return add_counts(fmg, loop_launches(k_rr, k_pc, L, it, measured if cyc is spec else 0))
 
 
 def _spmd_rank(rank, backend, store, cases, out_dir):
@@ -1976,12 +2241,21 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         results = []
-        for label, spec, mesh_shape, warm_up in cases:
+        for i, (label, spec, mesh_shape, warm_up) in enumerate(cases):
             spec = spec.with_(mesh_shape=mesh_shape)
+            t0 = time.perf_counter()
             if warm_up:
                 _solve(spec, "cuda")
             cuda.reset_launches()
-            mg, res, cycle_ms = _solve(spec, "cuda")
+            # FMG and the adaptive stop run as a user calls them, with no
+            # callback (a callback makes every cycle measure)
+            new = spec.cycle == "fmg" or spec.stop_check == "adaptive"
+            ms = None
+            if new:
+                mg, res, ms, _ = _solve_timed(spec, "cuda")
+                cycle_ms = [ms / res.iterations]
+            else:
+                mg, res, cycle_ms = _solve(spec, "cuda")
             launches = dict(cuda.launches)
             psi = multihost.gather_global(res.psi, mg.mesh)
             rel64 = None
@@ -1991,7 +2265,11 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
                 rel64 = float(ops.residual_norm(psi.double(), f64, spec.fine_h)
                               / ops.residual_norm(-f64, f64, spec.fine_h))
                 del f64
+                if new:
+                    torch.save(psi.cpu(), out_dir / f"psi{i}.pt")
             results.append({"label": label, "iterations": res.iterations,
+                            "n_metric_evals": res.n_metric_evals, "solve_ms": ms,
+                            "seconds": time.perf_counter() - t0,
                             "errs": res.errs.tolist(), "errs_dtype": str(res.errs.dtype),
                             "converged": res.converged,
                             "launches": launches, "cycle_ms": cycle_ms, "rel64": rel64,
@@ -2018,14 +2296,19 @@ def _spawn_ranks(backend, cases):
     return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
 
 
-def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
+def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None, single=None,
+                psi_path=None):
     """Every rank's result of one sharded solve: identical histories, the
     reference's cycle count and per-cycle relres (within RELRES_TOL), the
     f64 re-check of the gathered iterate, exact launches.  A mixed solve
     (bf16 sweeps) takes the JAX package's step count (`ref_count`) or one
     more or fewer (the bars of phase_slice_mixed), or without `ref_count`
     the port's single-device mixed solve's (that of `ref_errs`) exactly;
-    its first err is 1.0 and its history f32."""
+    its first err is 1.0 and its history f32.  With `single` (an FMG or
+    adaptive solve, _single_ref): its n_metric_evals and converged, and
+    rank 0's gathered psi (at `psi_path`) within PARITY_TOL normalized of
+    its psi; an adaptive solve's K10 (K14) with rnorm on the measured
+    cycles."""
     r0 = ranks[0]
     it, errs = r0["iterations"], r0["errs"]
     mixed = _cycle_spec(spec) is not spec
@@ -2042,7 +2325,8 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
     check(all(r["errs"] == errs and r["iterations"] == it for r in ranks),
           f"{shape}: the ranks' error histories differ")
     count = len(ref_errs) if ref_count is None else ref_count
-    check(r0["converged"] and abs(it - count) <= (1 if mixed and ref_count else 0),
+    converges = single is None or single["converged"]
+    check(r0["converged"] == converges and abs(it - count) <= (1 if mixed and ref_count else 0),
           f"{shape}: {it} cycles (converged={r0['converged']}), the reference takes {count}")
     if mixed:
         check(errs[0] == 1.0 and r0["errs_dtype"] == "torch.float32",
@@ -2054,8 +2338,21 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
           f"{shape}: the gathered psi is not a finite {spec.shape} array")
     print(f"[{label}] f64 re-check of the gathered psi: ||r||/||r0|| = {r0['rel64']:.6e} "
           f"(tol {spec.tol})")
-    check(r0["rel64"] < spec.tol, f"{shape}: f64 relres {r0['rel64']:.3e} >= tol")
-    want = _expected(sharded_launches(spec, mesh_shape, it))
+    check(not converges or r0["rel64"] < spec.tol, f"{shape}: f64 relres {r0['rel64']:.3e} >= tol")
+    measured = None
+    if single is not None:
+        n = single["n_metric_evals"]
+        check(all(r["n_metric_evals"] == n for r in ranks),
+              f"{shape}: metric evaluations {[r['n_metric_evals'] for r in ranks]}, the "
+              f"single-device solve's {n}")
+        gap = nmax(torch.load(psi_path), single["psi"])[0]
+        print(f"[{label}] {n} metric evaluations, as the single-device solve; psi against its "
+              f"psi: normalized max |diff| {gap:.3e}; solve wall, rank 0..3 (CUDA events, no "
+              "callback): " + " ".join(f"{r['solve_ms']:.3f}" for r in ranks) + " ms")
+        check(gap <= PARITY_TOL, f"{shape}: psi {gap:.3e} from the single-device solve's")
+        if spec.stop_check == "adaptive":
+            measured = len(single["measured"])
+    want = _expected(sharded_launches(spec, mesh_shape, it, measured))
     for rank, r in enumerate(ranks):
         check_launches(f"{shape} rank {rank}", r["launches"], want,
                        "K9/K10 (K11/K12) at every sharded level >= kernel_min_size, "
@@ -2069,14 +2366,18 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None):
     return r0["launches"]
 
 
-def phase_spmd(dev):
+def phase_spmd(dev, singles):
     """The sharded solves on 4 ranks sharing the card over gloo; the
     single-device 16384^2 solves (tuned, fast with its packed fine level,
     and mixed) and the single-device mixed 4096^2, 256^3 and 512^3 solves
     as the references of the sharded ones (the mixed 4096^2 and 256^3 step
-    counts against the JAX package's, within one)."""
+    counts against the JAX package's, within one); the FMG and adaptive
+    solves against the single-device ones of phase_fmg_adaptive
+    (`singles`).  Returns the launches of the main paths' sharded solves and
+    the seconds of the FMG and adaptive ones on rank 0."""
     refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
-            "spmd4096fast": JAX_ERRS_FAST[MAIN_N]}
+            "spmd4096fast": JAX_ERRS_FAST[MAIN_N],
+            **{label: r["errs"] for label, r in singles.items()}}
     for label, spec in (("spmd16384", SPEC_16K), ("spmd16384fast", FAST_16K),
                         ("spmd4096mixed", MIXED_SPEC), ("spmd16384mixed", MIXED_16K),
                         ("spmd256^3mixed", MIXED_SPEC_3D), ("spmd512^3mixed", MIXED_512)):
@@ -2104,10 +2405,13 @@ def phase_spmd(dev):
           f"{time.perf_counter() - t0:.1f} s for the spawn and every solve")
     launches = {}
     how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
+    new_seconds = 0.0
     for i, (label, spec, mesh_shape, _) in enumerate(SPMD_CASES):
-        launches[label, mesh_shape] = _check_spmd(label, spec, mesh_shape,
-                                                  [r[i] for r in ranks], refs[label], how,
-                                                  counts.get(label))
+        launches[label, mesh_shape] = _check_spmd(
+            label, spec, mesh_shape, [r[i] for r in ranks], refs[label], how,
+            counts.get(label), singles.get(label), SPMD_DIR / "gloo" / f"psi{i}.pt")
+        if label in singles:
+            new_seconds += ranks[0][i]["seconds"]
     if torch.cuda.device_count() >= SPMD_WORLD:
         cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast", "spmd4096mixed")
                  and c[2] == ((4, 1) if c[0] == "spmd4096fast" else (2, 2))]
@@ -2121,7 +2425,7 @@ def phase_spmd(dev):
     return {"2d": launches["spmd16384", (2, 2)], "3d": launches["spmd256^3", (2, 2)],
             "packed": launches["spmd16384fast", (4, 1)],
             "mixed": launches["spmd16384mixed", (2, 2)],
-            "mixed3d": launches["spmd256^3mixed", (2, 2)]}
+            "mixed3d": launches["spmd256^3mixed", (2, 2)]}, new_seconds
 
 
 def main():
@@ -2212,6 +2516,10 @@ def main():
     solve_fast_bf16 = phase_slice_fast_bf16(dev, MAIN_N, compare=True)
     phase_slice_fast_bf16(dev, 1024, compare=False)
     phase_strided(dev)
+    # FMG and the adaptive stop on one card: tuned 4096^2 with FMG, with
+    # the adaptive stop, the fast packed 4096^2 adaptive (and to a stop at
+    # maxiter, and with FMG), 256^3 with both
+    singles, new_seconds = phase_fmg_adaptive(dev)
 
     # the sharded solves (explicit partition): the strip kernels, the
     # packed strip kernels of the fast scheme on a mesh of one column, then
@@ -2224,7 +2532,10 @@ def main():
     times.update(phase_timing_sharded(dev, times, torch.bfloat16))
     phase_parity_sharded_packed(dev, worst)
     times.update(phase_timing_sharded_packed(dev))
-    solve_spmd = phase_spmd(dev)
+    solve_spmd, spmd_seconds = phase_spmd(dev, singles)
+    print(f"[fmg_adaptive] the FMG and adaptive phases: {new_seconds:.1f} s on one card and "
+          f"{spmd_seconds:.1f} s of the 4-rank spawn's solves (rank 0), "
+          f"{new_seconds + spmd_seconds:.1f} s in all")
 
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():

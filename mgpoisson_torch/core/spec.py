@@ -57,6 +57,11 @@ class Spec:
     solve, as in the JAX package.  Under a mesh, mixed precision runs in 2D
     and 3D (bf16 sweeps on the bf16 strip kernels); dtype='bfloat16' under
     a mesh raises NotImplementedError naming the ROADMAP item.
+
+    cycle='fmg' (a full-multigrid pass supplies the initial iterate, then
+    V-cycles) and stop_check='adaptive' run on one device and under a
+    mesh.  As in the JAX package, adaptive stopping under mixed precision
+    is a valid Spec that ``MultigridPoisson`` refuses.
     """
 
     size: int
@@ -132,23 +137,10 @@ class Spec:
                 "partition='gspmd' is a feature of XLA's SPMD partitioner, with "
                 "no torch counterpart; mgpoisson_torch runs the explicit "
                 "partition, 'spmd' (ROADMAP slice 7, Queue 1 item 12)")
-        mixed = self.sweep_dtype not in (None, self.dtype)
-        if self.stop_check == "adaptive" and mixed:
-            # the JAX solver's message (mgpoisson/solver/multigrid.py:88-94)
-            raise ValueError("stop_check='adaptive' buys nothing under "
-                             "mixed-precision refinement: the "
-                             "refinement step computes the "
-                             "full-precision residual every cycle "
-                             "anyway; use stop_check='every'")
         if self.mesh_shape is not None and self.dtype == "bfloat16":
             later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
                   "precision): Queue 1 item 7, A4b, the pure bf16 solve under a "
                   "mesh, with Queue 3 L2")
-        if self.stop_check == "adaptive":
-            later("stop_check='adaptive'", "6 (the rest of the solver "
-                  "surface)")
-        if self.cycle == "fmg":
-            later("cycle='fmg'", "6 (the rest of the solver surface)")
         if self.smoother == "gs_lex":
             later("smoother='gs_lex'", "6 (the rest of the solver surface)")
 

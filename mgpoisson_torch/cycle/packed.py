@@ -10,7 +10,8 @@ the CPU), and the coarse levels run the normal unpacked recursion: the
 restriction's output is already unpacked (coarse column J = packed lane
 J) and the prolongation takes the unpacked coarse correction.
 
-Engaged by the solver under ``kernels.use_packed``; MGPOISSON_PACKED=0
+Engaged by the solver under ``kernels.use_packed`` (with cycle='fmg' the
+FMG pass runs unpacked and the solver packs its result); MGPOISSON_PACKED=0
 turns it off, MGPOISSON_PACKED=1 turns it on for CPU tensors.  Under a
 row-sharded mesh the same packed fine level runs per rank on its block
 (``shard.spmd.SpmdCycle.cycle_packed``, K13/K14), engaged under
@@ -36,7 +37,7 @@ def make_packed_cycle(spec, rnorm: bool = False):
     (up', sum(r^2)) with rnorm).  The coarse levels are the unpacked
     ``_cycle`` recursion from zero, the same as in the unpacked solve; the
     fine level differs from it by add-order rounding only."""
-    gamma = {"v": 1, "w": 2}[spec.cycle]
+    gamma = {"v": 1, "fmg": 1, "w": 2}[spec.cycle]
 
     def cycle(up, fp, h):
         up, Rc = cuda.packed_smooth_residual_restrict(up, fp, h, spec.nu_pre)

@@ -110,11 +110,32 @@ def w_cycle(u, f, h, spec, trace: Optional[Trace] = None):
     return _cycle(u, f, h, spec, gamma=2, fine_level=True, trace=trace)
 
 
+def fmg(f, h, spec, n_vcycles: int = 1):
+    """Full multigrid: restrict f to the coarsest level, solve there from
+    zero, then at each level going up prolong the solution and run
+    `n_vcycles` V-cycles on it.  Reaches discretization accuracy in one
+    O(N) pass; the solver's initial iterate under cycle='fmg'."""
+    fs = [f]
+    while fs[-1].shape[0] > spec.coarse_size:
+        fs.append(get_ops(spec, fs[-1].shape[0], f.device).restrict(fs[-1]))
+    hs = [h * (2 ** i) for i in range(len(fs))]
+
+    bc = "ghost0" if len(fs) == 1 else spec.coarse_bc
+    u = get_ops(spec, fs[-1].shape[0], f.device).coarse_solve(
+        torch.zeros_like(fs[-1]), fs[-1], hs[-1], spec.smoother_resolved, bc)
+    for lvl in range(len(fs) - 2, -1, -1):
+        u = get_ops(spec, fs[lvl].shape[0], f.device).prolong(u, spec.prolong_kind)
+        for _ in range(n_vcycles):
+            u = _cycle(u, fs[lvl], hs[lvl], spec, 1, lvl == 0, None)
+    return u
+
+
 def make_cycle(spec, rnorm: bool = False):
     """Return the per-step cycle function selected by spec.cycle,
     signature (u, f, h) -> u, or (u, f, h) -> (u, sum(r^2)) with
-    rnorm=True."""
-    gamma = {"v": 1, "w": 2}.get(spec.cycle)
+    rnorm=True.  'fmg' iterates V-cycles after the FMG pass the solver
+    runs for the initial iterate."""
+    gamma = {"v": 1, "fmg": 1, "w": 2}.get(spec.cycle)
     if gamma is None:
         raise ValueError(f"unknown cycle {spec.cycle!r}")
     return lambda u, f, h: _cycle(u, f, h, spec, gamma=gamma,

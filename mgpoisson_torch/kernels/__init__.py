@@ -91,7 +91,8 @@ def use_packed(spec, device) -> bool:
     rule of the JAX package's ``mgpoisson.cycle.packed.supported``:
 
     - MGPOISSON_PACKED is not "0";
-    - 2D, no mesh, the rbgs smoother, a V or W cycle;
+    - 2D, no mesh, the rbgs smoother (any cycle: with 'fmg' the FMG pass
+      runs unpacked and the solver packs its result);
     - backend not 'torch';
     - the fine side above coarse_size and >= kernel_min_size;
     - the JAX plan's own conditions: n >= 256, n % 256 == 0 and
@@ -105,8 +106,7 @@ def use_packed(spec, device) -> bool:
     flag = _packed_flag()
     n = spec.size
     if (flag == "0" or spec.ndim != 2 or spec.mesh_shape is not None
-            or spec.smoother_resolved != "rbgs" or spec.cycle not in ("v", "w")
-            or spec.backend == "torch"
+            or spec.smoother_resolved != "rbgs" or spec.backend == "torch"
             or n <= spec.coarse_size or n < spec.kernel_min_size
             or n < 256 or n % 256
             or not all(1 <= nu <= cuda.PACKED_MAX_NU
@@ -128,8 +128,8 @@ def use_packed_sharded(spec, mesh, device) -> bool:
     the JAX package's ``mgpoisson.cycle.packed.supported_spmd``:
 
     - MGPOISSON_PACKED is not "0";
-    - 2D, the rbgs smoother, a V or W cycle, backend not 'torch', float32
-      and no other sweep_dtype;
+    - 2D, the rbgs smoother, any cycle (FMG's pass runs unpacked),
+      backend not 'torch', float32 and no other sweep_dtype;
     - a mesh of one column (mx, 1), so that a rank's block is whole rows;
     - 1 <= nu_pre, nu_post <= 3;
     - the fine level sharded: side above replicate_below, and both it and
@@ -145,7 +145,7 @@ def use_packed_sharded(spec, mesh, device) -> bool:
     mx, my = mesh.shape
     nl = n // mx
     if (flag == "0" or spec.ndim != 2 or spec.smoother_resolved != "rbgs"
-            or spec.cycle not in ("v", "w") or spec.backend == "torch"
+            or spec.backend == "torch"
             or spec.dtype != "float32" or spec.sweep_dtype not in (None, spec.dtype)
             or my != 1
             or not all(1 <= nu <= cuda.PACKED_MAX_NU for nu in (spec.nu_pre, spec.nu_post))

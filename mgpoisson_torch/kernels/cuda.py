@@ -814,6 +814,7 @@ def packed_pc_sharded(up, fp, V, ustrips, fstrips, vstrips, origin, n_global, h,
 pack_grid = ops.pack_grid
 unpack_grid = ops.unpack_grid
 residual = ops.residual
+restrict = ops.restrict
 prolong = ops.prolong
 prolong_correct = ops.prolong_correct
 residual_restrict = ops.residual_restrict

@@ -401,6 +401,20 @@ def smooth_rr_sharded(u, f, ustrips, fstrips, origin, n_global, h, nu,
     return _trim(ue, d), restrict(_trim(_block_residual(ue, fe, geo, h, bc), d))
 
 
+def prolong_sharded(V, vstrips, origin, n_global, kind="inject", d=0):
+    """P(V) over one block of a sharded level of side n_global, extended by
+    d fine lines per sharded side: V the coarse block, vstrips its coarse
+    strips (at least coarse_depth(d) deep; one line for d = 0), the global
+    edges placed from `origin`, the block's first fine cell.  Blends in
+    V's dtype, as ``prolong`` does."""
+    dv = vstrips[0].shape[0]
+    # the prolonged extended coarse block covers 2*dv fine halo lines per side
+    Ve = extend(V, vstrips)
+    _, p_edges, _ = _geometry([2 * s for s in Ve.shape], _ext_origin(origin, 2 * dv),
+                              n_global, Ve.device)
+    return _trim(prolong(Ve, kind, p_edges), 2 * dv - d)
+
+
 def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h,
                       nu, smoother="jacobi", bc="ghost0", kind="inject",
                       rnorm=False):
@@ -416,12 +430,10 @@ def pc_smooth_sharded(u, f, V, ustrips, fstrips, vstrips, origin, n_global, h,
                          f"cover fine strips of depth {d}")
     ue, fe = extend(u, ustrips), extend(f, fstrips)
     geo = _geometry(ue.shape, _ext_origin(origin, d), n_global, ue.device)
-    # the prolonged extended coarse block covers 2*dv fine halo lines per side
     # P(V) blended in at least f32 and rounded once, as _up_leg_correct
-    Ve = extend(V, vstrips).to(_acc_dtype(V.dtype))
-    _, p_edges, _ = _geometry([2 * s for s in Ve.shape], _ext_origin(origin, 2 * dv),
-                              n_global, Ve.device)
-    PV = _trim(prolong(Ve, kind, p_edges), 2 * dv - d).to(u.dtype)
+    acc = _acc_dtype(V.dtype)
+    PV = prolong_sharded(V.to(acc), [None if s is None else s.to(acc) for s in vstrips],
+                         origin, n_global, kind, d).to(u.dtype)
     ue = torch.where(geo[0], ue + PV, 0.0)
     ue = _block_sweeps(ue, fe, geo, h, nu, smoother, bc)
     out = _trim(ue, d)

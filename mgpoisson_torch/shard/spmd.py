@@ -40,8 +40,18 @@ for every collective (gloo's point-to-point is host-only); under NCCL they
 go as they are.  The backend is the caller's choice
 (``multihost.initialize``): nothing here switches it.
 
+- the full-multigrid initialisation (``fmg``, the JAX package's fmg_local):
+  f restricted block by block while the level is sharded, gathered once at
+  the replicated hand-off, the coarse solve and the replicated levels run on
+  the whole grid, then going up each sharded level prolongs its coarse block
+  with one-line coarse strips (``ops.prolong_sharded``, no gather) and runs
+  one sharded V-cycle.
+- the bare cycles of the adaptive stop (``cycle_bare``): one cycle on the
+  block, unpacked or packed, without the metric or with the all-reduced
+  sum(r^2).
+
 Not ported here (ROADMAP.md Queue 1 items 7 and 12): the pure bf16 step
-(A4b), the adaptive cycles and FMG.
+(A4b).
 """
 
 from __future__ import annotations
@@ -245,7 +255,7 @@ class SpmdCycle:
     """The per-rank V/W-cycle and step of a spec on a mesh."""
 
     def __init__(self, spec, mesh: ProcessMesh):
-        if spec.cycle not in ("v", "w"):
+        if spec.cycle not in ("v", "w", "fmg"):
             raise ValueError(f"unknown cycle {spec.cycle!r}")
         self.spec = spec
         self.mesh = mesh
@@ -312,6 +322,81 @@ class SpmdCycle:
                                      spec.nu_post, spec.prolong_kind, rnorm=want_r2)
         return out if want_r2 else (out, None)
 
+    def fmg(self, f):
+        """The full-multigrid initial iterate (``cycle.vcycle.fmg``) on this
+        rank's block f of the fine level: f restricted block by block down
+        to the replicated hand-off (replicate_below, or where a level would
+        not split evenly), gathered once there, the rest of the down sweep
+        and the coarse solve on the whole grid; going up, a replicated level
+        prolongs and runs the single-device V-cycle, the first sharded one
+        prolongs the whole coarse solution and keeps its block, every other
+        sharded one prolongs its coarse block (``_prolong``), and each
+        sharded level runs one sharded V-cycle.  Returns this rank's block
+        (a fine level at or below replicate_below runs replicated and is
+        sliced back)."""
+        spec, mesh = self.spec, self.mesh
+        g, h, cur = spec.size, spec.fine_h, f
+        shd = g > spec.replicate_below and shardable(g, mesh)
+        if not shd:
+            cur = gather_full(cur, mesh)
+        levels = [(cur, h, g, shd)]        # finest first: (f, h, side, sharded)
+        while g > spec.coarse_size:
+            gn = g // 2
+            if shd and (gn <= spec.replicate_below or not shardable(gn, mesh)):
+                cur, shd = gather_full(cur, mesh), False
+            cur = ops.restrict(cur)        # a block's own 2^ndim cells
+            g, h = gn, 2 * h
+            levels.append((cur, h, g, shd))
+
+        fL, hL, _, shdL = levels[-1]
+        if shdL:                           # only where size == coarse_size
+            fL = gather_full(fL, mesh)
+        bcL = "ghost0" if len(levels) == 1 else spec.coarse_bc
+        u = ops.coarse_solve(torch.zeros_like(fL), fL, hL, spec.smoother_resolved, bcL)
+        if shdL:
+            u = slice_local(u, mesh)
+
+        for lvl in range(len(levels) - 2, -1, -1):
+            f_l, h_l, g_l, shd_l = levels[lvl]
+            if shd_l and not levels[lvl + 1][3]:
+                u = slice_local(ops.prolong(u, spec.prolong_kind), mesh)
+            elif shd_l:
+                u = self._prolong(u, g_l)
+            else:
+                u = ops.prolong(u, spec.prolong_kind)
+            if shd_l:
+                u = self.cycle(u, f_l, h_l, g_l, lvl == 0)[0]
+            else:
+                u = _replicated_cycle(u, f_l, h_l, spec, 1, lvl == 0, None)
+        return u if levels[0][3] else slice_local(u, mesh)
+
+    def _prolong(self, V, g):
+        """P(V) on this rank's block of the sharded level of side g from its
+        coarse block V and V's one-line strips (the bilinear +-1 coarse
+        neighbour), as the up-leg's plain version prolongs."""
+        return ops.prolong_sharded(V, strips(V, 1, self.mesh), block_origin(g, self.mesh), g,
+                                   self.spec.prolong_kind)
+
+    def cycle_bare(self, psi, f, packed=False, want_r2=False):
+        """One cycle on this rank's fine block (packed: the packed block,
+        ``cycle_packed``) for the adaptive stop: psi_new, or with want_r2
+        (psi_new, sum(r^2) of psi_new over the whole grid, all-reduced, in
+        at least f32)."""
+        if packed:
+            psi_new, r2 = self.cycle_packed(psi, f, want_r2)
+        else:
+            psi_new, r2 = self.cycle(psi, f, self.spec.fine_h, self.spec.size, True, want_r2)
+        return (psi_new, self._global_r2(psi_new, r2, f)) if want_r2 else psi_new
+
+    def _global_r2(self, psi_new, r2, f):
+        """sum(r^2) of psi_new over the whole grid, all-reduced, in at least
+        f32 and never below psi's dtype: from the block's fused Σr² r2, or
+        a separate residual pass where the cycle fused none (a replicated
+        fine level)."""
+        if r2 is None:
+            r2 = residual_sq_sum(psi_new, f, self.spec.fine_h, self.mesh)
+        return all_reduce_sum(r2.to(ops._acc_dtype(psi_new.dtype)), self.mesh)
+
     def step(self, psi, f):
         """One cycle on this rank's block: (psi_new, rms_update, residual
         norm), the two metrics all-reduced and the same on every rank; only
@@ -352,16 +437,13 @@ class SpmdCycle:
         return torch.sqrt(sq / spec.size ** spec.ndim)
 
     def _step(self, psi, f, cycle):
-        spec, mesh = self.spec, self.mesh
+        spec = self.spec
         zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
         if spec.stop == "update":
             psi_new = cycle(False)[0]
             return psi_new, self._update_rms(psi_new, psi), zero
         psi_new, r2 = cycle(True)
-        if r2 is None:
-            r2 = residual_sq_sum(psi_new, f, spec.fine_h, mesh)
-        rn = torch.sqrt(all_reduce_sum(r2.to(ops._acc_dtype(psi.dtype)), mesh)).to(psi.dtype)
-        return psi_new, zero, rn
+        return psi_new, zero, torch.sqrt(self._global_r2(psi_new, r2, f)).to(psi.dtype)
 
     def residual_norm(self, psi, f):
         """||r|| of the zero-ghost residual over the whole grid."""

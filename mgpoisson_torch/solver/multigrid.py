@@ -23,6 +23,16 @@ Where ``kernels.use_packed`` holds (the fast scheme's rbgs fine level),
 loop (``cycle.packed``) and unpacks psi at the end, unless a callback asks
 for psi; ``step()`` stays unpacked, as in the JAX package.
 
+With cycle='fmg', ``init_state()`` is a full-multigrid pass
+(``cycle.vcycle.fmg``, under a mesh ``SpmdCycle.fmg``), run unpacked; the
+relative residual is still taken against the -f guess, and a given psi0
+skips the pass.  With stop_check='adaptive' and no callback, ``solve()``
+runs the JAX package's adaptive loop on the host: a cycle measures
+||r||/||r0|| (and reads it back) only where a learned contraction model
+predicts it near tol, at least every ADAPTIVE_MAX_SKIP cycles and always
+first; a skipped cycle runs the metric-free cycle, reads nothing and
+records the prediction.  With a callback every cycle measures.
+
 With a mesh (``spec.mesh_shape``, or a ``shard.mesh.ProcessMesh``) the
 solver is one rank of the explicit partition (``shard.spmd``): ``rhs()``,
 ``init_state()``, ``step()`` and ``solve()`` take and give this rank's
@@ -47,12 +57,13 @@ import inspect
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from mgpoisson_torch.core.rhs import initial_guess, point_charge_block, point_charge_rhs
 from mgpoisson_torch.core.spec import Spec
 from mgpoisson_torch.cycle import packed
-from mgpoisson_torch.cycle.vcycle import make_cycle
+from mgpoisson_torch.cycle.vcycle import fmg, make_cycle
 from mgpoisson_torch.kernels import ops, use_kernels, use_packed, use_packed_sharded
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import build_mesh
@@ -65,7 +76,9 @@ class SolveResult:
     errs: torch.Tensor       # stopping-metric history, length `iterations`, on the CPU
     converged: bool
     final_err: float
-    n_metric_evals: Optional[int] = None   # == iterations: every cycle measures
+    # exact-metric evaluations: == iterations unless stop_check='adaptive'
+    # skipped some (errs then holds the model's prediction at those entries)
+    n_metric_evals: Optional[int] = None
 
     def __iter__(self):
         yield self.psi
@@ -79,6 +92,12 @@ def _dense(x: torch.Tensor) -> torch.Tensor:
     if x.is_contiguous() and x.data_ptr() % 8 == 0:
         return x
     return x.clone(memory_format=torch.contiguous_format)
+
+
+def read_scalar(t: torch.Tensor) -> float:
+    """A 0-d tensor as a Python float: the solve loop's one way from the
+    device to the host (a synchronisation on the card)."""
+    return t.item()
 
 
 def _callback_arity(cb) -> int:
@@ -100,6 +119,12 @@ class MultigridPoisson:
     """Geometric multigrid Poisson solver on one torch device, or one rank
     of a sharded solve."""
 
+    # Adaptive stop_check: measure the exact residual once the predicted
+    # relres is within SAFETY of tol, and at least every MAX_SKIP cycles
+    # (bounds both a mis-learned rho and the NaN-detection latency).
+    ADAPTIVE_SAFETY = 100.0
+    ADAPTIVE_MAX_SKIP = 4
+
     def __init__(self, spec: Spec, device="cuda", mesh=None):
         """device: where the solver's tensors live, the card by default;
         without one this raises, and device='cpu' solves on the CPU.
@@ -112,6 +137,13 @@ class MultigridPoisson:
         a mesh.  Under a mesh, "cuda" means this rank's card,
         ``shard.multihost.device_for(rank)``, and partition 'auto' is the
         explicit partition 'spmd'."""
+        if spec.stop_check == "adaptive" and spec.sweep_dtype not in (None, spec.dtype):
+            # the JAX solver's check and message (mgpoisson/solver/multigrid.py)
+            raise ValueError("stop_check='adaptive' buys nothing under "
+                             "mixed-precision refinement: the "
+                             "refinement step computes the "
+                             "full-precision residual every cycle "
+                             "anyway; use stop_check='every'")
         if mesh is not None and spec.mesh_shape is None:
             spec = spec.with_(mesh_shape=tuple(mesh.shape))
         if mesh is None and spec.mesh_shape is not None:
@@ -151,6 +183,26 @@ class MultigridPoisson:
         if self._packed and mesh is None:
             self._packed_cycle = packed.make_packed_cycle(spec, rnorm=self._want_rnorm)
 
+    def _adaptive_cycles(self):
+        """The adaptive loop's (plain, measured, remeasure) on the state its
+        solve carries (packed where self._packed): plain(psi, f) -> psi',
+        measured(psi, f) -> (psi', sum(r^2) of psi' over the grid), and
+        remeasure(psi, f) -> ||r|| of psi."""
+        spec, h = self.spec, self.spec.fine_h
+        if self._spmd is not None:
+            sc, pk = self._spmd, self._packed
+            remeasure = ((lambda p, f: sc.residual_norm(packed.unpack(p), packed.unpack(f)))
+                         if pk else sc.residual_norm)
+            return (lambda p, f: sc.cycle_bare(p, f, pk),
+                    lambda p, f: sc.cycle_bare(p, f, pk, want_r2=True), remeasure)
+        if self._packed:
+            plain = packed.make_packed_cycle(spec, rnorm=False)
+            return (lambda p, f: plain(p, f, h), lambda p, f: self._packed_cycle(p, f, h),
+                    lambda p, f: packed.residual_norm_packed(p, f, h))
+        plain = make_cycle(spec, rnorm=False)
+        return (lambda p, f: plain(p, f, h), lambda p, f: self._cycle(p, f, h),
+                lambda p, f: ops.residual_norm(p, f, h))
+
     # ------------------------------------------------------------ state
 
     def rhs(self) -> torch.Tensor:
@@ -163,8 +215,15 @@ class MultigridPoisson:
         return point_charge_rhs(spec.size, spec.ndim, self._dtype, self.device)
 
     def init_state(self, f: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """psi0 = -f, dense and row-major whatever f's strides."""
-        return initial_guess(self.rhs() if f is None else _dense(f))
+        """psi0 = -f, dense and row-major whatever f's strides; with
+        cycle='fmg', the full-multigrid pass's iterate instead (under a
+        mesh this rank's block of it)."""
+        f = self.rhs() if f is None else _dense(f)
+        if self.spec.cycle != "fmg":
+            return initial_guess(f)
+        if self._spmd is not None:
+            return self._spmd.fmg(f)
+        return fmg(f, self.spec.fine_h, self.spec)
 
     # ------------------------------------------------------------- step
 
@@ -245,11 +304,15 @@ class MultigridPoisson:
              else _dense(torch.as_tensor(f, dtype=self._dtype, device=self.device)))
         if psi0 is None:
             psi = self.init_state(f)
+            # the relative residual's baseline is the -f guess, not the FMG
+            # iterate, whose residual is already near the target (tol * r0
+            # would be out of reach)
+            r0 = self._r0(initial_guess(f) if spec.cycle == "fmg" else psi, f)
         else:
             # a dense row-major copy, never the caller's tensor
             psi = torch.as_tensor(psi0, dtype=self._dtype, device=self.device).clone(
                 memory_format=torch.contiguous_format)
-        r0 = self._r0(psi, f)
+            r0 = self._r0(psi, f)
 
         wants_psi = (error_callback is not None
                      and _callback_arity(error_callback) >= 3)
@@ -259,24 +322,75 @@ class MultigridPoisson:
         packed_state = self._packed and not wants_psi
         if packed_state:
             psi, f = packed.pack(psi), packed.pack(f)
-        errs = []
-        converged = False
-        it = 0
-        for it in range(1, spec.maxiter + 1):
-            psi, err = self._step(psi, f, r0, packed_state)
-            err_f = float(err)   # the one device->host readback per cycle
-            errs.append(err_f)
-            if error_callback is not None and (
-                    error_callback(it, err_f, psi) if wants_psi
-                    else error_callback(it, err_f)):
-                break
-            if not (err_f >= spec.tol and math.isfinite(err_f)):
-                converged = err_f < spec.tol
-                break
+        if spec.stop_check == "adaptive" and error_callback is None:
+            psi, errs, n_evals, final_err = self._adaptive_loop(psi, f, r0)
+            it = len(errs)
+            converged = final_err < spec.tol and math.isfinite(final_err)
+        else:
+            errs = []
+            converged = False
+            it = 0
+            for it in range(1, spec.maxiter + 1):
+                psi, err = self._step(psi, f, r0, packed_state)
+                err_f = read_scalar(err)   # the one device->host readback per cycle
+                errs.append(err_f)
+                if error_callback is not None and (
+                        error_callback(it, err_f, psi) if wants_psi
+                        else error_callback(it, err_f)):
+                    break
+                if not (err_f >= spec.tol and math.isfinite(err_f)):
+                    converged = err_f < spec.tol
+                    break
+            n_evals, final_err = it, errs[-1] if errs else float("inf")
         if packed_state:
             psi = packed.unpack(psi)
         return SolveResult(psi=psi, iterations=it,
                            errs=torch.tensor(errs, dtype=self._err_dtype),
-                           converged=converged,
-                           final_err=errs[-1] if errs else float("inf"),
-                           n_metric_evals=it)
+                           converged=converged, final_err=final_err,
+                           n_metric_evals=n_evals)
+
+    def _adaptive_loop(self, psi, f, r0):
+        """The JAX package's adaptive solve loop (its _build_adaptive_loop)
+        on the host: returns (psi, errs, n_metric_evals, final_err).
+
+        The contraction model is kept in the error history's dtype (numpy
+        f32 for an f32 or bf16 solve, f64 for f64), as the JAX loop keeps
+        it, so the same errors take the same decisions near the safety
+        line.  A measured cycle reads its ||r||/||r0|| back (``read_scalar``),
+        a skipped one reads nothing: every decision uses values already on
+        the host.  The relres of the initial guess is 1, so the model starts
+        from (1 at cycle 0) with an optimistic rho of 0.05, and the first
+        cycle always measures."""
+        spec = self.spec
+        plain, measured, remeasure = self._adaptive_cycles()
+        rdt = np.float64 if self._err_dtype == torch.float64 else np.float32
+        tol, safety = rdt(spec.tol), rdt(self.ADAPTIVE_SAFETY * spec.tol)
+        relres = lambda x: rdt(read_scalar((x / r0).to(self._err_dtype)))
+        errs = []
+        it, meas_err, meas_it, rho, n_evals = 0, rdt(1.0), 0, rdt(0.05), 0
+        with np.errstate(divide="ignore", over="ignore", under="ignore", invalid="ignore"):
+            while it < spec.maxiter and (it == 0 or (meas_err >= tol and np.isfinite(meas_err))):
+                gap = it + 1 - meas_it             # cycles since the last measurement
+                pred = meas_err * rho ** rdt(gap)
+                if pred < safety or gap >= self.ADAPTIVE_MAX_SKIP or it == 0:
+                    psi, r2 = measured(psi, f)
+                    err = relres(torch.sqrt(r2))
+                    # learn rho from the contraction over the gap (clipped:
+                    # never skip forever, never predict below fp noise)
+                    rho_obs = np.power(np.maximum(err / np.maximum(meas_err, rdt(1e-300)),
+                                                  rdt(1e-30)), rdt(1.0) / rdt(gap))
+                    rho = np.clip(rho_obs, rdt(0.02), rdt(0.95))
+                    meas_err, meas_it = err, it + 1
+                    n_evals += 1
+                else:
+                    psi, err = plain(psi, f), pred
+                errs.append(err)
+                it += 1
+        if meas_it != it:
+            # a stop at maxiter on a skipped cycle: measure the returned
+            # iterate (the metric alone, no cycle), not an older one
+            meas_err = errs[-1] = relres(remeasure(psi, f))
+            n_evals += 1
+        # the JAX loop returns its final err in the solve's dtype
+        final = torch.tensor(float(meas_err), dtype=self._err_dtype).to(self._dtype)
+        return psi, [float(e) for e in errs], n_evals, float(final)

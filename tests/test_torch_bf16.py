@@ -173,11 +173,14 @@ def test_spec_names_the_roadmap_item_of_bf16_not_ported(kw, item):
 
 
 def test_spec_rejects_adaptive_mixed_with_the_jax_message():
+    """L4: the Spec is valid, as in the JAX package; the solver refuses it
+    when it is built, with the JAX package's message."""
     kw = dict(size=64, sweep_dtype="bfloat16", stop="residual", stop_check="adaptive")
     with pytest.raises(ValueError) as jax_err:
         mgpoisson.MultigridPoisson(mgpoisson.Spec(backend="xla", **kw))
+    spec = spec_from_jax(kw)
     with pytest.raises(ValueError) as port_err:
-        spec_from_jax(kw)
+        mgpoisson_torch.MultigridPoisson(spec, device="cpu")
     assert str(port_err.value) == str(jax_err.value)
 
 

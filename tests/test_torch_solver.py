@@ -266,7 +266,10 @@ VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(backend="xla", ndim=3), dict(backend="pallas"),
          dict(pallas_min_size=64), dict(sweep_dtype="float32"), dict(ndim=3),
          dict(ndim=3, backend="pallas"), dict(mesh_shape=(2, 2)),
-         dict(partition="spmd"), dict(sweep_dtype="bfloat16", mesh_shape=(2, 2))]
+         dict(partition="spmd"), dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)),
+         # FMG and the adaptive stop, on one device and under a mesh
+         dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
+         dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2), cycle="fmg")]
 INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="sor"), dict(cycle="z"), dict(stop="x"),
            dict(stop_check="x"), dict(stop_check="adaptive"),
@@ -277,17 +280,11 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
 # valid in the JAX package but not ported yet: NotImplementedError, never
 # silently ignored.  bf16 runs on one device, 2D and 3D, since the bf16
 # forms of K1-K6 (tests/test_torch_bf16.py, tests/test_torch_bf16_3d.py);
-# the two bf16 cases keep their names and hold what of bf16 is still not
-# ported: the pure bf16 solve under a mesh and, since the mixed 2D step
-# under a mesh, bf16 sweeps in 3D under one
+# the bf16 case keeps its name and holds what of bf16 is still not
+# ported: the pure bf16 solve under a mesh
 LATER = [dict(partition="gspmd"),
-         # bf16 sweeps in 3D under a mesh run since the bf16 forms of
-         # K11/K12; with FMG (slice 6) the spec still names its slice
-         pytest.param(dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2), cycle="fmg"),
-                      id=repr(dict(sweep_dtype="bfloat16"))),
          pytest.param(dict(dtype="bfloat16", mesh_shape=(2, 2)),
                       id=repr(dict(dtype="bfloat16"))),
-         dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
          dict(smoother="gs_lex", scheme="reference")]
 
 
