@@ -141,6 +141,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
               packed), slice_fmg3d (256^3 FMG and adaptive together); every
               count against a JAX CPU run, every launch count worked out in
               code.
+9c. krylov  — the multigrid-vs-Krylov gate (compare.krylov, bench.converge):
+              krylov_mgcg (CG preconditioned by one tuned V-cycle from zero,
+              4096^2 point charge, tol 1e-10, f32 and f64: the JAX package's
+              iteration count and each relres within 1 % of its CPU run; in
+              f32 K2 (from zero) and K3 at 4096 ... 256 once per
+              preconditioner call, iterations + 1 device->host reads, the
+              wall, the device ms and the preconditioner's share of the
+              wall, each ||x||_inf within the rounding floor of x0 = -b
+              (eps(f32) * 1e6: the f32 x is rounding there); in f64, on
+              plain ops, xnorms[-1] within 1e-5 of the JAX run's) and converge_study (run_study at 4 ... 128, reference
+              scheme, f64, all five solvers, plain ops: the JAX package's
+              multigrid, CG, CR, GMRES and MGCG counts, BiCGStab's history
+              tracked to its 20th iteration and its count beside the JAX
+              count; each Krylov psi within 1e-8 of multigrid's where
+              multigrid converged, and at 128, where multigrid stops at
+              maxiter as in the JAX run, the gap to multigrid the JAX run's
+              and the Krylov solutions within 1e-8 of CG's).
 10. parity_sharded — the strip kernels K9-K12 of the sharded solve against
               their plain versions at every block position of the (2, 2) and
               (4, 1) meshes, blocks and strips cut from a whole grid as the
@@ -232,6 +249,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -239,8 +257,10 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from mgpoisson_torch import MultigridPoisson, Spec
+from mgpoisson_torch import MultigridPoisson, Spec, point_charge_rhs
+from mgpoisson_torch.bench import converge
 from mgpoisson_torch.bench.profile import device_summary, event_ms, kernel_ms, profile_solve
+from mgpoisson_torch.compare import krylov
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
 from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packed_sharded,
@@ -349,6 +369,55 @@ JAX_MEASURED = {"tuned": [1, 5, 7, 8, 9], "fast": [1, 2], "fast_stale": [1, 5],
                 "fast_fmg": [1], "fmg3d": [1, 2, 3, 4]}
 JAX_ERRS_FMG3D = [6.677884023531533e-09, 8.609845614238054e-10, 1.1970295588081825e-10,
                   1.766055704455205e-11]
+# mgpoisson.compare.krylov (backend 'xla') on a CPU for
+# pcg(poisson_operator(1 / 4096), point_charge_rhs(4096, dtype=dt),
+#     M=mg_preconditioner(Spec(size=4096, dtype=dt, scheme='tuned',
+#     backend='xla')), tol=1e-10, maxiter=500), dt float32 and float64: 13
+# iterations each, converged, with this ||r||/||b|| and ||x||_inf per
+# iteration.  The f32 x is rounding from the second iteration on: x0 = -b
+# is 1e6 at the centre, the solution's max 0.0884 (the f64 run's), so an
+# f32 iterate carries ~eps(f32) * 1e6 = 0.12 of rounding (the JAX run's
+# last ||x||_inf is 0.0675, the port's on a CPU 0.1177); its xnorms are
+# held to that floor, x itself in the f64 run
+MGCG_SPEC = Spec(size=4096, dtype="float32", scheme="tuned")
+JAX_MGCG = {
+    "float32": ([902550.1875, 34851.5703125, 1041.507568359375, 43.024959564208984,
+                 1.4568437337875366, 0.05347932130098343, 0.0021153625566512346,
+                 9.866555774351582e-05, 1.4153813935990911e-05, 7.735739018244203e-07,
+                 2.9356383990375434e-08, 1.0987610821189264e-09, 5.621564672098067e-11],
+                [14889.0791015625, 390.67926025390625, 8.887585639953613, 0.31109076738357544,
+                 0.07457747310400009, 0.06738623231649399, 0.0675317719578743,
+                 0.06752057373523712, 0.06752090901136398, 0.067520871758461,
+                 0.067520871758461, 0.067520871758461, 0.067520871758461]),
+    "float64": ([902550.2960758972, 34852.27645363262, 1041.5399833112517, 43.026037808837685,
+                 1.4568733628871948, 0.05348007723762877, 0.0021153596786252678,
+                 9.863296991264961e-05, 1.414800896237132e-05, 7.735561793526669e-07,
+                 2.9356316454340466e-08, 1.0987373594625223e-09, 5.618531736149681e-11],
+                [14889.140161680125, 390.6930308911349, 8.905092880913003, 0.32895070294163975,
+                 0.09544740083805589, 0.08825529302762204, 0.0884007646383143,
+                 0.08838956577726025, 0.08838989719991035, 0.08838986226093248,
+                 0.08838986546359305, 0.08838986538481076, 0.08838986538884888]),
+}
+XNORM_TOL = 1e-5           # relative, on the f64 run's xnorms[-1]
+# mgpoisson.bench.converge.run_study(n, 'reference', ['cg', 'cr',
+# 'bicgstab', 'gmres', 'mgcg'], 1e-12, 'float64') on a CPU, n = 4 ... 128:
+# the multigrid and Krylov iteration counts, every solver converged; at 128
+# multigrid stops at maxiter (2000) and every Krylov psi is 1.0429e-3 from
+# its psi (normalized), 1e-12 from each other.  BiCGStab's history follows
+# the operations' rounding (its relres agrees with the port's CPU run to
+# 1e-6 through iteration 25-29 only, then the two part), so its count is
+# printed beside the JAX count and its relres held at iteration k (k, relres)
+CONVERGE_SIZES = (4, 8, 16, 32, 64, 128)
+CONVERGE_SOLVERS = ("cg", "cr", "bicgstab", "gmres", "mgcg")
+JAX_CONVERGE = {4: (15, 9, 9, 9, 9, 4), 8: (44, 33, 33, 25, 33, 6),
+                16: (146, 72, 72, 52, 72, 8), 32: (511, 141, 141, 106, 185, 10),
+                64: (1816, 278, 276, 200, 447, 12), 128: (2000, 543, 532, 419, 1348, 13)}
+JAX_CONVERGE_MG_GAP = {128: 1.042898198e-3}
+JAX_BICGSTAB_AT = {4: (4, 0.41754320069530654), 8: (12, 0.03654578271249348),
+                   16: (20, 0.1135800126579141), 32: (20, 0.874714229070579),
+                   64: (20, 4.020653090581913), 128: (20, 16.153455535851293)}
+CONVERGE_TOL = 1e-8        # psi against multigrid's, normalized (tests/test_krylov.py)
+TRACK_TOL = 1e-6           # BiCGStab's relres at iteration k, relative
 BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_pallas_bf16.py)
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
@@ -1618,17 +1687,24 @@ def _solve_timed(spec, dev):
     metric) and the solve loop's device->host reads (multigrid.read_scalar,
     the loop's one way to the host)."""
     mg = MultigridPoisson(spec, device=dev)
+    return (mg, *_timed_reads(mg.solve))
+
+
+def _timed_reads(fn):
+    """(fn(), its wall ms by CUDA events around it, the device->host reads
+    it made through multigrid.read_scalar, the solvers' one way to the
+    host)."""
     reads, read = [], multigrid.read_scalar
     multigrid.read_scalar = lambda t: reads.append(1) or read(t)
     try:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        res = mg.solve()
+        out = fn()
         end.record()
         torch.cuda.synchronize()
     finally:
         multigrid.read_scalar = read
-    return mg, res, start.elapsed_time(end), len(reads)
+    return out, start.elapsed_time(end), len(reads)
 
 
 def _new_phase_solve(label, spec, dev, jax_count, launches_of, jax_errs=None,
@@ -1769,6 +1845,152 @@ def phase_fmg_adaptive(dev):
                      JAX_ERRS_FMG3D, jax_measured=JAX_MEASURED["fmg3d"])
     torch.cuda.empty_cache()
     return refs, time.perf_counter() - t0
+
+
+def phase_krylov_mgcg(dev):
+    """krylov_mgcg: CG preconditioned by one tuned V-cycle from zero (MGCG)
+    at 4096^2 against the JAX package's CPU runs, in f32 (the card's
+    kernels: K2 from zero and K3 at every kernel level once per
+    preconditioner call, iterations + 1 calls and reads; the wall after a
+    warm-up run, the device ms of a profiled run, the preconditioner's
+    share of the wall) and in f64 (plain ops, where x is resolved): the
+    count, each relres within RELRES_TOL; the f32 xnorms within the
+    rounding floor of x0 = -b, the f64 xnorms[-1] within XNORM_TOL."""
+    label, n = "krylov_mgcg", MGCG_SPEC.size
+    A = krylov.poisson_operator(1 / n)
+    xs = {}
+    for dt in ("float32", "float64"):
+        spec = MGCG_SPEC.with_(dtype=dt)
+        b = point_charge_rhs(n, dtype=getattr(torch, dt), device=dev)
+        M, spans = krylov.mg_preconditioner(spec), []
+
+        def timed_M(r):
+            """M(r) between two CUDA events: the host enqueues slower than the
+            card runs, so the span between them is the call's wall."""
+            ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev[0].record()
+            z = M(r)
+            ev[1].record()
+            spans.append(ev)
+            return z
+
+        run = lambda: krylov.pcg(A, b, M=timed_M, tol=1e-10, maxiter=500)
+        run()
+        torch.cuda.synchronize()
+        spans.clear()
+        cuda.reset_launches()
+        res, wall, reads = _timed_reads(run)
+        launches = dict(cuda.launches)
+        m_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+        it, relres, xnorms = res.iterations, res.residuals.tolist(), res.xnorms.tolist()
+        jax_relres, jax_xnorms = JAX_MGCG[dt]
+        floor = torch.finfo(b.dtype).eps * float(b.abs().max())
+        xs[dt] = res.x
+        print(f"[{label}] pcg + mg_preconditioner(tuned {n}^2 {dt}), tol 1e-10: {it} iterations "
+              f"(the JAX package {len(jax_relres)}), converged={res.converged}, {reads} "
+              f"device->host reads; x0 = -b's rounding floor eps * max|b| = {floor:.3e}")
+        for k, (e, ej, x, xj) in enumerate(zip(relres, jax_relres, xnorms, jax_xnorms), 1):
+            print(f"[{label}]   iteration {k}: ||r||/||b|| {e:.6e}  jax {ej:.6e}  rel diff "
+                  f"{abs(e - ej) / ej:.2e}; ||x||_inf {x:.9g}  jax {xj:.9g}  diff {x - xj:.3e}")
+        check(res.converged and it == len(jax_relres),
+              f"{label} {dt}: {it} iterations, converged={res.converged}; the JAX package "
+              f"takes {len(jax_relres)}")
+        for k, (e, ej) in enumerate(zip(relres, jax_relres), 1):
+            check(abs(e - ej) <= RELRES_TOL * ej,
+                  f"{label} {dt} iteration {k}: relres {e:.6e} vs the JAX package's {ej:.6e}")
+        if dt == "float32":
+            for k, (x, xj) in enumerate(zip(xnorms, jax_xnorms), 1):
+                check(abs(x - xj) <= floor, f"{label} f32 iteration {k}: ||x||_inf {x:.9g} vs "
+                      f"the JAX package's {xj:.9g}, beyond the rounding floor {floor:.3e}")
+        else:
+            check(abs(xnorms[-1] - jax_xnorms[-1]) <= XNORM_TOL * jax_xnorms[-1],
+                  f"{label} f64: xnorms[-1] {xnorms[-1]:.12g} vs the JAX package's "
+                  f"{jax_xnorms[-1]:.12g}")
+        check(res.x.shape == b.shape and bool(torch.isfinite(res.x).all()),
+              f"{label} {dt}: x is not a finite {tuple(b.shape)} array")
+        check(reads == it + 1, f"{label} {dt}: {reads} device->host reads for {it} iterations")
+        b64 = b.double()
+        true64 = float(torch.linalg.vector_norm(b64 - ops.apply_operator(res.x.double(), 1 / n))
+                       / torch.linalg.vector_norm(b64))
+        del b64
+        print(f"[{label}] {dt} launches {({k: v for k, v in launches.items() if v})}; "
+              f"||b - A x||/||b|| of the returned x in f64 {true64:.6e}; wall {wall:.3f} ms "
+              "(CUDA events, one run after a warm-up)")
+        if dt == "float64":
+            check_launches(f"{label} f64", launches, _expected({}), "f64: plain ops only")
+            continue
+        (_, rr, pc), _ = RANK[2]
+        calls, L = it + 1, len(kernel_levels(spec))
+        check_launches(f"{label} f32", launches,
+                       _expected({rr: calls * L, rr + ".zero": calls * L, pc: calls * L}),
+                       f"K2 from zero and K3 at each of the {L} kernel levels once per "
+                       f"preconditioner call ({calls} calls)")
+        print(f"[{label}] f32: the {len(spans)} preconditioner calls of the timed run "
+              f"{m_ms:.3f} ms (CUDA events around each), {100 * m_ms / wall:.1f} % of its wall")
+        spans.clear()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        n_ev, dev_ms, mg_ms = device_summary(prof)
+        print(f"[{label}] f32 profiled run: {n_ev} device launches, device {dev_ms:.4f} ms, "
+              f"mg_* kernels {mg_ms:.4f} ms; device busy {100 * dev_ms / wall:.1f} % of the "
+              "timed run's wall" if n_ev else
+              f"[{label}] f32 profiled run: not measured (no device event)")
+    d = nmax(xs["float32"], xs["float64"])
+    print(f"[{label}] the f32 x against the f64 x: max|diff| {d[1]:.4e} ({d[0]:.3e} of max|x64|)")
+
+
+def phase_converge_study(dev):
+    """converge_study: bench.converge.run_study at CONVERGE_SIZES on the
+    card (reference scheme, f64: plain ops), its files in a temporary
+    directory, against the JAX package's CPU run, and its seconds per
+    size."""
+    label, seconds = "converge_study", {}
+    with tempfile.TemporaryDirectory() as out:
+        for n in CONVERGE_SIZES:
+            cuda.reset_launches()
+            t0 = time.perf_counter()
+            study = converge.run_study(n, "reference", list(CONVERGE_SOLVERS), 1e-12,
+                                       "float64", device=dev)
+            converge.write_outputs(study, out)
+            seconds[n] = time.perf_counter() - t0
+            check_launches(f"{label} {n}^2", dict(cuda.launches), _expected({}),
+                           "f64: plain ops only")
+            kry = study["krylov"]
+            got = (study["mg_iterations"],) + tuple(kry[k]["iterations"] for k in CONVERGE_SOLVERS)
+            psi_mg = study["psi_mg"]
+            gaps = {k: float(np.abs(v["psi"] - psi_mg).max() / np.abs(psi_mg).max())
+                    for k, v in kry.items()}
+            kb, rb = JAX_BICGSTAB_AT[n]
+            got_b = float(kry["bicgstab"]["residuals"][kb - 1])
+            print(f"[{label}] {n}^2: iterations (multigrid, {', '.join(CONVERGE_SOLVERS)}) "
+                  f"{got}, the JAX package {JAX_CONVERGE[n]}; max|psi - psi_mg|/max|psi_mg| "
+                  + " ".join(f"{k} {g:.3e}" for k, g in gaps.items())
+                  + f"; bicgstab relres at iteration {kb} {got_b:.9e} (jax {rb:.9e}); "
+                  f"{seconds[n]:.2f} s")
+            for name, g, w in zip(("multigrid",) + CONVERGE_SOLVERS, got, JAX_CONVERGE[n]):
+                check(g == w or name == "bicgstab",
+                      f"{label} {n}^2 {name}: {g} iterations, the JAX package takes {w}")
+            check(all(v["converged"] for v in kry.values()),
+                  f"{label} {n}^2: not every Krylov solver converged")
+            check(abs(got_b - rb) <= TRACK_TOL * rb,
+                  f"{label} {n}^2: bicgstab relres at iteration {kb} {got_b:.9e}, the JAX "
+                  f"package's {rb:.9e}")
+            if n in JAX_CONVERGE_MG_GAP:
+                want = JAX_CONVERGE_MG_GAP[n]
+                psi_cg = kry["cg"]["psi"]
+                for k, v in kry.items():
+                    check(abs(gaps[k] - want) <= RELRES_TOL * want,
+                          f"{label} {n}^2 {k}: {gaps[k]:.4e} from multigrid's psi, the JAX "
+                          f"run {want:.4e}")
+                    d = float(np.abs(v["psi"] - psi_cg).max() / np.abs(psi_cg).max())
+                    check(d <= CONVERGE_TOL, f"{label} {n}^2 {k}: {d:.3e} from CG's psi")
+            else:
+                for k, g in gaps.items():
+                    check(g <= CONVERGE_TOL, f"{label} {n}^2 {k}: {g:.3e} from multigrid's psi")
+            check(os.path.exists(os.path.join(out, f"{n}.txt")), f"{label}: no {n}.txt")
+    print(f"[{label}] seconds per size " + " ".join(f"{n}: {t:.2f}" for n, t in seconds.items())
+          + f"; {sum(seconds.values()):.1f} s in all")
 
 
 def _misaligned(x):
@@ -2520,6 +2742,12 @@ def main():
     # the adaptive stop, the fast packed 4096^2 adaptive (and to a stop at
     # maxiter, and with FMG), 256^3 with both
     singles, new_seconds = phase_fmg_adaptive(dev)
+    # the multigrid-vs-Krylov gate: MGCG at 4096^2 on K2/K3, then the
+    # convergence study at 4 ... 128 on plain ops
+    t0 = time.perf_counter()
+    phase_krylov_mgcg(dev)
+    phase_converge_study(dev)
+    print(f"[krylov] the Krylov phases: {time.perf_counter() - t0:.1f} s")
 
     # the sharded solves (explicit partition): the strip kernels, the
     # packed strip kernels of the fast scheme on a mesh of one column, then
