@@ -224,6 +224,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
               more cards, the tuned, the packed and the mixed 4096^2 solves
               again over NCCL.
 
+13. batched — MultigridPoisson.solve_batched, the JAX package's batched
+              serving setting (tuned f32 1024^2, stop='residual', tol
+              1e-10, 4 RHS): four point charges, and a point charge with
+              three seeded RHS that freeze at other cycles, at
+              kernel_min_size 256 and 2, on the kernel path (one step per
+              live element per cycle, frozen elements skipped): each
+              element's psi bit for bit its own solve()'s, its cycles that
+              solve's and the JAX package's, one read per batched cycle,
+              K2/K3 exactly once per kernel level per element-cycle; the
+              fast scheme's batch of 2 (unpacked: each psi bit for bit its
+              MGPOISSON_PACKED=0 solve's, the JAX package's unpacked
+              counts); the vmap path at 128^2 (plain ops): each psi within
+              1e-5 of its solve()'s, the same counts; every wall beside
+              the four single solves' (CUDA events, with the card's name
+              and power limit).
+14. gs_lex  — smoother='gs_lex', reference scheme, 64^2, plain ops on the
+              card (no kernel, nothing moved to the CPU): in f64 the JAX
+              package's cycle count and each err within 1e-8 of its CPU
+              run's; in f32 to 10 cycles, psi within 1e-5 of the f64 psi;
+              the phase's seconds.
+
+13 and 14 run last, after every phase that reads the kernels' device time
+from torch.profiler: run before phase 10, they were seen to leave that
+phase's captures with few or none of the kernels' events.
+
 The last lines are a JSON object of the off-path kernels (K1, K4 and their
 bf16 forms, with their launches in the traced cycles), a JSON object of the
 main paths' kernels (K2, K3 with their launches in the 4096^2 tuned solve;
@@ -419,6 +444,37 @@ JAX_BICGSTAB_AT = {4: (4, 0.41754320069530654), 8: (12, 0.03654578271249348),
 CONVERGE_TOL = 1e-8        # psi against multigrid's, normalized (tests/test_krylov.py)
 TRACK_TOL = 1e-6           # BiCGStab's relres at iteration k, relative
 BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_pallas_bf16.py)
+# solve_batched (phase_batched): the JAX package's batched serving setting
+# (bench.py: tuned f32 1024^2, stop='residual', tol=1e-10, 4 RHS per
+# program).  Its batches: "identical" (four point charges, as bench.py),
+# "mixed" (the point charge and three seeded RHS of BATCH_NOISE: numpy's
+# standard normal of the seed, times the amplitude in f64, rounded to f32)
+# and, with scheme='fast', "fast" (the point charge and the first seeded
+# RHS).  mgpoisson (backend 'xla') on a CPU, solve_batched: each element's
+# cycles, those of its own solve() (unpacked on a CPU), whose final err its
+# batched err equals bit for bit
+BATCH_SPEC = Spec(size=1024, dtype="float32", scheme="tuned", stop="residual", tol=1e-10)
+BATCH_NOISE = ((1, 1e-3), (2, 1.0), (3, 1e3))      # (seed, amplitude)
+JAX_BATCHED = {"identical": [9, 9, 9, 9], "mixed": [9, 12, 12, 12], "fast": [4, 12]}
+BATCH_KMS = (256, 2)       # the kernel_min_size of the batched kernel path's runs
+VMAP_N = 128               # the vmap path's side: below kernel_min_size, plain ops
+# smoother='gs_lex' (phase_gs_lex): mgpoisson (backend 'xla') on a CPU for
+# GS_LEX_SPEC: 21 cycles, converged, with this update RMS per cycle; in f32
+# its update stalls near 1e-5 (a 6e4 iterate), so the f32 run stops at
+# GS_LEX_F32_MAXITER, where the f64 iterate is already within 1e-6 of its
+# last (5.4e-7 normalized on a CPU), and the phase stays near 15 s (a cycle
+# is ~28,000 small launches, 0.37-0.51 s on the card)
+GS_LEX_F32_MAXITER = 10
+GS_LEX_SPEC = Spec(size=64, dtype="float64", scheme="reference", smoother="gs_lex")
+JAX_GS_LEX_ERRS = [15620.538703052398, 16.320333445986947, 2.396243706954304,
+                   0.5997485393763937, 0.1543316655354285, 0.03988821440015518,
+                   0.0103190990987668, 0.002670149453667136, 0.0006909562446875692,
+                   0.0001788001460107478, 4.626829053394846e-05, 1.1972834511085799e-05,
+                   3.0981962867417193e-06, 8.017146161871599e-07, 2.0745789460828127e-07,
+                   5.368334921102799e-08, 1.3891492640180141e-08, 3.5946272158693405e-09,
+                   9.301485824601281e-10, 2.4070043798023076e-10, 6.226618554737979e-11]
+GS_LEX_RTOL = 1e-8         # errs against the JAX package's, over a floor of
+GS_LEX_ATOL = 1e-10        # ... this times errs[0] (tests/test_solver.py)
 
 PARITY_TOL = 1e-5          # normalized max |diff|, the ROADMAP's f32 kernel bar
 # the 2D parity below the main path's kernel levels (128 ... 2): the main
@@ -1692,10 +1748,11 @@ def _solve_timed(spec, dev):
 
 def _timed_reads(fn):
     """(fn(), its wall ms by CUDA events around it, the device->host reads
-    it made through multigrid.read_scalar, the solvers' one way to the
-    host)."""
-    reads, read = [], multigrid.read_scalar
+    it made through multigrid.read_scalar and multigrid.read_errs, the
+    solvers' ways to the host)."""
+    reads, read, read_errs = [], multigrid.read_scalar, multigrid.read_errs
     multigrid.read_scalar = lambda t: reads.append(1) or read(t)
+    multigrid.read_errs = lambda t: reads.append(1) or read_errs(t)
     try:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
@@ -1703,7 +1760,7 @@ def _timed_reads(fn):
         end.record()
         torch.cuda.synchronize()
     finally:
-        multigrid.read_scalar = read
+        multigrid.read_scalar, multigrid.read_errs = read, read_errs
     return out, start.elapsed_time(end), len(reads)
 
 
@@ -1755,17 +1812,17 @@ def _new_phase_solve(label, spec, dev, jax_count, launches_of, jax_errs=None,
     return res, ms, launches
 
 
-def profiled_solve(mg, wall_ms):
-    """One more solve of `mg` under torch.profiler, the card's activity only
-    (a solve is ~10^4 launches: the host's ops would cost the capture
-    seconds more): its device launches, device ms (the union of the device
-    events) and mg_* kernel ms, and the device's busy share of `wall_ms`,
-    the timed solve's wall.  A capture that records no device event is
-    taken once more, then reported as not measured."""
+def profiled_solve(mg, wall_ms, run=None):
+    """One more solve of `mg` (or call of `run`) under torch.profiler, the
+    card's activity only (a solve is ~10^4 launches: the host's ops would
+    cost the capture seconds more): its device launches, device ms (the
+    union of the device events) and mg_* kernel ms, and the device's busy
+    share of `wall_ms`, the timed solve's wall.  A capture that records no
+    device event is taken once more, then reported as not measured."""
     t0 = time.perf_counter()
     for _ in range(2):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            mg.solve()
+            (run or mg.solve)()
             torch.cuda.synchronize()
         n_ev, dev_ms, mg_ms = device_summary(prof)
         if n_ev:
@@ -1845,6 +1902,195 @@ def phase_fmg_adaptive(dev):
                      JAX_ERRS_FMG3D, jax_measured=JAX_MEASURED["fmg3d"])
     torch.cuda.empty_cache()
     return refs, time.perf_counter() - t0
+
+
+def batch_rhs(n, count, dev):
+    """The first `count` of: the point charge, then BATCH_NOISE's seeded
+    RHS, stacked into one dense (count, n, n) f32 batch on `dev`."""
+    fs = [point_charge_rhs(n, 2, torch.float32, dev)]
+    for seed, amp in BATCH_NOISE[:count - 1]:
+        noise = amp * np.random.default_rng(seed).standard_normal((n, n))
+        fs.append(torch.from_numpy(noise.astype(np.float32)).to(dev))
+    return torch.stack(fs)
+
+
+def _count_steps(mg, fs):
+    """Wrap mg._step to count its calls per element of the batch fs (the
+    element whose f it is handed, a view of fs); returns the counts."""
+    counts = [0] * fs.shape[0]
+    step, base, stride = mg._step, fs.data_ptr(), fs[0].numel() * fs.element_size()
+
+    def counted(psi, f, r0):
+        counts[(f.data_ptr() - base) // stride] += 1
+        return step(psi, f, r0)
+    mg._step = counted
+    return counts
+
+
+def _single_solver(spec, dev, packed_flag=None):
+    """The solver of the batch's single solves (built under
+    MGPOISSON_PACKED=packed_flag where given), after a warm-up solve."""
+    if packed_flag is None:
+        mg = MultigridPoisson(spec, device=dev)
+    else:
+        with _packed_flag(packed_flag):
+            mg = MultigridPoisson(spec, device=dev)
+    mg.solve()
+    return mg
+
+
+def _singles(mg, fs):
+    """Each element of fs through mg's solve(): [(result, wall ms)]."""
+    return [_timed_reads(lambda f=f: mg.solve(f))[:2] for f in fs]
+
+
+def _batched_times(label, card, mg, single, fs):
+    """The batched solve's wall beside its elements' own solves', in turns
+    (singles, batched, batched, singles; CUDA events; a batched cycle is
+    one device->host read), then one batched cycle (cycles=1) timed and
+    profiled.  Returns the first round's single
+    solves, batched (psis, errs) and its device->host reads."""
+    singles = _singles(single, fs)
+    out, ms1, reads = _timed_reads(lambda: mg.solve_batched(fs))
+    ms2 = _timed_reads(lambda: mg.solve_batched(fs))[1]
+    later = sum(ms for _, ms in _singles(single, fs))
+    n, cycles = sum(r.iterations for r, _ in singles), reads
+    first = sum(ms for _, ms in singles)
+    print(f"[{label}] wall (CUDA events, {card}), singles, batched, batched, singles: "
+          f"batched {ms1:.3f}, {ms2:.3f} ms = {ms1 / cycles:.3f}, {ms2 / cycles:.3f} ms per "
+          f"batched cycle ({cycles}), {ms1 / n:.3f}, {ms2 / n:.3f} ms per element-cycle ({n}); "
+          f"the {len(singles)} single solves {first:.3f}, {later:.3f} ms = {first / n:.3f}, "
+          f"{later / n:.3f} ms per element-cycle (first round each "
+          f"{' '.join(f'{ms:.3f}' for _, ms in singles)})")
+    one = lambda: mg.solve_batched(fs, cycles=1)      # noqa: E731
+    ms = _timed_reads(one)[1]
+    print(f"[{label}] one batched cycle (cycles=1, every element live): wall {ms:.3f} ms; "
+          + profiled_solve(mg, ms, one))
+    return singles, out, reads
+
+
+def _batched_kernel_case(label, spec, fs, dev, card, jax_counts, packed_flag=None):
+    """solve_batched of fs on the kernel path (the fine level on the
+    kernels: one step per live element per cycle): each element's psi bit
+    for bit its own solve()'s (under MGPOISSON_PACKED=packed_flag where
+    given), its step count that solve's and the JAX package's, its err
+    that solve's final err; one read per batched cycle; K2/K3 exactly
+    loop_launches over the element-cycles, frozen cycles skipped; the walls
+    beside the single solves'."""
+    (_, rr, pc), _ = RANK[2]
+    L = len(kernel_levels(spec))
+    mg = MultigridPoisson(spec, device=dev)
+    mg.solve_batched(fs)                                   # warm-up
+    counts = _count_steps(mg, fs)
+    cuda.reset_launches()
+    psis, errs = mg.solve_batched(fs)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    del mg._step
+    cycles = max(counts)
+    singles, (psis_t, _), reads = _batched_times(
+        label, card, mg, _single_solver(spec, dev, packed_flag), fs)
+    its = [r.iterations for r, _ in singles]
+    print(f"[{label}] {spec.scheme} {spec.size}^2 f32 x {fs.shape[0]}, kernel_min_size "
+          f"{spec.kernel_min_size} (kernel levels {kernel_levels(spec)}), the kernel path"
+          f"{' beside a solver that packs its solve()' if mg._packed else ''}: element "
+          f"cycles {counts}, their solve()s' {its}, the JAX package's {jax_counts}; "
+          f"{cycles} batched cycles, {reads} device->host reads")
+    for k, (res, _) in enumerate(singles):
+        print(f"[{label}]   element {k}: err {errs[k].item():.6e}, its solve()'s final err "
+              f"{res.final_err:.6e}; psi bit-equal to its solve()'s: "
+              f"{torch.equal(psis[k], res.psi)}")
+        check(torch.equal(psis[k], res.psi) and torch.equal(psis_t[k], res.psi),
+              f"{label} element {k}: psi differs from its own solve()'s")
+        check(errs[k].item() == res.final_err,
+              f"{label} element {k}: err {errs[k].item()!r}, its solve()'s {res.final_err!r}")
+    check(counts == its == jax_counts, f"{label}: element cycles {counts}, their solve()s' "
+          f"{its}, the JAX package's {jax_counts}")
+    check(reads == cycles, f"{label}: {reads} device->host reads in {cycles} batched cycles")
+    want = loop_launches(rr, pc, L, sum(counts), sum(counts))
+    check_launches(label, launches, _expected(want),
+                   f"K2/K3 at the {L} kernel levels per element-cycle, {sum(counts)} of them "
+                   "(frozen elements skipped), K3 with rnorm once each, nothing packed")
+    print(f"[{label}] launches {({k: v for k, v in launches.items() if v})} = "
+          f"loop_launches over {sum(counts)} element-cycles")
+
+
+def phase_batched(dev, card):
+    """solve_batched on the card (MultigridPoisson.solve_batched): the
+    kernel path at the JAX package's batched serving setting (tuned f32
+    1024^2, 4 RHS, identical and mixed, at kernel_min_size 256 and 2), the
+    fast scheme's batch (unpacked, beside MGPOISSON_PACKED=0 solves), and
+    the vmap path at VMAP_N^2 (plain ops)."""
+    for kms in BATCH_KMS:
+        spec = BATCH_SPEC.with_(kernel_min_size=kms)
+        _batched_kernel_case(f"batched_identical_kms{kms}", spec,
+                             batch_rhs(spec.size, 1, dev).expand(4, -1, -1).contiguous(),
+                             dev, card, JAX_BATCHED["identical"])
+        _batched_kernel_case(f"batched_mixed_kms{kms}", spec, batch_rhs(spec.size, 4, dev),
+                             dev, card, JAX_BATCHED["mixed"])
+    _batched_kernel_case("batched_fast", BATCH_SPEC.with_(scheme="fast"),
+                         batch_rhs(BATCH_SPEC.size, 2, dev), dev, card, JAX_BATCHED["fast"],
+                         packed_flag="0")
+
+    # the vmap path: torch.func.vmap of the step, one launch per op for the batch
+    label, spec = "batched_vmap", BATCH_SPEC.with_(size=VMAP_N)
+    fs = batch_rhs(VMAP_N, 4, dev)
+    mg = MultigridPoisson(spec, device=dev)
+    mg.solve_batched(fs)                                   # warm-up
+    cuda.reset_launches()
+    psis, errs = mg.solve_batched(fs)
+    check_launches(label, dict(cuda.launches), _expected({}), "plain ops only")
+    singles, _, reads = _batched_times(label, card, mg, _single_solver(spec, dev), fs)
+    its = [r.iterations for r, _ in singles]
+    # an element's count: the cycle of its solve()'s history whose err its
+    # batched err matches (the vmapped sums may round apart; consecutive
+    # cycles' errs differ ~10x)
+    counts = [1 + int(np.argmin(np.abs(np.log(r.errs.numpy() / errs[k].item()))))
+              for k, (r, _) in enumerate(singles)]
+    print(f"[{label}] tuned {VMAP_N}^2 f32 x 4 at kernel_min_size {spec.kernel_min_size}: "
+          f"element cycles {counts} (by err), their solve()s' {its}; {reads} batched cycles")
+    for k, (res, _) in enumerate(singles):
+        d = nmax(psis[k], res.psi)[0]
+        print(f"[{label}]   element {k}: err {errs[k].item():.6e}, its solve()'s "
+              f"{res.final_err:.6e}; psi vs its solve()'s {d:.3e} normalized")
+        check(d <= PARITY_TOL, f"{label} element {k}: psi {d:.3e} from its solve()'s")
+    check(counts == its and reads == max(its),
+          f"{label}: element cycles {counts}, {reads} batched cycles; the solve()s' {its}")
+
+
+def phase_gs_lex(dev, card):
+    """smoother='gs_lex' on the card (the plain ops at every level, one row
+    at a time): GS_LEX_SPEC in f64, its cycles and each err against the JAX
+    package's, no kernel launched, psi on the card; then in f32 to
+    GS_LEX_F32_MAXITER cycles, its psi against the f64 psi."""
+    label, t0 = "gs_lex", time.perf_counter()
+    cuda.reset_launches()
+    mg, res, ms, _ = _solve_timed(GS_LEX_SPEC, dev)
+    launches = dict(cuda.launches)
+    errs, jerrs = res.errs.tolist(), JAX_GS_LEX_ERRS
+    print(f"[{label}] reference gs_lex 64^2 f64 on {res.psi.device}: {res.iterations} cycles "
+          f"(the JAX package's {len(jerrs)}), converged={res.converged}, final err "
+          f"{res.final_err:.6e}; wall {ms:.1f} ms, {ms / res.iterations:.2f} ms per cycle "
+          f"(CUDA events, {card})")
+    check(res.iterations == len(jerrs) and res.converged,
+          f"{label}: {res.iterations} cycles, the JAX package takes {len(jerrs)}")
+    worst = max(abs(e - ej) / (GS_LEX_ATOL * jerrs[0] + GS_LEX_RTOL * ej)
+                for e, ej in zip(errs, jerrs))
+    print(f"[{label}] errs against the JAX package's: at most {worst:.3f} of the bar "
+          f"(rtol {GS_LEX_RTOL}, atol {GS_LEX_ATOL} x errs[0])")
+    check(worst <= 1.0, f"{label}: errs {errs} vs the JAX package's {jerrs}")
+    check(res.psi.device.type == "cuda" and res.psi.dtype == torch.float64,
+          f"{label}: psi {res.psi.dtype} on {res.psi.device}")
+    check_launches(label, launches, _expected({}), "plain ops only: gs_lex has no kernel")
+    spec32 = GS_LEX_SPEC.with_(dtype="float32", maxiter=GS_LEX_F32_MAXITER)
+    _, res32, ms32, _ = _solve_timed(spec32, dev)
+    d = nmax(res32.psi, res.psi)[0]
+    print(f"[{label}] the same in f32 to maxiter {spec32.maxiter}: {res32.iterations} cycles, "
+          f"final err {res32.final_err:.6e}, psi vs the f64 "
+          f"psi {d:.3e} normalized; wall {ms32:.1f} ms, {ms32 / res32.iterations:.2f} ms per "
+          f"cycle ({card})")
+    check(d <= PARITY_TOL, f"{label}: the f32 psi is {d:.3e} from the f64 psi")
+    print(f"[{label}] the gs_lex phase: {time.perf_counter() - t0:.1f} s")
 
 
 def phase_krylov_mgcg(dev):
@@ -2764,6 +3010,13 @@ def main():
     print(f"[fmg_adaptive] the FMG and adaptive phases: {new_seconds:.1f} s on one card and "
           f"{spmd_seconds:.1f} s of the 4-rank spawn's solves (rank 0), "
           f"{new_seconds + spmd_seconds:.1f} s in all")
+    # batched serving (solve_batched, K2/K3 per element) and the
+    # reference's lexicographic Gauss-Seidel (plain ops on the card), after
+    # every phase that reads the kernels' device time from torch.profiler
+    t0 = time.perf_counter()
+    phase_batched(dev, card)
+    print(f"[batched] the batched phase: {time.perf_counter() - t0:.1f} s")
+    phase_gs_lex(dev, card)
 
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():

@@ -60,7 +60,9 @@ class Spec:
 
     cycle='fmg' (a full-multigrid pass supplies the initial iterate, then
     V-cycles) and stop_check='adaptive' run on one device and under a
-    mesh.  As in the JAX package, adaptive stopping under mixed precision
+    mesh.  smoother='gs_lex' (the reference's lexicographic Gauss-Seidel,
+    with scheme='reference' on one device) runs the plain ops at every
+    level, on the card too.  As in the JAX package, adaptive stopping under mixed precision
     is a valid Spec that ``MultigridPoisson`` refuses.
     """
 
@@ -141,8 +143,6 @@ class Spec:
             later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
                   "precision): Queue 1 item 7, A4b, the pure bf16 solve under a "
                   "mesh, with Queue 3 L2")
-        if self.smoother == "gs_lex":
-            later("smoother='gs_lex'", "6 (the rest of the solver surface)")
 
     # ------------------------------------------------- resolved parameters
 

@@ -29,7 +29,8 @@ def use_kernels(spec, level_size: int, device) -> bool:
     spec.kernel_min_size, its dtype has kernels (f32, or bf16: the bf16
     forms of K1-K6, in 2D and 3D), and both of its sweep counts are
     within the kernels' cap for its rank (``cuda.supports``: 2D nu <= 8,
-    <= 4 for rbgs; 3D a halo of radius*nu + 1 <= 8).  Every other level
+    <= 4 for rbgs; 3D a halo of radius*nu + 1 <= 8), and the smoother is
+    not 'gs_lex', which has no kernel.  Every other level
     runs the plain ops; this is the only way a CUDA tensor reaches the
     plain version of an op that has a kernel.  (The ops without one —
     the metrics, coarse_solve, and the transfer ops of the traced cycle —
@@ -50,6 +51,10 @@ def use_kernels(spec, level_size: int, device) -> bool:
                              f"{device}; use backend='auto' or 'torch'")
         return False
     smoother = spec.smoother_resolved
+    if smoother == "gs_lex":
+        # the sequential row scan has no kernel: every level runs the plain
+        # ops, on the card too (the JAX package's get_ops rule)
+        return False
     return (level_size >= spec.kernel_min_size
             and all(cuda.supports(level_size, getattr(torch, spec.dtype), nu,
                                   smoother, spec.ndim)

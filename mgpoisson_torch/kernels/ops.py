@@ -108,8 +108,77 @@ def rbgs_sweep(u, f, h, bc: str = "ghost0"):
     return u
 
 
+def _doubling_scan(b, steps):
+    """b_k <- kk * b_{k-1} + b_k along the last axis with b_{-1} = 0, in
+    place, by recursive doubling: per step of `steps`, (d, a) with a the
+    pairs' multipliers, b_k += a_k * b_{k-d} for k >= d (the right operand
+    of JAX's associative_scan combine).  The multipliers only shrink,
+    where a closed form through (2 * ndim)^k overflows (f32 at rows of
+    64, f64 at 512)."""
+    for d, a in steps:
+        t = a[d:] * b[..., :-d]
+        b[..., d:].add_(t)
+    return b
+
+
+@functools.cache
+def _doubling_steps(n, kk, dtype, device):
+    """The multipliers of _doubling_scan on rows of n: a starts at kk (0 at
+    the first cell, the zero left ghost) and takes a_k *= a_{k-d} per
+    step; they depend on n and kk only, so every row shares them."""
+    a = torch.full((n,), kk, dtype=dtype, device=device)
+    a[0] = 0.0
+    steps, d = [], 1
+    while d < n:
+        steps.append((d, a))
+        a = torch.cat([a[:d], a[d:] * a[:-d]])
+        d *= 2
+    return tuple(steps)
+
+
+def gs_lex_sweep(u, f, h, bc: str = "ghost0"):
+    """Lexicographic Gauss-Seidel in the reference's loop order (in place,
+    last axis innermost), as the JAX package's xla.gs_lex_sweep computes
+    it: rows (in 3D planes, then rows) in order, each row's c from the new
+    row above (and in 3D the new plane above), the old row below, the old
+    right neighbour and f, summed in that order; then the first-order
+    recurrence u_k = c_k + u_{k-1} / (2 * ndim) along the row by a
+    doubling scan.  Inherently sequential: one row at a time, on whatever
+    device u is on.  bc='ghost0' only."""
+    if bc != "ghost0":
+        raise ValueError("gs_lex supports bc='ghost0' only")
+    nd = u.ndim
+    hsq, adiag, _, _ = _level(h, nd, u.dtype)
+    n = u.shape[-1]
+    steps = _doubling_steps(n, 1.0 / (2.0 * nd), u.dtype, u.device)
+    right = F.pad(u[..., 1:], (0, 1))                # old right neighbour
+    down = F.pad(u[1:], (0, 0) * (nd - 1) + (0, 1))  # old row (plane) below
+    zrow = torch.zeros_like(u[(0,) * (nd - 1)])
+
+    def row(c_sum, f_row):
+        return _doubling_scan((f_row - c_sum / hsq) / adiag, steps)
+
+    if nd == 2:
+        rows, up = [], zrow
+        for i in range(u.shape[0]):
+            up = row(up + down[i] + right[i], f[i])
+            rows.append(up)
+        return torch.stack(rows)
+    assert nd == 3
+    planes, plane_up = [], torch.zeros_like(u[0])
+    for z in range(u.shape[0]):
+        down_row = F.pad(u[z, 1:], (0, 0, 0, 1))     # old row below in the plane
+        rows, up = [], zrow
+        for y in range(u.shape[1]):
+            up = row(up + plane_up[y] + down[z, y] + down_row[y] + right[z, y], f[z, y])
+            rows.append(up)
+        plane_up = torch.stack(rows)
+        planes.append(plane_up)
+    return torch.stack(planes)
+
+
 _SWEEPS = {"jacobi": jacobi_sweep, "wjacobi": wjacobi_sweep,
-           "rbgs": rbgs_sweep}
+           "rbgs": rbgs_sweep, "gs_lex": gs_lex_sweep}
 
 
 def smooth(u, f, h, nu: int, smoother: str = "jacobi", bc: str = "ghost0"):

@@ -43,11 +43,17 @@ refinement step (``SpmdCycle.step_mixed``).  Where
 column), ``solve()`` packs the rank's psi and f blocks once and carries
 them through ``SpmdCycle.step_packed`` under the same callback rule.
 
-Every entry (``solve``, ``step``, ``init_state``) takes f and psi as
-tensors of any strides and offset, as the JAX package takes any array: it
-hands the cycle dense row-major tensors at an 8-byte boundary, which is
-what the kernels take (``_dense``), copying only a tensor that is not one
-and never writing a caller's tensor.
+``solve_batched(fs)`` solves a batch of right-hand sides, each from -f,
+with the unpacked step (the JAX package's serving API): by
+``torch.func.vmap`` of the step where the fine level runs the plain ops,
+else one step per live element per cycle on the host, skipping the
+frozen ones; one device->host read per cycle.  It runs on one device.
+
+Every entry (``solve``, ``step``, ``init_state``, ``solve_batched``)
+takes f and psi as tensors of any strides and offset, as the JAX package
+takes any array: it hands the cycle dense row-major tensors at an 8-byte
+boundary, which is what the kernels take (``_dense``), copying only a
+tensor that is not one and never writing a caller's tensor.
 """
 
 from __future__ import annotations
@@ -98,6 +104,12 @@ def read_scalar(t: torch.Tensor) -> float:
     """A 0-d tensor as a Python float: the solve loop's one way from the
     device to the host (a synchronisation on the card)."""
     return t.item()
+
+
+def read_errs(t: torch.Tensor) -> list:
+    """A (batch,) tensor as a list of floats: the batched loop's one
+    device->host read per cycle where it steps the elements one by one."""
+    return t.tolist()
 
 
 def _callback_arity(cb) -> int:
@@ -394,3 +406,98 @@ class MultigridPoisson:
         # the JAX loop returns its final err in the solve's dtype
         final = torch.tensor(float(meas_err), dtype=self._err_dtype).to(self._dtype)
         return psi, [float(e) for e in errs], n_evals, float(final)
+
+    # ---------------------------------------------------------- batched
+
+    def solve_batched(self, fs, *, cycles: Optional[int] = None):
+        """Solve a batch of right-hand sides: fs of shape (batch,
+        *spec.shape), of any strides, taken in the solver's dtype on its
+        device.  Every element starts from psi = -f (never an FMG pass,
+        whatever spec.cycle says) and runs step()'s unpacked cycle, so a
+        fast-scheme batch never packs.
+
+        cycles: run exactly that many cycles on every element, reading
+        nothing back until the end.  None: iterate while it < maxiter and
+        (it == 0, or the worst element's metric is >= tol and finite: a
+        NaN anywhere stops the batch); an element whose metric is below
+        tol is frozen, its psi and err kept as they were.
+
+        Returns (psis, errs): errs of shape (batch,), in psis' dtype on the
+        solver's device, each element's final metric.  Under a mesh this
+        raises NotImplementedError."""
+        if self._spmd is not None:
+            raise NotImplementedError(
+                "solve_batched under a mesh is not in mgpoisson_torch yet: ROADMAP "
+                "Queue 1 item 12")
+        fs = _dense(torch.as_tensor(fs, dtype=self._dtype, device=self.device))
+        if tuple(fs.shape[1:]) != self.spec.shape or fs.shape[0] < 1:
+            raise ValueError(f"solve_batched: fs of shape {tuple(fs.shape)}, expected "
+                             f"(batch, *{self.spec.shape})")
+        return self._batched_loop(fs, cycles)
+
+    def _batched_loop(self, fs, cycles, use_vmap=None):
+        """The batched loop of solve_batched on dense fs, in one of the JAX
+        package's two forms; use_vmap=None picks by its rule, vmap where
+        the fine level runs the plain ops (``use_kernels``):
+
+        - vmap: torch.func.vmap of the step over the batch, one launch per
+          op for the whole batch (what amortises a small grid's launches);
+          a frozen element's new psi and err are dropped by torch.where;
+          the until-converged loop reads back the worst err per cycle;
+        - loop: one step per live element per cycle, a frozen element's
+          cycle skipped (the JAX lax.cond), so that each element runs the
+          kernels, and has the r0, that its own solve() has; the
+          until-converged loop reads back the (batch,) errs per cycle in
+          one copy (``read_errs``), which the skips need.
+
+        The freeze and the stop compare the errs with tol rounded to the
+        solve's dtype, as the JAX loop compares with its weak-typed tol."""
+        spec, h = self.spec, self.spec.fine_h
+        if use_vmap is None:
+            use_vmap = not use_kernels(spec, spec.size, self.device)
+        B = fs.shape[0]
+        tol = float(torch.tensor(spec.tol, dtype=self._dtype))
+        freeze = cycles is None
+        n_cycles = spec.maxiter if freeze else cycles
+        errs = torch.full((B,), math.inf, dtype=self._dtype, device=self.device)
+
+        def go_on(worst):
+            return worst >= tol and math.isfinite(worst)
+
+        if use_vmap:
+            psis = initial_guess(fs)
+            r0s = (torch.func.vmap(lambda p, f: ops.residual_norm(p, f, h))(psis, fs)
+                   if spec.stop == "residual"
+                   else torch.ones((B,), dtype=self._dtype, device=self.device))
+            vstep = torch.func.vmap(self._step)
+            for _ in range(n_cycles):
+                new_psis, new_errs = vstep(psis, fs, r0s)
+                new_errs = new_errs.to(self._dtype)
+                if not freeze:
+                    psis, errs = new_psis, new_errs
+                    continue
+                # errs starts at +inf, so nothing is frozen before cycle 1
+                done = errs < tol
+                psis = torch.where(done.view((B,) + (1,) * spec.ndim), psis, new_psis)
+                errs = torch.where(done, errs, new_errs)
+                if not go_on(read_scalar(torch.max(errs))):
+                    break
+            return psis, errs
+
+        fl = [_dense(f) for f in fs]
+        psl = [initial_guess(f) for f in fl]
+        r0l = [self._r0(p, f) for p, f in zip(psl, fl)]
+        errl = list(errs.unbind())
+        errs_h = [math.inf] * B
+        for _ in range(n_cycles):
+            for k in range(B):
+                if freeze and errs_h[k] < tol:
+                    continue
+                psl[k], err = self._step(psl[k], fl[k], r0l[k])
+                errl[k] = err.to(self._dtype)
+            errs = torch.stack(errl)
+            if freeze:
+                errs_h = read_errs(errs)
+                if not go_on(float(np.max(errs_h))):    # np.max keeps a NaN
+                    break
+        return torch.stack(psl), errs

@@ -269,7 +269,9 @@ VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(partition="spmd"), dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)),
          # FMG and the adaptive stop, on one device and under a mesh
          dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
-         dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2), cycle="fmg")]
+         dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2), cycle="fmg"),
+         # the reference's lexicographic Gauss-Seidel, on the plain ops
+         dict(smoother="gs_lex", scheme="reference")]
 INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="sor"), dict(cycle="z"), dict(stop="x"),
            dict(stop_check="x"), dict(stop_check="adaptive"),
@@ -284,8 +286,7 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
 # ported: the pure bf16 solve under a mesh
 LATER = [dict(partition="gspmd"),
          pytest.param(dict(dtype="bfloat16", mesh_shape=(2, 2)),
-                      id=repr(dict(dtype="bfloat16"))),
-         dict(smoother="gs_lex", scheme="reference")]
+                      id=repr(dict(dtype="bfloat16")))]
 
 
 @pytest.mark.parametrize("kw", VALID, ids=repr)
