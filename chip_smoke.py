@@ -220,9 +220,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
               fast packed 4096^2 adaptive on (4, 1) and its stop at maxiter
               on a skipped cycle (K14 without rnorm), each with the
               iterations, metric evaluations and psi (within 1e-5
-              normalized) of its single-device solve of phase 9b.  With 4 or
-              more cards, the tuned, the packed and the mixed 4096^2 solves
-              again over NCCL.
+              normalized) of its single-device solve of phase 9b.  Then the
+              pure bf16 solves (tol 1e-30, 12 cycles) at 4096^2 and 256^3 on
+              (2, 2), the bf16 forms of K9/K10 and K11/K12 with rnorm: every
+              rank's gathered psi bit for bit the single-device pure bf16
+              solve's (phases slice_bf16, slice_bf16_3d), each cycle's relres
+              within one bf16 ulp of its, cycle 1 within 5 % of the JAX
+              package's, r0 beside the single device's.  Then the sharded
+              checkpoint: 4 steps of tuned 4096^2 on (2, 2), save_state with
+              the mesh (one .proc<rank>.npz per rank), every rank's
+              load_state bit for bit, resume_solve within 1e-6 of the
+              uninterrupted sharded solve, K9/K10 launches.  With 4 or more
+              cards, the tuned, the packed and the mixed 4096^2 solves again
+              over NCCL.
 
 13. batched — MultigridPoisson.solve_batched, the JAX package's batched
               serving setting (tuned f32 1024^2, stop='residual', tol
@@ -244,22 +254,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
               package's cycle count and each err within 1e-8 of its CPU
               run's; in f32 to 10 cycles, psi within 1e-5 of the f64 psi;
               the phase's seconds.
+15. debug   — utils.debug: validate_cycle of tuned 4096^2 and 256^3 from
+              psi0 = -f (K1 twice per kernel level, K4 twice), compare_traces
+              against the same cycle on plain ops on the card (every stage
+              ok), and NonFiniteError naming the first stage and level for a
+              psi0 with one NaN.
+16. checkpoint — utils.checkpoint on one card: 4 steps of tuned 4096^2,
+              save_state, load_state bit for bit, resume_solve within 1e-6 of
+              the uninterrupted solve (K2/K3 launches); a bf16 256^3 psi
+              through a file bit for bit.
 
-13 and 14 run last, after every phase that reads the kernels' device time
-from torch.profiler: run before phase 10, they were seen to leave that
-phase's captures with few or none of the kernels' events.
+13-16 run last, after every phase that reads the kernels' device time
+from torch.profiler: 13 and 14, run before phase 10, were seen to leave
+that phase's captures with few or none of the kernels' events.
 
-The last lines are a JSON object of the off-path kernels (K1, K4 and their
-bf16 forms, with their launches in the traced cycles), a JSON object of the
-main paths' kernels (K2, K3 with their launches in the 4096^2 tuned solve;
+The last lines are a JSON object of the off-path kernels (the bf16 forms
+of K1 and K4, with their launches in the traced cycles), a JSON object of
+the main paths' kernels (K1 and K4 with their launches in phase 15's
+validated cycles; K2, K3 with their launches in the 4096^2 tuned solve;
 the bf16 forms of K2 and K3 with theirs in the mixed 4096^2 solve; K5, K6 with
 theirs in the 256^3 solve and their bf16 forms with theirs in the mixed
 256^3 solve; K7, K8 with theirs in the 4096^2 fast solve and their bf16
 forms with theirs in the bf16 4096^2 fast solve;
 K9, K10 with one rank's in the sharded 16384^2 solve, their bf16 forms
-in the sharded mixed 16384^2 solve, K11, K12 in the sharded 256^3 solve,
-their bf16 forms in the sharded mixed 256^3 solve on (2, 2), and K13, K14
-in the sharded fast 16384^2 solve), the
+in the sharded pure bf16 4096^2 solve, K11, K12 in the sharded 256^3 solve,
+their bf16 forms in the sharded pure bf16 256^3 solve on (2, 2), and K13,
+K14 in the sharded fast 16384^2 solve; beside each, launches_by_path: its
+count on every path that runs it), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -267,6 +288,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import datetime
+import hashlib
 import itertools
 import json
 import os
@@ -293,6 +315,7 @@ from mgpoisson_torch.kernels import (build, cuda, exchange_depth, ops, use_packe
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import ProcessMesh
 from mgpoisson_torch.solver import multigrid
+from mgpoisson_torch.utils import checkpoint, debug
 
 # mgpoisson (the JAX package, backend='xla'), run on a CPU for
 # Spec(size=4096, dtype='float32', scheme='tuned', stop='residual',
@@ -582,7 +605,27 @@ SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4,
               ("spmd4096fmg", FMG_SPEC, (2, 2), False),
               ("spmd4096adaptive", ADAPTIVE_SPEC, (2, 2), False),
               ("spmd4096fastadaptive", FAST_ADAPTIVE_SPEC, (4, 1), False),
-              ("spmd4096faststale", FAST_STALE_SPEC, (4, 1), False))
+              ("spmd4096faststale", FAST_STALE_SPEC, (4, 1), False),
+              # the pure bf16 solve (SpmdCycle.step on bf16 blocks: the bf16
+              # forms of K9/K10, K11/K12, with rnorm), each held to the
+              # single-device pure bf16 solve of slice_bf16 / slice_bf16_3d
+              ("spmd4096bf16", BF16_SPEC, (2, 2), True),
+              ("spmd256^3bf16", BF16_SPEC_3D, (2, 2), True))
+# ... their single-device references (phases slice_bf16 and slice_bf16_3d)
+BF16_SPMD = {"spmd4096bf16": "slice_bf16", "spmd256^3bf16": "slice_bf16_3d"}
+# the checkpoints (mgpoisson_torch.utils.checkpoint): CKPT_STEPS steps of the
+# tuned 4096^2 solve on one card and on the (2, 2) mesh, saved, reloaded
+# and resumed; the resumed psi within CKPT_TOL (max-normalized) of the
+# uninterrupted solve's (the JAX package's bar, tests/test_utils.py), on
+# the mesh that of spmd4096 on CKPT_MESH
+# (stop='residual' measures against the r0 of the iterate a solve starts
+# from, so the resumed solve runs to the uninterrupted one's stopping point:
+# tol * ||r(-f)|| / ||r(psi_ckpt)||, resume_tol; in f32 it cannot reach 1e-10
+# of the checkpoint's much smaller r0)
+CKPT_DIR = build.BUILD_DIR.parent / "checkpoint"
+CKPT_STEPS = 4
+CKPT_MESH = (2, 2)
+CKPT_TOL = 1e-6
 # timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
 # 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
 TIMING_SHARDED_PACKED = (16384, 4, 8192)
@@ -1460,7 +1503,8 @@ def phase_slice_bf16(dev, spec=BF16_SPEC, jax_errs=JAX_ERRS_BF16, label="slice_b
     beside the JAX package's (cycle 1 within BF16_TOL of it) and equal to
     its plain-ops twin's, its launches, and a traced bf16 V-cycle (the one
     caller of the bf16 form of K1 / K4).  Returns the traced cycle's
-    launches."""
+    launches and the solve (psi on the host, errs, r0 of the -f guess),
+    the reference of the sharded pure bf16 solve (phase_spmd)."""
     k_rr, k_pc, shape = _bf16_legs(spec)
     k_smooth = RANK[spec.ndim][0][0] + BF16
     _solve(spec, dev)
@@ -1496,7 +1540,10 @@ def phase_slice_bf16(dev, spec=BF16_SPEC, jax_errs=JAX_ERRS_BF16, label="slice_b
     trace = dict(cuda.launches)
     check_launches(f"{shape} traced bf16 V-cycle", trace, _expected({k_smooth: 2 * L}),
                    f"{k_smooth} twice at each of the {L} kernel levels")
-    return trace
+    f = mg.rhs()
+    single = {"psi": res.psi.cpu(), "errs": errs,
+              "r0": float(mg.residual_norm(mg.init_state(f), f))}
+    return trace, single
 
 
 def check_launches(label, got, want, what):
@@ -2091,6 +2138,130 @@ def phase_gs_lex(dev, card):
           f"cycle ({card})")
     check(d <= PARITY_TOL, f"{label}: the f32 psi is {d:.3e} from the f64 psi")
     print(f"[{label}] the gs_lex phase: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_debug(dev):
+    """utils.debug on the card: validate_cycle of MAIN_SPEC and SPEC_3D from
+    psi0 = -f (the traced V-cycle: K1 twice at every kernel level in 2D,
+    K4 in 3D), compare_traces of that trace against the same cycle's on
+    plain ops (backend='torch', on the card): every stage ok, the largest
+    difference printed (the kernels equal plain torch bit for bit, so 0 is
+    expected); then a psi0 with one NaN must raise NonFiniteError naming
+    the first stage and its level.  Returns the launches of the two
+    validated cycles and the phase's seconds."""
+    t0 = time.perf_counter()
+    launches = {}
+    for spec in (MAIN_SPEC, SPEC_3D):
+        mg = MultigridPoisson(spec, device=dev)
+        f = mg.rhs()
+        psi0 = mg.init_state(f)
+        shape, L = f"{spec.size}^{spec.ndim}", len(kernel_levels(spec))
+        k_smooth = RANK[spec.ndim][0][0]
+        cuda.reset_launches()
+        u, trace = debug.validate_cycle(spec, psi0, f)
+        torch.cuda.synchronize()
+        launches.update({k: v for k, v in cuda.launches.items() if v})
+        check_launches(f"{shape} validate_cycle", dict(cuda.launches),
+                       _expected({k_smooth: 2 * L}),
+                       f"{k_smooth} twice at each of the {L} kernel levels")
+        plain = []
+        u_plain = v_cycle(psi0, f, spec.fine_h, spec.with_(backend="torch"), trace=plain)
+        report = debug.compare_traces(trace, plain)
+        worst = max(report, key=lambda r: r["max_abs_diff"])
+        print(f"[debug] validate_cycle {shape} on {dev}: {len(trace)} stages finite, "
+              f"{k_smooth} {cuda.launches[k_smooth]} launches; compare_traces against the "
+              f"plain-ops cycle: {sum(r['ok'] for r in report)}/{len(report)} ok, largest "
+              f"max_abs_diff {worst['max_abs_diff']!r} (stage {worst['stage']!r} at level "
+              f"{worst['level_size']}), u_out bit-equal: {torch.equal(u, u_plain)}")
+        check(all(r["ok"] for r in report),
+              f"{shape}: compare_traces against plain ops: "
+              f"{[r for r in report if not r['ok']][:3]}")
+        bad = psi0.clone()
+        bad.view(-1)[bad.numel() // 3] = float("nan")
+        want = f"stage 'u_pre' at level size {spec.size} has "
+        try:
+            debug.validate_cycle(spec, bad, f)
+        except debug.NonFiniteError as e:
+            print(f"[debug] {shape} psi0 with one NaN: NonFiniteError: {e}")
+            check(want in str(e), f"{shape}: the NonFiniteError does not name {want!r}: {e}")
+        else:
+            fail(f"{shape}: validate_cycle of a psi0 with a NaN raised nothing")
+        del mg, f, psi0, u, trace, plain, u_plain, bad
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[debug] the debug phase: {seconds:.1f} s")
+    return launches, seconds
+
+
+def resume_tol(mg, f, psi):
+    """The tol at which a solve resumed from psi stops where the
+    uninterrupted solve of mg.spec (from -f) stops: tol * ||r(-f)|| /
+    ||r(psi)||, the norms over the whole grid (all-reduced under a mesh)."""
+    return mg.spec.tol * float(mg.residual_norm(-f, f)) / float(mg.residual_norm(psi, f))
+
+
+def phase_checkpoint(dev, psi_bf16_3d):
+    """utils.checkpoint on one card: CKPT_STEPS steps of MAIN_SPEC, then
+    save_state (one file); load_state gives psi and f back bit for bit;
+    resume_solve, run to the uninterrupted solve's stopping point
+    (resume_tol), converges within CKPT_TOL (max-normalized) of that
+    solve's psi; then a bf16 256^3 psi (the pure bf16 solve
+    of slice_bf16_3d) round-trips through a file bit for bit.  Returns the
+    resumed solve's launches and the phase's seconds."""
+    t0 = time.perf_counter()
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(CKPT_DIR / "state.npz")
+    mg = MultigridPoisson(MAIN_SPEC, device=dev)
+    f = mg.rhs()
+    psi = mg.init_state(f)
+    errs = []
+    for _ in range(CKPT_STEPS):
+        psi, err = mg.step(psi, f)
+        errs.append(float(err))
+    t1 = time.perf_counter()
+    checkpoint.save_state(path, psi, f=f, iteration=CKPT_STEPS, errs=errs)
+    state = checkpoint.load_state(path)
+    io_s = time.perf_counter() - t1
+    check(state["iteration"] == CKPT_STEPS
+          and np.array_equal(state["psi"], psi.cpu().numpy())
+          and np.array_equal(state["f"], f.cpu().numpy()),
+          "the reloaded 4096^2 psi or f is not the saved one bit for bit")
+    resumer = MultigridPoisson(MAIN_SPEC.with_(tol=resume_tol(mg, f, psi)), device=dev)
+    cuda.reset_launches()
+    res = checkpoint.resume_solve(resumer, path)
+    torch.cuda.synchronize()
+    launches = dict(cuda.launches)
+    full = MultigridPoisson(MAIN_SPEC, device=dev).solve()
+    gap = nmax(res.psi, full.psi)[0]
+    print(f"[checkpoint] tuned {MAIN_N}^2 on {dev}: {CKPT_STEPS} steps (relres of each "
+          f"step's incoming iterate {' '.join(f'{e:.3e}' for e in errs)}), save_state + "
+          f"load_state {os.path.getsize(path) / 2 ** 20:.1f} MiB in {io_s:.3f} s, bit for "
+          f"bit; resume_solve at tol {resumer.spec.tol:.3e} (the uninterrupted solve's "
+          f"stopping point): {res.iterations} cycles, converged={res.converged}, psi against "
+          f"the uninterrupted solve's ({full.iterations} cycles): max-normalized |diff| "
+          f"{gap:.3e} (bar {CKPT_TOL}); launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(res.converged and full.converged, "the resumed or the uninterrupted solve did "
+          "not converge")
+    check(gap <= CKPT_TOL, f"the resumed psi is {gap:.3e} from the uninterrupted one")
+    L = len(kernel_levels(MAIN_SPEC))
+    check_launches("4096^2 resumed solve", launches, _expected(loop_launches(
+        "mg_smooth_rr", "mg_prolong_correct_smooth", L, res.iterations, res.iterations)),
+        "K2 and K3 at every kernel level per cycle, K3 with rnorm")
+    path3 = str(CKPT_DIR / "bf16.npz")
+    checkpoint.save_state(path3, psi_bf16_3d.to(dev), iteration=BF16_SPEC_3D.maxiter)
+    back = checkpoint.load_state(path3)["psi"]
+    check(back.dtype == torch.bfloat16 and torch.equal(back, psi_bf16_3d),
+          "the bf16 256^3 psi did not round-trip bit for bit")
+    print(f"[checkpoint] bf16 {BF16_SPEC_3D.size}^3 psi (slice_bf16_3d's) through "
+          f"{os.path.getsize(path3) / 2 ** 20:.1f} MiB: bit for bit, as |V2 voids")
+    for p in CKPT_DIR.iterdir():
+        p.unlink()
+    del mg, f, psi, res, full
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"[checkpoint] the checkpoint phase: {seconds:.1f} s")
+    return launches, seconds
 
 
 def phase_krylov_mgcg(dev):
@@ -2698,10 +2869,48 @@ def sharded_launches(spec, mesh_shape, it, measured=None):
     return add_counts(fmg, loop_launches(k_rr, k_pc, L, it, measured if cyc is spec else 0))
 
 
-def _spmd_rank(rank, backend, store, cases, out_dir):
+def _rank_checkpoint(rank, out_dir):
+    """The sharded checkpoint on one rank: CKPT_STEPS steps of MAIN_SPEC on
+    CKPT_MESH, save_state with the mesh (one .proc<rank>.npz per rank),
+    load_state of this rank's block, resume_solve on the 4 ranks to the
+    uninterrupted solve's stopping point (resume_tol).  Rank 0
+    saves the resumed solve's gathered psi; returns what the rank saw."""
+    mg = MultigridPoisson(MAIN_SPEC.with_(mesh_shape=CKPT_MESH), device="cuda")
+    f = mg.rhs()
+    psi = mg.init_state(f)
+    for _ in range(CKPT_STEPS):
+        psi, _ = mg.step(psi, f)
+    path = str(out_dir / "ckpt")
+    t0 = time.perf_counter()
+    checkpoint.save_state(path, psi, f=f, iteration=CKPT_STEPS, mesh=mg.mesh)
+    dist.barrier()
+    save_s = time.perf_counter() - t0
+    state = checkpoint.load_state(path, mesh=mg.mesh)
+    reload = (state["iteration"] == CKPT_STEPS and state["psi"].device == psi.device
+              and torch.equal(state["psi"], psi) and torch.equal(state["f"], f))
+    resumer = MultigridPoisson(MAIN_SPEC.with_(mesh_shape=CKPT_MESH,
+                                               tol=resume_tol(mg, f, state["psi"])),
+                               device="cuda")
+    cuda.reset_launches()
+    res = checkpoint.resume_solve(resumer, path)
+    launches = dict(cuda.launches)
+    full = multihost.gather_global(res.psi, mg.mesh)
+    if rank == 0:
+        torch.save(full.cpu(), out_dir / "ckpt_resumed.pt")
+    return {"files": sorted(p.name for p in out_dir.glob("ckpt.proc*.npz")),
+            "reload": reload, "save_s": save_s, "iterations": res.iterations,
+            "converged": res.converged, "launches": launches, "tol": resumer.spec.tol,
+            "seconds": time.perf_counter() - t0}
+
+
+def _spmd_rank(rank, backend, store, cases, out_dir, with_checkpoint):
     """One rank of phase_spmd: every case's solve on this rank's card, its
     launches and per-cycle wall; rank 0 re-checks each gathered iterate in
-    f64.  Writes rank{rank}.json."""
+    f64 and keeps those of FMG, the adaptive stop, the pure bf16 solves and
+    the one the checkpoint's resume is held to (every rank hashes its
+    gathered bf16 psi, and takes the r0 of the -f guess); with_checkpoint:
+    then the sharded checkpoint (_rank_checkpoint).  Writes
+    rank{rank}.json."""
     multihost.initialize(backend, f"file://{store}", SPMD_WORLD, rank,
                          timeout=datetime.timedelta(seconds=300))
     try:
@@ -2726,6 +2935,12 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
                 mg, res, cycle_ms = _solve(spec, "cuda")
             launches = dict(cuda.launches)
             psi = multihost.gather_global(res.psi, mg.mesh)
+            bf16 = spec.dtype == "bfloat16"
+            r0 = psi_sha = None
+            if bf16:
+                f = mg.rhs()
+                r0 = float(mg.residual_norm(mg.init_state(f), f))
+                psi_sha = hashlib.sha256(psi.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             rel64 = None
             if rank == 0:
                 f64 = torch.zeros_like(psi, dtype=torch.float64)
@@ -2733,7 +2948,7 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
                 rel64 = float(ops.residual_norm(psi.double(), f64, spec.fine_h)
                               / ops.residual_norm(-f64, f64, spec.fine_h))
                 del f64
-                if new:
+                if new or bf16 or (label, mesh_shape) == ("spmd4096", CKPT_MESH):
                     torch.save(psi.cpu(), out_dir / f"psi{i}.pt")
             results.append({"label": label, "iterations": res.iterations,
                             "n_metric_evals": res.n_metric_evals, "solve_ms": ms,
@@ -2741,25 +2956,30 @@ def _spmd_rank(rank, backend, store, cases, out_dir):
                             "errs": res.errs.tolist(), "errs_dtype": str(res.errs.dtype),
                             "converged": res.converged,
                             "launches": launches, "cycle_ms": cycle_ms, "rel64": rel64,
+                            "r0": r0, "psi_sha": psi_sha,
                             "packed": mg._packed,
                             "block": list(res.psi.shape), "device": str(mg.device),
                             "finite": bool(torch.isfinite(psi).all()),
                             "shape": list(psi.shape)})
             del mg, res, psi
             torch.cuda.empty_cache()
+        if with_checkpoint:
+            results.append(_rank_checkpoint(rank, out_dir))
         (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
     finally:
         dist.destroy_process_group()
 
 
-def _spawn_ranks(backend, cases):
+def _spawn_ranks(backend, cases, with_checkpoint=False):
     """Runs _spmd_rank on SPMD_WORLD spawned processes (a rank's failure
-    ends the others and raises here); returns every rank's results."""
+    ends the others and raises here); returns every rank's results (with
+    the checkpoint's last)."""
     out_dir = SPMD_DIR / backend
     out_dir.mkdir(parents=True, exist_ok=True)
     for p in out_dir.iterdir():
         p.unlink()
-    mp.start_processes(_spmd_rank, args=(backend, str(out_dir / "store"), cases, out_dir),
+    mp.start_processes(_spmd_rank, args=(backend, str(out_dir / "store"), cases, out_dir,
+                                         with_checkpoint),
                        nprocs=SPMD_WORLD, join=True, start_method="spawn")
     return [json.loads((out_dir / f"rank{r}.json").read_text()) for r in range(SPMD_WORLD)]
 
@@ -2834,15 +3054,100 @@ def _check_spmd(label, spec, mesh_shape, ranks, ref_errs, how, ref_count=None, s
     return r0["launches"]
 
 
-def phase_spmd(dev, singles):
+def _check_spmd_bf16(label, spec, mesh_shape, ranks, single, jax_errs, how, psi_path):
+    """Every rank's result of one sharded pure bf16 solve (12 cycles at tol
+    1e-30) against the single-device pure bf16 solve of the same spec
+    (`single`, phase_slice_bf16): the gathered psi bit for bit on every
+    rank, each cycle's relres within one bf16 ulp (2^-7 relative: the
+    blocks' Sigma r^2 summed in another order), cycle 1 within BF16_TOL of
+    the JAX package's, r0 beside the single device's (within one ulp), the
+    launches of the bf16 forms of K9/K10 (K11/K12), with rnorm."""
+    r0 = ranks[0]
+    it, errs = r0["iterations"], r0["errs"]
+    shape = f"{spec.size}^{spec.ndim} on {mesh_shape}"
+    print(f"[{label}] pure bf16 {shape}, {SPMD_WORLD} ranks ({how}): {it} cycles (maxiter "
+          f"{spec.maxiter}), converged={r0['converged']}, blocks {r0['block']} on "
+          f"{r0['device']}")
+    for k, (e, es) in enumerate(zip(errs, single["errs"]), 1):
+        print(f"[{label}]   cycle {k}: relres {e:.6e}  single device {es:.6e}  "
+              f"rel diff {abs(e - es) / es:.2e}")
+    check(all(r["errs"] == errs and r["iterations"] == it for r in ranks),
+          f"{shape}: the ranks' error histories differ")
+    check(it == spec.maxiter == len(single["errs"]) and r0["errs_dtype"] == "torch.float32",
+          f"{shape}: {it} cycles (history {r0['errs_dtype']}), the single device's "
+          f"{len(single['errs'])}")
+    for k, (e, es) in enumerate(zip(errs, single["errs"]), 1):
+        check(abs(e - es) <= 2 ** -7 * es, f"{shape} cycle {k}: relres {e:.6e} vs the single "
+              f"device's {es:.6e}")
+    check(abs(errs[0] - jax_errs[0]) <= BF16_TOL * jax_errs[0],
+          f"{shape} cycle 1: relres {errs[0]:.6e} vs the JAX package's {jax_errs[0]:.6e}")
+    psi = torch.load(psi_path)
+    check(psi.dtype == torch.bfloat16 and torch.equal(psi, single["psi"]),
+          f"{shape}: the gathered psi after {it} cycles is not the single-device solve's")
+    check(len({r["psi_sha"] for r in ranks}) == 1, f"{shape}: the ranks' gathered psi differ")
+    print(f"[{label}] every rank's gathered psi after {it} cycles equals the single-device "
+          f"pure bf16 solve's bit for bit (sha256 {r0['psi_sha'][:16]}); r0 of the -f guess: "
+          f"partition {r0['r0']!r}, single device {single['r0']!r}")
+    check(all(r["r0"] == r0["r0"] for r in ranks)
+          and abs(r0["r0"] - single["r0"]) <= 2 ** -7 * single["r0"],
+          f"{shape}: r0 {[r['r0'] for r in ranks]} vs the single device's {single['r0']}")
+    want = _expected(sharded_launches(spec, mesh_shape, it))
+    for rank, r in enumerate(ranks):
+        check_launches(f"{shape} bf16 rank {rank}", r["launches"], want,
+                       "the bf16 forms of K9/K10 (K11/K12) at every sharded level >= "
+                       "kernel_min_size, from zero below the fine level, rnorm every cycle")
+    print(f"[{label}] sharded kernel levels {sharded_kernel_levels(spec, mesh_shape)}; "
+          f"launches per rank {r0['launches']}")
+    ms = [statistics.median(r["cycle_ms"]) for r in ranks]
+    print(f"[{label}] per-cycle wall ms, median ({how}), rank 0..3: "
+          + " ".join(f"{m:.3f}" for m in ms)
+          + f" (rank 0: {' '.join(f'{c:.3f}' for c in r0['cycle_ms'])})")
+    return r0["launches"]
+
+
+def _check_spmd_checkpoint(ranks, ref_path, how):
+    """The sharded checkpoint of _rank_checkpoint: one file per rank, every
+    rank's block reloaded bit for bit, the resumed solve converged within
+    CKPT_TOL of the uninterrupted sharded solve (spmd4096 on CKPT_MESH,
+    `ref_path`), its launches those of its cycles."""
+    cks = [r[-1] for r in ranks]
+    shape = f"{MAIN_N}^2 on {CKPT_MESH}"
+    want_files = [f"ckpt.proc{k}.npz" for k in range(SPMD_WORLD)]
+    check(all(c["files"] == want_files for c in cks), f"{shape}: checkpoint files "
+          f"{cks[0]['files']}, not {want_files}")
+    check(all(c["reload"] for c in cks), f"{shape}: a rank's reloaded block differs "
+          f"({[c['reload'] for c in cks]})")
+    it = cks[0]["iterations"]
+    check(all(c["converged"] and c["iterations"] == it for c in cks),
+          f"{shape}: the resumed solve: {[(c['iterations'], c['converged']) for c in cks]}")
+    gap = nmax(torch.load(SPMD_DIR / "gloo" / "ckpt_resumed.pt"), torch.load(ref_path))[0]
+    print(f"[spmd_checkpoint] {shape} ({how}): {CKPT_STEPS} steps, save_state with the mesh: "
+          f"{', '.join(cks[0]['files'])} ({cks[0]['save_s']:.3f} s on rank 0); every rank's "
+          f"load_state bit for bit; resume_solve at tol {cks[0]['tol']:.3e}: {it} cycles, "
+          f"converged, psi against the "
+          f"uninterrupted solve's: max-normalized |diff| {gap:.3e} (bar {CKPT_TOL}); "
+          f"{cks[0]['seconds']:.1f} s from save to resumed psi on rank 0")
+    check(gap <= CKPT_TOL, f"{shape}: the resumed psi is {gap:.3e} from the uninterrupted one")
+    want = _expected(sharded_launches(MAIN_SPEC, CKPT_MESH, it))
+    for rank, c in enumerate(cks):
+        check_launches(f"{shape} resumed rank {rank}", c["launches"], want,
+                       "K9/K10 at every sharded level >= kernel_min_size, rnorm every cycle")
+    print(f"[spmd_checkpoint] launches per rank in the resumed solve {cks[0]['launches']}")
+    return cks[0]["launches"]
+
+
+def phase_spmd(dev, singles, singles_bf16):
     """The sharded solves on 4 ranks sharing the card over gloo; the
     single-device 16384^2 solves (tuned, fast with its packed fine level,
     and mixed) and the single-device mixed 4096^2, 256^3 and 512^3 solves
     as the references of the sharded ones (the mixed 4096^2 and 256^3 step
     counts against the JAX package's, within one); the FMG and adaptive
     solves against the single-device ones of phase_fmg_adaptive
-    (`singles`).  Returns the launches of the main paths' sharded solves and
-    the seconds of the FMG and adaptive ones on rank 0."""
+    (`singles`); the pure bf16 solves against the single-device ones of
+    phases slice_bf16 and slice_bf16_3d (`singles_bf16`); then the sharded
+    checkpoint.  Returns the launches of the main paths' sharded solves
+    and the seconds of the FMG and adaptive ones on rank 0 and of the
+    pure bf16 and checkpoint ones."""
     refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
             "spmd4096fast": JAX_ERRS_FAST[MAIN_N],
             **{label: r["errs"] for label, r in singles.items()}}
@@ -2868,18 +3173,31 @@ def phase_spmd(dev, singles):
         torch.cuda.empty_cache()
     counts = {"spmd4096mixed": JAX_ITERATIONS_MIXED, "spmd256^3mixed": JAX_ITERATIONS_MIXED_3D}
     t0 = time.perf_counter()
-    ranks = _spawn_ranks("gloo", SPMD_CASES)
+    ranks = _spawn_ranks("gloo", SPMD_CASES, with_checkpoint=True)
     print(f"[spmd] {SPMD_WORLD} ranks over gloo on {torch.cuda.device_count()} card(s): "
           f"{time.perf_counter() - t0:.1f} s for the spawn and every solve")
     launches = {}
     how = "4 ranks, one card, gloo" if torch.cuda.device_count() == 1 else "4 ranks, gloo"
-    new_seconds = 0.0
+    new_seconds = bf16_seconds = 0.0
     for i, (label, spec, mesh_shape, _) in enumerate(SPMD_CASES):
+        psi_path = SPMD_DIR / "gloo" / f"psi{i}.pt"
+        if label in BF16_SPMD:
+            single = singles_bf16[BF16_SPMD[label]]
+            launches[label, mesh_shape] = _check_spmd_bf16(
+                label, spec, mesh_shape, [r[i] for r in ranks], single,
+                JAX_ERRS_BF16 if spec.ndim == 2 else JAX_ERRS_BF16_3D, how, psi_path)
+            bf16_seconds += ranks[0][i]["seconds"]
+            continue
         launches[label, mesh_shape] = _check_spmd(
             label, spec, mesh_shape, [r[i] for r in ranks], refs[label], how,
-            counts.get(label), singles.get(label), SPMD_DIR / "gloo" / f"psi{i}.pt")
+            counts.get(label), singles.get(label), psi_path)
         if label in singles:
             new_seconds += ranks[0][i]["seconds"]
+        if (label, mesh_shape) == ("spmd4096", CKPT_MESH):
+            ckpt_ref = psi_path
+    launches["checkpoint"] = _check_spmd_checkpoint(ranks, ckpt_ref, how)
+    print(f"[spmd] the pure bf16 solves {bf16_seconds:.1f} s and the checkpoint "
+          f"{ranks[0][-1]['seconds']:.1f} s of the spawn (rank 0)")
     if torch.cuda.device_count() >= SPMD_WORLD:
         cases = [c for c in SPMD_CASES if c[0] in ("spmd4096", "spmd4096fast", "spmd4096mixed")
                  and c[2] == ((4, 1) if c[0] == "spmd4096fast" else (2, 2))]
@@ -2893,7 +3211,10 @@ def phase_spmd(dev, singles):
     return {"2d": launches["spmd16384", (2, 2)], "3d": launches["spmd256^3", (2, 2)],
             "packed": launches["spmd16384fast", (4, 1)],
             "mixed": launches["spmd16384mixed", (2, 2)],
-            "mixed3d": launches["spmd256^3mixed", (2, 2)]}, new_seconds
+            "mixed3d": launches["spmd256^3mixed", (2, 2)],
+            "bf16": launches["spmd4096bf16", (2, 2)],
+            "bf16_3d": launches["spmd256^3bf16", (2, 2)],
+            "checkpoint": launches["checkpoint"]}, new_seconds
 
 
 def main():
@@ -2926,7 +3247,7 @@ def main():
     times.update(times_bf16)
     solve_mixed = phase_slice_mixed(dev)
     phase_mixed_off_grid(dev)
-    trace_bf16 = phase_slice_bf16(dev)
+    trace_bf16, single_bf16 = phase_slice_bf16(dev)
 
     # the 3D path: the tuned 256^3 solve, then 512^3
     phase_parity(dev, 3, SIDES_3D, worst, SMALL_SIDES)
@@ -2964,7 +3285,8 @@ def main():
     solve_mixed3 = phase_slice_mixed(dev, MIXED_SPEC_3D, SPEC_3D, JAX_ITERATIONS_MIXED_3D,
                                      JAX_ERRS_MIXED_3D, "slice_mixed3d")
     phase_slice_mixed(dev, MIXED_SPEC_3D.with_(size=512), None, None, None, "solve512_mixed")
-    trace_bf16_3 = phase_slice_bf16(dev, BF16_SPEC_3D, JAX_ERRS_BF16_3D, "slice_bf16_3d")
+    trace_bf16_3, single_bf16_3 = phase_slice_bf16(dev, BF16_SPEC_3D, JAX_ERRS_BF16_3D,
+                                                   "slice_bf16_3d")
 
     # the fast scheme's packed fine level: the 4096^2 solve, then 1024^2
     # and 16384^2
@@ -3006,7 +3328,8 @@ def main():
     times.update(phase_timing_sharded(dev, times, torch.bfloat16))
     phase_parity_sharded_packed(dev, worst)
     times.update(phase_timing_sharded_packed(dev))
-    solve_spmd, spmd_seconds = phase_spmd(dev, singles)
+    solve_spmd, spmd_seconds = phase_spmd(dev, singles, {"slice_bf16": single_bf16,
+                                                         "slice_bf16_3d": single_bf16_3})
     print(f"[fmg_adaptive] the FMG and adaptive phases: {new_seconds:.1f} s on one card and "
           f"{spmd_seconds:.1f} s of the 4-rank spawn's solves (rank 0), "
           f"{new_seconds + spmd_seconds:.1f} s in all")
@@ -3017,7 +3340,19 @@ def main():
     phase_batched(dev, card)
     print(f"[batched] the batched phase: {time.perf_counter() - t0:.1f} s")
     phase_gs_lex(dev, card)
+    # the debug tools (validate_cycle: K1 and K4 in the traced cycles) and
+    # the checkpoints on one card, after the profiler's phases too
+    debug_launches, debug_seconds = phase_debug(dev)
+    ckpt_launches, ckpt_seconds = phase_checkpoint(dev, single_bf16_3["psi"])
 
+    # launches of each kernel on the paths that run it, each read from its
+    # own run with the counters zeroed just before it; "launches" is the
+    # slice's main path for the kernel: the debug tools' validated cycles
+    # for K1 and K4, the sharded pure bf16 solves for the bf16 forms of
+    # K9-K12
+    paths = {"debug": debug_launches, "checkpoint": ckpt_launches,
+             "spmd_checkpoint": solve_spmd["checkpoint"],
+             "spmd_bf16": solve_spmd["bf16"], "spmd_bf16_3d": solve_spmd["bf16_3d"]}
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3029,15 +3364,27 @@ def main():
                             else (solve_mixed, trace_bf16))
         if name.startswith("mg_packed"):
             solve = solve_fast_bf16 if name.endswith(BF16) else solve_fast
+        on_slice = None
         if name.startswith("mg_sharded"):
             solve = solve_spmd["mixed3d" if name.endswith("3d" + BF16) else
                                "3d" if name.endswith("3d") else
                                "packed" if name.startswith("mg_sharded_packed") else
                                "mixed" if name.endswith(BF16) else "2d"]
-        if name in OFF_PATH:
+            if name.endswith(BF16):
+                on_slice = paths["spmd_bf16_3d" if "3d" in name else "spmd_bf16"][name]
+        if name in ("mg_smooth", "mg_smooth3d"):
+            on_slice = debug_launches[name]
+        by_path = {k: v[name] for k, v in paths.items() if v.get(name)}
+        if name in OFF_PATH and on_slice is None:
             off_path.append({**row, "trace_launches": trace[name]})
+        elif name in OFF_PATH:
+            kernels.append({**row, "launches": on_slice, "trace_launches": trace[name],
+                            "launches_by_path": by_path})
         else:
-            kernels.append({**row, "launches": solve[name]})
+            kernels.append({**row, "launches": solve[name] if on_slice is None else on_slice,
+                            "launches_by_path": {"solve": solve[name], **by_path}})
+    print(f"[new phases] debug {debug_seconds:.1f} s, checkpoint {ckpt_seconds:.1f} s on one "
+          "card; the pure bf16 and checkpoint solves of the spawn: [spmd] above")
     print(json.dumps({"off_path_kernels": off_path}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -122,11 +122,12 @@ def event_ms(fn, reps: int = 25) -> float:
 def kernel_ms(fn, reps: int = 25) -> float:
     """The mg_* kernels' own device ms per call of fn, from torch.profiler
     over `reps` calls: the kernels' time without the host's.  A capture that
-    holds no mg_* event (the profiler drops one now and then) is taken
-    again, up to 3 times."""
+    holds no mg_* event (the profiler drops one now and then, three in a row
+    at least once in chip_smoke.py's timing_packed) is taken again, up to 8
+    times."""
     fn()
     dev = torch.device("cuda")
-    tries = 3
+    tries = 8
     for _ in range(tries):
         with trace(dev) as prof:
             for _ in range(reps):

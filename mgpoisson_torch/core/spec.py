@@ -50,13 +50,12 @@ class Spec:
         on torch.distributed (``mgpoisson_torch.shard``); 'gspmd' has no
         torch counterpart and raises.
 
-    bf16 runs on one device, in 2D and 3D: dtype='bfloat16' (the pure
-    bf16 solve, its fine level packed where the JAX package packs it) and
-    a sweep_dtype other than dtype (mixed-precision refinement, e.g. the
-    bf16 V-cycle of an f32 solve); sweep_dtype == dtype is the plain
-    solve, as in the JAX package.  Under a mesh, mixed precision runs in 2D
-    and 3D (bf16 sweeps on the bf16 strip kernels); dtype='bfloat16' under
-    a mesh raises NotImplementedError naming the ROADMAP item.
+    bf16 runs on one device and under a mesh, in 2D and 3D:
+    dtype='bfloat16' (the pure bf16 solve, its fine level packed where the
+    JAX package packs it: on one device only) and a sweep_dtype other than
+    dtype (mixed-precision refinement, e.g. the bf16 V-cycle of an f32
+    solve); sweep_dtype == dtype is the plain solve, as in the JAX package.
+    Under a mesh both run on the bf16 strip kernels.
 
     cycle='fmg' (a full-multigrid pass supplies the initial iterate, then
     V-cycles) and stop_check='adaptive' run on one device and under a
@@ -127,22 +126,11 @@ class Spec:
         if self.sweep_dtype not in (None, "float32", "float64", "bfloat16"):
             raise ValueError(f"unsupported sweep_dtype {self.sweep_dtype!r}")
 
-        # valid, but not ported yet (ROADMAP.md, "The slices come in
-        # this order")
-        def later(what, slice_):
-            raise NotImplementedError(
-                f"{what} is not in mgpoisson_torch yet: ROADMAP slice "
-                f"{slice_}")
-
         if self.partition == "gspmd":
             raise NotImplementedError(
                 "partition='gspmd' is a feature of XLA's SPMD partitioner, with "
                 "no torch counterpart; mgpoisson_torch runs the explicit "
                 "partition, 'spmd' (ROADMAP slice 7, Queue 1 item 12)")
-        if self.mesh_shape is not None and self.dtype == "bfloat16":
-            later("dtype='bfloat16' under a mesh", "5 (bf16 and mixed "
-                  "precision): Queue 1 item 7, A4b, the pure bf16 solve under a "
-                  "mesh, with Queue 3 L2")
 
     # ------------------------------------------------- resolved parameters
 

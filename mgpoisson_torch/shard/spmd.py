@@ -49,9 +49,11 @@ go as they are.  The backend is the caller's choice
 - the bare cycles of the adaptive stop (``cycle_bare``): one cycle on the
   block, unpacked or packed, without the metric or with the all-reduced
   sum(r^2).
-
-Not ported here (ROADMAP.md Queue 1 items 7 and 12): the pure bf16 step
-(A4b).
+- the pure bf16 solve (a spec of dtype bfloat16): ``step`` on bf16 blocks,
+  the cycle on the bf16 forms of K9/K10 (K11/K12 in 3D), the per-cycle
+  sum(r^2) all-reduced in f32 as the JAX package's spmd step takes it; its
+  r0 (``SpmdCycle.residual_norm``) sums as the JAX solver does on the
+  global array.
 """
 
 from __future__ import annotations
@@ -264,8 +266,7 @@ class SpmdCycle:
         self.cdepth = ops.coarse_depth(self.depth)
         # mixed-precision refinement: the error equation's cycle, on this
         # mesh in sweep_dtype.  Its spec carries no mesh_shape (the mesh is
-        # this one): the Spec refuses dtype='bfloat16' under a mesh, which is
-        # the pure bf16 solve (ROADMAP A4b), not this inner cycle.
+        # this one).
         self.inner = None
         if spec.sweep_dtype not in (None, spec.dtype):
             self.inner = SpmdCycle(spec.with_(dtype=spec.sweep_dtype, mesh_shape=None), mesh)
@@ -446,9 +447,16 @@ class SpmdCycle:
         return psi_new, zero, torch.sqrt(self._global_r2(psi_new, r2, f)).to(psi.dtype)
 
     def residual_norm(self, psi, f):
-        """||r|| of the zero-ghost residual over the whole grid."""
-        r2 = residual_sq_sum(psi, f, self.spec.fine_h, self.mesh)
-        return torch.sqrt(all_reduce_sum(r2, self.mesh)).to(psi.dtype)
+        """||r|| of the zero-ghost residual over the whole grid, summed as
+        the JAX solver sums it on the global array (xla.residual_norm, the
+        solve's r0): the squares in psi's dtype, accumulated in at least f32
+        (each rank's share, then all-reduced), the sum rounded once to psi's
+        dtype and its root taken there.  XLA on the CPU reduces a bf16 array
+        so, in f32 with one rounding; in f32 and f64 this is the plain sum."""
+        r = residual(psi, f, self.spec.fine_h, self.mesh)
+        sq = r * r
+        s = all_reduce_sum(torch.sum(sq.to(ops._acc_dtype(sq.dtype))), self.mesh)
+        return torch.sqrt(s.to(psi.dtype))
 
     def rel_err(self, psi, psi_old):
         """ops.rel_err over the whole grid: the masked sum and its count

@@ -23,6 +23,10 @@ import mgpoisson_torch
 from mgpoisson_torch.convert import spec_from_jax
 from mgpoisson_torch.solver import multigrid
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 MG = mgpoisson_torch.MultigridPoisson
 TUNED = dict(scheme="tuned", stop="residual", stop_check="adaptive")
 CASES = {

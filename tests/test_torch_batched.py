@@ -18,6 +18,10 @@ import mgpoisson_torch
 from mgpoisson_torch.shard.mesh import ProcessMesh
 from mgpoisson_torch.solver import multigrid
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 F64_TOL = 1e-10            # psi, normalized by max |psi|
 ERRS_RTOL = 1e-8           # errs against the JAX package's, f64
 BF16_TOL = 5e-2            # the JAX package's bf16 bar (tests/test_torch_bf16.py)

@@ -33,6 +33,10 @@ from mgpoisson_torch.convert import spec_from_jax, state_from_numpy
 from mgpoisson_torch.kernels import cuda, ops
 from mgpoisson_torch.kernels.build import SIGNATURES
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 SIDES = [64, 128]
 BCS = ["ghost0", "face"]
 # every smoother at the sweep count of a scheme that runs it (tuned: wjacobi
@@ -151,8 +155,14 @@ ADMITTED = [dict(sweep_dtype="bfloat16"), dict(dtype="bfloat16"),
             dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2)),
             dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(4, 1)),
             dict(sweep_dtype="float32", dtype="float64", mesh_shape=(4, 1)),
-            dict(sweep_dtype="float32", dtype="float64", ndim=3, mesh_shape=(2, 2))]
-NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2)), "A4b")]
+            dict(sweep_dtype="float32", dtype="float64", ndim=3, mesh_shape=(2, 2)),
+            # the pure bf16 solve under a mesh (A4b): SpmdCycle.step on bf16
+            # blocks, the bf16 forms of K9/K10 and K11/K12 with rnorm
+            dict(dtype="bfloat16", mesh_shape=(2, 2))]
+# bf16 under a mesh that the port still refuses: the gspmd partition has no
+# torch counterpart (every dtype)
+NOT_PORTED = [(dict(dtype="bfloat16", mesh_shape=(2, 2), partition="gspmd"),
+               "Queue 1 item 12")]
 
 
 @pytest.mark.parametrize("kw", ADMITTED, ids=repr)

@@ -31,6 +31,10 @@ from mgpoisson.kernels import pallas as pk, xla
 from mgpoisson_torch.convert import state_from_numpy
 from mgpoisson_torch.kernels import cuda, ops
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 N = 16
 BCS = ["ghost0", "face"]
 SMOOTHERS = ["jacobi", "wjacobi", "rbgs"]

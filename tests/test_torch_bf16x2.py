@@ -30,6 +30,10 @@ import torch
 
 from mgpoisson_torch.kernels import cuda, ops
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 BF16_MAX = float(torch.finfo(torch.bfloat16).max)
 
 

@@ -34,6 +34,10 @@ import torch.nn.functional as F
 
 from mgpoisson_torch.kernels import cuda, ops
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 BF = torch.bfloat16
 _ZW = (Path(cuda.__file__).parents[1] / "csrc" / "stencil3d_zw.cuh").read_text()
 _ZM = (Path(cuda.__file__).parents[1] / "csrc" / "stencil3d_zm.cuh").read_text()

@@ -35,6 +35,10 @@ import torch.nn.functional as F
 
 from mgpoisson_torch.kernels import cuda, ops
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 CSRC = Path(cuda.__file__).parents[1] / "csrc"
 HEADER = (CSRC / "stencil.cuh").read_text() + (CSRC / "stencil_packed_w.cuh").read_text()
 

@@ -26,6 +26,10 @@ from mgpoisson_torch.cycle.vcycle import fmg, v_cycle
 from mgpoisson_torch.kernels import ops, use_packed
 from mgpoisson_torch.solver import multigrid
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 
 def _nmax(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)

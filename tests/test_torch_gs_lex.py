@@ -17,6 +17,10 @@ from mgpoisson import oracle
 from mgpoisson.kernels import xla
 from mgpoisson_torch.kernels import cuda, ops, use_kernels
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 SHAPES = [(8, 8), (16, 16), (8, 8, 8)]
 
 

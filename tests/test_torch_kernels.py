@@ -25,6 +25,10 @@ from mgpoisson.kernels import pallas as pk
 from mgpoisson_torch import Spec
 from mgpoisson_torch.kernels import cuda, get_ops, ops, use_kernels
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 N = 256
 
 

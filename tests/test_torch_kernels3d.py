@@ -23,6 +23,10 @@ import jax.numpy as jnp
 from mgpoisson.kernels import pallas as pk, xla
 from mgpoisson_torch.kernels import cuda
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 SHAPE = (32, 64, 128)       # the Pallas 3D tests' shape: x whole, (z, y) blocked
 H = 1.0 / 64
 BLOCKS = dict(bz=8, by=32)  # several blocks on both blocked axes

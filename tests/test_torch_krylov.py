@@ -57,6 +57,10 @@ from mgpoisson_torch.cycle.vcycle import make_cycle
 from mgpoisson_torch.kernels import cuda
 from mgpoisson_torch.solver import multigrid
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 TOL = 1e-10
 RES_RTOL = 1e-6       # ||r||/||b|| per entry, relative
 XNORM_RTOL = 1e-6     # ||x||_inf per entry, relative

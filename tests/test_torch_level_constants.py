@@ -18,6 +18,10 @@ import jax.numpy as jnp
 from mgpoisson.kernels import xla
 from mgpoisson_torch.kernels import ops
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 SIDES = {2: 64, 3: 16}
 OPS = ("jacobi", "wjacobi", "rbgs", "residual", "apply_operator", "coarse_solve")
 

@@ -50,6 +50,10 @@ import mgpoisson
 import mgpoisson_torch
 from mgpoisson_torch.kernels import cuda, use_packed
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 CASES = {
     "tuned64": dict(size=64, dtype="float32", sweep_dtype="bfloat16", scheme="tuned",
                     stop="residual", tol=1e-10),

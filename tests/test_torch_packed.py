@@ -29,6 +29,10 @@ from mgpoisson_torch.convert import spec_from_jax, state_from_numpy
 from mgpoisson_torch.cycle import packed as packed_cycle
 from mgpoisson_torch.kernels import cuda, ops, use_packed
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True)
 def _interpret(monkeypatch):

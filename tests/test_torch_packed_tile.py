@@ -33,6 +33,10 @@ import torch
 from mgpoisson_torch.kernels import cuda, ops
 from mgpoisson_torch.shard.spmd import block_from_grid
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 HEADER = (Path(cuda.__file__).parents[1] / "csrc" / "stencil.cuh").read_text()
 
 

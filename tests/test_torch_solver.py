@@ -23,6 +23,10 @@ from mgpoisson_torch.convert import spec_from_jax, state_from_numpy
 from mgpoisson_torch.cycle.vcycle import v_cycle
 from mgpoisson_torch.kernels import cuda
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -267,6 +271,8 @@ VALID = [dict(), dict(scheme="reference"), dict(scheme="fast"),
          dict(pallas_min_size=64), dict(sweep_dtype="float32"), dict(ndim=3),
          dict(ndim=3, backend="pallas"), dict(mesh_shape=(2, 2)),
          dict(partition="spmd"), dict(sweep_dtype="bfloat16", mesh_shape=(2, 2)),
+         # the pure bf16 solve under a mesh (A4b)
+         dict(dtype="bfloat16", mesh_shape=(2, 2)),
          # FMG and the adaptive stop, on one device and under a mesh
          dict(stop="residual", stop_check="adaptive"), dict(cycle="fmg"),
          dict(sweep_dtype="bfloat16", ndim=3, mesh_shape=(2, 2), cycle="fmg"),
@@ -280,12 +286,12 @@ INVALID = [dict(size=100), dict(ndim=4), dict(scheme="x"),
            dict(smoother="gs_lex"),
            dict(smoother="gs_lex", scheme="reference", mesh_shape=(2, 2))]
 # valid in the JAX package but not ported yet: NotImplementedError, never
-# silently ignored.  bf16 runs on one device, 2D and 3D, since the bf16
-# forms of K1-K6 (tests/test_torch_bf16.py, tests/test_torch_bf16_3d.py);
-# the bf16 case keeps its name and holds what of bf16 is still not
-# ported: the pure bf16 solve under a mesh
+# silently ignored.  bf16 runs on one device and under a mesh, 2D and 3D,
+# since the pure bf16 solve under a mesh (A4b); the bf16 case keeps its
+# name and holds what of bf16 is still not ported: bf16 under the gspmd
+# partition, which has no torch counterpart
 LATER = [dict(partition="gspmd"),
-         pytest.param(dict(dtype="bfloat16", mesh_shape=(2, 2)),
+         pytest.param(dict(dtype="bfloat16", mesh_shape=(2, 2), partition="gspmd"),
                       id=repr(dict(dtype="bfloat16")))]
 
 
@@ -345,9 +351,10 @@ def test_port_imports_no_jax():
             "import mgpoisson_torch.shard.spmd\n"
             "import mgpoisson_torch.bench.profile, mgpoisson_torch.bench.sass_diff\n"
             "import mgpoisson_torch.bench.ab, mgpoisson_torch.bench.packed_order\n"
+            "import mgpoisson_torch.utils\n"
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'mgpoisson')]\n"
+            "('jax', 'jaxlib', 'mgpoisson', 'ml_dtypes')]\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,

@@ -33,6 +33,10 @@ from mgpoisson_torch.kernels import ops
 from mgpoisson_torch.shard import multihost, spmd
 from mgpoisson_torch.shard.mesh import ProcessMesh, build_mesh, mesh_shape_for
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 WORLD = 4
 
 

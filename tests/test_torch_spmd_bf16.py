@@ -19,6 +19,10 @@ import torch
 from mgpoisson_torch.kernels import ops
 from mgpoisson_torch.shard import spmd
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 N = 128
 
 

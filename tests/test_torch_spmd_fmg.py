@@ -37,6 +37,10 @@ import torch.multiprocessing as mp
 import mgpoisson_torch
 from mgpoisson_torch.shard import multihost
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 WORLD = 4
 FMG = dict(size=64, dtype="float64", scheme="tuned", cycle="fmg", maxiter=6,
            replicate_below=8)

@@ -18,6 +18,10 @@ import torch
 
 from mgpoisson_torch.kernels import cuda
 
+# one intra-op thread per process: tier-1 runs six test workers at once, and
+# torch's default of a thread per core oversubscribed the CPU ~10-fold
+torch.set_num_threads(1)
+
 SIDES = [2 ** k for k in range(1, 16)]
 HEADER = (Path(cuda.__file__).parents[1] / "csrc" / "stencil.cuh").read_text()
 MAX_HALO = int(re.search(r"#define MG2_MAX_HALO (\d+)", HEADER).group(1))
