@@ -230,9 +230,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
               checkpoint: 4 steps of tuned 4096^2 on (2, 2), save_state with
               the mesh (one .proc<rank>.npz per rank), every rank's
               load_state bit for bit, resume_solve within 1e-6 of the
-              uninterrupted sharded solve, K9/K10 launches.  With 4 or more
-              cards, the tuned, the packed and the mixed 4096^2 solves again
-              over NCCL.
+              uninterrupted sharded solve, K9/K10 launches.  Before it, in
+              the same spawn, solve_batched under the mesh (SPMD_BATCHED:
+              tuned f32 1024^2 x 4 on (2, 2), the fast scheme's 1024^2 x 2
+              on (4, 1), unpacked, and tuned 256^3 x 2 on (2, 2)), each
+              rank handing in its block of every element: each element's
+              psi and err bit for bit its own sharded solve()'s (the fast
+              one's built under MGPOISSON_PACKED=0), its cycles that
+              solve's (and the JAX package's batch's in 2D), one read per
+              batched cycle, K9/K10 (K11/K12) exactly sharded_launches over
+              the element-cycles, frozen ones skipped, nothing packed; the
+              walls per element-cycle and per batched cycle beside the
+              single sharded solves'; after phase 13, rank 0's gathered
+              psis against the single-device batch's (within 1e-5, and
+              whether bit-equal).  With 4 or more cards, the tuned, the
+              packed and the mixed 4096^2 solves again over NCCL.
 
 13. batched — MultigridPoisson.solve_batched, the JAX package's batched
               serving setting (tuned f32 1024^2, stop='residual', tol
@@ -280,7 +292,8 @@ K9, K10 with one rank's in the sharded 16384^2 solve, their bf16 forms
 in the sharded pure bf16 4096^2 solve, K11, K12 in the sharded 256^3 solve,
 their bf16 forms in the sharded pure bf16 256^3 solve on (2, 2), and K13,
 K14 in the sharded fast 16384^2 solve; beside each, launches_by_path: its
-count on every path that runs it), the
+count on every path that runs it, spmd_batched the batches under the mesh
+for K9-K12), the
 card's name and power limit, and {"ok": true, "device": {...}}.  Imports
 nothing of JAX.
 """
@@ -613,6 +626,25 @@ SPMD_CASES = (("spmd4096", MAIN_SPEC, (2, 2), True), ("spmd4096", MAIN_SPEC, (4,
               ("spmd256^3bf16", BF16_SPEC_3D, (2, 2), True))
 # ... their single-device references (phases slice_bf16 and slice_bf16_3d)
 BF16_SPMD = {"spmd4096bf16": "slice_bf16", "spmd256^3bf16": "slice_bf16_3d"}
+# solve_batched under a mesh, in the spawn of phase_spmd: (label, spec,
+# mesh, batch size, MGPOISSON_PACKED of the single sharded solves it is
+# held to); each batch is batch_rhs's first elements (the point charge,
+# then BATCH_NOISE's), cut to each rank's block.  The fast batch runs
+# unpacked on K9/K10 beside a solve() that packs (K13/K14), so its single
+# solves are built unpacked
+SPMD_BATCHED = (("spmdbatch1024", BATCH_SPEC, (2, 2), 4, None),
+                ("spmdbatch1024fast", BATCH_SPEC.with_(scheme="fast"), (4, 1), 2, "0"),
+                ("spmdbatch256^3", SPEC_3D, (2, 2), 2, None))
+# ... the JAX package's per-element cycles of the same batches on one
+# device (JAX_BATCHED; the 3D batch has none)
+JAX_SPMD_BATCHED = {"spmdbatch1024": JAX_BATCHED["mixed"],
+                    "spmdbatch1024fast": JAX_BATCHED["fast"]}
+# ... and the labels of phase_batched's single-device batches of the same
+# spec and RHS (the 3D one runs in phase_spmd_batched_single)
+SINGLE_BATCHED = {"spmdbatch1024": "batched_mixed_kms256", "spmdbatch1024fast": "batched_fast"}
+# chip_smoke.py's command time before the batches under a mesh were added
+# (NVIDIA H100 80GB HBM3, 700 W), beside which their seconds are printed
+EARLIER_SECONDS = 597.6
 # the checkpoints (mgpoisson_torch.utils.checkpoint): CKPT_STEPS steps of the
 # tuned 4096^2 solve on one card and on the (2, 2) mesh, saved, reloaded
 # and resumed; the resumed psi within CKPT_TOL (max-normalized) of the
@@ -1951,12 +1983,12 @@ def phase_fmg_adaptive(dev):
     return refs, time.perf_counter() - t0
 
 
-def batch_rhs(n, count, dev):
+def batch_rhs(n, count, dev, ndim=2):
     """The first `count` of: the point charge, then BATCH_NOISE's seeded
-    RHS, stacked into one dense (count, n, n) f32 batch on `dev`."""
-    fs = [point_charge_rhs(n, 2, torch.float32, dev)]
+    RHS, stacked into one dense (count, *(n,) * ndim) f32 batch on `dev`."""
+    fs = [point_charge_rhs(n, ndim, torch.float32, dev)]
     for seed, amp in BATCH_NOISE[:count - 1]:
-        noise = amp * np.random.default_rng(seed).standard_normal((n, n))
+        noise = amp * np.random.default_rng(seed).standard_normal((n,) * ndim)
         fs.append(torch.from_numpy(noise.astype(np.float32)).to(dev))
     return torch.stack(fs)
 
@@ -2060,6 +2092,7 @@ def _batched_kernel_case(label, spec, fs, dev, card, jax_counts, packed_flag=Non
                    "(frozen elements skipped), K3 with rnorm once each, nothing packed")
     print(f"[{label}] launches {({k: v for k, v in launches.items() if v})} = "
           f"loop_launches over {sum(counts)} element-cycles")
+    return psis
 
 
 def phase_batched(dev, card):
@@ -2067,17 +2100,20 @@ def phase_batched(dev, card):
     kernel path at the JAX package's batched serving setting (tuned f32
     1024^2, 4 RHS, identical and mixed, at kernel_min_size 256 and 2), the
     fast scheme's batch (unpacked, beside MGPOISSON_PACKED=0 solves), and
-    the vmap path at VMAP_N^2 (plain ops)."""
+    the vmap path at VMAP_N^2 (plain ops).  Returns the kernel path's psis
+    by label."""
+    out = {}
     for kms in BATCH_KMS:
         spec = BATCH_SPEC.with_(kernel_min_size=kms)
         _batched_kernel_case(f"batched_identical_kms{kms}", spec,
                              batch_rhs(spec.size, 1, dev).expand(4, -1, -1).contiguous(),
                              dev, card, JAX_BATCHED["identical"])
-        _batched_kernel_case(f"batched_mixed_kms{kms}", spec, batch_rhs(spec.size, 4, dev),
-                             dev, card, JAX_BATCHED["mixed"])
-    _batched_kernel_case("batched_fast", BATCH_SPEC.with_(scheme="fast"),
-                         batch_rhs(BATCH_SPEC.size, 2, dev), dev, card, JAX_BATCHED["fast"],
-                         packed_flag="0")
+        out[f"batched_mixed_kms{kms}"] = _batched_kernel_case(
+            f"batched_mixed_kms{kms}", spec, batch_rhs(spec.size, 4, dev), dev, card,
+            JAX_BATCHED["mixed"])
+    out["batched_fast"] = _batched_kernel_case(
+        "batched_fast", BATCH_SPEC.with_(scheme="fast"), batch_rhs(BATCH_SPEC.size, 2, dev),
+        dev, card, JAX_BATCHED["fast"], packed_flag="0")
 
     # the vmap path: torch.func.vmap of the step, one launch per op for the batch
     label, spec = "batched_vmap", BATCH_SPEC.with_(size=VMAP_N)
@@ -2103,6 +2139,7 @@ def phase_batched(dev, card):
         check(d <= PARITY_TOL, f"{label} element {k}: psi {d:.3e} from its solve()'s")
     check(counts == its and reads == max(its),
           f"{label}: element cycles {counts}, {reads} batched cycles; the solve()s' {its}")
+    return out
 
 
 def phase_gs_lex(dev, card):
@@ -2846,23 +2883,24 @@ def _cycle_spec(spec):
     return spec.with_(dtype=spec.sweep_dtype, mesh_shape=None)
 
 
-def sharded_launches(spec, mesh_shape, it, measured=None):
+def sharded_launches(spec, mesh_shape, it, measured=None, packed=None):
     """One rank's launches in an `it`-cycle (or step) sharded solve, the
     kernels of its cycle's dtype (the bf16 forms of K9/K10 for bf16
     sweeps): the down-leg (from zero below the fine level) and the up-leg
     at every sharded kernel level, the up-leg with rnorm on the `measured`
     cycles, by default every cycle (never in a mixed step, which measures
     the residual it computes itself; its fine down-leg starts from a zeros
-    array, not the zero flag); with a packed fine level, K13 and K14
-    (rnorm) there, once per cycle; with cycle='fmg', the FMG pass's
-    V-cycles on the sharded kernel levels before them."""
+    array, not the zero flag); with a packed fine level (by the rule, or
+    as `packed` says: a batch never packs), K13 and K14 (rnorm) there, once
+    per cycle; with cycle='fmg', the FMG pass's V-cycles on the sharded
+    kernel levels before them."""
     cyc = _cycle_spec(spec)
     sides = sharded_kernel_levels(cyc, mesh_shape)
     L = len(sides)
     k_rr, k_pc, _, _ = _sharded_names(spec.ndim, getattr(torch, cyc.dtype))
     measured = it if measured is None else measured
     fmg = fmg_launches(spec, sides, k_rr, k_pc) if spec.cycle == "fmg" else {}
-    if packed_sharded(spec, mesh_shape):
+    if packed_sharded(spec, mesh_shape) if packed is None else packed:
         return add_counts(fmg, {"mg_sharded_packed_rr": it, "mg_sharded_packed_pc": it,
                                 "mg_sharded_packed_pc.rnorm": measured, k_rr: (L - 1) * it,
                                 k_rr + ".zero": (L - 1) * it, k_pc: (L - 1) * it})
@@ -2903,14 +2941,52 @@ def _rank_checkpoint(rank, out_dir):
             "seconds": time.perf_counter() - t0}
 
 
+def _rank_batched(rank, out_dir, j, label, spec, mesh_shape, count, packed_flag):
+    """One case of SPMD_BATCHED on this rank: solve_batched of the rank's
+    block of every element (counted: steps per element, reads, launches;
+    its wall by CUDA events), each element's own sharded solve() (built
+    under MGPOISSON_PACKED=packed_flag where given) after a warm-up solve,
+    then the batch again; rank 0 saves the gathered psis.  Returns what
+    the rank saw."""
+    t0 = time.perf_counter()
+    spec = spec.with_(mesh_shape=mesh_shape)
+    mg = MultigridPoisson(spec, device="cuda")
+    fs = batch_rhs(spec.size, count, mg.device, spec.ndim)[
+        (slice(None),) + spmd.block_slices(spec.size, mg.mesh)].contiguous()
+    counts = _count_steps(mg, fs)
+    cuda.reset_launches()
+    (psis, errs), ms1, reads = _timed_reads(lambda: mg.solve_batched(fs))
+    launches = dict(cuda.launches)
+    del mg._step
+    single = _single_solver(spec, "cuda", packed_flag)
+    singles = _singles(single, fs)
+    ms2 = _timed_reads(lambda: mg.solve_batched(fs))[1]
+    full = torch.stack([multihost.gather_global(p, mg.mesh) for p in psis])
+    if rank == 0:
+        torch.save(full.cpu(), out_dir / f"batch{j}.pt")
+    out = {"label": label, "counts": counts, "reads": reads, "launches": launches,
+           "errs": errs.tolist(), "iterations": [r.iterations for r, _ in singles],
+           "final_errs": [r.final_err for r, _ in singles],
+           "psi_equal": [torch.equal(psis[k], r.psi) for k, (r, _) in enumerate(singles)],
+           "finite": bool(torch.isfinite(full).all()), "shape": list(full.shape),
+           "packed": mg._packed, "single_packed": single._packed,
+           "block": list(fs.shape[1:]), "batched_ms": [ms1, ms2],
+           "single_ms": [ms for _, ms in singles]}
+    del mg, single, psis, full, singles
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def _spmd_rank(rank, backend, store, cases, out_dir, with_checkpoint):
     """One rank of phase_spmd: every case's solve on this rank's card, its
     launches and per-cycle wall; rank 0 re-checks each gathered iterate in
     f64 and keeps those of FMG, the adaptive stop, the pure bf16 solves and
     the one the checkpoint's resume is held to (every rank hashes its
     gathered bf16 psi, and takes the r0 of the -f guess); with_checkpoint:
-    then the sharded checkpoint (_rank_checkpoint).  Writes
-    rank{rank}.json."""
+    then the batches under the mesh (SPMD_BATCHED, _rank_batched) and the
+    sharded checkpoint (_rank_checkpoint), after the cases' results in
+    that order.  Writes rank{rank}.json."""
     multihost.initialize(backend, f"file://{store}", SPMD_WORLD, rank,
                          timeout=datetime.timedelta(seconds=300))
     try:
@@ -2964,6 +3040,8 @@ def _spmd_rank(rank, backend, store, cases, out_dir, with_checkpoint):
             del mg, res, psi
             torch.cuda.empty_cache()
         if with_checkpoint:
+            results += [_rank_batched(rank, out_dir, j, *case)
+                        for j, case in enumerate(SPMD_BATCHED)]
             results.append(_rank_checkpoint(rank, out_dir))
         (out_dir / f"rank{rank}.json").write_text(json.dumps(results))
     finally:
@@ -2973,7 +3051,7 @@ def _spmd_rank(rank, backend, store, cases, out_dir, with_checkpoint):
 def _spawn_ranks(backend, cases, with_checkpoint=False):
     """Runs _spmd_rank on SPMD_WORLD spawned processes (a rank's failure
     ends the others and raises here); returns every rank's results (with
-    the checkpoint's last)."""
+    the batches' and the checkpoint's last)."""
     out_dir = SPMD_DIR / backend
     out_dir.mkdir(parents=True, exist_ok=True)
     for p in out_dir.iterdir():
@@ -3105,6 +3183,87 @@ def _check_spmd_bf16(label, spec, mesh_shape, ranks, single, jax_errs, how, psi_
     return r0["launches"]
 
 
+def _check_spmd_batched(label, spec, mesh_shape, count, ranks, how, card):
+    """Every rank's result of one SPMD_BATCHED case: the same errs (bits)
+    and element cycles on every rank, each element's psi and err bit for
+    bit its own sharded solve()'s and its cycles that solve's (and the
+    JAX package's batch's where JAX_SPMD_BATCHED has them), the gathered
+    psis finite, one read per batched cycle, exactly sharded_launches over
+    the element-cycles (frozen ones skipped, nothing packed: the fast
+    batch beside a solve() that packs); the walls per element-cycle and
+    per batched cycle beside the single solves'.  Returns rank 0's
+    launches."""
+    r0 = ranks[0]
+    counts, its, errs = r0["counts"], r0["iterations"], r0["errs"]
+    shape = f"{spec.size}^{spec.ndim} x {count} on {mesh_shape}"
+    jax_counts = JAX_SPMD_BATCHED.get(label)
+    print(f"[{label}] solve_batched {spec.scheme} f32 {shape}, {SPMD_WORLD} ranks ({how}), "
+          f"blocks {r0['block']}: element cycles {counts}, their sharded solve()s' {its}"
+          + (f", the JAX package's batch's {jax_counts}" if jax_counts else "")
+          + f"; {r0['reads']} device->host reads; packed: batch False, its solver's solve() "
+          f"{r0['packed']}, the single solves' {r0['single_packed']}")
+    check(all(r["counts"] == counts and r["errs"] == errs for r in ranks),
+          f"{shape}: the ranks' element cycles or errs differ")
+    check(all(r["counts"] == r["iterations"] for r in ranks)
+          and (jax_counts is None or counts == jax_counts),
+          f"{shape}: element cycles {counts}, their solve()s' {its}, JAX's {jax_counts}")
+    for k in range(count):
+        print(f"[{label}]   element {k}: err {errs[k]:.6e}, its sharded solve()'s final err "
+              f"{r0['final_errs'][k]:.6e}; psi bit-equal to its solve()'s on ranks 0..3: "
+              + " ".join(str(r["psi_equal"][k]) for r in ranks))
+    check(all(all(r["psi_equal"]) and r["errs"] == r["final_errs"] for r in ranks),
+          f"{shape}: an element's psi or err differs from its own sharded solve()'s")
+    check(r0["finite"] and r0["shape"] == [count, *spec.shape],
+          f"{shape}: the gathered psis are not a finite {[count, *spec.shape]} array")
+    check(all(r["reads"] == max(counts) for r in ranks),
+          f"{shape}: reads {[r['reads'] for r in ranks]} in {max(counts)} batched cycles")
+    check(r0["packed"] == packed_sharded(spec, mesh_shape) and not r0["single_packed"],
+          f"{shape}: packed rule {r0['packed']}, single solves packed {r0['single_packed']}")
+    want = _expected(sharded_launches(spec, mesh_shape, sum(counts), packed=False))
+    for rank, r in enumerate(ranks):
+        check_launches(f"{shape} batched rank {rank}", r["launches"], want,
+                       f"K9/K10 (K11/K12) at every sharded kernel level per element-cycle, "
+                       f"{sum(counts)} of them (frozen elements skipped), nothing packed")
+    print(f"[{label}] sharded kernel levels {sharded_kernel_levels(spec, mesh_shape)}; "
+          f"launches per rank {({k: v for k, v in r0['launches'].items() if v})} = "
+          f"sharded_launches over {sum(counts)} element-cycles")
+    n, cycles = sum(counts), max(counts)
+    for rank, r in enumerate(ranks):
+        b1, b2 = r["batched_ms"]
+        single = sum(r["single_ms"])
+        print(f"[{label}] rank {rank} wall (CUDA events, {card}), batched, singles, batched: "
+              f"{b1:.3f}, {single:.3f}, {b2:.3f} ms = {b1 / n:.3f}, {single / n:.3f}, "
+              f"{b2 / n:.3f} ms per element-cycle ({n}); batched {b1 / cycles:.3f}, "
+              f"{b2 / cycles:.3f} ms per batched cycle ({cycles}); single solves "
+              + " ".join(f"{ms:.3f}" for ms in r["single_ms"]) + " ms")
+    return r0["launches"]
+
+
+def phase_spmd_batched_single(dev, singles_batched):
+    """Rank 0's gathered psis of each SPMD_BATCHED case against the
+    single-device batch of the same spec and RHS (phase_batched's, or for
+    the 3D case one run here on K5/K6): within PARITY_TOL normalized,
+    and whether bit for bit."""
+    for j, (label, spec, mesh_shape, count, _) in enumerate(SPMD_BATCHED):
+        if label in SINGLE_BATCHED:
+            ref = singles_batched[SINGLE_BATCHED[label]]
+            how = f"phase_batched's {SINGLE_BATCHED[label]}"
+        else:
+            ref = MultigridPoisson(spec, device=dev).solve_batched(
+                batch_rhs(spec.size, count, dev, spec.ndim))[0]
+            how = "the single-device batch"
+        got = torch.load(SPMD_DIR / "gloo" / f"batch{j}.pt").to(dev)
+        gaps = [nmax(got[k], ref[k])[0] for k in range(count)]
+        same = torch.equal(got, ref)
+        print(f"[{label}] the gathered psis against {how} ({spec.size}^{spec.ndim} x {count}, "
+              f"one card): normalized max |diff| per element "
+              + " ".join(f"{g:.3e}" for g in gaps) + f"; bit-equal: {same}")
+        check(max(gaps) <= PARITY_TOL, f"{label}: the gathered psis {max(gaps):.3e} from "
+              f"the single-device batch's")
+        del got, ref
+        torch.cuda.empty_cache()
+
+
 def _check_spmd_checkpoint(ranks, ref_path, how):
     """The sharded checkpoint of _rank_checkpoint: one file per rank, every
     rank's block reloaded bit for bit, the resumed solve converged within
@@ -3136,7 +3295,7 @@ def _check_spmd_checkpoint(ranks, ref_path, how):
     return cks[0]["launches"]
 
 
-def phase_spmd(dev, singles, singles_bf16):
+def phase_spmd(dev, card, singles, singles_bf16):
     """The sharded solves on 4 ranks sharing the card over gloo; the
     single-device 16384^2 solves (tuned, fast with its packed fine level,
     and mixed) and the single-device mixed 4096^2, 256^3 and 512^3 solves
@@ -3144,10 +3303,11 @@ def phase_spmd(dev, singles, singles_bf16):
     counts against the JAX package's, within one); the FMG and adaptive
     solves against the single-device ones of phase_fmg_adaptive
     (`singles`); the pure bf16 solves against the single-device ones of
-    phases slice_bf16 and slice_bf16_3d (`singles_bf16`); then the sharded
-    checkpoint.  Returns the launches of the main paths' sharded solves
-    and the seconds of the FMG and adaptive ones on rank 0 and of the
-    pure bf16 and checkpoint ones."""
+    phases slice_bf16 and slice_bf16_3d (`singles_bf16`); then the batches
+    under the mesh (SPMD_BATCHED) against each element's own sharded
+    solve() and the sharded checkpoint.  Returns the launches of the main
+    paths' sharded solves (the three batches' summed under "batched") and
+    the seconds of the FMG and adaptive ones on rank 0."""
     refs = {"spmd4096": JAX_ERRS, "spmd256^3": JAX_ERRS_3D[256],
             "spmd4096fast": JAX_ERRS_FAST[MAIN_N],
             **{label: r["errs"] for label, r in singles.items()}}
@@ -3195,6 +3355,16 @@ def phase_spmd(dev, singles, singles_bf16):
             new_seconds += ranks[0][i]["seconds"]
         if (label, mesh_shape) == ("spmd4096", CKPT_MESH):
             ckpt_ref = psi_path
+    nb = len(SPMD_CASES)
+    batched = [_check_spmd_batched(label, spec, mesh_shape, count,
+                                   [r[nb + j] for r in ranks], how, card)
+               for j, (label, spec, mesh_shape, count, _) in enumerate(SPMD_BATCHED)]
+    launches["batched"] = add_counts(*batched)
+    batched_seconds = sum(r["seconds"] for r in ranks[0][nb:nb + len(SPMD_BATCHED)])
+    print(f"[spmd_batched] solve_batched under the mesh: {batched_seconds:.1f} s of the spawn "
+          f"(rank 0: " + ", ".join(f"{r['label']} {r['seconds']:.1f} s"
+                                     for r in ranks[0][nb:nb + len(SPMD_BATCHED)])
+          + f"), beside {EARLIER_SECONDS} s for the whole of chip_smoke.py before them")
     launches["checkpoint"] = _check_spmd_checkpoint(ranks, ckpt_ref, how)
     print(f"[spmd] the pure bf16 solves {bf16_seconds:.1f} s and the checkpoint "
           f"{ranks[0][-1]['seconds']:.1f} s of the spawn (rank 0)")
@@ -3214,6 +3384,7 @@ def phase_spmd(dev, singles, singles_bf16):
             "mixed3d": launches["spmd256^3mixed", (2, 2)],
             "bf16": launches["spmd4096bf16", (2, 2)],
             "bf16_3d": launches["spmd256^3bf16", (2, 2)],
+            "batched": launches["batched"],
             "checkpoint": launches["checkpoint"]}, new_seconds
 
 
@@ -3328,8 +3499,9 @@ def main():
     times.update(phase_timing_sharded(dev, times, torch.bfloat16))
     phase_parity_sharded_packed(dev, worst)
     times.update(phase_timing_sharded_packed(dev))
-    solve_spmd, spmd_seconds = phase_spmd(dev, singles, {"slice_bf16": single_bf16,
-                                                         "slice_bf16_3d": single_bf16_3})
+    solve_spmd, spmd_seconds = phase_spmd(dev, card, singles,
+                                          {"slice_bf16": single_bf16,
+                                           "slice_bf16_3d": single_bf16_3})
     print(f"[fmg_adaptive] the FMG and adaptive phases: {new_seconds:.1f} s on one card and "
           f"{spmd_seconds:.1f} s of the 4-rank spawn's solves (rank 0), "
           f"{new_seconds + spmd_seconds:.1f} s in all")
@@ -3337,8 +3509,13 @@ def main():
     # reference's lexicographic Gauss-Seidel (plain ops on the card), after
     # every phase that reads the kernels' device time from torch.profiler
     t0 = time.perf_counter()
-    phase_batched(dev, card)
+    singles_batched = phase_batched(dev, card)
     print(f"[batched] the batched phase: {time.perf_counter() - t0:.1f} s")
+    # the batches under the mesh (phase_spmd's spawn) against these
+    t0 = time.perf_counter()
+    phase_spmd_batched_single(dev, singles_batched)
+    del singles_batched
+    print(f"[spmd_batched] against the single-device batches: {time.perf_counter() - t0:.1f} s")
     phase_gs_lex(dev, card)
     # the debug tools (validate_cycle: K1 and K4 in the traced cycles) and
     # the checkpoints on one card, after the profiler's phases too
@@ -3349,9 +3526,10 @@ def main():
     # own run with the counters zeroed just before it; "launches" is the
     # slice's main path for the kernel: the debug tools' validated cycles
     # for K1 and K4, the sharded pure bf16 solves for the bf16 forms of
-    # K9-K12
+    # K9-K12; spmd_batched: the three batches under the mesh, K9-K12
     paths = {"debug": debug_launches, "checkpoint": ckpt_launches,
              "spmd_checkpoint": solve_spmd["checkpoint"],
+             "spmd_batched": solve_spmd["batched"],
              "spmd_bf16": solve_spmd["bf16"], "spmd_bf16_3d": solve_spmd["bf16_3d"]}
     kernels, off_path = [], []
     for name, (source, replaces) in KERNELS.items():

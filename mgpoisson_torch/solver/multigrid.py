@@ -47,7 +47,11 @@ them through ``SpmdCycle.step_packed`` under the same callback rule.
 with the unpacked step (the JAX package's serving API): by
 ``torch.func.vmap`` of the step where the fine level runs the plain ops,
 else one step per live element per cycle on the host, skipping the
-frozen ones; one device->host read per cycle.  It runs on one device.
+frozen ones; one device->host read per cycle.  Under a mesh fs is this
+rank's block of every element, and the batch always takes the per-element
+loop over the partition's step (vmap cannot batch a step that calls
+``torch.distributed``); its freeze and stop decisions read only the
+all-reduced errs, so every rank steps the same elements in the same order.
 
 Every entry (``solve``, ``step``, ``init_state``, ``solve_batched``)
 takes f and psi as tensors of any strides and offset, as the JAX package
@@ -423,22 +427,33 @@ class MultigridPoisson:
         tol is frozen, its psi and err kept as they were.
 
         Returns (psis, errs): errs of shape (batch,), in psis' dtype on the
-        solver's device, each element's final metric.  Under a mesh this
-        raises NotImplementedError."""
-        if self._spmd is not None:
-            raise NotImplementedError(
-                "solve_batched under a mesh is not in mgpoisson_torch yet: ROADMAP "
-                "Queue 1 item 12")
+        solver's device, each element's final metric.
+
+        Under a mesh fs has shape (batch, *block): this rank's block of
+        every element (``spmd.block_shape``), as ``solve()`` takes f, and
+        psis are this rank's blocks; errs are the all-reduced metrics, the
+        same on every rank bit for bit.  Each element runs the partition's
+        step (``SpmdCycle.step``, or ``step_mixed`` under a sweep_dtype)
+        from its own r0 (``SpmdCycle.residual_norm``).  A fs of another
+        shape raises ValueError before any collective, on every rank that
+        was handed one."""
         fs = _dense(torch.as_tensor(fs, dtype=self._dtype, device=self.device))
-        if tuple(fs.shape[1:]) != self.spec.shape or fs.shape[0] < 1:
+        if self._spmd is None:
+            shape, what = self.spec.shape, ""
+        else:
+            shape = spmd.block_shape(self.spec.size, self.spec.ndim, self.mesh)
+            what = (f": this rank's block of every element on the mesh "
+                    f"{tuple(self.mesh.shape)}")
+        if fs.ndim != len(shape) + 1 or tuple(fs.shape[1:]) != shape or fs.shape[0] < 1:
             raise ValueError(f"solve_batched: fs of shape {tuple(fs.shape)}, expected "
-                             f"(batch, *{self.spec.shape})")
+                             f"(batch, *{shape}){what}")
         return self._batched_loop(fs, cycles)
 
     def _batched_loop(self, fs, cycles, use_vmap=None):
         """The batched loop of solve_batched on dense fs, in one of the JAX
         package's two forms; use_vmap=None picks by its rule, vmap where
-        the fine level runs the plain ops (``use_kernels``):
+        the fine level runs the plain ops (``use_kernels``), and the loop
+        under a mesh, whatever the fine level runs:
 
         - vmap: torch.func.vmap of the step over the batch, one launch per
           op for the whole batch (what amortises a small grid's launches);
@@ -448,13 +463,18 @@ class MultigridPoisson:
           cycle skipped (the JAX lax.cond), so that each element runs the
           kernels, and has the r0, that its own solve() has; the
           until-converged loop reads back the (batch,) errs per cycle in
-          one copy (``read_errs``), which the skips need.
+          one copy (``read_errs``), which the skips need.  Under a mesh
+          the errs are the partition's all-reduced ones, so every rank
+          skips the same elements and enters the same collectives.
 
         The freeze and the stop compare the errs with tol rounded to the
         solve's dtype, as the JAX loop compares with its weak-typed tol."""
         spec, h = self.spec, self.spec.fine_h
         if use_vmap is None:
-            use_vmap = not use_kernels(spec, spec.size, self.device)
+            use_vmap = self._spmd is None and not use_kernels(spec, spec.size, self.device)
+        if use_vmap and self._spmd is not None:
+            raise ValueError("solve_batched: torch.func.vmap cannot batch the "
+                             "partition's step, which calls torch.distributed")
         B = fs.shape[0]
         tol = float(torch.tensor(spec.tol, dtype=self._dtype))
         freeze = cycles is None

@@ -192,9 +192,16 @@ def test_the_batch_stops_at_maxiter(monkeypatch):
     assert len(reads) == 3           # a fixed count reads nothing back
 
 
-def test_batched_under_a_mesh_raises():
+def test_a_global_batch_under_a_mesh_raises_before_any_collective():
+    """Under a mesh a rank hands solve_batched its block of every element
+    (tests/test_torch_spmd_batched.py runs it on 4 ranks); the whole grid
+    raises a ValueError that names the block shape, before the first
+    collective: here there is no process group, so a collective would
+    raise another error."""
     spec = mgpoisson_torch.Spec(size=32, mesh_shape=(2, 2))
     mesh = ProcessMesh(shape=(2, 2), rank=0, ranks=(0, 1, 2, 3), backend="gloo")
     mg = mgpoisson_torch.MultigridPoisson(spec, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        mg.solve_batched(torch.zeros((2, 16, 16)))
+    with pytest.raises(ValueError, match=r"expected \(batch, \*\(16, 16\)\): this rank's block"):
+        mg.solve_batched(torch.zeros((2, 32, 32)))
+    with pytest.raises(ValueError, match="torch.func.vmap cannot batch"):
+        mg._batched_loop(torch.zeros((2, 16, 16)), None, use_vmap=True)
