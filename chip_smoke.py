@@ -11,6 +11,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
               and shared memory (K7/K8 and K13/K14 among them: the register
               tile's instances), and the tiles' geometry (K4's at the tuned
               scheme's halo 3: the z-marching tile, in bf16 the word tile).
+2b. bench_tools — in a process of its own, started right after the build
+              (late in this long process the profiler loses device events
+              at the ends of its captures), the measuring tools as a user
+              runs them, timed by bench.profile.device_ms: bench.parity's
+              run_parity(full=True) at 512 and 2048 (every kernel form,
+              the JAX sweep's cases under its names and the port's own, each
+              kernel against its plain version: bit-equal in bf16, in 3D and
+              at the solves' settings, else within 1e-5 normalized, sum(r^2)
+              within 1e-5; no case failed); bench.roofline's report at
+              4096^2 in f32 and bf16 (K1-K3 and the V-cycle by the device's
+              busy time, every share of the card's HBM peak <= 105 %);
+              bench.harness's device seconds per V-cycle of the torch, cuda
+              and auto variants at 1024^2 and 4096^2 (cuda < auto < torch
+              at 4096^2) and the host-timed cpu variant at 64^2 and 256^2;
+              bench.tune_scheme at 4096^2 (each candidate's cycles the JAX
+              package's, JAX_TUNE; the rbgs ones packed on K7/K8); the
+              phase's seconds.
 3. parity   — each 2D kernel (K1-K3) against its plain torch version on the
               card, f32, at every level side the 2D path gives the kernels
               (4096 ... 256) x bc x smoother x nu, and at every side below
@@ -318,8 +335,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from mgpoisson_torch import MultigridPoisson, Spec, point_charge_rhs
-from mgpoisson_torch.bench import converge
-from mgpoisson_torch.bench.profile import device_summary, event_ms, kernel_ms, profile_solve
+from mgpoisson_torch.bench import converge, harness, parity, roofline, tune_scheme
+from mgpoisson_torch.bench.profile import (device_ms, device_summary, event_ms, kernel_ms,
+                                            profile_solve)
 from mgpoisson_torch.compare import krylov
 from mgpoisson_torch.core import level_sizes
 from mgpoisson_torch.cycle.vcycle import v_cycle
@@ -661,6 +679,31 @@ CKPT_TOL = 1e-6
 # timing_sharded_packed: K13/K14 on the interior block (4096, 16384) of
 # 16384^2 on (4, 1) beside K7/K8 on a whole array of the same cell count
 TIMING_SHARDED_PACKED = (16384, 4, 8192)
+# bench_tools: the measuring tools (mgpoisson_torch.bench.parity, roofline,
+# harness, tune_scheme).  The parity sweep run, its full list at the JAX
+# sweep's default sides; the roofline's size and dtypes, each row's share of
+# the HBM peak at most BENCH_ROOFLINE_MAX_PCT (no card reads more); the
+# harness's device-timed variants and sizes, at BENCH_HARNESS_N the order
+# cuda < auto < torch of device seconds per V-cycle, then the host-timed cpu
+# variant at its own sizes; tune_scheme.tune at BENCH_TUNE_N
+BENCH_PARITY = dict(full=True, sizes=(512, 2048))
+BENCH_ROOFLINE = (4096, ("float32", "bfloat16"))
+BENCH_ROOFLINE_MAX_PCT = 105.0
+BENCH_HARNESS = dict(sizes=[1024, 4096], variants=["torch", "cuda", "auto"], tries=3, cycles=4)
+BENCH_HARNESS_N = 4096
+BENCH_HARNESS_CPU = [64, 256]
+BENCH_TUNE_N = 4096
+# the JAX package's cycles (backend='xla', on a CPU) for tools/tune_scheme.py's
+# candidates at 4096^2 (f32, tuned, stop='residual', tol 1e-10), by
+# (smoother, "pre+post"); the last relres of each: 6.16e-11, 9.87e-11 (one
+# cycle at the f32 floor: the tenth reads 5.99e-10), 1.34e-11, 6.28e-11
+JAX_TUNE = {("wjacobi", "3+3"): JAX_ITERATIONS, ("wjacobi", "2+2"): 11, ("rbgs", "2+2"): 2,
+            ("rbgs", "1+1"): 2}
+# this script's command time before the phase bench_tools was added (NVIDIA
+# H100 80GB HBM3, 700 W), beside which the phase prints its seconds
+BENCH_EARLIER_SECONDS = 546.6
+# the limit on the phase's own process, in seconds
+BENCH_TIMEOUT = 600
 
 
 def kernel_levels(spec):
@@ -1002,10 +1045,6 @@ def phase_parity(dev, ndim, sides, worst, small_sides=()):
         torch.cuda.empty_cache()
 
 
-def _flat(x):
-    return [t for y in x for t in _flat(y)] if isinstance(x, (tuple, list)) else [x]
-
-
 def _work(ndim, nu, smoother, leg, kind=None, rnorm=False):
     """f32 operations per fine cell of one op, as the plain version does
     them (each +, -, x one operation): nu sweeps (the 2*ndim-neighbour sum,
@@ -1034,8 +1073,10 @@ def _black(up):
 def bound_ms(inputs, outputs, operations):
     """The least time the card could take: the larger of the unique bytes
     (each input read once, each output written once) over the HBM rate
-    and the f32 operations over the f32 rate; and which of the two it is."""
-    nbytes = sum(t.numel() * t.element_size() for t in _flat(inputs) + _flat(outputs))
+    and the f32 operations over the f32 rate; and which of the two it is.
+    The bytes are roofline.op_bytes's, the count the roofline report
+    takes."""
+    nbytes = roofline.op_bytes(inputs, outputs)
     t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * operations / PEAK_F32_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1919,6 +1960,123 @@ def _single_ref(res, measured=None):
     adaptive solve's measured cycles in the JAX run (JAX_MEASURED)."""
     return {"errs": res.errs.tolist(), "n_metric_evals": res.n_metric_evals,
             "converged": res.converged, "psi": res.psi.cpu(), "measured": measured}
+
+
+def phase_bench_tools(dev):
+    """The measuring tools on the card: run_parity (BENCH_PARITY), every
+    case within the bars of the parity phases: bit-equal where the
+    kernel's own phase holds it so (bf16, 3D, the solves' settings
+    PATH_SETTINGS), within PARITY_TOL otherwise, each sum(r^2) within
+    RNORM_TOL; no case failed and every case of the default list ran (the
+    CPU tests hold that list to the JAX sweep's names).  roofline.report at
+    4096^2 in f32 and bf16: every row's device seconds > 0, every share of
+    the card's known peak <= BENCH_ROOFLINE_MAX_PCT.  run_harness: every
+    requested row, device seconds per V-cycle at BENCH_HARNESS_N ordered
+    cuda < auto < torch; then the cpu variant.  tune: no row with an
+    error, every candidate's cycles the JAX package's (JAX_TUNE).  Returns
+    the phase's seconds."""
+    t_phase = time.perf_counter()
+
+    t0 = time.perf_counter()
+    out = parity.run_parity(**BENCH_PARITY, device=dev)
+    check(out["n_failures"] == 0, f"run_parity: {out['n_failures']} cases failed: "
+          + "; ".join(f"{k}: {v}" for k, v in list(out["failures"].items())[:5]))
+    meta = {c.name: c for c in parity.cases(**BENCH_PARITY, device=dev)}
+    ran = {key.split("[")[0] for key in out["cases"]}
+    default = {c.name for c in parity.cases(False, BENCH_PARITY["sizes"], dev)}
+    check(default <= ran, f"run_parity: default cases not run: {sorted(default - ran)[:5]}")
+    n_exact = 0
+    for key, err in out["cases"].items():
+        case = meta[key.split("[")[0]]
+        if case.leg == "pcr" and key.endswith("[1]"):
+            check(err <= RNORM_TOL, f"run_parity {key} ({case.kernel}): sum(r^2) relative "
+                  f"difference {err:.3e} > {RNORM_TOL}")
+        elif case.dtype == "bf16" or case.ndim == 3 or (case.smoother, case.nu) in PATH_SETTINGS:
+            n_exact += 1
+            check(err == 0.0, f"run_parity {key} ({case.kernel}): not bit-equal to its plain "
+                  f"version (normalized max |diff| {err:.3e})")
+        else:
+            check(err <= PARITY_TOL, f"run_parity {key} ({case.kernel}): normalized max "
+                  f"|diff| {err:.3e} > {PARITY_TOL}")
+    n_kernels = len({meta[k].kernel for k in ran})
+    print(f"[bench_tools] run_parity(full={BENCH_PARITY['full']}, sizes="
+          f"{BENCH_PARITY['sizes']}): {out['n_cases']} outputs of {len(ran)} cases "
+          f"({n_kernels} kernel forms), 0 failures, {n_exact} bit-equal where held so; worst "
+          f"f32 {out['worst_f32']} {out['max_err_f32']:.3e}, bf16 max {out['max_err_bf16']:.3e}, "
+          f"worst {out['worst']} {out['max_err']:.3e}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    n, dtypes = BENCH_ROOFLINE
+    check(roofline.peak_gbps(dev) is not None,
+          f"roofline: no HBM peak for {torch.cuda.get_device_name(dev)}")
+    for dtype in dtypes:
+        for row in roofline.report(n, dtype, device=dev):
+            check(row["seconds"] > 0, f"roofline {dtype} {row['op']}: {row['seconds']} s")
+            check(row["pct_peak"] is None or row["pct_peak"] <= BENCH_ROOFLINE_MAX_PCT,
+                  f"roofline {dtype} {row['op']}: {row['pct_peak']} % of the peak")
+            print(f"[bench_tools] roofline {n}^2 {dtype}: {json.dumps(row)}")
+    # the device's busy time (device_ms, the roofline's clock) beside the mg_*
+    # kernels' own (kernel_ms, the timing phases') on the fused K1-K3 rows
+    for label, fn, _ in (roofline.entries(n, "float32", device=dev)[i] for i in (0, 3, 4)):
+        d, k = device_ms(fn), kernel_ms(fn)
+        print(f"[bench_tools] {label} at {n}^2 f32: device_ms {d:.4f}, kernel_ms {k:.4f} "
+              f"({100 * (d / k - 1):+.2f} %)")
+    print(f"[bench_tools] the roofline reports: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    out_dir = build.BUILD_DIR.parent / "harness"
+    rows = harness.run_harness(**BENCH_HARNESS, out_dir=str(out_dir), device=dev)["rows"]
+    got = {(size, variant): t for size, variant, t in rows}
+    want = {(size, v) for size in BENCH_HARNESS["sizes"] for v in BENCH_HARNESS["variants"]}
+    check(set(got) == want, f"run_harness: rows {sorted(got)}, want {sorted(want)}")
+    t = {v: got[(BENCH_HARNESS_N, v)] for v in ("cuda", "auto", "torch")}
+    check(t["cuda"] < t["auto"] < t["torch"],
+          f"run_harness at {BENCH_HARNESS_N}^2: device s per V-cycle cuda {t['cuda']:.4e}, "
+          f"auto {t['auto']:.4e}, torch {t['torch']:.4e}, not in that order")
+    rows = harness.run_harness(BENCH_HARNESS_CPU, ["cpu"], BENCH_HARNESS["tries"],
+                               BENCH_HARNESS["cycles"], str(out_dir / "cpu"), device=dev)["rows"]
+    check([size for size, _, _ in rows] == BENCH_HARNESS_CPU, f"run_harness cpu: rows {rows}")
+    print(f"[bench_tools] run_harness: device ms per V-cycle at {BENCH_HARNESS_N}^2 "
+          f"cuda {1e3 * t['cuda']:.4f} < auto {1e3 * t['auto']:.4f} < torch "
+          f"{1e3 * t['torch']:.4f}; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    for row in tune_scheme.tune(BENCH_TUNE_N, device=dev):
+        key = (row["smoother"], row["nu"])
+        check("error" not in row, f"tune {key}: {row.get('error')}")
+        check(row["cycles"] == JAX_TUNE[key], f"tune {key}: {row['cycles']} cycles, the JAX "
+              f"package's {JAX_TUNE[key]}")
+    print(f"[bench_tools] tune({BENCH_TUNE_N}): every candidate's cycles the JAX package's "
+          f"{JAX_TUNE}; {time.perf_counter() - t0:.1f} s")
+    seconds = time.perf_counter() - t_phase
+    print(f"[bench_tools] the phase: {seconds:.1f} s, beside this script's "
+          f"{BENCH_EARLIER_SECONDS} s before the phase")
+    return seconds
+
+
+def phase_bench_tools_fresh():
+    """phase_bench_tools in a fresh process of this script (its output
+    goes to this one's); fails unless it exits 0 within BENCH_TIMEOUT.
+    Returns its seconds."""
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    try:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--bench-tools"],
+                            timeout=BENCH_TIMEOUT).returncode
+    except subprocess.TimeoutExpired:
+        fail(f"bench_tools: its process did not end within {BENCH_TIMEOUT} s")
+    check(rc == 0, f"bench_tools: its process exited {rc}")
+    return time.perf_counter() - t0
+
+
+def bench_tools_main():
+    """The body of phase_bench_tools_fresh's process: the kernels this
+    script's build made, then the phase."""
+    check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.load()
+    phase_bench_tools(torch.device("cuda"))
 
 
 def phase_fmg_adaptive(dev):
@@ -3392,6 +3550,8 @@ def main():
     card = phase_device()
     dev = torch.device("cuda")
     phase_build()
+    # the measuring tools (bench.parity, roofline, harness, tune_scheme)
+    bench_seconds = phase_bench_tools_fresh()
     worst = {k: [0.0, 0.0] for k in KERNELS}
 
     # the 2D path: the tuned 4096^2 solve
@@ -3561,7 +3721,8 @@ def main():
         else:
             kernels.append({**row, "launches": solve[name] if on_slice is None else on_slice,
                             "launches_by_path": {"solve": solve[name], **by_path}})
-    print(f"[new phases] debug {debug_seconds:.1f} s, checkpoint {ckpt_seconds:.1f} s on one "
+    print(f"[new phases] bench_tools {bench_seconds:.1f} s, debug {debug_seconds:.1f} s, "
+          f"checkpoint {ckpt_seconds:.1f} s on one "
           "card; the pure bf16 and checkpoint solves of the spawn: [spmd] above")
     print(json.dumps({"off_path_kernels": off_path}))
     print(json.dumps({"kernels": kernels}))
@@ -3572,4 +3733,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--bench-tools"]:
+        bench_tools_main()
+    else:
+        main()

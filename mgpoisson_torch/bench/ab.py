@@ -80,6 +80,7 @@ from pathlib import Path
 import torch
 
 from mgpoisson_torch.bench.profile import event_ms, kernel_ms
+from mgpoisson_torch.bench.roofline import op_bytes, tensors
 from mgpoisson_torch.kernels import build, cuda, exchange_depth, ops
 from mgpoisson_torch.core.spec import Spec
 from mgpoisson_torch.shard.spmd import block_from_grid
@@ -92,19 +93,10 @@ SMOOTH3D_SETTINGS = tuple([("jacobi", nu) for nu in (1, 2, 3, 4)]
                           + [("rbgs", nu) for nu in (1, 2)])
 
 
-def _flat(x):
-    return [t for y in x for t in _flat(y)] if isinstance(x, (tuple, list)) else (
-        [] if x is None else [x])
-
-
 def _black(up):
     """A packed array's black plane: the red plane of u is dead on input
     (the first red step overwrites it), so a bound counts only this one."""
     return ops._planes(up)[1]
-
-
-def _bytes(*xs):
-    return sum(t.numel() * t.element_size() for t in _flat(xs) if torch.is_tensor(t))
 
 
 class Builds:
@@ -318,7 +310,7 @@ def _run(builds, label, cases, inputs, reps):
         outs = {}
         for which in ("old", "new"):
             builds.use(which)
-            outs[which] = [t.clone() for t in _flat(call())]
+            outs[which] = [t.clone() for t in tensors(call())]
         diff = max(float((a.double() - b.double()).abs().max() / b.double().abs().max())
                    if b.abs().max() > 0 else float((a - b).abs().max())
                    for a, b in zip(outs["old"], outs["new"]))
@@ -328,7 +320,7 @@ def _run(builds, label, cases, inputs, reps):
             times.setdefault(which, []).append(event_ms(call, reps))
             ktimes.setdefault(which, []).append(kernel_ms(call, reps))
         builds.use("new")
-        bound = 1e3 * (_bytes(inputs[name]) + _bytes(outs["new"])) / PEAK_BYTES_PER_S
+        bound = 1e3 * op_bytes(inputs[name], outs["new"]) / PEAK_BYTES_PER_S
         new_ms, old_ms = statistics.median(times["new"]), statistics.median(times["old"])
         old_spread = abs(times["old"][0] - times["old"][1]) / min(times["old"])
         print(json.dumps({

@@ -41,11 +41,19 @@ packed strip kernels K13/K14, whose names start with mg_ like the others');
 partition (``shard.spmd.SpmdCycle.step_mixed``: the one-cell exchange of
 the residual, then the bf16 V-cycle on the bf16 forms of K9/K10, with
 --ndim 3 of K11/K12, its strips exchanged in bf16).
+
+Its timing helpers serve the other tools: ``event_ms`` (CUDA events around
+each call), ``device_ms`` (the device's busy time per call, the port's
+counterpart of the JAX package's ``chain_time``) and ``kernel_ms`` (the
+mg_* kernels' part of it), both read from the same guarded captures;
+``host_ms`` (the host clock, for CPU work); and ``call_ms`` / ``wall_ms``,
+which pick the device's or the host's clock by the device.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import json
 import statistics
@@ -65,6 +73,12 @@ from mgpoisson_torch.solver.multigrid import MultigridPoisson
 
 
 DTYPES = ("float32", "float64", "bfloat16")
+# device_ms, kernel_ms: the spin kernels launched at each end of a capture,
+# each of SPIN_CYCLES clock cycles (~50 us on an H100: a run of ~15 ms), and
+# the captures taken before a reading raises
+SENTINELS = 300
+SPIN_CYCLES = 100_000
+TRIES = 8
 
 
 def _sync(device):
@@ -73,11 +87,13 @@ def _sync(device):
 
 
 @contextlib.contextmanager
-def trace(device, out: str | None = None):
+def trace(device, out: str | None = None, host: bool = True):
     """Profile the enclosed block (CPU ops, plus the device's kernels on
     CUDA) and yield the profiler; queued device work is flushed before
-    the capture closes.  With `out`, also export a Chrome trace there."""
-    acts = [torch.profiler.ProfilerActivity.CPU]
+    the capture closes.  With `out`, also export a Chrome trace there.
+    With host=False, on CUDA the device's activity alone: a capture of
+    ~10^4 launches costs the host's ops seconds more."""
+    acts = [torch.profiler.ProfilerActivity.CPU] if host or device.type != "cuda" else []
     if device.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
@@ -87,11 +103,18 @@ def trace(device, out: str | None = None):
         prof.export_chrome_trace(out)
 
 
+def _device_events(prof):
+    return sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+
+
 def device_summary(prof):
     """(launches, device ms, mg_* kernel ms) of a capture's device events;
     device ms is the union of their intervals."""
-    evs = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
+    return _summary(_device_events(prof))
+
+
+def _summary(evs):
     busy_us, mg_us, end = 0.0, 0.0, float("-inf")
     for e in evs:
         s, t = e.time_range.start, e.time_range.end
@@ -119,23 +142,143 @@ def event_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def kernel_ms(fn, reps: int = 25) -> float:
-    """The mg_* kernels' own device ms per call of fn, from torch.profiler
-    over `reps` calls: the kernels' time without the host's.  A capture that
-    holds no mg_* event (the profiler drops one now and then, three in a row
-    at least once in chip_smoke.py's timing_packed) is taken again, up to 8
-    times."""
+def _sentinels():
+    for _ in range(SENTINELS):
+        torch.cuda._sleep(SPIN_CYCLES)
+
+
+def _sentinel_name(device) -> str:
+    """The name under which the profiler reports the spin kernel of
+    ``_sentinels``, read from a capture of a run of them alone (the most
+    common name; such a capture is taken again, up to TRIES times, while it
+    holds no device event)."""
+    for _ in range(TRIES):
+        _sync(device)
+        with trace(device, host=False) as prof:
+            _sentinels()
+        names = collections.Counter(e.name for e in _device_events(prof))
+        if names:
+            return names.most_common(1)[0][0]
+    raise RuntimeError(f"{TRIES} captures of {SENTINELS} spin kernels held no device event")
+
+
+def _timed_capture(fn, reps, device, sentinel):
+    """The device events of `reps` calls of fn in one capture of the
+    device's activity, between runs of SENTINELS spin kernels; None where
+    the capture lost the whole run at either end, and so maybe some of
+    fn's events.
+
+    The profiler drops device events at an end of a capture: on an H100,
+    late in a long process, 5 of 25 calls of K2 every time (with 20 ms or
+    0.2 s of idle time in the capture too, and with the host's activity
+    too), all of a capture of 128 spin kernels of ~1 us, the one kernel of
+    a single call; so a capture without a margin reads short (K1 at 112 %
+    of the HBM peak), and each run of spin kernels is longer than any of
+    those losses, in events and in time."""
+    _sync(device)
+    with trace(device, host=False) as prof:
+        _sentinels()
+        for _ in range(reps):
+            fn()
+        _sentinels()
+    evs = _device_events(prof)
+    inner = [e for e in evs if e.name != sentinel]
+    if not inner:
+        return None
+    first, last = inner[0].time_range.start, max(e.time_range.end for e in inner)
+    marks = [e for e in evs if e.name == sentinel]
+    if (any(e.time_range.end <= first for e in marks)
+            and any(e.time_range.start >= last for e in marks)):
+        return inner
+    return None
+
+
+def _whole_captures(fn, reps, device, who):
+    """(device ms, mg_* kernel ms) of `reps` calls of fn: the mean of two
+    whole captures (``_timed_capture``) that hold the same number of device
+    events, none having held more; captures are taken until there are two
+    such, up to TRIES, else this raises.  The one policy on lost events of
+    ``device_ms`` and ``kernel_ms``."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"{who}: no device events on {device}; "
+                         "time CPU work with host_ms")
     fn()
-    dev = torch.device("cuda")
-    tries = 8
-    for _ in range(tries):
-        with trace(dev) as prof:
-            for _ in range(reps):
-                fn()
-        ms = device_summary(prof)[2]
-        if ms > 0:
-            return ms / reps
-    raise RuntimeError(f"kernel_ms: no mg_* kernel in {tries} profiler captures")
+    sentinel = _sentinel_name(device)
+    fullest, kept = 0, []
+    for _ in range(TRIES):
+        evs = _timed_capture(fn, reps, device, sentinel)
+        if evs is None:
+            continue
+        n_ev, busy_ms, mg_ms = _summary(evs)
+        if n_ev > fullest:
+            fullest, kept = n_ev, []
+        if n_ev == fullest:
+            kept.append((busy_ms, mg_ms))
+            if len(kept) == 2:
+                return tuple(statistics.fmean(x) for x in zip(*kept))
+    raise RuntimeError(f"{who}: no two whole captures of {reps} calls in {TRIES} held the "
+                       f"same number of device events (the most seen: {fullest})")
+
+
+def kernel_ms(fn, reps: int = 25, device="cuda") -> float:
+    """The mg_* kernels' own device ms per call of fn, from the captures of
+    ``device_ms``: the kernels' time without the host's nor the plain ops'.
+    Raises where fn launched no mg_* kernel, and on a device other than
+    CUDA (ValueError)."""
+    mg_ms = _whole_captures(fn, reps, device, "kernel_ms")[1]
+    if mg_ms <= 0:
+        raise RuntimeError("kernel_ms: no mg_* kernel in the captures")
+    return mg_ms / reps
+
+
+def device_ms(fn, reps: int = 25, device="cuda") -> float:
+    """The device's busy time per call of fn, in ms: the union of the
+    intervals of every device event (the plain ops' kernels and copies as
+    well as the mg_* kernels) over `reps` calls under torch.profiler,
+    divided by `reps`.  The port's counterpart of the JAX package's
+    ``chain_time`` (``mgpoisson/bench/timing.py``), which cancels the
+    host's dispatch by difference: this reads the card's own clock, so a
+    call whose wall is mostly host dispatch still reads its device time.
+
+    A short capture is never read as a time.  Each capture (of the device's
+    activity alone: the host's costs it seconds per ~10^4 launches) holds
+    the calls between two runs of spin kernels and counts only if it kept
+    some of each (``_timed_capture``); and captures are taken until two
+    whole ones hold the same number of device events and none held more,
+    up to TRIES (``_whole_captures``).  The reading is the two's mean busy
+    time over `reps`; otherwise this raises.  fn must launch the same work
+    on every call.  A device other than CUDA has no device events:
+    ValueError (time with ``host_ms`` there)."""
+    return _whole_captures(fn, reps, device, "device_ms")[0] / reps
+
+
+def host_ms(fn, reps: int = 25) -> float:
+    """Median ms of one call of fn by the host clock, after one warm-up
+    call: the time of CPU work, where there is no device clock to read."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def call_ms(fn, device, reps: int = 25) -> float:
+    """ms per call of fn: the device's own time on a CUDA device
+    (``device_ms``), the host clock's on the CPU (``host_ms``)."""
+    if torch.device(device).type == "cuda":
+        return device_ms(fn, reps, device)
+    return host_ms(fn, reps)
+
+
+def wall_ms(fn, device, reps: int = 25) -> float:
+    """ms per call of fn as its caller waits for it: CUDA events around
+    each call on a CUDA device (``event_ms``), the host clock on the CPU."""
+    if torch.device(device).type == "cuda":
+        return event_ms(fn, reps)
+    return host_ms(fn, reps)
 
 
 def profile_solve(spec, device, out: str | None = None):

@@ -180,7 +180,7 @@ def test_ab_takes_the_bf16_forms_only():
     2D, 3D and packed sides (the packed ones by default the 2D ones) and on
     the (2, 2) blocks, and clears every f32-only part (K13/K14)."""
     import torch
-    from mgpoisson_torch.bench import ab
+    from mgpoisson_torch.bench import ab, roofline
     args = ab.parse_args(["--old", "x", "--dtype", "bfloat16", "--sides", "4096", "1024",
                           "--packed", "4096", "--sharded3d", "256", "--sharded-packed",
                           "16384"])
@@ -206,10 +206,10 @@ def test_ab_takes_the_bf16_forms_only():
     assert all(t.dtype == torch.bfloat16 for t in inputs["K6"])
     assert set(cases) == {"K4", "K5", "K5.zero", "K6", "K6.rnorm"}
     cases, inputs = ab._cases_sharded(16, torch.device("cpu"), torch.bfloat16)
-    assert all(t.dtype == torch.bfloat16 for t in ab._flat(inputs["K10.rnorm"]))
+    assert all(t.dtype == torch.bfloat16 for t in roofline.tensors(inputs["K10.rnorm"]))
     assert set(cases) == {"K9", "K9.zero", "K10", "K10.rnorm"}
     cases, inputs = ab._cases_sharded3d(16, "wjacobi", 3, torch.device("cpu"), torch.bfloat16)
-    assert all(t.dtype == torch.bfloat16 for t in ab._flat(inputs["K12.rnorm"]))
+    assert all(t.dtype == torch.bfloat16 for t in roofline.tensors(inputs["K12.rnorm"]))
     assert set(cases) == {"K11", "K11.zero", "K12", "K12.rnorm"}
 
 
@@ -252,7 +252,7 @@ def test_a_packed_bound_counts_u_by_its_black_plane(dtype):
     the same outputs, bit for bit, whatever u's red plane holds."""
     import importlib.util
     import torch
-    from mgpoisson_torch.bench import ab
+    from mgpoisson_torch.bench import ab, roofline
     where = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", where)
     chip_smoke = importlib.util.module_from_spec(spec)
@@ -262,8 +262,8 @@ def test_a_packed_bound_counts_u_by_its_black_plane(dtype):
     n, h = 16, 1.0 / 16
     cases, inputs = ab._cases_packed(n, 1, torch.device("cpu"), dtype)
     size = torch.tensor([], dtype=dtype).element_size()
-    assert ab._bytes(inputs["K7"]) == (n * n // 2 + n * n) * size
-    assert ab._bytes(inputs["K8.rnorm"]) == (n * n // 2 + n * n + n * n // 4) * size
+    assert roofline.op_bytes(inputs["K7"], ()) == (n * n // 2 + n * n) * size
+    assert roofline.op_bytes(inputs["K8.rnorm"], ()) == (n * n // 2 + n * n + n * n // 4) * size
     g = torch.Generator().manual_seed(5)
     up, fp = (torch.randn((n, n), generator=g).to(dtype) for _ in range(2))
     V = torch.randn((n // 2, n // 2), generator=g).to(dtype)
